@@ -8,26 +8,36 @@ card or when the port is not beside it. Phases, one JSON line each:
 
 1. env: the card (nvidia-smi name and power limit), torch and CUDA
    versions, and the build of every kernel in tpu_sandbox_torch/csrc/.
-2. kernel: each kernel launch of the main path, at the main path's
-   shapes (3000x3000 images, batch 5), against its plain PyTorch version
-   on the same inputs: fp32 within 1e-4 of max|plain|, bf16 within 1e-2
-   (one bf16 rounding on each side); its CUDA-event median time over 10
-   runs after warm-up beside the plain version's, one PyTorch library
-   call's (cuDNN conv / its gradients, einsum; timed here only, never
-   called by the port) and the least time the H100 could take (bytes over
-   3.35 TB/s or operations over 989 TFLOP/s bf16, whichever is larger).
-   Plus a ragged-shape check of each kernel (W not a tile multiple).
-3. main_path: tpu_sandbox_torch.mnist_onegpu's own train function at
-   3000x3000, batch 5, bf16, synthetic MNIST, 5 steps, with every kernel
-   launch counter zeroed just before and read just after: each main-path
-   launch must happen once per step. Step time (median after the first),
-   images/s and peak device memory.
-   Then profile: two more steps under torch.profiler, device time per
-   op or kernel, busy time and idle share of the step.
-4. card_vs_cpu: the port on the card against the port on the CPU, 64x64,
-   fp32, 3 SGD steps from the same bridged weights on the same batches:
-   losses within rtol 1e-4.
-5. the {"kernels": [...]} summary, the nvidia-smi line, and last
+2. kernel: each kernel launch kind of the two training paths, at the main
+   path's shapes (3000x3000 images, batch 5), against its plain PyTorch
+   version on the same inputs: fp32 within 1e-4 of max|plain|, bf16
+   within 1e-2 (one bf16 rounding on each side); its CUDA-event median
+   time over 10 runs after warm-up beside the plain version's, one PyTorch
+   library call's where one computes the same function (cuDNN conv / its
+   gradients, einsum; timed here only, never called by the port; null for
+   the fused BN tail passes, which no single call computes) and the least
+   time the H100 could take (bytes over 3.35 TB/s or operations over the
+   peak rate of their type, 989 TFLOP/s bf16 or 67 TFLOP/s f32, whichever
+   is larger). Every reducing kernel runs twice and must be bitwise equal.
+3. ragged: each kernel at shapes off every tile edge (W=70, H=5, N*H not
+   a multiple of a slab, CO off the channel tile, co=8 blk=2), and the
+   BN tail on bf16 inputs quantised to quarters, where pool ties occur:
+   the pooled output equal, dy within one bf16 ulp of max|plain|.
+4. main_path: tpu_sandbox_torch.mnist_onegpu's own train function at
+   3000x3000, batch 5, bf16, synthetic MNIST, 5 steps, on the card's
+   default plan (the fused BN tails), with every kernel launch counter
+   zeroed just before and read just after: each of the path's launches
+   must happen once per step, and no other. Step time (median after the
+   first), images/s and peak device memory.
+5. main_path_unfused: the same train function with fused_tail=False, 3
+   steps: the unfused tails' launches once per step; its step time beside
+   the fused path's.
+6. profile: two more steps of the fused path under torch.profiler, device
+   time per op or kernel, busy time and idle share of the step.
+7. card_vs_cpu: the port on the card against the port on the CPU, 64x64,
+   fp32, 3 SGD steps from the same bridged weights on the same batches,
+   with the tails fused and unfused: losses within rtol 1e-4.
+8. the {"kernels": [...]} summary, the nvidia-smi line, and last
    {"ok": true, "device": {...}}.
 
 fp32 matmuls and convolutions run without TF32 throughout (the plain
@@ -47,13 +57,35 @@ import torch
 import torch.nn.functional as F
 
 STEPS = 5
+UNFUSED_STEPS = 3
 BATCH = 5
 IMAGE = 3000
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 (data sheet)
+PEAK_F32_FLOPS = 67e12        # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3
 TOL = {"fp32": 1e-4, "bf16": 1e-2}
+DTYPES = (("fp32", torch.float32), ("bf16", torch.bfloat16))
 CONV_SRC = "tpu_sandbox_torch/csrc/conv_t.cu"
 FC_SRC = "tpu_sandbox_torch/csrc/fc_t.cu"
+TAIL_SRC = "tpu_sandbox_torch/csrc/bn_tail_t.cu"
+#: the main path's BN tails: (C, co, blk)
+TAILS = ((256, 16, 4), (128, 32, 2))
+#: f32 operations per element of y in each tail pass (rounding and
+#: compares counted as one each): only the operations bound uses them
+TAIL_OPS = {"fwd": 4, "bwd_reduce": 10, "bwd_apply": 10}
+TAIL_REPLACES = {
+    "fwd": "tpu_sandbox/ops/pallas_bn_tail_t.py:75",
+    "bwd_reduce": "tpu_sandbox/ops/pallas_bn_tail_t.py:97",
+    "bwd_apply": "tpu_sandbox/ops/pallas_bn_tail_t.py:123",
+}
+#: launches of one training step on each path
+UNFUSED_KINDS = ["conv3x3_t fwd C16 CO256", "conv3x3_t fwd C64 CO128",
+                 "conv3x3_t dgrad C128 CO64", "conv3x3_t_wgrad C16 CO256",
+                 "conv3x3_t_wgrad C64 CO128", "fc_dgrad_t"]
+FUSED_KINDS = (
+    ["conv3x3_t_stats C16 CO256", "conv3x3_t_stats C64 CO128"]
+    + UNFUSED_KINDS[2:]
+    + [f"bn_tail_t {p} C{c} CO{co}" for p in TAIL_OPS for c, co, _ in TAILS])
 
 
 def emit(phase: str, **kw) -> None:
@@ -86,8 +118,9 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def bound(flops: float, bytes_: int) -> tuple[float, str]:
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, bytes_ / PEAK_BYTES
+def bound(flops: float, bytes_: int,
+          peak: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
+    t_ops, t_bytes = flops / peak, bytes_ / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops > t_bytes else "bytes")
 
@@ -103,6 +136,13 @@ def compare(got, want, dtype_name: str, what: str) -> dict:
             f"max|plain| {scale}, tolerance {TOL[dtype_name]}")
     return {"max_abs_err": err, "max_abs_ref": scale, "rel_err": rel,
             "tolerance": TOL[dtype_name]}
+
+
+def require_repeatable(first, fn, what: str) -> None:
+    """A reducing kernel's second run must equal its first bitwise."""
+    again = fn()
+    require(all(torch.equal(a, b) for a, b in zip(again, first)),
+            f"{what}: two runs differ (not deterministic)")
 
 
 def phase_env(build) -> str:
@@ -129,28 +169,87 @@ def _conv_case(gen, n, h, c, w, co, dtype):
     return x, wt, b
 
 
-def phase_kernels(conv_t, fc_t) -> dict:
-    """Every launch kind at its main-path shape; returns the summary
-    entries keyed by launch-counter name."""
+def _tail_case(bn_tail_t, gen, n, h, c, co, blk, w, dtype, *, quantised=False):
+    """(y, g, gamma, beta, per-channel operands of the three passes): the
+    statistics and the backward's columns from the plain versions, so the
+    kernel and its plain version see the same inputs."""
+    y = torch.randn((n, h, c, w), generator=gen, device="cuda")
+    if quantised:                        # quarters: bf16 pool ties
+        y = torch.round(y * 4) / 4
+    y = y.to(dtype)
+    g = torch.randn((n, h, c // 4, w), generator=gen, device="cuda").to(dtype)
+    if quantised:
+        gamma = torch.ones(co, device="cuda")
+        beta = torch.zeros(co, device="cuda")
+    else:
+        gamma = 1 + 0.1 * torch.randn(co, generator=gen, device="cuda")
+        beta = torch.randn(co, generator=gen, device="cuda")
+    reps = blk * blk
+    mu, var = bn_tail_t.stats_t(y, co)
+    inv = torch.rsqrt(var + 1e-5)
+    a_co = inv * gamma
+    a_col = bn_tail_t.col_expand(a_co, reps)
+    b_col = bn_tail_t.col_expand(beta - mu * a_co, reps)
+    s1, s2 = bn_tail_t.bwd_reduce_plain(y, g, co, blk, a_col, b_col, mu, inv)
+    cols = bn_tail_t.bwd_scales(s1, s2, gamma, inv, reps, y.numel() // co)
+    return y, g, gamma, beta, (a_col, b_col, mu, inv), cols
+
+
+def _check_tail(bn_tail_t, case, co, blk, dt_name, what) -> dict:
+    """Each tail pass against its plain version; the reduce twice."""
+    y, g, _, _, (a_col, b_col, mu, inv), cols = case
+    out = {"fwd": compare(bn_tail_t.tail_fwd(y, a_col, b_col, co, blk),
+                          bn_tail_t.tail_fwd_plain(y, a_col, b_col, co, blk),
+                          dt_name, what + " fwd")}
+    args = (y, g, co, blk, a_col, b_col, mu, inv)
+    s12 = bn_tail_t.bwd_reduce(*args)
+    p12 = bn_tail_t.bwd_reduce_plain(*args)
+    out["bwd_reduce"] = compare(s12[0], p12[0], dt_name, what + " s1")
+    out["bwd_reduce_s2"] = compare(s12[1], p12[1], dt_name, what + " s2")
+    require_repeatable(s12, lambda: bn_tail_t.bwd_reduce(*args),
+                       what + " bwd_reduce " + dt_name)
+    out["bwd_apply"] = compare(bn_tail_t.bwd_apply(*args, *cols),
+                               bn_tail_t.bwd_apply_plain(*args, *cols),
+                               dt_name, what + " dy")
+    return out
+
+
+def phase_kernels(conv_t, fc_t, bn_tail_t) -> dict:
+    """Every launch kind of both paths at its main-path shape; returns
+    the summary entries keyed by launch-counter name."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     n, h, w = BATCH, IMAGE // 4, IMAGE // 4
     entries = {}
 
     def record(name, source, replaces, rec, ms, plain_ms, library_ms, *,
-               flops, bytes_):
-        b_ms, b_by = bound(flops, bytes_)
+               flops, bytes_, peak=PEAK_BF16_FLOPS, library_note=None):
+        b_ms, b_by = bound(flops, bytes_, peak)
         entries[name] = dict(
             name=name, route="cuda", source=source, replaces=replaces,
             max_abs_err=rec["bf16"]["max_abs_err"], ms=ms, plain_ms=plain_ms,
             bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+            library_note=library_note,
             fp32_rel_err=rec["fp32"]["rel_err"],
             bf16_rel_err=rec["bf16"]["rel_err"])
         emit("kernel", **entries[name], checks=rec)
 
+    def conv_library(x, wt, b, kind):
+        """One cuDNN call for the same conv on NCHW copies."""
+        xn = x.permute(0, 2, 1, 3).contiguous()          # NCHW
+        if kind == "dgrad":
+            # the input gradient of the conv whose flipped weights these
+            # are: cuDNN's dgrad of the forward conv (weights flipped back)
+            wf = conv_t.flip_transpose(wt).permute(3, 2, 0, 1).contiguous()
+            shape = (n, wt.shape[-1], h, w)
+            return cuda_ms(lambda: torch.nn.grad.conv2d_input(
+                shape, wf, xn, padding=1), reps=5)
+        wo = wt.permute(3, 2, 0, 1).contiguous()         # OIHW
+        return cuda_ms(lambda: F.conv2d(xn, wo, b, padding=1), reps=5)
+
     def conv_fwd(c, co, kind):
         name = f"conv3x3_t {kind} C{c} CO{co}"
         rec = {}
-        for dt_name, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        for dt_name, dt in DTYPES:
             x, wt, b = _conv_case(gen, n, h, c, w, co, dt)
             if kind == "dgrad":
                 b = torch.zeros_like(b)
@@ -161,37 +260,51 @@ def phase_kernels(conv_t, fc_t) -> dict:
         # time in the main path's dtype, on the bf16 inputs
         ms = cuda_ms(lambda: conv_t.conv3x3_t_forward(x, wt, b, kind=kind))
         plain_ms = cuda_ms(lambda: conv_t.conv3x3_t_plain(x, wt, b), reps=5)
-        xn = x.permute(0, 2, 1, 3).contiguous()          # NCHW
-        wo = wt.permute(3, 2, 0, 1).contiguous()         # OIHW
-        if kind == "fwd":
-            lib = lambda: F.conv2d(xn, wo, b, padding=1)  # noqa: E731
-        else:
-            # the input gradient of the conv whose flipped weights these
-            # are: cuDNN's dgrad of the forward conv (weights flipped back)
-            wf = conv_t.flip_transpose(wt).permute(3, 2, 0, 1).contiguous()
-            shape = (n, co, h, w)
-            lib = lambda: torch.nn.grad.conv2d_input(  # noqa: E731
-                shape, wf, xn, padding=1)
-        library_ms = cuda_ms(lib, reps=5)
         y_bytes = n * h * co * w * x.element_size()
         record(name, CONV_SRC, "tpu_sandbox/ops/pallas_conv_t.py:133", rec,
-               ms, plain_ms, library_ms,
+               ms, plain_ms, conv_library(x, wt, b, kind),
                flops=2.0 * n * h * w * co * 9 * c,
                bytes_=nbytes(x, wt, b) + y_bytes)
+
+    def conv_stats(c, co):
+        name = f"conv3x3_t_stats C{c} CO{co}"
+        rec = {}
+        for dt_name, dt in DTYPES:
+            x, wt, b = _conv_case(gen, n, h, c, w, co, dt)
+            got = conv_t.conv3x3_t_stats_forward(x, wt, b)
+            want = conv_t.conv3x3_t_stats_plain(x, wt, b)
+            for i, part in enumerate(("", "_sum", "_sumsq")):
+                rec[dt_name + part] = compare(got[i], want[i], dt_name,
+                                              name + part)
+            require(torch.equal(got[0], conv_t.conv3x3_t_forward(x, wt, b)),
+                    f"{name} {dt_name}: y differs from the forward kernel's")
+            require_repeatable(
+                got, lambda: conv_t.conv3x3_t_stats_forward(x, wt, b),
+                f"{name} {dt_name}")
+            del got, want
+        ms = cuda_ms(lambda: conv_t.conv3x3_t_stats_forward(x, wt, b))
+        plain_ms = cuda_ms(lambda: conv_t.conv3x3_t_stats_plain(x, wt, b),
+                           reps=5)
+        y_bytes = n * h * co * w * x.element_size()
+        record(name, CONV_SRC, "tpu_sandbox/ops/pallas_conv_t.py:140", rec,
+               ms, plain_ms, conv_library(x, wt, b, "fwd"),
+               flops=2.0 * n * h * w * co * 9 * c,
+               bytes_=nbytes(x, wt, b) + y_bytes + 2 * 4 * co,
+               library_note="F.conv2d on NCHW copies: the conv without "
+                            "the statistics")
 
     def conv_wgrad(c, co):
         name = f"conv3x3_t_wgrad C{c} CO{co}"
         rec = {}
-        for dt_name, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        for dt_name, dt in DTYPES:
             x = torch.randn((n, h, c, w), generator=gen, device="cuda").to(dt)
             g = torch.randn((n, h, co, w), generator=gen, device="cuda").to(dt)
             dwt, db = conv_t.conv3x3_t_wgrad(x, g)
             pdwt, pdb = conv_t.conv3x3_t_wgrad_plain(x, g)
             rec[dt_name] = compare(dwt, pdwt, dt_name, name)
             rec[dt_name + "_db"] = compare(db, pdb, dt_name, name + " db")
-            again = conv_t.conv3x3_t_wgrad(x, g)
-            require(torch.equal(again[0], dwt) and torch.equal(again[1], db),
-                    f"{name} {dt_name}: two runs differ (not deterministic)")
+            require_repeatable((dwt, db), lambda: conv_t.conv3x3_t_wgrad(x, g),
+                               f"{name} {dt_name}")
         ms = cuda_ms(lambda: conv_t.conv3x3_t_wgrad(x, g))
         plain_ms = cuda_ms(lambda: conv_t.conv3x3_t_wgrad_plain(x, g),
                            reps=5)
@@ -207,7 +320,7 @@ def phase_kernels(conv_t, fc_t) -> dict:
     def fc_dgrad():
         name = "fc_dgrad_t"
         rec = {}
-        for dt_name, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        for dt_name, dt in DTYPES:
             g = torch.randn((n, 10), generator=gen, device="cuda")
             wt = (0.01 * torch.randn((10, h, 32, w), generator=gen,
                                      device="cuda")).to(dt)
@@ -227,25 +340,81 @@ def phase_kernels(conv_t, fc_t) -> dict:
                flops=2.0 * n * 10 * wt[0].numel(),
                bytes_=nbytes(g, wt) + dy_bytes)
 
+    def tail(c, co, blk):
+        what = f"C{c} CO{co}"
+        rec = {p: {} for p in TAIL_OPS}
+        for dt_name, dt in DTYPES:
+            case = _tail_case(bn_tail_t, gen, n, h, c, co, blk, w, dt)
+            checks = _check_tail(bn_tail_t, case, co, blk, dt_name,
+                                 "bn_tail_t " + what)
+            for key, val in checks.items():
+                p = key.removesuffix("_s2")
+                rec[p][dt_name + key[len(p):]] = val
+            # the whole fused function's statistics and output against
+            # the unfused chain it replaces
+            y, _, gamma, beta, _, _ = case
+            fo, fmu, fvar = bn_tail_t.fused_bn_relu_pool_t(y, gamma, beta,
+                                                           co, blk)
+            ro, rmu, rvar = bn_tail_t.unfused_reference_t(y, gamma, beta,
+                                                          co, blk)
+            rec["fwd"][dt_name + "_mu"] = compare(fmu, rmu, "fp32", "mu")
+            rec["fwd"][dt_name + "_var"] = compare(fvar, rvar, "fp32", "var")
+            rec["fwd"][dt_name + "_unfused"] = compare(fo, ro, dt_name,
+                                                       "fused vs unfused")
+            del fo, ro, case
+            torch.cuda.empty_cache()
+        y, g, _, _, vecs, cols = _tail_case(bn_tail_t, gen, n, h, c, co, blk,
+                                            w, torch.bfloat16)
+        args = (y, g, co, blk, *vecs)
+        out_bytes = y.numel() // 4 * y.element_size()
+        runs = {
+            "fwd": (lambda: bn_tail_t.tail_fwd(y, *vecs[:2], co, blk),
+                    lambda: bn_tail_t.tail_fwd_plain(y, *vecs[:2], co, blk),
+                    nbytes(y, *vecs[:2]) + out_bytes),
+            "bwd_reduce": (lambda: bn_tail_t.bwd_reduce(*args),
+                           lambda: bn_tail_t.bwd_reduce_plain(*args),
+                           nbytes(y, g, *vecs) + 8 * co),
+            "bwd_apply": (lambda: bn_tail_t.bwd_apply(*args, *cols),
+                          lambda: bn_tail_t.bwd_apply_plain(*args, *cols),
+                          nbytes(y, g, *vecs, *cols) + nbytes(y)),  # + dy
+        }
+        for p, (kernel, plain, bytes_) in runs.items():
+            record(f"bn_tail_t {p} {what}", TAIL_SRC, TAIL_REPLACES[p], rec[p],
+                   cuda_ms(kernel), cuda_ms(plain, reps=5), None,
+                   flops=TAIL_OPS[p] * y.numel(), bytes_=bytes_,
+                   peak=PEAK_F32_FLOPS,
+                   library_note="no single PyTorch call computes this "
+                                "fused pass")
+        del y, g, args, runs
+        torch.cuda.empty_cache()
+
     conv_fwd(16, 256, "fwd")
     torch.cuda.empty_cache()
     conv_fwd(64, 128, "fwd")
     conv_fwd(128, 64, "dgrad")
+    torch.cuda.empty_cache()
+    conv_stats(16, 256)
+    torch.cuda.empty_cache()
+    conv_stats(64, 128)
     torch.cuda.empty_cache()
     conv_wgrad(16, 256)
     torch.cuda.empty_cache()
     conv_wgrad(64, 128)
     fc_dgrad()
     torch.cuda.empty_cache()
+    for c, co, blk in TAILS:
+        tail(c, co, blk)
     return entries
 
 
-def phase_ragged(conv_t, fc_t) -> None:
-    """Shapes off every tile edge: W=70, H=5, CO=24, C=16, N*H rows not a
-    multiple of the wgrad slab; fc with F not a multiple of the block."""
+def phase_ragged(conv_t, fc_t, bn_tail_t) -> None:
+    """Shapes off every tile edge: W=70, H=5, N*H=10 rows (not a multiple
+    of the wgrad, stats or tail slab), CO=24 and 80 (off the 64- and
+    128-channel tiles), C=16; fc with F not a multiple of the block; the
+    tails at co=8 blk=2 and co=4 blk=4; and the bf16 tie case."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     out = {}
-    for dt_name, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+    for dt_name, dt in DTYPES:
         x, wt, b = _conv_case(gen, 2, 5, 16, 70, 24, dt)
         out[f"conv fwd {dt_name}"] = compare(
             conv_t.conv3x3_t_forward(x, wt, b),
@@ -262,43 +431,88 @@ def phase_ragged(conv_t, fc_t) -> None:
         out[f"fc dgrad {dt_name}"] = compare(
             fc_t.fc_dgrad_t(gf, w4, dt),
             fc_t.fc_dgrad_t_plain(gf, w4, dt), dt_name, "ragged fc dgrad")
+        for co in (24, 80):
+            x, wt, b = _conv_case(gen, 2, 5, 16, 70, co, dt)
+            got = conv_t.conv3x3_t_stats_forward(x, wt, b)
+            want = conv_t.conv3x3_t_stats_plain(x, wt, b)
+            for i, part in enumerate(("y", "sum", "sumsq")):
+                out[f"stats CO{co} {part} {dt_name}"] = compare(
+                    got[i], want[i], dt_name, f"ragged stats CO{co} {part}")
+        for co, blk in ((8, 2), (4, 4)):
+            case = _tail_case(bn_tail_t, gen, 2, 5, blk * blk * co, co, blk,
+                              70, dt)
+            for key, val in _check_tail(bn_tail_t, case, co, blk, dt_name,
+                                        f"ragged tail co{co} blk{blk}").items():
+                out[f"tail co{co} blk{blk} {key} {dt_name}"] = val
+    out["tie"] = _tie_case(bn_tail_t, gen)
     torch.cuda.synchronize()
     emit("ragged", checks=out)
 
 
-def phase_main_path(ops, mnist_onegpu, expected: list[str]):
+def _tie_case(bn_tail_t, gen) -> dict:
+    """bf16 inputs quantised to quarters with gamma 1 and beta 0: the
+    rounded z has exact ties inside pool windows, which the kernels must
+    route 0.5/0.5 as the plain version does."""
+    co, blk = 8, 2
+    case = _tail_case(bn_tail_t, gen, 2, 5, blk * blk * co, co, blk, 70,
+                      torch.bfloat16, quantised=True)
+    y, g, _, _, (a_col, b_col, mu, inv), cols = case
+    z = bn_tail_t._windows(bn_tail_t._rounded_relu(y, a_col, b_col), blk, co)
+    ties = int(((z[:, :, :, 0, :, 0] == z[:, :, :, 0, :, 1])
+                & (z[:, :, :, 0, :, 0] > 0)).sum().item())
+    require(ties > 0, "tie case: no pool window holds a tie")
+    out = bn_tail_t.tail_fwd(y, a_col, b_col, co, blk)
+    require(torch.equal(out, bn_tail_t.tail_fwd_plain(y, a_col, b_col, co,
+                                                      blk)),
+            "tie case: pooled output differs from the plain version")
+    args = (y, g, co, blk, a_col, b_col, mu, inv)
+    dy = bn_tail_t.bwd_apply(*args, *cols).float()
+    want = bn_tail_t.bwd_apply_plain(*args, *cols).float()
+    err = (dy - want).abs().max().item()
+    scale = want.abs().max().item()
+    require(err <= 2.0 ** -8 * scale,
+            f"tie case: dy off by {err}, more than one bf16 ulp of {scale}")
+    return {"ties": ties, "dy_max_abs_err": err, "dy_max_abs_ref": scale,
+            "tolerance": 2.0 ** -8}
+
+
+def phase_main_path(ops, mnist_onegpu, expected: list[str], *, phase: str,
+                    steps: int, model_options: dict | None = None):
+    """mnist_onegpu's train function at 3000x3000 with the launch
+    counters zeroed just before and read just after: every expected
+    launch once per step, and no other."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    args = mnist_onegpu.build_parser().parse_args([
+        "--image-size", str(IMAGE), "--batch-size", str(BATCH),
+        "--dtype", "bf16", "--synthetic-n", str(steps * BATCH),
+        "--limit-steps", str(steps), "--epochs", "1", "--log-every", "1"])
     ops.reset_launch_counts()
     t0 = time.monotonic()
-    trainer, state = mnist_onegpu.main([
-        "--image-size", str(IMAGE), "--batch-size", str(BATCH),
-        "--dtype", "bf16", "--synthetic-n", str(STEPS * BATCH),
-        "--limit-steps", str(STEPS), "--epochs", "1", "--log-every", "1"])
+    trainer, state = mnist_onegpu.train(args, model_options=model_options)
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     wall = time.monotonic() - t0
-    require(len(trainer.losses) == STEPS,
-            f"main path logged {len(trainer.losses)} losses, not {STEPS}")
+    require(len(trainer.losses) == steps,
+            f"{phase} logged {len(trainer.losses)} losses, not {steps}")
     require(all(math.isfinite(v) for v in trainer.losses),
-            f"main path non-finite loss: {trainer.losses}")
-    require(state.step == STEPS, f"main path took {state.step} steps")
+            f"{phase} non-finite loss: {trainer.losses}")
+    require(state.step == steps, f"{phase} took {state.step} steps")
     for key in expected:
-        require(counts.get(key, 0) == STEPS,
-                f"main path launched {key} {counts.get(key, 0)} times in "
-                f"{STEPS} steps, expected one per step")
+        require(counts.get(key, 0) == steps,
+                f"{phase} launched {key} {counts.get(key, 0)} times in "
+                f"{steps} steps, expected one per step")
     require(set(counts) == set(expected),
-            f"unexpected launches on the main path: {counts}")
+            f"unexpected launches on {phase}: {counts}")
     step_ms = statistics.median(trainer.step_seconds[1:]) * 1e3
-    res = dict(image=IMAGE, batch=BATCH, dtype="bf16", steps=STEPS,
-               losses=trainer.losses,
+    res = dict(image=IMAGE, batch=BATCH, dtype="bf16", steps=steps,
+               fused_tail=state.model.fused_tail, losses=trainer.losses,
                step_ms_each=[s * 1e3 for s in trainer.step_seconds],
                step_ms_median_after_first=step_ms,
                images_per_s=BATCH / (step_ms / 1e3),
                peak_memory_bytes=torch.cuda.max_memory_allocated(),
                wall_s_with_init=wall, launches=counts)
-    emit("main_path", **res)
-    return counts, trainer
+    return res, counts, trainer
 
 
 def phase_profile(trainer, steps: int = 2) -> None:
@@ -335,10 +549,10 @@ def phase_profile(trainer, steps: int = 2) -> None:
             view[ev.key[:80]] = view.get(ev.key[:80], 0.0) + ms
     busy = sum(kernels.values())
     top = lambda d, k: dict(sorted(d.items(), key=lambda kv: -kv[1])[:k])  # noqa: E731
-    emit("profile", steps=steps, wall_ms_per_step=wall_ms,
+    emit("profile", steps=steps, fused_tail=True, wall_ms_per_step=wall_ms,
          device_busy_ms_per_step=busy,
          idle_share=(1 - busy / wall_ms) if busy else None,
-         ops_ms_per_step=top(ops, 15), kernels_ms_per_step=top(kernels, 10))
+         ops_ms_per_step=top(ops, 15), kernels_ms_per_step=top(kernels, 12))
 
 
 def phase_card_vs_cpu() -> None:
@@ -353,20 +567,27 @@ def phase_card_vs_cpu() -> None:
     hw, steps, bs = (64, 64), 3, 2
     tree = params_to_flax(ConvNetS2DT(hw, seed=0, device="cpu"))
     images, labels = synthetic_mnist(n=steps * bs, seed=0)
-    losses = {}
-    for dev in ("cpu", "cuda"):
-        model = ConvNetS2DT(hw, dtype=torch.float32, seed=1, device=dev)
-        model.load_state_dict(params_from_flax(tree))
-        step = make_train_step(TrainState(model, lr=1e-4), image_size=hw)
-        loader = BatchLoader(normalize(images), labels.astype("int32"), bs,
-                             shuffle=True, seed=0)
-        losses[dev] = [float(step(*to_device(im, lb, torch.device(dev))))
-                       for im, lb in loader]
-    ok = np.allclose(losses["cuda"], losses["cpu"], rtol=1e-4, atol=0)
-    emit("card_vs_cpu", image=64, dtype="fp32", steps=steps,
-         losses_cpu=losses["cpu"], losses_cuda=losses["cuda"], rtol=1e-4,
-         agree=bool(ok))
-    require(ok, f"card and CPU losses differ: {losses}")
+    res = {}
+    for fused in (True, False):
+        losses = {}
+        for dev in ("cpu", "cuda"):
+            model = ConvNetS2DT(hw, dtype=torch.float32, seed=1,
+                                fused_tail=fused, device=dev)
+            model.load_state_dict(params_from_flax(tree))
+            step = make_train_step(TrainState(model, lr=1e-4), image_size=hw)
+            loader = BatchLoader(normalize(images), labels.astype("int32"),
+                                 bs, shuffle=True, seed=0)
+            losses[dev] = [float(step(*to_device(im, lb, torch.device(dev))))
+                           for im, lb in loader]
+        ok = np.allclose(losses["cuda"], losses["cpu"], rtol=1e-4, atol=0)
+        res["fused" if fused else "unfused"] = dict(
+            losses_cpu=losses["cpu"], losses_cuda=losses["cuda"],
+            agree=bool(ok))
+    emit("card_vs_cpu", image=64, dtype="fp32", steps=steps, rtol=1e-4,
+         **res)
+    for plan, r in res.items():
+        require(r["agree"], f"card and CPU losses differ ({plan} tails): "
+                f"{r}")
 
 
 def main() -> int:
@@ -375,7 +596,7 @@ def main() -> int:
         return 1
     try:
         from tpu_sandbox_torch import mnist_onegpu, ops
-        from tpu_sandbox_torch.ops import build, conv_t, fc_t
+        from tpu_sandbox_torch.ops import bn_tail_t, build, conv_t, fc_t
         from tpu_sandbox_torch.utils import exact_fp32
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e}); run "
@@ -384,17 +605,31 @@ def main() -> int:
 
     exact_fp32()
     smi = phase_env(build)
-    entries = phase_kernels(conv_t, fc_t)
-    phase_ragged(conv_t, fc_t)
-    counts, trainer = phase_main_path(ops, mnist_onegpu, list(entries))
+    entries = phase_kernels(conv_t, fc_t, bn_tail_t)
+    require(set(entries) == set(FUSED_KINDS) | set(UNFUSED_KINDS),
+            f"kernel phase covered {sorted(entries)}")
+    phase_ragged(conv_t, fc_t, bn_tail_t)
+    fused, counts, trainer = phase_main_path(
+        ops, mnist_onegpu, FUSED_KINDS, phase="main_path", steps=STEPS)
+    require(fused["fused_tail"], "the card's default plan is not fused")
+    emit("main_path", **fused)
     phase_profile(trainer)
     del trainer
+    unfused, unfused_counts, _ = phase_main_path(
+        ops, mnist_onegpu, UNFUSED_KINDS, phase="main_path_unfused",
+        steps=UNFUSED_STEPS, model_options={"fused_tail": False})
+    emit("main_path_unfused", **unfused,
+         fused_step_ms_median_after_first=fused["step_ms_median_after_first"])
     phase_card_vs_cpu()
     for name, e in entries.items():
-        e["launches"] = counts[name]
+        e["launches_main_path"] = counts.get(name, 0)
+        e["launches_unfused_path"] = unfused_counts.get(name, 0)
+        # the count from the run of the path this launch belongs to
+        e["launches"] = counts.get(name) or unfused_counts[name]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "fp32_rel_err", "bf16_rel_err")
+            "library_note", "fp32_rel_err", "bf16_rel_err",
+            "launches_main_path", "launches_unfused_path")
     print(json.dumps({"kernels": [{k: e[k] for k in keys}
                                   for e in entries.values()]}))
     print(smi)

@@ -1,6 +1,7 @@
 """The port's transposed-layout 3x3 conv (tpu_sandbox_torch/ops/conv_t.py)
-== the JAX Pallas conv3x3_t and conv3x3_t_wgrad (interpret mode): the
-forward, the VJP (dx, dw, db) and the fused wgrad alone, in fp32 and bf16,
+== the JAX Pallas conv3x3_t, conv3x3_t_stats and conv3x3_t_wgrad
+(interpret mode): the forward, the fused BN statistics, the VJP (dx, dw,
+db) and the fused wgrad alone, in fp32 and bf16,
 at W not divisible by the CUDA kernel's 64-column tile. On the CPU the
 port runs the plain PyTorch versions of its kernels; the kernels are held
 against those on the card by chip_smoke.py."""
@@ -14,6 +15,7 @@ import pytest
 import torch
 
 from tpu_sandbox.ops.pallas_conv_t import conv3x3_t as jax_conv3x3_t
+from tpu_sandbox.ops.pallas_conv_t import conv3x3_t_stats as jax_stats
 from tpu_sandbox.ops.pallas_conv_t import conv3x3_t_wgrad as jax_wgrad
 from tpu_sandbox_torch.ops import conv_t
 
@@ -80,6 +82,49 @@ def test_vjp_matches_jax(shape, dt):
 
 
 @pytest.mark.parametrize("dt", ["fp32", "bf16"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_stats_match_jax(shape, dt):
+    """y, and the f32 sum and sum of squares of the ROUNDED y per channel
+    (sums over N*H*W values in other orders: 1e-5 of the scale; in bf16
+    the summed values are the rounded outputs, which may differ by one
+    rounding, so the bf16 y tolerance holds for the sums too)."""
+    (x, w, b, _), (tx, tw, tb, _) = _case(shape, dt, seed=4)
+    jy, js, jss = jax_stats(x, w, b)
+    y, s, ss = conv_t.conv3x3_t_stats(tx, tw, tb)
+    assert y.dtype == tx.dtype and s.dtype == ss.dtype == torch.float32
+    assert tuple(s.shape) == tuple(js.shape) == (shape[-1], 1)
+    _close(y, jy, REL[dt], "y")
+    rel = 1e-5 if dt == "fp32" else REL[dt]
+    _close(s, js, rel, "sum")
+    _close(ss, jss, rel, "sumsq")
+    # the sums are of the rounded y the function returns
+    yf = y.float()
+    _close(s[:, 0], yf.sum(dim=(0, 1, 3)), 1e-5, "sum of y")
+    _close(ss[:, 0], yf.square().sum(dim=(0, 1, 3)), 1e-5, "sumsq of y")
+
+
+@pytest.mark.parametrize("dt", ["fp32", "bf16"])
+def test_stats_vjp_matches_jax(dt):
+    """The stats variant's VJP is the conv's: the sums' cotangents are
+    ignored on both sides (JAX gets nonzero ones here; the port's sums
+    are not differentiable)."""
+    (x, w, b, g), (tx, tw, tb, tg) = _case(SHAPES[0], dt, seed=5)
+    _, vjp = jax.vjp(jax_stats, x, w, b)
+    co = w.shape[-1]
+    ones = jnp.ones((co, 1), jnp.float32)
+    jdx, jdw, jdb = jax.jit(vjp)((g, ones, ones))
+    for t in (tx, tw, tb):
+        t.requires_grad_()
+    y, s, ss = conv_t.conv3x3_t_stats(tx, tw, tb)
+    assert not s.requires_grad and not ss.requires_grad
+    y.backward(tg)
+    for got, want, nm in ((tx.grad, jdx, "dx"), (tw.grad, jdw, "dw"),
+                          (tb.grad, jdb, "db")):
+        assert tuple(got.shape) == tuple(want.shape), nm
+        _close(got, want, REL[dt], nm)
+
+
+@pytest.mark.parametrize("dt", ["fp32", "bf16"])
 def test_wgrad_alone_matches_jax(dt):
     (x, _, _, g), (tx, _, _, tg) = _case(SHAPES[0], dt, seed=2)
     jdw, jdb = jax.jit(jax_wgrad)(x, g)
@@ -139,6 +184,14 @@ def test_non_cpu_tensor_never_takes_the_plain_path():
         conv_t.conv3x3_t_forward(x, w, b)
     with pytest.raises(ValueError, match="CUDA"):
         conv_t.conv3x3_t_wgrad(x, torch.empty((1, 4, 8, 8), device="meta"))
+
+
+def test_stats_on_a_non_cpu_tensor_never_takes_the_plain_path():
+    x = torch.empty((1, 4, 16, 8), device="meta")
+    w = torch.empty((3, 3, 16, 8), device="meta")
+    b = torch.empty((8,), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        conv_t.conv3x3_t_stats_forward(x, w, b)
 
 
 @pytest.mark.parametrize("rows", [1, 7, 128, 129, 3750])

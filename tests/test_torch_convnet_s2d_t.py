@@ -1,9 +1,10 @@
 """The port's ConvNetS2DT (tpu_sandbox_torch/models/convnet_s2d_t.py) ==
-the JAX ConvNetS2DT(fused_tail=False, sparse_conv1=False): the resize
-weights, the fused input stage, and at 32x32, batch 2, fp32 from bridged
-weights the logits, the loss, every gradient and the BN running stats.
-The JAX side runs its Pallas kernels in interpret mode on the CPU; the
-port runs its kernels' plain PyTorch versions."""
+the JAX ConvNetS2DT(sparse_conv1=False) with fused_tail False and True:
+the resize weights, the fused input stage, and at 32x32, batch 2, fp32
+from bridged weights the logits, the loss, every gradient and the BN
+running stats; bf16 logits; and pick_convnet's plan and fused_tail
+resolution. The JAX side runs its Pallas kernels in interpret mode on the
+CPU; the port runs its kernels' plain PyTorch versions."""
 
 import jax
 import jax.numpy as jnp
@@ -16,7 +17,8 @@ from tpu_sandbox.models.convnet_s2d_t import block_max_pool_t as jax_pool
 from tpu_sandbox.models.convnet_s2d_t import resize_weights as jax_resize_weights
 from tpu_sandbox.ops.losses import cross_entropy_loss as jax_ce
 from tpu_sandbox.train.trainer import prepare_inputs as jax_prepare_inputs
-from tpu_sandbox_torch.models import pick_convnet
+from tpu_sandbox_torch import mnist_onegpu
+from tpu_sandbox_torch.models import pick_convnet, resolve_fused_tail
 from tpu_sandbox_torch.models.convnet_s2d_t import (
     ConvNetS2DT,
     block_max_pool_t,
@@ -28,17 +30,17 @@ from tpu_sandbox_torch.utils.bridge import params_from_flax, params_to_flax
 HW = (32, 32)
 
 
-def _jax_model(dtype=jnp.float32):
-    return JaxConvNetS2DT(dtype=dtype, fused_tail=False, sparse_conv1=False)
+def _jax_model(dtype=jnp.float32, fused_tail=False):
+    return JaxConvNetS2DT(dtype=dtype, fused_tail=fused_tail,
+                          sparse_conv1=False)
 
 
-@pytest.fixture(scope="module")
-def case():
+def _jax_case(fused_tail):
     """One JAX forward+backward at 32x32, batch 2, fp32, as numpy."""
     rng = np.random.default_rng(0)
     images = rng.random((2, 28, 28, 1), dtype=np.float32)
     labels = rng.integers(0, 10, size=2).astype(np.int32)
-    jm = _jax_model()
+    jm = _jax_model(fused_tail=fused_tail)
     variables = jm.init(jax.random.key(0), jnp.zeros((1, *HW, 1)), train=False)
 
     def loss_fn(params, batch_stats, images, labels):
@@ -53,11 +55,21 @@ def case():
     to_np = lambda t: jax.tree.map(np.asarray, t)  # noqa: E731
     return dict(images=images, labels=labels, variables=to_np(variables),
                 loss=float(loss), logits=np.asarray(logits),
-                grads=to_np(grads), stats=to_np(stats))
+                grads=to_np(grads), stats=to_np(stats), fused_tail=fused_tail)
 
 
-def _torch_model(variables, dtype=torch.float32):
-    model = ConvNetS2DT(HW, dtype=dtype, device="cpu")
+@pytest.fixture(scope="module")
+def case():
+    return _jax_case(fused_tail=False)
+
+
+@pytest.fixture(scope="module")
+def fused_case():
+    return _jax_case(fused_tail=True)
+
+
+def _torch_model(variables, dtype=torch.float32, fused_tail=False):
+    model = ConvNetS2DT(HW, dtype=dtype, device="cpu", fused_tail=fused_tail)
     model.load_state_dict(params_from_flax(variables))
     return model
 
@@ -101,8 +113,8 @@ def test_block_max_pool_t_ties_split_like_jax():
     np.testing.assert_array_equal(t.grad.numpy(), want)
 
 
-def test_logits_loss_grads_and_stats_match_jax(case):
-    model = _torch_model(case["variables"])
+def _check_step_against_jax(case):
+    model = _torch_model(case["variables"], fused_tail=case["fused_tail"])
     x = model.fused_input_stage(torch.from_numpy(case["images"]), HW)
     logits = model(x)
     loss = cross_entropy_loss(logits, torch.from_numpy(case["labels"]))
@@ -128,17 +140,38 @@ def test_logits_loss_grads_and_stats_match_jax(case):
             _close(got_stats[mod][leaf], want, 1e-5, f"{mod}.{leaf}")
 
 
+def test_logits_loss_grads_and_stats_match_jax(case):
+    _check_step_against_jax(case)
+
+
+def test_fused_tail_logits_loss_grads_and_stats_match_jax(fused_case):
+    """The fused plan: conv stats kernels feeding the fused tails, forward
+    and backward, against JAX's fused plan with the same tolerances."""
+    _check_step_against_jax(fused_case)
+
+
+def _check_bf16_logits(case):
+    jm = _jax_model(jnp.bfloat16, fused_tail=case["fused_tail"])
+    x = jax_prepare_inputs(jm, case["images"], HW)
+    want, _ = jm.apply(case["variables"], x, train=True,
+                       mutable=["batch_stats"])
+    model = _torch_model(case["variables"], torch.bfloat16,
+                         fused_tail=case["fused_tail"])
+    got = model(model.fused_input_stage(torch.from_numpy(case["images"]), HW))
+    _close(got.detach().numpy(), np.asarray(want), 3e-2, "bf16 logits")
+
+
 def test_bf16_logits_match_jax(case):
     """bf16 compute over f32 params: both frameworks round at the same
     points (weight before the scatter, conv output once, BN output before
     ReLU); the remaining difference is a few bf16 ulps."""
-    jm = _jax_model(jnp.bfloat16)
-    x = jax_prepare_inputs(jm, case["images"], HW)
-    want, _ = jm.apply(case["variables"], x, train=True,
-                       mutable=["batch_stats"])
-    model = _torch_model(case["variables"], torch.bfloat16)
-    got = model(model.fused_input_stage(torch.from_numpy(case["images"]), HW))
-    _close(got.detach().numpy(), np.asarray(want), 3e-2, "bf16 logits")
+    _check_bf16_logits(case)
+
+
+def test_fused_tail_bf16_logits_match_jax(fused_case):
+    """The same on the fused plan: z rounds to bf16 before the ReLU and
+    the pool on both sides."""
+    _check_bf16_logits(fused_case)
 
 
 def test_bridge_round_trip_is_bitwise(case):
@@ -169,7 +202,7 @@ def test_same_seed_same_weights():
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(plan="s2d"), dict(plan="plain"), dict(fused_tail=True),
+    dict(plan="s2d"), dict(plan="plain"),
     dict(sparse_conv1=True), dict(fused_conv1_bwd=True)])
 def test_unported_plans_raise(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -180,6 +213,36 @@ def test_pick_convnet_gives_the_ported_plan():
     assert isinstance(pick_convnet(32, device="cpu"), ConvNetS2DT)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pick_convnet(30, device="cpu")
+
+
+@pytest.mark.parametrize("fused_tail,device,want", [
+    (None, "cuda", True), (None, "cpu", False), (True, "cpu", True),
+    (False, "cuda", False), (True, "cuda", True), (False, "cpu", False)])
+def test_fused_tail_resolves_by_device(fused_tail, device, want):
+    """None: fused wherever the kernels run (a CUDA model), unfused on the
+    CPU; an explicit value is kept on both."""
+    assert resolve_fused_tail(fused_tail, torch.device(device)) is want
+
+
+def test_pick_convnet_fuses_the_tail_on_request_only_on_the_cpu():
+    assert pick_convnet(32, device="cpu").fused_tail is False
+    assert pick_convnet(32, device="cpu", fused_tail=True).fused_tail is True
+
+
+@pytest.mark.parametrize("plan", ["s2d", "plain"])
+def test_entry_plan_flag_raises_for_unported_plans(plan):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        mnist_onegpu.main(["--force-cpu", "--plan", plan, "--image-size",
+                           "32", "--limit-steps", "1"])
+
+
+def test_eval_mode_runs_the_unfused_tail_with_running_stats(case):
+    """Eval ignores fused_tail: the same logits as the unfused model."""
+    fused = _torch_model(case["variables"], fused_tail=True).eval()
+    plain = _torch_model(case["variables"]).eval()
+    x = plain.fused_input_stage(torch.from_numpy(case["images"]), HW)
+    with torch.no_grad():
+        assert torch.equal(fused(x), plain(x))
 
 
 def test_model_needs_the_card_unless_the_cpu_is_asked_for():

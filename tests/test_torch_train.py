@@ -1,7 +1,7 @@
 """The port's trainer (tpu_sandbox_torch/train/) == the JAX trainer: three
 SGD steps from bridged weights on the same batches give the same losses
-(fp32, rtol 1e-4), and the port's entry script prints the reference's
-log lines."""
+(fp32, rtol 1e-4) with the BN tails unfused and fused, and the port's
+entry script prints the reference's log lines."""
 
 import os
 import re
@@ -34,9 +34,9 @@ HW = (32, 32)
 STEPS, BS = 3, 2
 
 
-def test_three_sgd_steps_match_jax():
+def _check_three_sgd_steps(fused_tail):
     images, labels = synthetic_mnist(n=STEPS * BS, seed=0)
-    jm = JaxConvNetS2DT(dtype=jnp.float32, fused_tail=False,
+    jm = JaxConvNetS2DT(dtype=jnp.float32, fused_tail=fused_tail,
                         sparse_conv1=False)
     tx = optax.sgd(1e-4)
     jstate = JaxTrainState.create(jm, jax.random.key(0),
@@ -51,7 +51,7 @@ def test_three_sgd_steps_match_jax():
         jstate, loss = jstep(jstate, im, lb)
         jlosses.append(float(loss))
 
-    model = ConvNetS2DT(HW, device="cpu")
+    model = ConvNetS2DT(HW, device="cpu", fused_tail=fused_tail)
     model.load_state_dict(params_from_flax(variables))
     state = TrainState(model, lr=1e-4)
     step = make_train_step(state, image_size=HW)
@@ -75,6 +75,16 @@ def test_three_sgd_steps_match_jax():
                     got[coll][mod][leaf], w, rtol=0,
                     atol=1e-8 if zero_grad else 1e-5 * scale,
                     err_msg=f"{coll}/{mod}/{leaf}")
+
+
+def test_three_sgd_steps_match_jax():
+    _check_three_sgd_steps(fused_tail=False)
+
+
+def test_three_sgd_steps_fused_tail_match_jax():
+    """The same on the fused plan: the conv stats kernels and the fused
+    BN/ReLU/pool tails, forward and backward."""
+    _check_three_sgd_steps(fused_tail=True)
 
 
 def test_resize_on_device_matches_jax():
@@ -129,6 +139,6 @@ def test_entry_script_needs_the_card_or_force_cpu():
 
 
 def test_entry_script_refuses_unported_flags():
-    proc = _run_entry("--force-cpu", "--plan", "s2dt")
+    proc = _run_entry("--force-cpu", "--accum-steps", "2")
     assert proc.returncode == 2
     assert "unrecognized arguments" in proc.stderr

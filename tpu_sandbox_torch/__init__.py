@@ -11,6 +11,7 @@ of ``tpu_sandbox`` (whose ``__init__`` imports jax).
 
 Ported so far: the single-device 3000x3000 MNIST trainer
 (``python -m tpu_sandbox_torch.mnist_onegpu``) on the transposed
-space-to-depth plan with unfused BN tails and the scattered-3x3 conv1.
+space-to-depth plan with the scattered-3x3 conv1, its BN/ReLU/pool tails
+fused into kernels on the card (plain PyTorch on the CPU, or on request).
 ROADMAP.md lists what is still to port.
 """

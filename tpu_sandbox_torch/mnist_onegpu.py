@@ -7,9 +7,11 @@ Seed 0, the two-block ConvNet on 3000x3000 images (the 28x28 batch is
 resized on the device), batch size 5, bf16 compute over f32 parameters,
 mean cross-entropy, SGD at 1e-4, a loss line every ``--log-every`` steps
 and the wall-clock total. Runs on ``cuda`` unless ``--force-cpu``; with
-no card and no ``--force-cpu`` it fails. Without MNIST IDX files a
-deterministic synthetic MNIST stands in. The JAX script's other flags
-(--accum-steps, --plan, --native-loader, --ckpt-every, --ckpt-dir,
+no card and no ``--force-cpu`` it fails. ``--plan auto`` (or ``s2dt``)
+runs the transposed space-to-depth plan, with its BN tails fused on the
+card; ``s2d`` and ``plain`` are not ported yet and raise. Without MNIST
+IDX files a deterministic synthetic MNIST stands in. The JAX script's
+other flags (--accum-steps, --native-loader, --ckpt-every, --ckpt-dir,
 --profile, --resume) are not ported yet and argparse refuses them.
 """
 
@@ -38,16 +40,19 @@ from tpu_sandbox_torch.utils import exact_fp32, resolve_device
 IMAGE_SHAPE = [3000, 3000]
 
 
-def train(args):
+def train(args, *, model_options: dict | None = None):
     """Build, train and (with ``--eval``) evaluate; returns
-    ``(trainer, state)`` so a caller can read losses and step times."""
+    ``(trainer, state)`` so a caller can read losses and step times.
+    ``model_options`` go to ``pick_convnet`` (e.g. ``fused_tail=False``
+    for the unfused tails on the card)."""
     device = resolve_device("cpu" if args.force_cpu else "cuda")
     if device.type == "cuda":
         exact_fp32()
     image_shape = (args.image_size, args.image_size)
     dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
-    model = pick_convnet(image_shape, num_classes=10, dtype=dtype, seed=0,
-                         device=device)
+    model = pick_convnet(image_shape, plan=args.plan, num_classes=10,
+                         dtype=dtype, seed=0, device=device,
+                         **(model_options or {}))
     state = TrainState(model, lr=1e-4)
 
     try:
@@ -106,6 +111,13 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--limit-steps", type=int, default=None,
                         help="cap steps per epoch (quick runs)")
     parser.add_argument("--log-every", type=int, default=100)
+    parser.add_argument("--plan", choices=["auto", "s2dt", "s2d", "plain"],
+                        default="auto",
+                        help="ConvNet execution plan: s2dt = transposed "
+                             "space-to-depth (models/convnet_s2d_t.py), its "
+                             "BN tails fused on the GPU; auto picks s2dt "
+                             "when the image size allows. s2d and plain "
+                             "are not ported yet")
     parser.add_argument("--dtype", choices=["bf16", "fp32"], default="bf16",
                         help="compute dtype; params and loss stay fp32")
     parser.add_argument("--eval", action="store_true",

@@ -1,28 +1,39 @@
 """The port's model plans. Counterpart of ``tpu_sandbox/models/__init__.py``.
 
-Only the transposed space-to-depth plan with unfused BN tails and the
-scattered-3x3 conv1 is ported. Every other plan or option raises
-``NotImplementedError`` rather than running something else in its place;
-ROADMAP.md (queue 2) lists what is still to port.
+The transposed space-to-depth plan with the scattered-3x3 conv1 is
+ported, with its BN/ReLU/pool tails fused or unfused. Every other plan or
+option raises ``NotImplementedError`` rather than running something else
+in its place; ROADMAP.md (queue 2) lists what is still to port.
 """
 
 from __future__ import annotations
 
-from tpu_sandbox_torch.models.convnet_s2d_t import ConvNetS2DT
+import torch
 
-__all__ = ["ConvNetS2DT", "pick_convnet"]
+from tpu_sandbox_torch.models.convnet_s2d_t import ConvNetS2DT
+from tpu_sandbox_torch.utils.device import resolve_device
+
+__all__ = ["ConvNetS2DT", "pick_convnet", "resolve_fused_tail"]
 
 #: s2dt options of the JAX plan that need kernels this port lacks, with
 #: the only value this port runs
-_S2DT_OPTIONS = {"fused_tail": False, "sparse_conv1": False,
-                 "fused_conv1_bwd": False}
+_S2DT_OPTIONS = {"sparse_conv1": False, "fused_conv1_bwd": False}
 
 
-def pick_convnet(image_size, *, plan: str = "auto", **kwargs) -> ConvNetS2DT:
+def resolve_fused_tail(fused_tail: bool | None, device: torch.device) -> bool:
+    """``None`` means the fused tail wherever its kernels run: JAX's
+    "the Pallas kernels compile" read as "the model lives on a CUDA
+    device". An explicit value is kept on every device."""
+    return device.type == "cuda" if fused_tail is None else bool(fused_tail)
+
+
+def pick_convnet(image_size, *, plan: str = "auto", fused_tail=None,
+                 **kwargs) -> ConvNetS2DT:
     """The execution-plan switch. 'auto' and 's2dt' give ``ConvNetS2DT``
-    with ``fused_tail=False, sparse_conv1=False``; the NHWC 's2d' plan,
-    the 'plain' ConvNet, image sizes not divisible by 4 and the fused or
-    sparse s2dt options are not ported yet and raise."""
+    with ``sparse_conv1=False``, its tails fused on the card and unfused on
+    the CPU unless ``fused_tail`` says otherwise; the NHWC 's2d' plan, the
+    'plain' ConvNet, image sizes not divisible by 4 and the sparse conv1
+    options are not ported yet and raise."""
     h, w = (image_size, image_size) if isinstance(image_size, int) else image_size
     if plan not in ("auto", "s2dt"):
         raise NotImplementedError(
@@ -38,4 +49,6 @@ def pick_convnet(image_size, *, plan: str = "auto", **kwargs) -> ConvNetS2DT:
             raise NotImplementedError(
                 f"ConvNetS2DT({name}={value!r}) needs kernels not ported to "
                 "PyTorch yet (ROADMAP.md, queue 2)")
-    return ConvNetS2DT((h, w), **kwargs)
+    device = resolve_device(kwargs.pop("device", None))
+    return ConvNetS2DT((h, w), fused_tail=resolve_fused_tail(fused_tail, device),
+                       device=device, **kwargs)

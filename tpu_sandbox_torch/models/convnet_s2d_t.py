@@ -4,10 +4,14 @@
 The same function as the reference ConvNet (conv 1->16 k5, BN, ReLU,
 2x2 pool; conv 16->32 k5, BN, ReLU, pool; fc -> 10), and the same
 parameter and batch-stats tree as the JAX module, so the weight bridge
-(``utils/bridge.py``) is a rename. This slice ports the plan with
-``fused_tail=False, sparse_conv1=False``: both convs run the scattered
-3x3 conv kernel (``ops/conv_t.py``), the BN/ReLU/pool tails are plain
-PyTorch, and the fc input gradient is the kernel of ``ops/fc_t.py``.
+(``utils/bridge.py``) is a rename. The port runs the plan with
+``sparse_conv1=False``: both convs run the scattered 3x3 conv kernel
+(``ops/conv_t.py``) and the fc input gradient is the kernel of
+``ops/fc_t.py``. With ``fused_tail=True`` (the card's default through
+``pick_convnet``) a training forward takes each conv's BN statistics from
+its fused-stats kernel and runs each BN/ReLU/pool tail as the fused
+kernels of ``ops/bn_tail_t.py``; with ``fused_tail=False``, and in eval
+mode either way, the tails are plain PyTorch.
 
 Layout: the input stage emits [N, H/4, 16, W/4] straight from the raw
 28x28 batch (bilinear resize fused with space-to-depth); channel index
@@ -26,7 +30,8 @@ import torch
 from torch import nn
 
 from tpu_sandbox_torch.models.convnet_s2d import scatter_kernel
-from tpu_sandbox_torch.ops.conv_t import conv3x3_t
+from tpu_sandbox_torch.ops.bn_tail_t import fused_bn_relu_pool_t
+from tpu_sandbox_torch.ops.conv_t import conv3x3_t, conv3x3_t_stats
 from tpu_sandbox_torch.ops.fc_t import fc_t
 from tpu_sandbox_torch.utils.device import resolve_device
 
@@ -106,12 +111,17 @@ class ConvT(nn.Module):
             torch.empty(shape), shape[0] * shape[1] * shape[2], gen))
         self.bias = nn.Parameter(torch.zeros(shape[-1]))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, want_stats: bool = False):
+        """y, or with ``want_stats`` (y, (sum [CO,1], sumsq [CO,1])) from
+        the fused-stats kernel."""
         # the weight rounds to the compute dtype BEFORE the scatter, and
         # the tiled bias is in the compute dtype too
         wg = scatter_kernel(self.kernel.to(self.dtype), self.r)
         reps = wg.shape[-1] // self.kernel.shape[-1]
         bias_g = self.bias.to(self.dtype).repeat(reps)
+        if want_stats:
+            y, s, ss = conv3x3_t_stats(x.contiguous(), wg, bias_g)
+            return y, (s, ss)
         return conv3x3_t(x.contiguous(), wg, bias_g)
 
 
@@ -134,6 +144,12 @@ class GroupedBNT(nn.Module):
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
 
+    @torch.no_grad()
+    def _update_running(self, mu: torch.Tensor, var: torch.Tensor) -> None:
+        m = self.MOMENTUM
+        self.mean.copy_(m * self.mean + (1 - m) * mu)
+        self.var.copy_(m * self.var + (1 - m) * var)
+
     def forward(self, y: torch.Tensor) -> torch.Tensor:
         co = self.features
         *lead, c, w = y.shape
@@ -143,16 +159,22 @@ class GroupedBNT(nn.Module):
             mu = yf.mean(dim=red)
             mu2 = yf.square().mean(dim=red)
             var = torch.clamp_min(mu2 - mu.square(), 0.0)
-            with torch.no_grad():
-                m = self.MOMENTUM
-                self.mean.copy_(m * self.mean + (1 - m) * mu)
-                self.var.copy_(m * self.var + (1 - m) * var)
+            self._update_running(mu, var)
         else:
             mu, var = self.mean, self.var
         out = (yf - mu[:, None]) * (
             torch.rsqrt(var + self.EPSILON) * self.scale)[:, None] \
             + self.bias[:, None]
         return out.to(self.dtype).reshape(*lead, c, w)
+
+    def fused(self, y: torch.Tensor, blk: int, ysums=None) -> torch.Tensor:
+        """Train-mode BN + ReLU + 2x2 block pool as the fused kernels
+        (``fused_bn_relu_pool_t``), with the statistics from ``ysums``
+        when the conv gave them; updates the running stats."""
+        out, mu, var = fused_bn_relu_pool_t(
+            y, self.scale, self.bias, self.features, blk, self.EPSILON, ysums)
+        self._update_running(mu, var)
+        return out
 
 
 class DenseT(nn.Module):
@@ -175,16 +197,18 @@ class ConvNetS2DT(nn.Module):
     """The two-block ConvNet on the transposed space-to-depth plan.
 
     ``image_size`` (H, W), each divisible by 4, sizes the fc as Flax's
-    init-by-tracing does. Weights are drawn on the CPU from
-    ``torch.Generator().manual_seed(seed)`` and then moved to ``device``
-    (default ``cuda``, which must exist; pass ``device="cpu"`` for the
-    CPU), so one seed gives the same weights on every device. Parameters
-    stay f32; ``dtype`` is the compute dtype.
+    init-by-tracing does. ``fused_tail`` runs each training-mode tail as
+    the fused kernels on the conv's fused statistics. Weights are drawn on
+    the CPU from ``torch.Generator().manual_seed(seed)`` and then moved to
+    ``device`` (default ``cuda``, which must exist; pass ``device="cpu"``
+    for the CPU), so one seed gives the same weights on every device.
+    Parameters stay f32; ``dtype`` is the compute dtype.
     """
 
     def __init__(self, image_size: tuple[int, int], *, num_classes: int = 10,
                  features: tuple[int, int] = (16, 32),
                  dtype: torch.dtype = torch.float32, seed: int = 0,
+                 fused_tail: bool = False,
                  device: torch.device | str | None = None):
         super().__init__()
         h, w = image_size
@@ -195,6 +219,7 @@ class ConvNetS2DT(nn.Module):
             raise ValueError("the s2d plan is the 2-block CNN")
         self.image_size = (h, w)
         self.dtype = dtype
+        self.fused_tail = fused_tail
         f1, f2 = features
         self.f1, self.f2 = f1, f2
         gen = torch.Generator().manual_seed(seed)
@@ -235,8 +260,16 @@ class ConvNetS2DT(nn.Module):
             x = x.to(self.dtype)
         else:
             x = space_to_depth_t(as_nhw(x), 4).to(self.dtype)
-        y = self.conv1(x)                                     # [N,H/4,16*f1,W/4]
-        y = block_max_pool_t(torch.relu(self.bn1(y)), 4, self.f1)
-        y = self.conv2(y)                                     # [N,H/4,4*f2,W/4]
-        y = block_max_pool_t(torch.relu(self.bn2(y)), 2, self.f2)
+        fuse = self.fused_tail and self.training
+        y = self._tail(self.conv1(x, fuse), self.bn1, 4, fuse)  # [N,H/4,4f1,W/4]
+        y = self._tail(self.conv2(y, fuse), self.bn2, 2, fuse)  # [N,H/4,f2,W/4]
         return self.fc(y).float()
+
+    @staticmethod
+    def _tail(y, bn: GroupedBNT, blk: int, fuse: bool) -> torch.Tensor:
+        """BN + ReLU + 2x2 block pool: the fused kernels on the conv's
+        (y, sums) when ``fuse``, else the plain chain."""
+        if fuse:
+            y, ysums = y
+            return bn.fused(y, blk, ysums)
+        return block_max_pool_t(torch.relu(bn(y)), blk, bn.features)

@@ -2,9 +2,10 @@
 
 Every ``csrc/*.cu`` file is one shared library with a plain C interface
 (device pointers, sizes and the stream in; ``cudaError_t`` out), compiled
-by ``nvcc`` for ``sm_90a`` and loaded with ctypes. Nothing includes
-PyTorch's headers, so a build takes seconds. Each library is named by the
-hash of its source and flags and lives in ``_build/`` beside ``csrc/``
+by ``nvcc`` for ``sm_90a`` and loaded with ctypes; ``csrc/*.cuh`` are
+headers they share. Nothing includes PyTorch's headers, so a build takes
+seconds. Each library is named by the hash of its source, the headers and
+the flags and lives in ``_build/`` beside ``csrc/``
 (listed in ``.gitignore``): a changed source builds anew, an unchanged one
 is reused. ``build_all`` starts one ``nvcc`` per source, all at once.
 
@@ -51,7 +52,11 @@ def sources() -> list[Path]:
 
 
 def target(src: Path) -> Path:
+    """The library built from ``src``, named by the hash of the source, the
+    shared headers of ``csrc/`` and the flags."""
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD / f"{src.stem}-{h.hexdigest()[:16]}.so"
 

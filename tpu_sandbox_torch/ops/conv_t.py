@@ -1,11 +1,14 @@
 """3x3 stride-1 SAME conv + bias in the transposed layout [N, H, C, W].
 
 Counterpart of ``tpu_sandbox/ops/pallas_conv_t.py``: ``conv3x3_t`` (:267)
-with its custom VJP (:275-343) and ``conv3x3_t_wgrad`` (:293). Same
-interface: x [N,H,C,W], scattered w [3,3,C,CO], bias [CO] -> y [N,H,CO,W]
-in x.dtype with f32 accumulation and one rounding; the input gradient is
-the forward kernel on flipped weights with zero bias; the weight and bias
-gradients are one fused pass returning (dwT [CO, 9C] f32, db [CO, 1] f32).
+with its custom VJP (:275-343), ``conv3x3_t_stats`` (:347) with its VJP
+(:356-361) and ``conv3x3_t_wgrad`` (:293). Same interface: x [N,H,C,W],
+scattered w [3,3,C,CO], bias [CO] -> y [N,H,CO,W] in x.dtype with f32
+accumulation and one rounding; the stats variant also returns the f32
+per-channel (sum [CO,1], sumsq [CO,1]) of the ROUNDED y, whose cotangents
+are ignored; the input gradient is the forward kernel on flipped weights
+with zero bias; the weight and bias gradients are one fused pass
+returning (dwT [CO, 9C] f32, db [CO, 1] f32).
 
 Each function dispatches on the device of its tensors: on the CPU it runs
 the plain PyTorch version below (the tests hold it against the JAX
@@ -25,7 +28,8 @@ from tpu_sandbox_torch.ops import build
 
 #: launches of the CUDA kernels, by kernel, kind and channel counts
 #: ("conv3x3_t fwd C16 CO256", "conv3x3_t dgrad C128 CO64",
-#: "conv3x3_t_wgrad C64 CO128"); only a kernel launch adds to it
+#: "conv3x3_t_stats C16 CO256", "conv3x3_t_wgrad C64 CO128"); only a
+#: kernel launch adds to it
 LAUNCHES: Counter = Counter()
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -41,6 +45,13 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_bound", False):
         lib.conv3x3_t_fwd.argtypes = [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
         lib.conv3x3_t_fwd.restype = _I
+        lib.conv3x3_t_fwd_stats.argtypes = [
+            _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+        lib.conv3x3_t_fwd_stats.restype = _I
+        lib.conv3x3_t_stats_wtiles.argtypes = [_I, _I, _I]
+        lib.conv3x3_t_stats_wtiles.restype = _I
+        lib.conv3x3_t_stats_rows.argtypes = []
+        lib.conv3x3_t_stats_rows.restype = _I
         lib.conv3x3_t_wgrad.argtypes = [
             _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
         lib.conv3x3_t_wgrad.restype = _I
@@ -88,6 +99,16 @@ def conv3x3_t_plain(x: torch.Tensor, w: torch.Tensor,
     return y.to(x.dtype)
 
 
+def conv3x3_t_stats_plain(x: torch.Tensor, w: torch.Tensor,
+                          bias: torch.Tensor):
+    """(y, sum [CO,1], sumsq [CO,1]): the plain forward, then f32 sums of
+    the rounded y and of its squares over (n, h, w)."""
+    y = conv3x3_t_plain(x, w, bias)
+    yf = y.float()
+    return (y, yf.sum(dim=(0, 1, 3))[:, None],
+            yf.square().sum(dim=(0, 1, 3))[:, None])
+
+
 def conv3x3_t_wgrad_plain(x: torch.Tensor, g: torch.Tensor):
     """(dwT [CO, 9C] f32, db [CO, 1] f32): per tap, the f32 product of g
     with the shifted x summed over (n, h, w); db sums g."""
@@ -104,13 +125,9 @@ def conv3x3_t_wgrad_plain(x: torch.Tensor, g: torch.Tensor):
 # -- kernel wrappers -------------------------------------------------------
 
 
-def conv3x3_t_forward(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
-                      *, kind: str = "fwd") -> torch.Tensor:
-    """Non-differentiable forward. ``kind`` names the launch for the
-    counter ("fwd" or "dgrad"); it does not change the math."""
-    _check_layout(x, w)
-    if x.device.type == "cpu":
-        return conv3x3_t_plain(x, w, bias)
+def _fwd_operands(x: torch.Tensor, w: torch.Tensor,
+                  bias: torch.Tensor) -> torch.Tensor:
+    """Checks a forward launch's operands; returns wT [CO, 9C]."""
     n, h, c, wd = x.shape
     co = w.shape[-1]
     if x.dtype not in _DTYPES:
@@ -126,6 +143,19 @@ def conv3x3_t_forward(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     _check_cuda("x", x, x.dtype, (n, h, c, wd))
     _check_cuda("wt", wt, x.dtype, (co, 9 * c))
     _check_cuda("bias", bias, x.dtype, (co,))
+    return wt
+
+
+def conv3x3_t_forward(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                      *, kind: str = "fwd") -> torch.Tensor:
+    """Non-differentiable forward. ``kind`` names the launch for the
+    counter ("fwd" or "dgrad"); it does not change the math."""
+    _check_layout(x, w)
+    if x.device.type == "cpu":
+        return conv3x3_t_plain(x, w, bias)
+    wt = _fwd_operands(x, w, bias)
+    n, h, c, wd = x.shape
+    co = w.shape[-1]
     y = torch.empty((n, h, co, wd), dtype=x.dtype, device=x.device)
     lib = _lib()
     with torch.cuda.device(x.device):
@@ -136,6 +166,34 @@ def conv3x3_t_forward(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     build.check(lib, err, "conv3x3_t_fwd")
     LAUNCHES[f"conv3x3_t {kind} C{c} CO{co}"] += 1
     return y
+
+
+def conv3x3_t_stats_forward(x: torch.Tensor, w: torch.Tensor,
+                            bias: torch.Tensor):
+    """Non-differentiable forward with fused BN statistics: (y, sum
+    [CO,1] f32, sumsq [CO,1] f32) of the rounded y."""
+    _check_layout(x, w)
+    if x.device.type == "cpu":
+        return conv3x3_t_stats_plain(x, w, bias)
+    wt = _fwd_operands(x, w, bias)
+    n, h, c, wd = x.shape
+    co = w.shape[-1]
+    dt = _DTYPES[x.dtype]
+    lib = _lib()
+    rows = lib.conv3x3_t_stats_rows()
+    parts = -(-(n * h) // rows) * lib.conv3x3_t_stats_wtiles(dt, co, wd)
+    y = torch.empty((n, h, co, wd), dtype=x.dtype, device=x.device)
+    part = torch.empty((parts, 2 * co), dtype=torch.float32, device=x.device)
+    sums = torch.empty((2 * co,), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.conv3x3_t_fwd_stats(dt, x.data_ptr(), wt.data_ptr(),
+                                      bias.data_ptr(), y.data_ptr(),
+                                      part.data_ptr(), sums.data_ptr(), n, h,
+                                      c, co, wd, stream)
+    build.check(lib, err, "conv3x3_t_fwd_stats")
+    LAUNCHES[f"conv3x3_t_stats C{c} CO{co}"] += 1
+    return y, sums[:co, None], sums[co:, None]
 
 
 def wgrad_slabs(rows: int) -> tuple[int, int]:
@@ -178,6 +236,23 @@ def flip_transpose(w: torch.Tensor) -> torch.Tensor:
     return w.flip(0, 1).transpose(2, 3)
 
 
+def _conv_backward(ctx, g):
+    """(dx, dw, dbias) of both convs' Functions from the y cotangent."""
+    x, w = ctx.saved_tensors
+    g = g.contiguous()
+    c, co = x.shape[2], w.shape[-1]
+    dx = None
+    # conv1's input is the image, which is not differentiated: JAX leaves
+    # this pass to dead-code elimination, here it is skipped
+    if ctx.needs_input_grad[0]:
+        dx = conv3x3_t_forward(
+            g, flip_transpose(w),
+            torch.zeros((c,), dtype=g.dtype, device=g.device), kind="dgrad")
+    dwt, db = conv3x3_t_wgrad(x, g)
+    dw = dwt.t().reshape(3, 3, c, co).to(w.dtype)
+    return dx, dw, db[:, 0].to(w.dtype)
+
+
 class _Conv3x3T(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, bias):
@@ -186,20 +261,22 @@ class _Conv3x3T(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        x, w = ctx.saved_tensors
-        g = g.contiguous()
-        c, co = x.shape[2], w.shape[-1]
-        dx = None
-        # conv1's input is the image, which is not differentiated: JAX
-        # leaves this pass to dead-code elimination, here it is skipped
-        if ctx.needs_input_grad[0]:
-            dx = conv3x3_t_forward(
-                g, flip_transpose(w),
-                torch.zeros((c,), dtype=g.dtype, device=g.device),
-                kind="dgrad")
-        dwt, db = conv3x3_t_wgrad(x, g)
-        dw = dwt.t().reshape(3, 3, c, co).to(w.dtype)
-        return dx, dw, db[:, 0].to(w.dtype)
+        return _conv_backward(ctx, g)
+
+
+class _Conv3x3TStats(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, bias):
+        ctx.save_for_backward(x, w)
+        y, s, ss = conv3x3_t_stats_forward(x, w, bias)
+        # the consumer of the sums accounts for their dependence on y in
+        # its own backward (the JAX VJP ignores their cotangents too)
+        ctx.mark_non_differentiable(s, ss)
+        return y, s, ss
+
+    @staticmethod
+    def backward(ctx, g, _ds, _dss):
+        return _conv_backward(ctx, g)
 
 
 def conv3x3_t(x: torch.Tensor, w: torch.Tensor,
@@ -209,3 +286,11 @@ def conv3x3_t(x: torch.Tensor, w: torch.Tensor,
     Differentiable: the input gradient reuses the forward on flipped
     weights, the weight and bias gradients are the fused wgrad pass."""
     return _Conv3x3T.apply(x, w, bias)
+
+
+def conv3x3_t_stats(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor):
+    """``conv3x3_t`` that also returns (sum [CO,1], sumsq [CO,1]) of the
+    rounded output in f32: BN's batch statistics fused into the conv's
+    output pass. Differentiable in x, w and bias through y only; the sums
+    are not differentiable."""
+    return _Conv3x3TStats.apply(x, w, bias)
