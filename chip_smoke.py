@@ -8,35 +8,41 @@ card or when the port is not beside it. Phases, one JSON line each:
 
 1. env: the card (nvidia-smi name and power limit), torch and CUDA
    versions, and the build of every kernel in tpu_sandbox_torch/csrc/.
-2. kernel: each kernel launch kind of the two training paths, at the main
+2. kernel: each kernel launch kind of the training paths, at the main
    path's shapes (3000x3000 images, batch 5), against its plain PyTorch
    version on the same inputs: fp32 within 1e-4 of max|plain|, bf16
    within 1e-2 (one bf16 rounding on each side); its CUDA-event median
    time over 10 runs after warm-up beside the plain version's, one PyTorch
    library call's where one computes the same function (cuDNN conv / its
    gradients, einsum; timed here only, never called by the port; null for
-   the fused BN tail passes, which no single call computes) and the least
-   time the H100 could take (bytes over 3.35 TB/s or operations over the
-   peak rate of their type, 989 TFLOP/s bf16 or 67 TFLOP/s f32, whichever
-   is larger). Every reducing kernel runs twice and must be bitwise equal.
+   the fused BN tail passes and the fused conv1+tail wgrad, which no
+   single call computes) and the least time the H100 could take (bytes
+   over 3.35 TB/s or operations over the peak rate of their type, 989
+   TFLOP/s bf16 or 67 TFLOP/s f32, whichever is larger). Every reducing
+   kernel runs twice and must be bitwise equal. The fused conv1+tail
+   wgrad is also held against the two kernels it replaces (the tail's
+   apply pass, then the sparse conv1 wgrad).
 3. ragged: each kernel at shapes off every tile edge (W=70, H=5, N*H not
-   a multiple of a slab, CO off the channel tile, co=8 blk=2), and the
-   BN tail on bf16 inputs quantised to quarters, where pool ties occur:
-   the pooled output equal, dy within one bf16 ulp of max|plain|.
+   a multiple of a slab, CO off the channel tile, co=8 blk=2; the sparse
+   conv1 at H4=W4=1, where every tap is a halo, and at f1 8 and 5), and
+   the BN tail on bf16 inputs quantised to quarters, where pool ties
+   occur: the pooled output equal, dy within one bf16 ulp of max|plain|.
 4. main_path: tpu_sandbox_torch.mnist_onegpu's own train function at
    3000x3000, batch 5, bf16, synthetic MNIST, 5 steps, on the card's
-   default plan (the fused BN tails), with every kernel launch counter
-   zeroed just before and read just after: each of the path's launches
-   must happen once per step, and no other. Step time (median after the
-   first), images/s and peak device memory.
-5. main_path_unfused: the same train function with fused_tail=False, 3
-   steps: the unfused tails' launches once per step; its step time beside
-   the fused path's.
-6. profile: two more steps of the fused path under torch.profiler, device
+   default plan (the sparse conv1, the fused BN tails and the fused
+   conv1+tail backward), with every kernel launch counter zeroed just
+   before and read just after: each of the path's launches must happen
+   once per step, and no other. Step time (median after the first),
+   images/s and peak device memory.
+5. the other paths, the same way, each with its own launch set: the
+   unfused conv1+tail backward (2 steps), the sparse conv1 with unfused
+   tails (2), the scattered-3x3 conv1 with fused tails (3) and with
+   unfused tails (3); their step times beside the main path's.
+6. profile: two more steps of the main path under torch.profiler, device
    time per op or kernel, busy time and idle share of the step.
 7. card_vs_cpu: the port on the card against the port on the CPU, 64x64,
    fp32, 3 SGD steps from the same bridged weights on the same batches,
-   with the tails fused and unfused: losses within rtol 1e-4.
+   on each of the five plans: losses within rtol 1e-4.
 8. the {"kernels": [...]} summary, the nvidia-smi line, and last
    {"ok": true, "device": {...}}.
 
@@ -57,7 +63,6 @@ import torch
 import torch.nn.functional as F
 
 STEPS = 5
-UNFUSED_STEPS = 3
 BATCH = 5
 IMAGE = 3000
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 (data sheet)
@@ -68,6 +73,9 @@ DTYPES = (("fp32", torch.float32), ("bf16", torch.bfloat16))
 CONV_SRC = "tpu_sandbox_torch/csrc/conv_t.cu"
 FC_SRC = "tpu_sandbox_torch/csrc/fc_t.cu"
 TAIL_SRC = "tpu_sandbox_torch/csrc/bn_tail_t.cu"
+CONV5_SRC = "tpu_sandbox_torch/csrc/conv5_t.cu"
+CONV1_TAIL_SRC = "tpu_sandbox_torch/csrc/conv1_tail_t.cu"
+F1 = 16                      # conv1's output features
 #: the main path's BN tails: (C, co, blk)
 TAILS = ((256, 16, 4), (128, 32, 2))
 #: f32 operations per element of y in each tail pass (rounding and
@@ -79,13 +87,41 @@ TAIL_REPLACES = {
     "bwd_apply": "tpu_sandbox/ops/pallas_bn_tail_t.py:123",
 }
 #: launches of one training step on each path
-UNFUSED_KINDS = ["conv3x3_t fwd C16 CO256", "conv3x3_t fwd C64 CO128",
-                 "conv3x3_t dgrad C128 CO64", "conv3x3_t_wgrad C16 CO256",
-                 "conv3x3_t_wgrad C64 CO128", "fc_dgrad_t"]
-FUSED_KINDS = (
-    ["conv3x3_t_stats C16 CO256", "conv3x3_t_stats C64 CO128"]
-    + UNFUSED_KINDS[2:]
-    + [f"bn_tail_t {p} C{c} CO{co}" for p in TAIL_OPS for c, co, _ in TAILS])
+TAIL_KINDS = [f"bn_tail_t {p} C{c} CO{co}" for p in TAIL_OPS
+              for c, co, _ in TAILS]
+CONV2_KINDS = ["conv3x3_t dgrad C128 CO64", "conv3x3_t_wgrad C64 CO128",
+               "fc_dgrad_t"]
+SCATTERED_UNFUSED_KINDS = ["conv3x3_t fwd C16 CO256", "conv3x3_t fwd C64 CO128",
+                           "conv3x3_t_wgrad C16 CO256"] + CONV2_KINDS
+SCATTERED_FUSED_KINDS = (["conv3x3_t_stats C16 CO256",
+                          "conv3x3_t_stats C64 CO128",
+                          "conv3x3_t_wgrad C16 CO256"]
+                         + CONV2_KINDS + TAIL_KINDS)
+MAIN_KINDS = (["conv1_s2d_t_stats CO256", "conv1_tail_t wgrad CO256",
+               "conv3x3_t_stats C64 CO128"] + CONV2_KINDS
+              + [k for k in TAIL_KINDS if k != "bn_tail_t bwd_apply C256 CO16"])
+UNFUSED_BWD_KINDS = (["conv1_s2d_t_stats CO256", "conv1_s2d_t_wgrad CO256",
+                      "conv3x3_t_stats C64 CO128"] + CONV2_KINDS + TAIL_KINDS)
+SPARSE_UNFUSED_KINDS = ["conv1_s2d_t fwd CO256", "conv1_s2d_t_wgrad CO256",
+                        "conv3x3_t fwd C64 CO128"] + CONV2_KINDS
+#: (phase, plan options for pick_convnet, steps, launch kinds): the main
+#: path first; every kind of the kernel phase is on one of them
+PATHS = (
+    ("main_path", {}, STEPS, MAIN_KINDS),
+    ("path_unfused_conv1_bwd", {"fused_conv1_bwd": False}, 2,
+     UNFUSED_BWD_KINDS),
+    ("path_sparse_unfused_tails", {"fused_tail": False}, 2,
+     SPARSE_UNFUSED_KINDS),
+    ("path_scattered_fused_tails", {"sparse_conv1": False}, 3,
+     SCATTERED_FUSED_KINDS),
+    ("path_scattered_unfused_tails",
+     {"sparse_conv1": False, "fused_tail": False}, 3,
+     SCATTERED_UNFUSED_KINDS),
+)
+ALL_KINDS = sorted({k for *_, kinds in PATHS for k in kinds})
+#: the sparse conv1's ragged shapes (N, H4, W4, f1)
+CONV1_RAGGED = ((2, 5, 70, 16), (1, 1, 1, 16), (3, 1, 1, 8), (2, 5, 70, 8),
+                (2, 5, 70, 5))
 
 
 def emit(phase: str, **kw) -> None:
@@ -214,15 +250,94 @@ def _check_tail(bn_tail_t, case, co, blk, dt_name, what) -> dict:
     return out
 
 
-def phase_kernels(conv_t, fc_t, bn_tail_t) -> dict:
-    """Every launch kind of both paths at its main-path shape; returns
-    the summary entries keyed by launch-counter name."""
+def _conv1_case(gen, n, h, w, f1, dtype):
+    """x [n,h,16,w] in dtype, a k5 [5,5,1,f1] and bias [f1] in f32."""
+    x = torch.randn((n, h, 16, w), generator=gen, device="cuda").to(dtype)
+    k5 = 0.3 * torch.randn((5, 5, 1, f1), generator=gen, device="cuda")
+    b = torch.randn((f1,), generator=gen, device="cuda")
+    return x, k5, b
+
+
+def _check_conv1(conv5_t, x, w1, bias_g, g, dt_name, what) -> dict:
+    """The sparse conv1's three kernels against their plain versions: the
+    forward, the stats variant (its y bitwise the forward kernel's, two
+    runs bitwise equal) and the wgrad (two runs bitwise equal)."""
+    y = conv5_t.conv1_s2d_t_forward(x, w1, bias_g)
+    out = {"fwd": compare(y, conv5_t.conv1_s2d_t_plain(x, w1, bias_g),
+                          dt_name, what + " fwd")}
+    got = conv5_t.conv1_s2d_t_stats_forward(x, w1, bias_g)
+    want = conv5_t.conv1_s2d_t_stats_plain(x, w1, bias_g)
+    for i, part in enumerate(("", "_sum", "_sumsq")):
+        out["stats" + part] = compare(got[i], want[i], dt_name,
+                                      what + " stats" + part)
+    require(torch.equal(got[0], y),
+            f"{what} stats {dt_name}: y differs from the forward kernel's")
+    require_repeatable(got, lambda: conv5_t.conv1_s2d_t_stats_forward(
+        x, w1, bias_g), f"{what} stats {dt_name}")
+    del y, got, want
+    dw1, db = conv5_t.conv1_s2d_t_wgrad(x, g)
+    pdw1, pdb = conv5_t.conv1_s2d_t_wgrad_plain(x, g)
+    out["wgrad"] = compare(dw1, pdw1, dt_name, what + " wgrad")
+    out["wgrad_db"] = compare(db, pdb, dt_name, what + " wgrad db")
+    require_repeatable((dw1, db), lambda: conv5_t.conv1_s2d_t_wgrad(x, g),
+                       f"{what} wgrad {dt_name}")
+    return out
+
+
+def _conv1_tail_case(bn_tail_t, gen, n, h, w, f1, dtype):
+    """(x, the fused wgrad's other operands in bwd_apply's order: y1, g,
+    co, blk, a_col, b_col, mu, inv, gi, c1, c2) for conv1 with f1
+    features (bn1: co = f1, blk = 4)."""
+    x = torch.randn((n, h, 16, w), generator=gen, device="cuda").to(dtype)
+    y, g, _, _, vecs, cols = _tail_case(bn_tail_t, gen, n, h, 16 * f1, f1, 4,
+                                        w, dtype)
+    return x, (y, g, f1, 4, *vecs, *cols)
+
+
+def _check_conv1_tail(conv1_tail_t, conv5_t, bn_tail_t, x, args, dt_name,
+                      what) -> dict:
+    """The fused conv1+tail wgrad against its plain version (two runs
+    bitwise equal), and against the two ported kernels it replaces: the
+    tail's apply pass, then the sparse conv1 wgrad."""
+    got = conv1_tail_t.fused_wgrad(x, *args)
+    want = conv1_tail_t.fused_wgrad_plain(x, *args)
+    out = {"": compare(got[0], want[0], dt_name, what),
+           "_db": compare(got[1], want[1], dt_name, what + " db")}
+    require_repeatable(got, lambda: conv1_tail_t.fused_wgrad(x, *args),
+                       f"{what} {dt_name}")
+    del want
+    composed = conv5_t.conv1_s2d_t_wgrad(x, bn_tail_t.bwd_apply(*args))
+    out["_vs_composed"] = compare(got[0], composed[0], dt_name,
+                                  what + " vs apply+wgrad")
+    out["_vs_composed_db"] = compare(got[1], composed[1], dt_name,
+                                     what + " db vs apply+wgrad")
+    out["_vs_composed_bitwise"] = all(
+        torch.equal(a, b) for a, b in zip(got, composed))
+    return out
+
+
+def _full_res(x, g, f1):
+    """The s2d image x [N,H4,16,W4] and a conv1 output cotangent g
+    [N,H4,16*f1,W4] as full-resolution NCHW tensors [N,1,H,W] and
+    [N,f1,H,W], for the library calls."""
+    n, h, _, w = x.shape
+    img = x.reshape(n, h, 4, 4, w).permute(0, 1, 2, 4, 3).reshape(
+        n, 1, 4 * h, 4 * w).contiguous()
+    gn = g.reshape(n, h, 4, 4, f1, w).permute(0, 4, 1, 2, 5, 3).reshape(
+        n, f1, 4 * h, 4 * w).contiguous()
+    return img, gn
+
+
+def phase_kernels(conv_t, fc_t, bn_tail_t, conv5_t, conv1_tail_t) -> dict:
+    """Every launch kind of the paths at its main-path shape; returns the
+    summary entries keyed by launch-counter name."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     n, h, w = BATCH, IMAGE // 4, IMAGE // 4
     entries = {}
 
     def record(name, source, replaces, rec, ms, plain_ms, library_ms, *,
-               flops, bytes_, peak=PEAK_BF16_FLOPS, library_note=None):
+               flops, bytes_, peak=PEAK_BF16_FLOPS, library_note=None,
+               **extra):
         b_ms, b_by = bound(flops, bytes_, peak)
         entries[name] = dict(
             name=name, route="cuda", source=source, replaces=replaces,
@@ -230,7 +345,7 @@ def phase_kernels(conv_t, fc_t, bn_tail_t) -> dict:
             bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
             library_note=library_note,
             fp32_rel_err=rec["fp32"]["rel_err"],
-            bf16_rel_err=rec["bf16"]["rel_err"])
+            bf16_rel_err=rec["bf16"]["rel_err"], **extra)
         emit("kernel", **entries[name], checks=rec)
 
     def conv_library(x, wt, b, kind):
@@ -388,6 +503,92 @@ def phase_kernels(conv_t, fc_t, bn_tail_t) -> dict:
         del y, g, args, runs
         torch.cuda.empty_cache()
 
+    def conv1_sparse():
+        co = 16 * F1
+        rec = {"fwd": {}, "stats": {}, "wgrad": {}}
+        for dt_name, dt in DTYPES:
+            x, k5, b = _conv1_case(gen, n, h, w, F1, dt)
+            w1, bias_g = conv5_t.prep(k5, b, dt)
+            g = torch.randn((n, h, co, w), generator=gen, device="cuda").to(dt)
+            checks = _check_conv1(conv5_t, x, w1, bias_g, g, dt_name,
+                                  f"conv1_s2d_t CO{co}")
+            for key, val in checks.items():
+                kind = key.split("_")[0]
+                rec[kind][dt_name + key[len(kind):]] = val
+            del g, checks
+            torch.cuda.empty_cache()
+        # time in the main path's dtype, on the bf16 inputs
+        x, k5, b = _conv1_case(gen, n, h, w, F1, torch.bfloat16)
+        w1, bias_g = conv5_t.prep(k5, b, torch.bfloat16)
+        g = torch.randn((n, h, co, w), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        img, gn = _full_res(x, g, F1)
+        kn = k5.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous()
+        bn = b.to(torch.bfloat16)
+        lib_fwd = cuda_ms(lambda: F.conv2d(img, kn, bn, padding=2), reps=5)
+        flops = 2.0 * n * h * w * co * conv5_t.NT
+        y_bytes = n * h * co * w * x.element_size()
+        conv_note = ("F.conv2d of the full-resolution [5,1,3000,3000] image "
+                     "with the [16,1,5,5] kernel, padding 2")
+        record(f"conv1_s2d_t fwd CO{co}", CONV5_SRC,
+               "tpu_sandbox/ops/pallas_conv5_t.py:123", rec["fwd"],
+               cuda_ms(lambda: conv5_t.conv1_s2d_t_forward(x, w1, bias_g)),
+               cuda_ms(lambda: conv5_t.conv1_s2d_t_plain(x, w1, bias_g),
+                       reps=5), lib_fwd,
+               flops=flops, bytes_=nbytes(x, w1, bias_g) + y_bytes,
+               library_note=conv_note)
+        record(f"conv1_s2d_t_stats CO{co}", CONV5_SRC,
+               "tpu_sandbox/ops/pallas_conv5_t.py:130", rec["stats"],
+               cuda_ms(lambda: conv5_t.conv1_s2d_t_stats_forward(
+                   x, w1, bias_g)),
+               cuda_ms(lambda: conv5_t.conv1_s2d_t_stats_plain(
+                   x, w1, bias_g), reps=5), lib_fwd,
+               flops=flops, bytes_=nbytes(x, w1, bias_g) + y_bytes + 8 * co,
+               library_note=conv_note + ": the conv without the statistics")
+        record(f"conv1_s2d_t_wgrad CO{co}", CONV5_SRC,
+               "tpu_sandbox/ops/pallas_conv5_t.py:154", rec["wgrad"],
+               cuda_ms(lambda: conv5_t.conv1_s2d_t_wgrad(x, g)),
+               cuda_ms(lambda: conv5_t.conv1_s2d_t_wgrad_plain(x, g), reps=5),
+               cuda_ms(lambda: torch.nn.grad.conv2d_weight(
+                   img, (F1, 1, 5, 5), gn, padding=2), reps=5),
+               flops=flops,
+               bytes_=nbytes(x, g) + 4 * (co * conv5_t.NT + co),
+               library_note="torch.nn.grad.conv2d_weight of the same conv "
+                            "on full-resolution NCHW copies")
+        del x, g, img, gn
+        torch.cuda.empty_cache()
+
+    def conv1_tail():
+        co = 16 * F1
+        name = f"conv1_tail_t wgrad CO{co}"
+        rec = {}
+        for dt_name, dt in DTYPES:
+            x, args = _conv1_tail_case(bn_tail_t, gen, n, h, w, F1, dt)
+            checks = _check_conv1_tail(conv1_tail_t, conv5_t, bn_tail_t, x,
+                                       args, dt_name, name)
+            for key, val in checks.items():
+                rec[dt_name + key] = val
+            del x, args, checks
+            torch.cuda.empty_cache()
+        x, args = _conv1_tail_case(bn_tail_t, gen, n, h, w, F1,
+                                   torch.bfloat16)
+        record(name, CONV1_TAIL_SRC,
+               "tpu_sandbox/ops/pallas_conv1_tail_t.py:74", rec,
+               cuda_ms(lambda: conv1_tail_t.fused_wgrad(x, *args)),
+               cuda_ms(lambda: conv1_tail_t.fused_wgrad_plain(x, *args),
+                       reps=3), None,
+               flops=2.0 * n * h * w * co * conv5_t.NT,
+               bytes_=(nbytes(x, args[0], args[1], *args[4:])
+                       + 4 * (co * conv5_t.NT + co)),
+               library_note="no single PyTorch call computes the BN tail's "
+                            "dy and the conv weight gradient together",
+               composed_ms=cuda_ms(lambda: conv5_t.conv1_s2d_t_wgrad(
+                   x, bn_tail_t.bwd_apply(*args))))
+        del x, args
+        torch.cuda.empty_cache()
+
+    conv1_sparse()
+    conv1_tail()
     conv_fwd(16, 256, "fwd")
     torch.cuda.empty_cache()
     conv_fwd(64, 128, "fwd")
@@ -407,14 +608,30 @@ def phase_kernels(conv_t, fc_t, bn_tail_t) -> dict:
     return entries
 
 
-def phase_ragged(conv_t, fc_t, bn_tail_t) -> None:
+def phase_ragged(conv_t, fc_t, bn_tail_t, conv5_t, conv1_tail_t) -> None:
     """Shapes off every tile edge: W=70, H=5, N*H=10 rows (not a multiple
     of the wgrad, stats or tail slab), CO=24 and 80 (off the 64- and
     128-channel tiles), C=16; fc with F not a multiple of the block; the
-    tails at co=8 blk=2 and co=4 blk=4; and the bf16 tie case."""
+    tails at co=8 blk=2 and co=4 blk=4; the sparse conv1 and the fused
+    conv1+tail wgrad at W4=70 with N*H4=10, at H4=W4=1 (every tap a halo)
+    and at f1 8 and 5 (CO 128 and 80); and the bf16 tie case."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     out = {}
     for dt_name, dt in DTYPES:
+        for n, h, w, f1 in CONV1_RAGGED:
+            what = f"conv1 n{n} h{h} w{w} f1{f1}"
+            x, k5, b = _conv1_case(gen, n, h, w, f1, dt)
+            w1, bias_g = conv5_t.prep(k5, b, dt)
+            g = torch.randn((n, h, 16 * f1, w), generator=gen,
+                            device="cuda").to(dt)
+            for key, val in _check_conv1(conv5_t, x, w1, bias_g, g, dt_name,
+                                         "ragged " + what).items():
+                out[f"{what} {key} {dt_name}"] = val
+            x, args = _conv1_tail_case(bn_tail_t, gen, n, h, w, f1, dt)
+            for key, val in _check_conv1_tail(
+                    conv1_tail_t, conv5_t, bn_tail_t, x, args, dt_name,
+                    "ragged conv1_tail " + what).items():
+                out[f"{what} tail_wgrad{key} {dt_name}"] = val
         x, wt, b = _conv_case(gen, 2, 5, 16, 70, 24, dt)
         out[f"conv fwd {dt_name}"] = compare(
             conv_t.conv3x3_t_forward(x, wt, b),
@@ -505,8 +722,11 @@ def phase_main_path(ops, mnist_onegpu, expected: list[str], *, phase: str,
     require(set(counts) == set(expected),
             f"unexpected launches on {phase}: {counts}")
     step_ms = statistics.median(trainer.step_seconds[1:]) * 1e3
+    model = state.model
     res = dict(image=IMAGE, batch=BATCH, dtype="bf16", steps=steps,
-               fused_tail=state.model.fused_tail, losses=trainer.losses,
+               plan_options=model_options or {},
+               fused_tail=model.fused_tail, sparse_conv1=model.sparse_conv1,
+               fused_conv1_bwd=model.fused_conv1_bwd, losses=trainer.losses,
                step_ms_each=[s * 1e3 for s in trainer.step_seconds],
                step_ms_median_after_first=step_ms,
                images_per_s=BATCH / (step_ms / 1e3),
@@ -549,13 +769,15 @@ def phase_profile(trainer, steps: int = 2) -> None:
             view[ev.key[:80]] = view.get(ev.key[:80], 0.0) + ms
     busy = sum(kernels.values())
     top = lambda d, k: dict(sorted(d.items(), key=lambda kv: -kv[1])[:k])  # noqa: E731
-    emit("profile", steps=steps, fused_tail=True, wall_ms_per_step=wall_ms,
+    emit("profile", steps=steps, plan="main_path", wall_ms_per_step=wall_ms,
          device_busy_ms_per_step=busy,
          idle_share=(1 - busy / wall_ms) if busy else None,
          ops_ms_per_step=top(ops, 15), kernels_ms_per_step=top(kernels, 12))
 
 
 def phase_card_vs_cpu() -> None:
+    """The port on the card against the port on the CPU on every plan of
+    the paths: the same bridged weights, batches and 3 SGD steps."""
     import numpy as np
 
     from tpu_sandbox_torch.data import BatchLoader, normalize, synthetic_mnist
@@ -568,11 +790,12 @@ def phase_card_vs_cpu() -> None:
     tree = params_to_flax(ConvNetS2DT(hw, seed=0, device="cpu"))
     images, labels = synthetic_mnist(n=steps * bs, seed=0)
     res = {}
-    for fused in (True, False):
+    for phase, options, *_ in PATHS:
+        plan = {"fused_tail": True, **options}
         losses = {}
         for dev in ("cpu", "cuda"):
-            model = ConvNetS2DT(hw, dtype=torch.float32, seed=1,
-                                fused_tail=fused, device=dev)
+            model = ConvNetS2DT(hw, dtype=torch.float32, seed=1, device=dev,
+                                **plan)
             model.load_state_dict(params_from_flax(tree))
             step = make_train_step(TrainState(model, lr=1e-4), image_size=hw)
             loader = BatchLoader(normalize(images), labels.astype("int32"),
@@ -580,14 +803,12 @@ def phase_card_vs_cpu() -> None:
             losses[dev] = [float(step(*to_device(im, lb, torch.device(dev))))
                            for im, lb in loader]
         ok = np.allclose(losses["cuda"], losses["cpu"], rtol=1e-4, atol=0)
-        res["fused" if fused else "unfused"] = dict(
-            losses_cpu=losses["cpu"], losses_cuda=losses["cuda"],
-            agree=bool(ok))
+        res[phase] = dict(plan=plan, losses_cpu=losses["cpu"],
+                          losses_cuda=losses["cuda"], agree=bool(ok))
     emit("card_vs_cpu", image=64, dtype="fp32", steps=steps, rtol=1e-4,
          **res)
-    for plan, r in res.items():
-        require(r["agree"], f"card and CPU losses differ ({plan} tails): "
-                f"{r}")
+    for phase, r in res.items():
+        require(r["agree"], f"card and CPU losses differ ({phase}): {r}")
 
 
 def main() -> int:
@@ -596,7 +817,14 @@ def main() -> int:
         return 1
     try:
         from tpu_sandbox_torch import mnist_onegpu, ops
-        from tpu_sandbox_torch.ops import bn_tail_t, build, conv_t, fc_t
+        from tpu_sandbox_torch.ops import (
+            bn_tail_t,
+            build,
+            conv1_tail_t,
+            conv5_t,
+            conv_t,
+            fc_t,
+        )
         from tpu_sandbox_torch.utils import exact_fp32
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e}); run "
@@ -605,33 +833,36 @@ def main() -> int:
 
     exact_fp32()
     smi = phase_env(build)
-    entries = phase_kernels(conv_t, fc_t, bn_tail_t)
-    require(set(entries) == set(FUSED_KINDS) | set(UNFUSED_KINDS),
+    entries = phase_kernels(conv_t, fc_t, bn_tail_t, conv5_t, conv1_tail_t)
+    require(sorted(entries) == ALL_KINDS,
             f"kernel phase covered {sorted(entries)}")
-    phase_ragged(conv_t, fc_t, bn_tail_t)
-    fused, counts, trainer = phase_main_path(
-        ops, mnist_onegpu, FUSED_KINDS, phase="main_path", steps=STEPS)
-    require(fused["fused_tail"], "the card's default plan is not fused")
-    emit("main_path", **fused)
-    phase_profile(trainer)
-    del trainer
-    unfused, unfused_counts, _ = phase_main_path(
-        ops, mnist_onegpu, UNFUSED_KINDS, phase="main_path_unfused",
-        steps=UNFUSED_STEPS, model_options={"fused_tail": False})
-    emit("main_path_unfused", **unfused,
-         fused_step_ms_median_after_first=fused["step_ms_median_after_first"])
+    phase_ragged(conv_t, fc_t, bn_tail_t, conv5_t, conv1_tail_t)
+    counts, main_ms = {}, None
+    for phase, options, steps, kinds in PATHS:
+        res, counts[phase], trainer = phase_main_path(
+            ops, mnist_onegpu, kinds, phase=phase, steps=steps,
+            model_options=options)
+        if main_ms is None:
+            require(res["fused_tail"] and res["sparse_conv1"]
+                    and res["fused_conv1_bwd"],
+                    "the card's default plan is not the JAX package's "
+                    f"whole chip plan: {res}")
+            main_ms = res["step_ms_median_after_first"]
+            emit(phase, **res)
+            phase_profile(trainer)
+        else:
+            emit(phase, **res, main_path_step_ms_median_after_first=main_ms)
+        del trainer
     phase_card_vs_cpu()
     for name, e in entries.items():
-        e["launches_main_path"] = counts.get(name, 0)
-        e["launches_unfused_path"] = unfused_counts.get(name, 0)
-        # the count from the run of the path this launch belongs to
-        e["launches"] = counts.get(name) or unfused_counts[name]
+        e["launches_by_path"] = {p: c.get(name, 0) for p, c in counts.items()}
+        # the count from the run of the first path this launch belongs to
+        e["launches"] = next(c[name] for c in counts.values() if name in c)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "library_note", "fp32_rel_err", "bf16_rel_err",
-            "launches_main_path", "launches_unfused_path")
+            "library_note", "fp32_rel_err", "bf16_rel_err", "launches_by_path")
     print(json.dumps({"kernels": [{k: e[k] for k in keys}
-                                  for e in entries.values()]}))
+                                  for _, e in sorted(entries.items())]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

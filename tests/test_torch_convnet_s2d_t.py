@@ -1,10 +1,13 @@
 """The port's ConvNetS2DT (tpu_sandbox_torch/models/convnet_s2d_t.py) ==
-the JAX ConvNetS2DT(sparse_conv1=False) with fused_tail False and True:
-the resize weights, the fused input stage, and at 32x32, batch 2, fp32
-from bridged weights the logits, the loss, every gradient and the BN
-running stats; bf16 logits; and pick_convnet's plan and fused_tail
-resolution. The JAX side runs its Pallas kernels in interpret mode on the
-CPU; the port runs its kernels' plain PyTorch versions."""
+the JAX ConvNetS2DT on each plan: the scattered-3x3 conv1
+(sparse_conv1=False) with fused_tail False and True, and the sparse-tap
+conv1 with the fused conv1+tail backward, with the unfused conv1
+backward, and with unfused tails. The resize weights, the fused input
+stage, and at 32x32, batch 2, fp32 from bridged weights the logits, the
+loss, every gradient and the BN running stats; bf16 logits; eval mode;
+and pick_convnet's plan, options and fused_tail resolution. The JAX side
+runs its Pallas kernels in interpret mode on the CPU; the port runs its
+kernels' plain PyTorch versions."""
 
 import jax
 import jax.numpy as jnp
@@ -30,17 +33,27 @@ from tpu_sandbox_torch.utils.bridge import params_from_flax, params_to_flax
 HW = (32, 32)
 
 
-def _jax_model(dtype=jnp.float32, fused_tail=False):
-    return JaxConvNetS2DT(dtype=dtype, fused_tail=fused_tail,
-                          sparse_conv1=False)
+#: the plans with the sparse conv1, as (fused_tail, fused_conv1_bwd):
+#: the JAX package's whole chip plan, its unfused conv1 backward, and the
+#: unfused tails (where fused_conv1_bwd has no effect)
+SPARSE_PLANS = [(True, True), (True, False), (False, True)]
 
 
-def _jax_case(fused_tail):
+def _plan(fused_tail=False, sparse_conv1=False, fused_conv1_bwd=True):
+    return dict(fused_tail=fused_tail, sparse_conv1=sparse_conv1,
+                fused_conv1_bwd=fused_conv1_bwd)
+
+
+def _jax_model(dtype=jnp.float32, **plan):
+    return JaxConvNetS2DT(dtype=dtype, **_plan(**plan))
+
+
+def _jax_case(**plan):
     """One JAX forward+backward at 32x32, batch 2, fp32, as numpy."""
     rng = np.random.default_rng(0)
     images = rng.random((2, 28, 28, 1), dtype=np.float32)
     labels = rng.integers(0, 10, size=2).astype(np.int32)
-    jm = _jax_model(fused_tail=fused_tail)
+    jm = _jax_model(**plan)
     variables = jm.init(jax.random.key(0), jnp.zeros((1, *HW, 1)), train=False)
 
     def loss_fn(params, batch_stats, images, labels):
@@ -55,7 +68,7 @@ def _jax_case(fused_tail):
     to_np = lambda t: jax.tree.map(np.asarray, t)  # noqa: E731
     return dict(images=images, labels=labels, variables=to_np(variables),
                 loss=float(loss), logits=np.asarray(logits),
-                grads=to_np(grads), stats=to_np(stats), fused_tail=fused_tail)
+                grads=to_np(grads), stats=to_np(stats), plan=_plan(**plan))
 
 
 @pytest.fixture(scope="module")
@@ -68,8 +81,16 @@ def fused_case():
     return _jax_case(fused_tail=True)
 
 
-def _torch_model(variables, dtype=torch.float32, fused_tail=False):
-    model = ConvNetS2DT(HW, dtype=dtype, device="cpu", fused_tail=fused_tail)
+@pytest.fixture(scope="module", params=SPARSE_PLANS,
+                ids=lambda p: f"fused_tail{int(p[0])}-fused_bwd{int(p[1])}")
+def sparse_case(request):
+    fused_tail, fused_conv1_bwd = request.param
+    return _jax_case(fused_tail=fused_tail, sparse_conv1=True,
+                     fused_conv1_bwd=fused_conv1_bwd)
+
+
+def _torch_model(variables, dtype=torch.float32, **plan):
+    model = ConvNetS2DT(HW, dtype=dtype, device="cpu", **_plan(**plan))
     model.load_state_dict(params_from_flax(variables))
     return model
 
@@ -114,7 +135,7 @@ def test_block_max_pool_t_ties_split_like_jax():
 
 
 def _check_step_against_jax(case):
-    model = _torch_model(case["variables"], fused_tail=case["fused_tail"])
+    model = _torch_model(case["variables"], **case["plan"])
     x = model.fused_input_stage(torch.from_numpy(case["images"]), HW)
     logits = model(x)
     loss = cross_entropy_loss(logits, torch.from_numpy(case["labels"]))
@@ -150,13 +171,20 @@ def test_fused_tail_logits_loss_grads_and_stats_match_jax(fused_case):
     _check_step_against_jax(fused_case)
 
 
+def test_sparse_conv1_logits_loss_grads_and_stats_match_jax(sparse_case):
+    """The sparse-tap conv1 plans: the JAX package's whole chip plan
+    (fused tails and the fused conv1+tail backward), its unfused conv1
+    backward, and the unfused tails, against JAX's same plan with the
+    same tolerances."""
+    _check_step_against_jax(sparse_case)
+
+
 def _check_bf16_logits(case):
-    jm = _jax_model(jnp.bfloat16, fused_tail=case["fused_tail"])
+    jm = _jax_model(jnp.bfloat16, **case["plan"])
     x = jax_prepare_inputs(jm, case["images"], HW)
     want, _ = jm.apply(case["variables"], x, train=True,
                        mutable=["batch_stats"])
-    model = _torch_model(case["variables"], torch.bfloat16,
-                         fused_tail=case["fused_tail"])
+    model = _torch_model(case["variables"], torch.bfloat16, **case["plan"])
     got = model(model.fused_input_stage(torch.from_numpy(case["images"]), HW))
     _close(got.detach().numpy(), np.asarray(want), 3e-2, "bf16 logits")
 
@@ -172,6 +200,12 @@ def test_fused_tail_bf16_logits_match_jax(fused_case):
     """The same on the fused plan: z rounds to bf16 before the ReLU and
     the pool on both sides."""
     _check_bf16_logits(fused_case)
+
+
+def test_sparse_conv1_bf16_logits_match_jax(sparse_case):
+    """The same on the sparse conv1 plans: the weight rounds to bf16
+    before the scatter and y1 once, on both sides."""
+    _check_bf16_logits(sparse_case)
 
 
 def test_bridge_round_trip_is_bitwise(case):
@@ -201,18 +235,45 @@ def test_same_seed_same_weights():
         assert torch.equal(pa, pb), na
 
 
-@pytest.mark.parametrize("kwargs", [
-    dict(plan="s2d"), dict(plan="plain"),
-    dict(sparse_conv1=True), dict(fused_conv1_bwd=True)])
+@pytest.mark.parametrize("kwargs", [dict(plan="s2d"), dict(plan="plain")])
 def test_unported_plans_raise(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pick_convnet(HW, device="cpu", **kwargs)
 
 
+@pytest.mark.parametrize("option", ["sparse_conv1", "fused_conv1_bwd"])
+@pytest.mark.parametrize("value", [False, True])
+def test_pick_convnet_honours_the_conv1_options(option, value):
+    model = pick_convnet(HW, device="cpu", **{option: value})
+    assert getattr(model, option) is value
+    assert model.conv1.sparse is (value if option == "sparse_conv1" else True)
+
+
 def test_pick_convnet_gives_the_ported_plan():
-    assert isinstance(pick_convnet(32, device="cpu"), ConvNetS2DT)
+    model = pick_convnet(32, device="cpu")
+    assert isinstance(model, ConvNetS2DT)
+    # the JAX module's defaults: the sparse conv1, the fused conv1 backward
+    assert model.sparse_conv1 is True and model.fused_conv1_bwd is True
+    assert model.conv1.sparse and not model.conv2.sparse
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pick_convnet(30, device="cpu")
+
+
+def test_pick_convnet_on_the_card_runs_the_whole_chip_plan(monkeypatch):
+    """On a CUDA device pick_convnet gives ConvNetS2DT(fused_tail=True,
+    sparse_conv1=True, fused_conv1_bwd=True): checked with the device
+    resolution and the model stubbed, as this machine has no card."""
+    import tpu_sandbox_torch.models as models
+
+    got = {}
+    monkeypatch.setattr(models, "resolve_device",
+                        lambda device: torch.device("cuda"))
+    monkeypatch.setattr(models, "ConvNetS2DT",
+                        lambda image_size, **kw: got.update(kw) or kw)
+    models.pick_convnet(3000)
+    assert got["fused_tail"] is True and got["sparse_conv1"] is True
+    assert got["fused_conv1_bwd"] is True
+    assert got["device"] == torch.device("cuda")
 
 
 @pytest.mark.parametrize("fused_tail,device,want", [
@@ -243,6 +304,25 @@ def test_eval_mode_runs_the_unfused_tail_with_running_stats(case):
     x = plain.fused_input_stage(torch.from_numpy(case["images"]), HW)
     with torch.no_grad():
         assert torch.equal(fused(x), plain(x))
+
+
+def test_eval_mode_sparse_conv1_runs_the_plain_forward_and_tail(case):
+    """Eval on the sparse plans: the sparse forward without statistics and
+    the plain tail with the running stats, whatever fused_tail and
+    fused_conv1_bwd say; the logits equal across those options and match
+    JAX's eval of the same plan (fp32, sums in other orders: 1e-5)."""
+    models = [_torch_model(case["variables"], fused_tail=ft, sparse_conv1=True,
+                           fused_conv1_bwd=fb).eval()
+              for ft, fb in SPARSE_PLANS]
+    x = models[0].fused_input_stage(torch.from_numpy(case["images"]), HW)
+    with torch.no_grad():
+        logits = [m(x) for m in models]
+    for other in logits[1:]:
+        assert torch.equal(other, logits[0])
+    jm = _jax_model(fused_tail=True, sparse_conv1=True)
+    want = jm.apply(case["variables"],
+                    jax_prepare_inputs(jm, case["images"], HW), train=False)
+    _close(logits[0].numpy(), np.asarray(want), 1e-5, "eval logits")
 
 
 def test_model_needs_the_card_unless_the_cpu_is_asked_for():

@@ -25,6 +25,8 @@ def test_import_loads_no_jax_and_no_jax_package():
         "import tpu_sandbox_torch.data, tpu_sandbox_torch.models\n"
         "import tpu_sandbox_torch.ops.conv_t, tpu_sandbox_torch.ops.fc_t\n"
         "import tpu_sandbox_torch.ops.bn_tail_t\n"
+        "import tpu_sandbox_torch.ops.conv5_t\n"
+        "import tpu_sandbox_torch.ops.conv1_tail_t\n"
         "import tpu_sandbox_torch.ops.build, tpu_sandbox_torch.ops.losses\n"
         "import tpu_sandbox_torch.train, tpu_sandbox_torch.utils\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "

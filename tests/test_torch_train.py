@@ -1,7 +1,9 @@
 """The port's trainer (tpu_sandbox_torch/train/) == the JAX trainer: three
 SGD steps from bridged weights on the same batches give the same losses
-(fp32, rtol 1e-4) with the BN tails unfused and fused, and the port's
-entry script prints the reference's log lines."""
+(fp32, rtol 1e-4) on each plan (the scattered-3x3 conv1 with the BN tails
+unfused and fused; the sparse-tap conv1 with the fused conv1+tail
+backward, with the unfused conv1 backward, and with unfused tails), and
+the port's entry script prints the reference's log lines."""
 
 import os
 import re
@@ -34,10 +36,12 @@ HW = (32, 32)
 STEPS, BS = 3, 2
 
 
-def _check_three_sgd_steps(fused_tail):
+def _check_three_sgd_steps(fused_tail, sparse_conv1=False,
+                           fused_conv1_bwd=True):
+    plan = dict(fused_tail=fused_tail, sparse_conv1=sparse_conv1,
+                fused_conv1_bwd=fused_conv1_bwd)
     images, labels = synthetic_mnist(n=STEPS * BS, seed=0)
-    jm = JaxConvNetS2DT(dtype=jnp.float32, fused_tail=fused_tail,
-                        sparse_conv1=False)
+    jm = JaxConvNetS2DT(dtype=jnp.float32, **plan)
     tx = optax.sgd(1e-4)
     jstate = JaxTrainState.create(jm, jax.random.key(0),
                                   jnp.zeros((1, *HW, 1)), tx)
@@ -51,7 +55,7 @@ def _check_three_sgd_steps(fused_tail):
         jstate, loss = jstep(jstate, im, lb)
         jlosses.append(float(loss))
 
-    model = ConvNetS2DT(HW, device="cpu", fused_tail=fused_tail)
+    model = ConvNetS2DT(HW, device="cpu", **plan)
     model.load_state_dict(params_from_flax(variables))
     state = TrainState(model, lr=1e-4)
     step = make_train_step(state, image_size=HW)
@@ -85,6 +89,15 @@ def test_three_sgd_steps_fused_tail_match_jax():
     """The same on the fused plan: the conv stats kernels and the fused
     BN/ReLU/pool tails, forward and backward."""
     _check_three_sgd_steps(fused_tail=True)
+
+
+@pytest.mark.parametrize("fused_tail,fused_conv1_bwd",
+                         [(True, True), (True, False), (False, True)])
+def test_three_sgd_steps_sparse_conv1_match_jax(fused_tail, fused_conv1_bwd):
+    """The same on the sparse-tap conv1 plans: the JAX package's whole
+    chip plan, its unfused conv1 backward, and the unfused tails."""
+    _check_three_sgd_steps(fused_tail, sparse_conv1=True,
+                           fused_conv1_bwd=fused_conv1_bwd)
 
 
 def test_resize_on_device_matches_jax():

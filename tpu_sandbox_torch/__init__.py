@@ -11,7 +11,9 @@ of ``tpu_sandbox`` (whose ``__init__`` imports jax).
 
 Ported so far: the single-device 3000x3000 MNIST trainer
 (``python -m tpu_sandbox_torch.mnist_onegpu``) on the transposed
-space-to-depth plan with the scattered-3x3 conv1, its BN/ReLU/pool tails
-fused into kernels on the card (plain PyTorch on the CPU, or on request).
-ROADMAP.md lists what is still to port.
+space-to-depth plan with all of its options. On the card it runs the JAX
+package's whole chip plan: the sparse-tap conv1, the BN/ReLU/pool tails
+fused into kernels, and conv1's backward fused with bn1's tail (plain
+PyTorch tails on the CPU, or on request). ROADMAP.md lists what is still
+to port.
 """

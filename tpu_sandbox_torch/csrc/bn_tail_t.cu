@@ -6,27 +6,9 @@
 //   bn_tail_t_bwd_reduce  <- _bwd_reduce_kernel (:97), launched by bwd_reduce (:258)
 //   bn_tail_t_bwd_apply   <- _bwd_apply_kernel (:123), launched by _vjp_bwd (:317)
 //
-// Channel c = (a*blk + b)*co + k, C = blk*blk*co. A pool window is the
-// representative channel r = (2*a1*blk + 2*b1)*co + k and its partners
-// r+co, r+blk*co, r+blk*co+co; its output channel is o = (a1*(blk/2) +
-// b1)*co + k. The TPU rolls the [C, W] row along sublanes to line the
-// partners up and compacts the representatives with a selection matmul;
-// here one thread owns one window at one w and reads its four channel
-// rows directly (a gather), so neither exists.
-//
-// Arithmetic, as the Pallas kernels and the plain PyTorch versions do it:
-//   z   = max(round(y*a + b), 0), rounded to y's dtype BEFORE the ReLU,
-//         the max and the routing; the mul and the add round separately
-//         (no FMA), as two PyTorch ops do
-//   fwd: out[o] = max of the window's four z
-//   bwd: the pooled cotangent g goes to the pair max first (at offset
-//        blk*co), then inside each pair (offset co), with weights
-//        0.5*((x > xb) + (x >= xb)): an exact tie splits 0.5/0.5; masked
-//        by z > 0. t = (y - mu)*inv.
-//        reduce: s1[c] = sum dz, s2[c] = sum dz*t over (n, h, w)
-//        apply:  dy = gi*((dz - c1) - t*c2), rounded once to y's dtype
-// Per-channel vectors (a, b, mu, inv, gi, c1, c2) come in as f32 columns
-// of C, as the Pallas kernels take them.
+// The per-window arithmetic (window, z, the pool routing with exact
+// 0.5/0.5 ties, dy) is in tail_math.cuh, shared with the fused conv1+tail
+// weight gradient (conv1_tail_t.cu).
 //
 // What bounds them on the H100: all three are bytes-bound passes (a few
 // flops per byte). At 3000x3000, batch 5 (bn1: C 256, co 16, blk 4;
@@ -47,68 +29,12 @@
 #include <cuda_runtime.h>
 
 #include "reduce.cuh"
+#include "tail_math.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;       // along W, one window each
 constexpr int kSlabRows = 8;        // rows of (n, h) per block of the reduce
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// The four channels of output channel o's window: r, r+co, r+blk*co,
-// r+blk*co+co.
-__device__ __forceinline__ void window(int o, int co, int blk, int ch[4]) {
-  const int k = o % co, ab = o / co, half = blk / 2;
-  const int r = (2 * (ab / half) * blk + 2 * (ab % half)) * co + k;
-  ch[0] = r;
-  ch[1] = r + co;
-  ch[2] = r + blk * co;
-  ch[3] = r + blk * co + co;
-}
-
-template <typename T>
-__device__ __forceinline__ float rounded_relu(float y, float a, float b) {
-  return fmaxf(to_f(from_f<T>(__fadd_rn(__fmul_rn(y, a), b))), 0.f);
-}
-
-__device__ __forceinline__ float tie_weight(float x, float xb) {
-  return 0.5f * ((x > xb ? 1.f : 0.f) + (x >= xb ? 1.f : 0.f));
-}
-
-// The pool VJP of one window: g to the pair maxima, then inside each
-// pair; masked by the ReLU. Every weight is 0, 0.5 or 1: exact.
-__device__ __forceinline__ void route(const float z[4], float g, float dz[4]) {
-  const float w2 = tie_weight(fmaxf(z[0], z[1]), fmaxf(z[2], z[3]));
-  const float da = g * w2, db = g * (1.f - w2);
-  const float w1a = tie_weight(z[0], z[1]), w1b = tie_weight(z[2], z[3]);
-  dz[0] = da * w1a;
-  dz[1] = da * (1.f - w1a);
-  dz[2] = db * w1b;
-  dz[3] = db * (1.f - w1b);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) dz[i] = z[i] > 0.f ? dz[i] : 0.f;
-}
-
-// The window's four y at (row, w) in f32, and their z.
-template <typename T>
-__device__ __forceinline__ void load_window(const T* __restrict__ y, size_t row_off,
-                                            int W, int w, const int ch[4],
-                                            const float* __restrict__ a,
-                                            const float* __restrict__ b,
-                                            float yf[4], float z[4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    yf[i] = to_f(y[row_off + (size_t)ch[i] * W + w]);
-    z[i] = rounded_relu<T>(yf[i], a[ch[i]], b[ch[i]]);
-  }
-}
 
 // grid (ceil(W / kThreads), Cout, N*H)
 template <typename T>
@@ -189,16 +115,11 @@ tail_bwd_apply_kernel(const T* __restrict__ y, const T* __restrict__ g,
   int ch[4];
   window(o, co, blk, ch);
   const size_t row_off = (size_t)row * C * W;
-  float yf[4], z[4], dz[4];
-  load_window<T>(y, row_off, W, w, ch, a, b, yf, z);
-  route(z, to_f(g[((size_t)row * Cout + o) * W + w]), dz);
+  T d[4];
+  window_dy<T>(y, row_off, W, w, ch, to_f(g[((size_t)row * Cout + o) * W + w]), a, b,
+               mu, inv, gi, c1, c2, d);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int c = ch[i];
-    const float t = __fmul_rn(__fsub_rn(yf[i], mu[c]), inv[c]);
-    const float v = __fsub_rn(__fsub_rn(dz[i], c1[c]), __fmul_rn(t, c2[c]));
-    dy[row_off + (size_t)c * W + w] = from_f<T>(__fmul_rn(gi[c], v));
-  }
+  for (int i = 0; i < 4; ++i) dy[row_off + (size_t)ch[i] * W + w] = d[i];
 }
 
 template <typename T>
@@ -232,10 +153,6 @@ cudaError_t bwd_apply(const void* y, const void* g, const float* a,
   return cudaGetLastError();
 }
 
-bool bad_geometry(int NH, int C, int co, int blk) {
-  return blk < 2 || blk % 2 || co < 1 || C != blk * blk * co || NH > 65535;
-}
-
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. y [N*H, C, W] of dtype, C =
@@ -244,7 +161,7 @@ extern "C" int bn_tail_t_fwd(int dtype, const void* y, const float* a,
                              const float* b, void* out, int NH, int C, int co,
                              int blk, int W, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (bad_geometry(NH, C, co, blk)) return (int)cudaErrorInvalidValue;
+  if (bad_tail_geometry(NH, C, co, blk)) return (int)cudaErrorInvalidValue;
   if (dtype == 0) return (int)fwd<float>(y, a, b, out, NH, C, co, blk, W, st);
   if (dtype == 1) return (int)fwd<__nv_bfloat16>(y, a, b, out, NH, C, co, blk, W, st);
   return (int)cudaErrorInvalidValue;
@@ -262,7 +179,7 @@ extern "C" int bn_tail_t_bwd_reduce(int dtype, const void* y, const void* g,
                                     float* part, float* sums, int NH, int C,
                                     int co, int blk, int W, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (bad_geometry(NH, C, co, blk)) return (int)cudaErrorInvalidValue;
+  if (bad_tail_geometry(NH, C, co, blk)) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return (int)bwd_reduce<float>(y, g, a, b, mu, inv, part, sums, NH, C, co,
                                   blk, W, st);
@@ -280,7 +197,7 @@ extern "C" int bn_tail_t_bwd_apply(int dtype, const void* y, const void* g,
                                    const float* c2, void* dy, int NH, int C,
                                    int co, int blk, int W, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (bad_geometry(NH, C, co, blk)) return (int)cudaErrorInvalidValue;
+  if (bad_tail_geometry(NH, C, co, blk)) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return (int)bwd_apply<float>(y, g, a, b, mu, inv, gi, c1, c2, dy, NH, C, co,
                                  blk, W, st);

@@ -8,8 +8,9 @@ resized on the device), batch size 5, bf16 compute over f32 parameters,
 mean cross-entropy, SGD at 1e-4, a loss line every ``--log-every`` steps
 and the wall-clock total. Runs on ``cuda`` unless ``--force-cpu``; with
 no card and no ``--force-cpu`` it fails. ``--plan auto`` (or ``s2dt``)
-runs the transposed space-to-depth plan, with its BN tails fused on the
-card; ``s2d`` and ``plain`` are not ported yet and raise. Without MNIST
+runs the transposed space-to-depth plan with the sparse conv1 and the
+fused conv1+tail backward, its BN tails fused on the card; ``s2d`` and
+``plain`` are not ported yet and raise. Without MNIST
 IDX files a deterministic synthetic MNIST stands in. The JAX script's
 other flags (--accum-steps, --native-loader, --ckpt-every, --ckpt-dir,
 --profile, --resume) are not ported yet and argparse refuses them.

@@ -1,9 +1,10 @@
 """The port's model plans. Counterpart of ``tpu_sandbox/models/__init__.py``.
 
-The transposed space-to-depth plan with the scattered-3x3 conv1 is
-ported, with its BN/ReLU/pool tails fused or unfused. Every other plan or
-option raises ``NotImplementedError`` rather than running something else
-in its place; ROADMAP.md (queue 2) lists what is still to port.
+The transposed space-to-depth plan is ported with all of its options:
+the sparse-tap or the scattered-3x3 conv1, the BN/ReLU/pool tails fused
+or unfused, and the fused conv1+tail backward. Every other plan raises
+``NotImplementedError`` rather than running something else in its place;
+ROADMAP.md (queue 2) lists what is still to port.
 """
 
 from __future__ import annotations
@@ -15,10 +16,6 @@ from tpu_sandbox_torch.utils.device import resolve_device
 
 __all__ = ["ConvNetS2DT", "pick_convnet", "resolve_fused_tail"]
 
-#: s2dt options of the JAX plan that need kernels this port lacks, with
-#: the only value this port runs
-_S2DT_OPTIONS = {"sparse_conv1": False, "fused_conv1_bwd": False}
-
 
 def resolve_fused_tail(fused_tail: bool | None, device: torch.device) -> bool:
     """``None`` means the fused tail wherever its kernels run: JAX's
@@ -28,12 +25,14 @@ def resolve_fused_tail(fused_tail: bool | None, device: torch.device) -> bool:
 
 
 def pick_convnet(image_size, *, plan: str = "auto", fused_tail=None,
+                 sparse_conv1: bool = True, fused_conv1_bwd: bool = True,
                  **kwargs) -> ConvNetS2DT:
     """The execution-plan switch. 'auto' and 's2dt' give ``ConvNetS2DT``
-    with ``sparse_conv1=False``, its tails fused on the card and unfused on
-    the CPU unless ``fused_tail`` says otherwise; the NHWC 's2d' plan, the
-    'plain' ConvNet, image sizes not divisible by 4 and the sparse conv1
-    options are not ported yet and raise."""
+    with the JAX module's defaults, the sparse conv1 and the fused
+    conv1+tail backward, its tails fused on the card and unfused on the
+    CPU unless ``fused_tail`` says otherwise; the NHWC 's2d' plan, the
+    'plain' ConvNet and image sizes not divisible by 4 are not ported yet
+    and raise."""
     h, w = (image_size, image_size) if isinstance(image_size, int) else image_size
     if plan not in ("auto", "s2dt"):
         raise NotImplementedError(
@@ -43,12 +42,7 @@ def pick_convnet(image_size, *, plan: str = "auto", fused_tail=None,
         raise NotImplementedError(
             f"image size {(h, w)} resolves to the plain ConvNet, which is "
             "not ported to PyTorch yet (ROADMAP.md, queue 2)")
-    for name, ported in _S2DT_OPTIONS.items():
-        value = kwargs.pop(name, ported)
-        if value != ported:
-            raise NotImplementedError(
-                f"ConvNetS2DT({name}={value!r}) needs kernels not ported to "
-                "PyTorch yet (ROADMAP.md, queue 2)")
     device = resolve_device(kwargs.pop("device", None))
     return ConvNetS2DT((h, w), fused_tail=resolve_fused_tail(fused_tail, device),
-                       device=device, **kwargs)
+                       sparse_conv1=sparse_conv1,
+                       fused_conv1_bwd=fused_conv1_bwd, device=device, **kwargs)

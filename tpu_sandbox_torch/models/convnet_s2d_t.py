@@ -4,14 +4,18 @@
 The same function as the reference ConvNet (conv 1->16 k5, BN, ReLU,
 2x2 pool; conv 16->32 k5, BN, ReLU, pool; fc -> 10), and the same
 parameter and batch-stats tree as the JAX module, so the weight bridge
-(``utils/bridge.py``) is a rename. The port runs the plan with
-``sparse_conv1=False``: both convs run the scattered 3x3 conv kernel
-(``ops/conv_t.py``) and the fc input gradient is the kernel of
-``ops/fc_t.py``. With ``fused_tail=True`` (the card's default through
-``pick_convnet``) a training forward takes each conv's BN statistics from
-its fused-stats kernel and runs each BN/ReLU/pool tail as the fused
-kernels of ``ops/bn_tail_t.py``; with ``fused_tail=False``, and in eval
-mode either way, the tails are plain PyTorch.
+(``utils/bridge.py``) is a rename. The same options, with the JAX
+module's defaults: conv1 runs the sparse-tap kernel (``ops/conv5_t.py``)
+unless ``sparse_conv1=False`` puts it on the scattered 3x3 conv kernel
+(``ops/conv_t.py``), which conv2 always runs; the fc input gradient is the
+kernel of ``ops/fc_t.py``. With ``fused_tail=True`` (the card's default
+through ``pick_convnet``) a training forward takes each conv's BN
+statistics from its fused-stats kernel and runs each BN/ReLU/pool tail as
+the fused kernels of ``ops/bn_tail_t.py``; with the sparse conv1 and
+``fused_conv1_bwd=True`` as well, conv1 and its tail are one unit
+(``ops/conv1_tail_t.py``) whose backward never stores conv1's output
+cotangent. With ``fused_tail=False``, and in eval mode either way, the
+tails are plain PyTorch.
 
 Layout: the input stage emits [N, H/4, 16, W/4] straight from the raw
 28x28 batch (bilinear resize fused with space-to-depth); channel index
@@ -31,6 +35,8 @@ from torch import nn
 
 from tpu_sandbox_torch.models.convnet_s2d import scatter_kernel
 from tpu_sandbox_torch.ops.bn_tail_t import fused_bn_relu_pool_t
+from tpu_sandbox_torch.ops.conv1_tail_t import conv1_tail_t
+from tpu_sandbox_torch.ops.conv5_t import conv1_s2d_t, conv1_s2d_t_stats
 from tpu_sandbox_torch.ops.conv_t import conv3x3_t, conv3x3_t_stats
 from tpu_sandbox_torch.ops.fc_t import fc_t
 from tpu_sandbox_torch.utils.device import resolve_device
@@ -100,25 +106,39 @@ def _lecun_normal_(t: torch.Tensor, fan_in: int,
 
 
 class ConvT(nn.Module):
-    """The canonical [5,5,ci,co] kernel and bias, run as the scattered
-    3x3 conv on the r-block grid (``_ConvT`` on its scattered path)."""
+    """The canonical [5,5,ci,co] kernel and bias. With ``sparse``, conv1
+    (r=4, one input channel) runs the sparse-tap union-tile conv
+    (``_ConvT.sparse``); otherwise the scattered 3x3 conv on the r-block
+    grid."""
 
     def __init__(self, shape: tuple[int, int, int, int], r: int,
-                 dtype: torch.dtype, gen: torch.Generator):
+                 dtype: torch.dtype, gen: torch.Generator,
+                 sparse: bool = False):
         super().__init__()
         self.r, self.dtype = r, dtype
+        self.sparse = sparse and r == 4 and shape[2] == 1
         self.kernel = nn.Parameter(_lecun_normal_(
             torch.empty(shape), shape[0] * shape[1] * shape[2], gen))
         self.bias = nn.Parameter(torch.zeros(shape[-1]))
+
+    def params(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """(kernel, bias) in the compute dtype, as JAX's ``params_only``
+        fetches them for the fused conv1+tail unit."""
+        return self.kernel.to(self.dtype), self.bias.to(self.dtype)
 
     def forward(self, x: torch.Tensor, want_stats: bool = False):
         """y, or with ``want_stats`` (y, (sum [CO,1], sumsq [CO,1])) from
         the fused-stats kernel."""
         # the weight rounds to the compute dtype BEFORE the scatter, and
         # the tiled bias is in the compute dtype too
-        wg = scatter_kernel(self.kernel.to(self.dtype), self.r)
-        reps = wg.shape[-1] // self.kernel.shape[-1]
-        bias_g = self.bias.to(self.dtype).repeat(reps)
+        k, b = self.params()
+        if self.sparse:
+            if want_stats:
+                y, s, ss = conv1_s2d_t_stats(x, k, b)
+                return y, (s, ss)
+            return conv1_s2d_t(x, k, b)
+        wg = scatter_kernel(k, self.r)
+        bias_g = b.repeat(wg.shape[-1] // k.shape[-1])
         if want_stats:
             y, s, ss = conv3x3_t_stats(x.contiguous(), wg, bias_g)
             return y, (s, ss)
@@ -176,6 +196,17 @@ class GroupedBNT(nn.Module):
         self._update_running(mu, var)
         return out
 
+    def fused_conv1(self, x: torch.Tensor, k5: torch.Tensor,
+                    cbias: torch.Tensor, blk: int) -> torch.Tensor:
+        """conv1 and this BN's tail as one unit (``conv1_tail_t``): the
+        forward of the sparse conv1 with stats and ``fused``, a backward
+        that never stores conv1's output cotangent; updates the running
+        stats."""
+        out, mu, var = conv1_tail_t(x, k5, cbias, self.scale, self.bias,
+                                    self.features, blk, self.EPSILON)
+        self._update_running(mu, var)
+        return out
+
 
 class DenseT(nn.Module):
     """The fc over the transposed map without relayout: kernel
@@ -198,7 +229,10 @@ class ConvNetS2DT(nn.Module):
 
     ``image_size`` (H, W), each divisible by 4, sizes the fc as Flax's
     init-by-tracing does. ``fused_tail`` runs each training-mode tail as
-    the fused kernels on the conv's fused statistics. Weights are drawn on
+    the fused kernels on the conv's fused statistics; ``sparse_conv1``
+    runs conv1 as the sparse-tap kernel, and with both it and
+    ``fused_conv1_bwd`` a training step runs conv1 and its tail as one
+    unit with the fused backward. Weights are drawn on
     the CPU from ``torch.Generator().manual_seed(seed)`` and then moved to
     ``device`` (default ``cuda``, which must exist; pass ``device="cpu"``
     for the CPU), so one seed gives the same weights on every device.
@@ -208,7 +242,8 @@ class ConvNetS2DT(nn.Module):
     def __init__(self, image_size: tuple[int, int], *, num_classes: int = 10,
                  features: tuple[int, int] = (16, 32),
                  dtype: torch.dtype = torch.float32, seed: int = 0,
-                 fused_tail: bool = False,
+                 fused_tail: bool = False, sparse_conv1: bool = True,
+                 fused_conv1_bwd: bool = True,
                  device: torch.device | str | None = None):
         super().__init__()
         h, w = image_size
@@ -220,10 +255,11 @@ class ConvNetS2DT(nn.Module):
         self.image_size = (h, w)
         self.dtype = dtype
         self.fused_tail = fused_tail
+        self.sparse_conv1, self.fused_conv1_bwd = sparse_conv1, fused_conv1_bwd
         f1, f2 = features
         self.f1, self.f2 = f1, f2
         gen = torch.Generator().manual_seed(seed)
-        self.conv1 = ConvT((5, 5, 1, f1), 4, dtype, gen)
+        self.conv1 = ConvT((5, 5, 1, f1), 4, dtype, gen, sparse=sparse_conv1)
         self.bn1 = GroupedBNT(f1, dtype)
         self.conv2 = ConvT((5, 5, f1, f2), 2, dtype, gen)
         self.bn2 = GroupedBNT(f2, dtype)
@@ -261,7 +297,11 @@ class ConvNetS2DT(nn.Module):
         else:
             x = space_to_depth_t(as_nhw(x), 4).to(self.dtype)
         fuse = self.fused_tail and self.training
-        y = self._tail(self.conv1(x, fuse), self.bn1, 4, fuse)  # [N,H/4,4f1,W/4]
+        if fuse and self.conv1.sparse and self.fused_conv1_bwd:
+            y = self.bn1.fused_conv1(x, *self.conv1.params(), 4)
+        else:
+            y = self._tail(self.conv1(x, fuse), self.bn1, 4, fuse)
+        # y: [N,H/4,4f1,W/4]
         y = self._tail(self.conv2(y, fuse), self.bn2, 2, fuse)  # [N,H/4,f2,W/4]
         return self.fc(y).float()
 

@@ -297,19 +297,29 @@ def unfused_reference_t(y, gamma, beta, co: int, blk: int,
     return block_max_pool_t(z, blk, co), mu, var
 
 
+def tail_forward(y, gamma, beta, co: int, blk: int, eps: float, s=None,
+                 ss=None):
+    """The fused forward, as JAX's ``_forward``: the statistics from the
+    per-channel sums (s, ss) when given, else a pass over y; the f32
+    columns; the forward kernel. Returns (out, mu, var, inv, a_col,
+    b_col)."""
+    if s is None:
+        mu, var = stats_t(y, co)
+    else:
+        mu, var = _stats_from_sums(s, ss, co, y.numel() // co)
+    inv = torch.rsqrt(var + eps)
+    a_co = inv * gamma.float()
+    reps = blk * blk
+    a_col = col_expand(a_co, reps)
+    b_col = col_expand(beta.float() - mu * a_co, reps)
+    return tail_fwd(y, a_col, b_col, co, blk), mu, var, inv, a_col, b_col
+
+
 class _FusedBnReluPoolT(torch.autograd.Function):
     @staticmethod
     def forward(ctx, y, gamma, beta, s, ss, co, blk, eps):
-        if s is None:
-            mu, var = stats_t(y, co)
-        else:
-            mu, var = _stats_from_sums(s, ss, co, y.numel() // co)
-        inv = torch.rsqrt(var + eps)
-        a_co = inv * gamma.float()
-        reps = blk * blk
-        a_col = col_expand(a_co, reps)
-        b_col = col_expand(beta.float() - mu * a_co, reps)
-        out = tail_fwd(y, a_col, b_col, co, blk)
+        out, mu, var, inv, a_col, b_col = tail_forward(y, gamma, beta, co, blk,
+                                                       eps, s, ss)
         ctx.save_for_backward(y, gamma, mu, inv, a_col, b_col)
         ctx.co, ctx.blk = co, blk
         ctx.mark_non_differentiable(mu, var)
