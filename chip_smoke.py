@@ -21,12 +21,18 @@ card or when the port is not beside it. Phases, one JSON line each:
    TFLOP/s bf16 or 67 TFLOP/s f32, whichever is larger). Every reducing
    kernel runs twice and must be bitwise equal. The fused conv1+tail
    wgrad is also held against the two kernels it replaces (the tail's
-   apply pass, then the sparse conv1 wgrad).
+   apply pass, then the sparse conv1 wgrad). Then the LM's four kinds the
+   same way at its shapes (flash attention B16 H8 S2048 D128 causal, the
+   CE over [32768, 32768] logits; library calls SDPA, its backward and
+   F.cross_entropy); dk/dv and dq run twice, bitwise equal.
 3. ragged: each kernel at shapes off every tile edge (W=70, H=5, N*H not
    a multiple of a slab, CO off the channel tile, co=8 blk=2; the sparse
    conv1 at H4=W4=1, where every tap is a halo, and at f1 8 and 5), and
    the BN tail on bf16 inputs quantised to quarters, where pool ties
    occur: the pooled output equal, dy within one bf16 ulp of max|plain|.
+   lm_ragged: the flash kernels at S 200 and 130, D 40 and 64, causal
+   off, non-zero offsets, kv_len short of S, B*H = 1; the CE at N = 1 and
+   C = 4097.
 4. main_path: tpu_sandbox_torch.mnist_onegpu's own train function at
    3000x3000, batch 5, bf16, synthetic MNIST, 5 steps, on the card's
    default plan (the sparse conv1, the fused BN tails and the fused
@@ -40,10 +46,19 @@ card or when the port is not beside it. Phases, one JSON line each:
    unfused tails (3); their step times beside the main path's.
 6. profile: two more steps of the main path under torch.profiler, device
    time per op or kernel, busy time and idle share of the step.
-7. card_vs_cpu: the port on the card against the port on the CPU, 64x64,
+7. lm_path: tpu_sandbox_torch.lm_train's own train function at the LM
+   bench width (vocab 32768, d 1024, 8 heads, 12 layers, d_ff 4096, S
+   2048, batch 16, bf16, --flash), 5 Adam steps, counters zeroed before
+   and read after: exactly 12 flash forward, 12 dk/dv, 12 dq and 1 CE
+   launch a step and nothing else, and lm_train's own check that the
+   loss fell. Step time, tokens/s, peak device memory. lm_profile: two
+   more steps under torch.profiler.
+8. card_vs_cpu: the port on the card against the port on the CPU, 64x64,
    fp32, 3 SGD steps from the same bridged weights on the same batches,
-   on each of the five plans: losses within rtol 1e-4.
-8. the {"kernels": [...]} summary, the nvidia-smi line, and last
+   on each of the five plans: losses within rtol 1e-4. lm_card_vs_cpu:
+   the same for a small LM (vocab 4100, so the CE kernel runs; d 64, 2
+   heads, 2 layers, S 256, flash, fp32, 3 Adam steps).
+9. the {"kernels": [...]} summary, the nvidia-smi line, and last
    {"ok": true, "device": {...}}.
 
 fp32 matmuls and convolutions run without TF32 throughout (the plain
@@ -122,6 +137,29 @@ ALL_KINDS = sorted({k for *_, kinds in PATHS for k in kinds})
 #: the sparse conv1's ragged shapes (N, H4, W4, f1)
 CONV1_RAGGED = ((2, 5, 70, 16), (1, 1, 1, 16), (3, 1, 1, 8), (2, 5, 70, 8),
                 (2, 5, 70, 5))
+FLASH_SRC = "tpu_sandbox_torch/csrc/flash_attention.cu"
+CE_SRC = "tpu_sandbox_torch/csrc/ce.cu"
+#: the LM's bench width (bench.py:4031-4040) through lm_train's flags
+LM_B, LM_S, LM_H, LM_D, LM_V = 16, 2048, 8, 128, 32768
+LM_FLAGS = ["--parallelism", "dp", "--devices", "1", "--flash",
+            "--vocab", str(LM_V), "--d-model", str(LM_H * LM_D),
+            "--n-heads", str(LM_H), "--n-layers", "12", "--d-ff", "4096",
+            "--seq-len", str(LM_S), "--batch", str(LM_B), "--dtype", "bf16",
+            "--steps", str(STEPS), "--log-every", "1"]
+#: launches of one LM step: the flash kernels once per layer, the CE once
+LM_KINDS = {"flash_fwd": 12, "flash_bwd_dkv": 12, "flash_bwd_dq": 12,
+            "ce_fwd": 1}
+#: the flash kernels' ragged cases (B, H, Sq, Sk, D, causal, q_offset,
+#: kv_offset, kv_len); D 40 runs zero-padded to the 64 head width
+FLASH_RAGGED = ((1, 1, 200, 200, 64, True, 0, 0, 200),
+                (2, 2, 200, 200, 40, True, 0, 0, 200),
+                (1, 2, 200, 200, 64, False, 0, 0, 197),
+                (2, 2, 200, 200, 40, False, 0, 0, 200),
+                (1, 2, 130, 200, 64, True, 70, 5, 190),
+                (2, 1, 72, 100, 40, True, 96, 0, 100),
+                (1, 1, 64, 256, 128, False, 7, 300, 256))
+#: the CE kernel's ragged cases (N, C): one row, a row width off 16 bytes
+CE_RAGGED = ((1, 4097), (3, 4097), (5, 4100), (1, 32768))
 
 
 def emit(phase: str, **kw) -> None:
@@ -154,9 +192,12 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def bound(flops: float, bytes_: int,
-          peak: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
-    t_ops, t_bytes = flops / peak, bytes_ / PEAK_BYTES
+def bound(flops: float, bytes_: int, peak: float = PEAK_BF16_FLOPS,
+          f32_flops: float = 0.0) -> tuple[float, str]:
+    """The least time in ms: bytes over the memory rate, or ``flops`` at
+    ``peak`` plus ``f32_flops`` at the f32 rate, whichever is larger."""
+    t_ops = flops / peak + f32_flops / PEAK_F32_FLOPS
+    t_bytes = bytes_ / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops > t_bytes else "bytes")
 
@@ -338,14 +379,10 @@ def phase_kernels(conv_t, fc_t, bn_tail_t, conv5_t, conv1_tail_t) -> dict:
     def record(name, source, replaces, rec, ms, plain_ms, library_ms, *,
                flops, bytes_, peak=PEAK_BF16_FLOPS, library_note=None,
                **extra):
-        b_ms, b_by = bound(flops, bytes_, peak)
         entries[name] = dict(
-            name=name, route="cuda", source=source, replaces=replaces,
-            max_abs_err=rec["bf16"]["max_abs_err"], ms=ms, plain_ms=plain_ms,
-            bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
-            library_note=library_note,
-            fp32_rel_err=rec["fp32"]["rel_err"],
-            bf16_rel_err=rec["bf16"]["rel_err"], **extra)
+            _entry(name, source, replaces, rec, ms, plain_ms, library_ms,
+                   flops=flops, bytes_=bytes_, peak=peak,
+                   library_note=library_note), **extra)
         emit("kernel", **entries[name], checks=rec)
 
     def conv_library(x, wt, b, kind):
@@ -693,6 +730,195 @@ def _tie_case(bn_tail_t, gen) -> dict:
             "tolerance": 2.0 ** -8}
 
 
+def _flash_case(gen, b, h, sq, sk, d, dtype):
+    """q, do [b,h,sq,D] and k, v [b,h,sk,D] in dtype, at the kernels' head
+    width D: a head dim d below it is zero-padded, as the model pads it."""
+    width = 64 if d == 40 else d
+
+    def make(s):
+        x = torch.randn((b, h, s, d), generator=gen, device="cuda")
+        return F.pad(x, (0, width - d)).to(dtype).contiguous()
+
+    return make(sq), make(sk), make(sk), make(sq)
+
+
+def _check_flash(fa, q, k, v, g, kw, dt_name, what) -> dict:
+    """The three flash kernels against their plain versions on the same
+    inputs (the backward ones on the kernel's own out and lse); dk/dv and
+    dq run twice and must be bitwise equal."""
+    out, lse = fa.flash_fwd(q, k, v, **kw)
+    pout, plse = fa.flash_fwd_plain(q, k, v, **kw)
+    rec = {"flash_fwd": compare(out, pout, dt_name, what + " out"),
+           "flash_fwd_lse": compare(lse, plse, "fp32", what + " lse")}
+    del pout, plse
+    delta = (g.float() * out.float()).sum(-1)
+    args = (q, k, v, g, lse, delta)
+    dk, dv = fa.flash_bwd_dkv(*args, **kw)
+    pdk, pdv = fa.flash_bwd_dkv_plain(*args, **kw)
+    rec["flash_bwd_dkv"] = compare(dk, pdk, dt_name, what + " dk")
+    rec["flash_bwd_dkv_dv"] = compare(dv, pdv, dt_name, what + " dv")
+    del pdk, pdv
+    require_repeatable((dk, dv), lambda: fa.flash_bwd_dkv(*args, **kw),
+                       what + " dk/dv")
+    dq = fa.flash_bwd_dq(*args, **kw)
+    rec["flash_bwd_dq"] = compare(dq, fa.flash_bwd_dq_plain(*args, **kw),
+                                  dt_name, what + " dq")
+    require_repeatable((dq,), lambda: (fa.flash_bwd_dq(*args, **kw),),
+                       what + " dq")
+    return rec
+
+
+def _entry(name, source, replaces, rec, ms, plain_ms, library_ms, *,
+           flops, bytes_, f32_flops=0.0, peak=PEAK_BF16_FLOPS,
+           library_note=None) -> dict:
+    b_ms, b_by = bound(flops, bytes_, peak, f32_flops)
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                max_abs_err=rec["bf16"]["max_abs_err"], ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=library_ms, library_note=library_note,
+                fp32_rel_err=rec["fp32"]["rel_err"],
+                bf16_rel_err=rec["bf16"]["rel_err"])
+
+
+def phase_lm_kernels(ce, fa) -> dict:
+    """The LM path's four launch kinds at its shapes (B16 H8 S2048 D128
+    causal attention, CE over [32768, 32768] logits) against their plain
+    versions in fp32 and bf16, timed in bf16 beside the plain versions and
+    one PyTorch call (SDPA, its backward, F.cross_entropy: timed only)."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    b, h, s, d = LM_B, LM_H, LM_S, LM_D
+    kw = dict(scale=1.0 / math.sqrt(d), causal=True, kv_len=s)
+    rec = {k: {} for k in LM_KINDS}
+    n, c = LM_B * LM_S, LM_V
+    for dt_name, dt in DTYPES:
+        case = _flash_case(gen, b, h, s, s, d, dt)
+        for key, val in _check_flash(fa, *case, kw, dt_name,
+                                     f"flash {dt_name}").items():
+            kind = next(k for k in LM_KINDS if key.startswith(k))
+            rec[kind][dt_name + key[len(kind):]] = val
+        del case
+        logits = (3 * torch.randn((n, c), generator=gen, device="cuda")).to(dt)
+        labels = torch.randint(0, c, (n,), generator=gen, device="cuda")
+        rec["ce_fwd"][dt_name] = compare(ce.ce_rows(logits, labels),
+                                         ce.ce_rows_plain(logits, labels),
+                                         dt_name, "ce_fwd")
+        del logits
+        torch.cuda.empty_cache()
+
+    # time in the LM's dtype, bf16
+    q, k, v, g = _flash_case(gen, b, h, s, s, d, torch.bfloat16)
+    out, lse = fa.flash_fwd(q, k, v, **kw)
+    delta = (g.float() * out.float()).sum(-1)
+    args = (q, k, v, g, lse, delta)
+    qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
+    o_lib = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True)
+    lib_bwd = cuda_ms(lambda: torch.autograd.grad(
+        o_lib, (qr, kr, vr), g, retain_graph=True), reps=5)
+    # visible (query, key) pairs of the causal mask; 2 FLOP a product term
+    pairs = b * h * s * (s + 1) / 2
+    mac = 2.0 * pairs * d
+    t_bytes = nbytes(q, k, v)
+    entries = {}
+    entries["flash_fwd"] = _entry(
+        "flash_fwd", FLASH_SRC, "tpu_sandbox/ops/pallas_attention.py:70",
+        rec["flash_fwd"], cuda_ms(lambda: fa.flash_fwd(q, k, v, **kw)),
+        cuda_ms(lambda: fa.flash_fwd_plain(q, k, v, **kw), reps=3),
+        cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v,
+                                                       is_causal=True)),
+        flops=2 * mac, bytes_=t_bytes + nbytes(out, lse),
+        library_note="F.scaled_dot_product_attention(is_causal=True), "
+                     "forward")
+    bwd_note = ("the backward of F.scaled_dot_product_attention: dq, dk and "
+                "dv together")
+    entries["flash_bwd_dkv"] = _entry(
+        "flash_bwd_dkv", FLASH_SRC, "tpu_sandbox/ops/pallas_attention.py:199",
+        rec["flash_bwd_dkv"], cuda_ms(lambda: fa.flash_bwd_dkv(*args, **kw)),
+        cuda_ms(lambda: fa.flash_bwd_dkv_plain(*args, **kw), reps=3),
+        lib_bwd, flops=2 * mac, f32_flops=2 * mac,
+        bytes_=nbytes(*args) + nbytes(k, v), library_note=bwd_note)
+    entries["flash_bwd_dq"] = _entry(
+        "flash_bwd_dq", FLASH_SRC, "tpu_sandbox/ops/pallas_attention.py:262",
+        rec["flash_bwd_dq"], cuda_ms(lambda: fa.flash_bwd_dq(*args, **kw)),
+        cuda_ms(lambda: fa.flash_bwd_dq_plain(*args, **kw), reps=3),
+        lib_bwd, flops=2 * mac, f32_flops=mac,
+        bytes_=nbytes(*args) + nbytes(q), library_note=bwd_note)
+    del q, k, v, g, out, lse, delta, args, qr, kr, vr, o_lib
+    torch.cuda.empty_cache()
+    logits = (3 * torch.randn((n, c), generator=gen, device="cuda")).to(
+        torch.bfloat16)
+    labels = torch.randint(0, c, (n,), generator=gen, device="cuda")
+    entries["ce_fwd"] = _entry(
+        "ce_fwd", CE_SRC, "tpu_sandbox/ops/pallas_ce.py:36", rec["ce_fwd"],
+        cuda_ms(lambda: ce.ce_rows(logits, labels)),
+        cuda_ms(lambda: ce.ce_rows_plain(logits, labels), reps=3),
+        cuda_ms(lambda: F.cross_entropy(logits, labels)),
+        # max, subtract, exp and add per logit, f32
+        flops=0.0, f32_flops=4.0 * n * c, bytes_=nbytes(logits, labels) + 4 * n,
+        library_note="F.cross_entropy on the same bf16 logits (mean)")
+    del logits, labels
+    torch.cuda.empty_cache()
+    for name, e in entries.items():
+        emit("kernel", **e, checks=rec[name])
+    return entries
+
+
+def phase_lm_ragged(ce, fa) -> None:
+    """The flash kernels at S 200 and 130 (off the 64-row tile), D 40
+    (padded) and 64, causal off, non-zero offsets, kv_len short of S, and
+    B*H = 1; the CE kernel at N = 1 and at C = 4097 (rows off 16 bytes)."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    out = {}
+    for dt_name, dt in DTYPES:
+        for b, h, sq, sk, d, causal, qo, ko, kv_len in FLASH_RAGGED:
+            what = (f"flash b{b} h{h} sq{sq} sk{sk} d{d} causal{int(causal)} "
+                    f"off{qo},{ko} kv{kv_len}")
+            kw = dict(scale=1.0 / math.sqrt(d), causal=causal, kv_len=kv_len,
+                      q_offset=qo, kv_offset=ko)
+            case = _flash_case(gen, b, h, sq, sk, d, dt)
+            for key, val in _check_flash(fa, *case, kw, dt_name,
+                                         "ragged " + what).items():
+                out[f"{what} {key} {dt_name}"] = val
+        for n, c in CE_RAGGED:
+            x = (3 * torch.randn((n, c), generator=gen, device="cuda")).to(dt)
+            lab = torch.randint(0, c, (n,), generator=gen, device="cuda")
+            out[f"ce n{n} c{c} {dt_name}"] = compare(
+                ce.ce_rows(x, lab), ce.ce_rows_plain(x, lab), dt_name,
+                f"ragged ce n{n} c{c}")
+    torch.cuda.synchronize()
+    emit("lm_ragged", checks=out)
+
+
+def phase_lm_path(ops, lm_train):
+    """lm_train's train function at the LM's bench width, 5 steps, with
+    the launch counters zeroed just before and read just after: per step
+    the flash kernels once per layer and the CE once, and nothing else."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    args = lm_train.build_parser().parse_args(LM_FLAGS)
+    ops.reset_launch_counts()
+    t0 = time.monotonic()
+    run = lm_train.train(args)          # raises if the loss did not fall
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    wall = time.monotonic() - t0
+    require(len(run.losses) == STEPS and run.optimizer.count == STEPS,
+            f"lm_path logged {len(run.losses)} losses in "
+            f"{run.optimizer.count} steps, not {STEPS}")
+    require(all(math.isfinite(v) for v in run.losses),
+            f"lm_path non-finite loss: {run.losses}")
+    want = {k: per_step * STEPS for k, per_step in LM_KINDS.items()}
+    require(counts == want, f"lm_path launched {counts}, expected {want}")
+    step_ms = statistics.median(run.step_seconds[1:]) * 1e3
+    emit("lm_path", flags=LM_FLAGS, losses=run.losses,
+         step_ms_each=[t * 1e3 for t in run.step_seconds],
+         step_ms_median_after_first=step_ms,
+         tokens_per_s=LM_B * LM_S / (step_ms / 1e3),
+         peak_memory_bytes=torch.cuda.max_memory_allocated(),
+         parameters=sum(p.numel() for p in run.model.parameters()),
+         wall_s_with_init=wall, launches=counts)
+    return run, counts
+
+
 def phase_main_path(ops, mnist_onegpu, expected: list[str], *, phase: str,
                     steps: int, model_options: dict | None = None):
     """mnist_onegpu's train function at 3000x3000 with the launch
@@ -735,28 +961,21 @@ def phase_main_path(ops, mnist_onegpu, expected: list[str], *, phase: str,
     return res, counts, trainer
 
 
-def phase_profile(trainer, steps: int = 2) -> None:
-    """Where a main-path step's device time goes: ``steps`` more steps of
-    the trained model under ``torch.profiler``, after the timed run (the
-    profiler's own cost stays out of ``main_path``). Device time per step
-    by op or kernel (self time), the busy total, and the idle share of the
-    step's wall time."""
+def _profile(step, batch, *, phase: str, plan: str, steps: int = 2) -> None:
+    """Where a step's device time goes: ``steps`` more steps under
+    ``torch.profiler``, after the timed run (the profiler's own cost stays
+    out of the timed phase). Device time per step by op or kernel (self
+    time), the busy total, and the idle share of the step's wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from tpu_sandbox_torch.data import normalize, synthetic_mnist
-    from tpu_sandbox_torch.train.trainer import to_device
-
-    images, labels = synthetic_mnist(n=BATCH, seed=2)
-    batch = to_device(normalize(images), labels.astype("int32"),
-                      torch.device("cuda"))
-    trainer.train_step(*batch)
+    step(*batch)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
         for _ in range(steps):
-            trainer.train_step(*batch)
+            step(*batch)
         torch.cuda.synchronize()
         wall_ms = (time.monotonic() - t0) * 1e3 / steps
     # a kernel's time appears twice: as a device event, and as the self
@@ -769,10 +988,30 @@ def phase_profile(trainer, steps: int = 2) -> None:
             view[ev.key[:80]] = view.get(ev.key[:80], 0.0) + ms
     busy = sum(kernels.values())
     top = lambda d, k: dict(sorted(d.items(), key=lambda kv: -kv[1])[:k])  # noqa: E731
-    emit("profile", steps=steps, plan="main_path", wall_ms_per_step=wall_ms,
+    emit(phase, steps=steps, plan=plan, wall_ms_per_step=wall_ms,
          device_busy_ms_per_step=busy,
          idle_share=(1 - busy / wall_ms) if busy else None,
          ops_ms_per_step=top(ops, 15), kernels_ms_per_step=top(kernels, 12))
+
+
+def phase_profile(trainer) -> None:
+    """Two more steps of the ConvNet's main path under the profiler."""
+    from tpu_sandbox_torch.data import normalize, synthetic_mnist
+    from tpu_sandbox_torch.train.trainer import to_device
+
+    images, labels = synthetic_mnist(n=BATCH, seed=2)
+    batch = to_device(normalize(images), labels.astype("int32"),
+                      torch.device("cuda"))
+    _profile(trainer.train_step, batch, phase="profile", plan="main_path")
+
+
+def phase_lm_profile(lm_train, run) -> None:
+    """Two more steps of the LM path under the profiler, on a new batch."""
+    from tpu_sandbox_torch.train.trainer import to_device
+
+    tokens, targets = next(lm_train.make_batches(LM_V, LM_B, LM_S, 1, 2))
+    batch = to_device(tokens, targets, torch.device("cuda"))
+    _profile(run.train_step, batch, phase="lm_profile", plan="lm_path")
 
 
 def phase_card_vs_cpu() -> None:
@@ -811,20 +1050,54 @@ def phase_card_vs_cpu() -> None:
         require(r["agree"], f"card and CPU losses differ ({phase}): {r}")
 
 
+def phase_lm_card_vs_cpu(lm_train) -> None:
+    """The LM on the card against the LM on the CPU: vocab 4100 (so the CE
+    kernel runs), d 64, 2 heads (head dim 32), 2 layers, S 256, flash,
+    fp32, 3 Adam steps from the same bridged weights on make_batches'
+    batches: losses within rtol 1e-4."""
+    import numpy as np
+
+    from tpu_sandbox_torch.train.trainer import to_device
+    from tpu_sandbox_torch.utils import params_from_flax, params_to_flax
+
+    args = lm_train.build_parser().parse_args([
+        "--flash", "--vocab", "4100", "--d-model", "64", "--n-heads", "2",
+        "--n-layers", "2", "--d-ff", "128", "--seq-len", "256", "--batch",
+        "2", "--steps", "3", "--dtype", "fp32"])
+    tree = params_to_flax(lm_train.build_model(args, torch.device("cpu")))
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        device = torch.device(dev)
+        model = lm_train.build_model(args, device, seed=1)
+        model.load_state_dict(params_from_flax(tree))
+        opt = lm_train.make_optimizer(args, model)
+        step = lm_train.make_train_step(model, opt)
+        losses[dev] = [float(step(*to_device(t, y, device)))
+                       for t, y in lm_train.make_batches(
+                           args.vocab, args.batch, args.seq_len, args.steps,
+                           0)]
+    ok = bool(np.allclose(losses["cuda"], losses["cpu"], rtol=1e-4, atol=0))
+    emit("lm_card_vs_cpu", dtype="fp32", steps=3, rtol=1e-4,
+         losses_cpu=losses["cpu"], losses_cuda=losses["cuda"], agree=ok)
+    require(ok, f"LM card and CPU losses differ: {losses}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     try:
-        from tpu_sandbox_torch import mnist_onegpu, ops
+        from tpu_sandbox_torch import lm_train, mnist_onegpu, ops
         from tpu_sandbox_torch.ops import (
             bn_tail_t,
             build,
+            ce,
             conv1_tail_t,
             conv5_t,
             conv_t,
             fc_t,
         )
+        from tpu_sandbox_torch.ops import flash_attention as fa
         from tpu_sandbox_torch.utils import exact_fp32
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e}); run "
@@ -836,7 +1109,9 @@ def main() -> int:
     entries = phase_kernels(conv_t, fc_t, bn_tail_t, conv5_t, conv1_tail_t)
     require(sorted(entries) == ALL_KINDS,
             f"kernel phase covered {sorted(entries)}")
+    entries.update(phase_lm_kernels(ce, fa))
     phase_ragged(conv_t, fc_t, bn_tail_t, conv5_t, conv1_tail_t)
+    phase_lm_ragged(ce, fa)
     counts, main_ms = {}, None
     for phase, options, steps, kinds in PATHS:
         res, counts[phase], trainer = phase_main_path(
@@ -853,7 +1128,12 @@ def main() -> int:
         else:
             emit(phase, **res, main_path_step_ms_median_after_first=main_ms)
         del trainer
+    run, counts["lm_path"] = phase_lm_path(ops, lm_train)
+    phase_lm_profile(lm_train, run)
+    del run
+    torch.cuda.empty_cache()
     phase_card_vs_cpu()
+    phase_lm_card_vs_cpu(lm_train)
     for name, e in entries.items():
         e["launches_by_path"] = {p: c.get(name, 0) for p, c in counts.items()}
         # the count from the run of the first path this launch belongs to

@@ -28,6 +28,10 @@ def test_import_loads_no_jax_and_no_jax_package():
         "import tpu_sandbox_torch.ops.conv5_t\n"
         "import tpu_sandbox_torch.ops.conv1_tail_t\n"
         "import tpu_sandbox_torch.ops.build, tpu_sandbox_torch.ops.losses\n"
+        "import tpu_sandbox_torch.ops.ce, tpu_sandbox_torch.ops.attention\n"
+        "import tpu_sandbox_torch.ops.flash_attention\n"
+        "import tpu_sandbox_torch.models.transformer\n"
+        "import tpu_sandbox_torch.train.optim, tpu_sandbox_torch.lm_train\n"
         "import tpu_sandbox_torch.train, tpu_sandbox_torch.utils\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"

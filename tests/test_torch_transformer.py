@@ -1,0 +1,146 @@
+"""The port's transformer LM (tpu_sandbox_torch/models/transformer.py) ==
+the JAX TransformerLM from bridged weights: logits, the mean cross-entropy
+and every parameter's gradient, in fp32 and bf16, with the plain causal
+attention and with flash attention (JAX's Pallas kernels in interpret
+mode, the port's kernels' plain versions on the CPU). Also the plain
+attention op alone and the nested weight bridge."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tpu_sandbox.models.transformer import TransformerConfig as JaxConfig
+from tpu_sandbox.models.transformer import TransformerLM as JaxLM
+from tpu_sandbox.ops.attention import causal_attention as jax_causal_attention
+from tpu_sandbox.ops.losses import cross_entropy_loss as jax_ce
+from tpu_sandbox.ops.pallas_attention import flash_attention_fn as jax_flash_fn
+from tpu_sandbox_torch.models.transformer import TransformerConfig, TransformerLM
+from tpu_sandbox_torch.ops.attention import causal_attention
+from tpu_sandbox_torch.ops.flash_attention import flash_attention_fn
+from tpu_sandbox_torch.ops.losses import cross_entropy_loss
+from tpu_sandbox_torch.utils.bridge import params_from_flax, params_to_flax
+
+DTYPES = {"fp32": (jnp.float32, torch.float32),
+          "bf16": (jnp.bfloat16, torch.bfloat16)}
+SHAPE = dict(vocab_size=96, d_model=64, n_heads=2, n_layers=2, d_ff=128,
+             max_len=128)
+B, S = 2, 128
+# of max|ref|. fp32: the same f32 math in other summation orders. bf16:
+# every Dense output, residual add and the attention's p are rounded to
+# bf16 on both sides at places the two compilers fuse differently, so two
+# layers in, logits differ by a few bf16 ulps (2^-8 each) of their range;
+# the gradients of those logits carry the same rounding noise through the
+# backward, and the bf16 parameter-gradient casts add one more. Measured on
+# the CPU: fp32 logits 6.4e-7, gradients 1.0e-6; bf16 logits 7.9e-3, loss
+# 1.4e-4 relative, gradients 1.5e-2.
+LOGITS_TOL = {"fp32": 1e-5, "bf16": 2e-2}
+LOSS_RTOL = {"fp32": 1e-6, "bf16": 1e-3}
+GRAD_TOL = {"fp32": 1e-5, "bf16": 4e-2}
+
+
+def _batch(seed=0, vocab=96):
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, vocab, size=(B, S), dtype=np.int32)
+    targets = rng.integers(0, vocab, size=(B, S), dtype=np.int32)
+    return tokens, targets
+
+
+def _scaled_err(got, want):
+    want = np.asarray(want, np.float32)
+    scale = float(np.max(np.abs(want))) or 1.0
+    return float(np.max(np.abs(np.asarray(got, np.float32) - want))) / scale
+
+
+@pytest.mark.parametrize("flash", [False, True], ids=["plain", "flash"])
+@pytest.mark.parametrize("dt", ["fp32", "bf16"])
+def test_logits_loss_and_grads_match_jax(dt, flash):
+    jd, td = DTYPES[dt]
+    jcfg = JaxConfig(**SHAPE, dtype=jd, fp32_logits=True)
+    jm = JaxLM(jcfg, attention_fn=jax_flash_fn(interpret=True) if flash
+               else None)
+    tokens, targets = _batch()
+    variables = jm.init(jax.random.key(0), jnp.asarray(tokens))
+    params = variables["params"]
+
+    def loss_fn(p):
+        logits = jm.apply({"params": p}, jnp.asarray(tokens))
+        loss = jax_ce(logits.reshape(-1, logits.shape[-1]),
+                      jnp.asarray(targets).reshape(-1))
+        return loss, logits
+
+    (jloss, jlogits), jgrads = jax.value_and_grad(loss_fn, has_aux=True)(
+        params)
+
+    cfg = TransformerConfig(**SHAPE, dtype=td, fp32_logits=True)
+    model = TransformerLM(cfg, flash_attention_fn() if flash else None,
+                          seed=1)
+    model.load_state_dict(params_from_flax(
+        {"params": jax.tree.map(np.asarray, params)}))
+    logits = model(torch.from_numpy(tokens).long())
+    assert logits.dtype == torch.float32 and logits.shape == (B, S, 96)
+    loss = cross_entropy_loss(logits.reshape(-1, 96),
+                              torch.from_numpy(targets).reshape(-1))
+    loss.backward()
+
+    assert _scaled_err(logits.detach().numpy(), jlogits) <= LOGITS_TOL[dt]
+    np.testing.assert_allclose(loss.item(), float(jloss), rtol=LOSS_RTOL[dt])
+    got = params_to_flax(model)["params"]
+    grads = {k: p.grad for k, p in model.named_parameters()}
+    flat = {".".join(str(getattr(k, "key", k)) for k in path): np.asarray(v)
+            for path, v in jax.tree_util.tree_leaves_with_path(jgrads)}
+    assert set(flat) == set(grads) and got.keys() == params.keys()
+    for key, want in flat.items():
+        err = _scaled_err(grads[key].numpy(), want)
+        assert err <= GRAD_TOL[dt], f"d{key}: {err:.3g} of max|ref|"
+
+
+def test_config_refuses_what_is_not_ported():
+    with pytest.raises(NotImplementedError, match="MoE"):
+        TransformerLM(TransformerConfig(n_experts=2))
+    with pytest.raises(NotImplementedError, match="remat"):
+        TransformerLM(TransformerConfig(remat=True))
+
+
+def test_bf16_logits_stay_bf16_without_fp32_logits():
+    cfg = TransformerConfig(**SHAPE, dtype=torch.bfloat16, fp32_logits=False)
+    logits = TransformerLM(cfg)(torch.zeros((1, 8), dtype=torch.long))
+    assert logits.dtype == torch.bfloat16 and logits.shape == (1, 8, 96)
+
+
+@pytest.mark.parametrize("causal,q_offset,kv_offset",
+                         [(True, 0, 0), (False, 0, 0), (True, 40, 8)])
+@pytest.mark.parametrize("dt", ["fp32", "bf16"])
+def test_causal_attention_matches_jax(dt, causal, q_offset, kv_offset):
+    jd, td = DTYPES[dt]
+    rng = np.random.default_rng(3)
+    q, k, v = (rng.standard_normal((2, 48, 2, 24)).astype(np.float32)
+               for _ in range(3))
+    want = jax_causal_attention(*(jnp.asarray(x, jd) for x in (q, k, v)),
+                                causal=causal, q_offset=q_offset,
+                                kv_offset=kv_offset)
+    got = causal_attention(*(torch.from_numpy(x).to(td) for x in (q, k, v)),
+                           causal=causal, q_offset=q_offset,
+                           kv_offset=kv_offset)
+    assert got.dtype == td
+    # fp32: other summation orders; bf16: one rounding of the scores, the
+    # weights and the output on each side
+    assert _scaled_err(got.float().numpy(), want) <= (
+        1e-5 if dt == "fp32" else 2e-2)
+
+
+def test_bridge_round_trips_nested_and_flat_trees():
+    model = TransformerLM(TransformerConfig(**SHAPE), seed=2)
+    tree = params_to_flax(model)
+    assert tree["params"]["block1"]["attn"]["qkv"]["kernel"].shape == (
+        64, 3, 2, 32)
+    assert tree["params"]["block0"]["attn"]["out"]["kernel"].shape == (
+        2, 32, 64)
+    assert tree["params"]["tok_emb"]["embedding"].shape == (96, 64)
+    state = params_from_flax(tree)
+    for key, t in model.state_dict().items():
+        assert torch.equal(state[key], t), key
+    flat = params_from_flax({"params": {"conv1": {"kernel": np.ones(3)}},
+                             "batch_stats": {"bn1": {"mean": np.zeros(2)}}})
+    assert sorted(flat) == ["bn1.mean", "conv1.kernel"]

@@ -14,6 +14,8 @@ Ported so far: the single-device 3000x3000 MNIST trainer
 space-to-depth plan with all of its options. On the card it runs the JAX
 package's whole chip plan: the sparse-tap conv1, the BN/ReLU/pool tails
 fused into kernels, and conv1's backward fused with bn1's tail (plain
-PyTorch tails on the CPU, or on request). ROADMAP.md lists what is still
-to port.
+PyTorch tails on the CPU, or on request). And the transformer LM's
+single-device training (``python -m tpu_sandbox_torch.lm_train``), with
+flash attention (forward, dk/dv, dq) and the fused cross-entropy forward
+as kernels. ROADMAP.md lists what is still to port.
 """

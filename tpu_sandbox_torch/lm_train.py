@@ -1,0 +1,230 @@
+"""Transformer-LM training on one NVIDIA GPU: the port of ``lm_train.py``
+(same flags, defaults and log lines), data parallelism on one device.
+
+    python -m tpu_sandbox_torch.lm_train --flash --steps 60
+
+The decoder-only LM of ``models/transformer.py`` on the deterministic
+synthetic stream of ``make_batches`` (targets = tokens + 1, 2 or 3 by
+position, mod vocab), mean cross-entropy over all tokens, Adam (optax's
+``adam``) under the ``--schedule`` with optional ``--clip-norm``, a
+``[dp] Step [k/N], Loss: x`` line every ``--log-every`` steps and
+``Training complete in:`` at the end; the run fails if the loss did not
+decrease. ``--flash`` takes the flash-attention kernels; at ``--vocab``
+4096 and up the loss takes the fused CE kernel and the logits stay in the
+compute dtype. Runs on ``cuda`` unless ``--force-cpu``; with no card and no
+``--force-cpu`` it fails.
+
+Not ported yet (they raise NotImplementedError; ROADMAP.md, queue 1 item
+7): every ``--parallelism`` but ``dp``, ``--devices`` above 1,
+``--grad-compress`` other than ``none``, ``--overlap-grad-sync`` and
+``--remat``. The flags that only those read (``--dp``, ``--microbatches``,
+``--circular-chunks``, ``--router-top-k``, ``--attn``, ``--remat-policy``,
+``--bucket-mb``) are accepted and, as under ``dp`` in the JAX script,
+unused.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+from dataclasses import dataclass, field
+from datetime import timedelta
+from typing import Callable
+
+import numpy as np
+import torch
+
+from tpu_sandbox_torch.models.transformer import TransformerConfig, TransformerLM
+from tpu_sandbox_torch.ops.flash_attention import flash_attention_fn
+from tpu_sandbox_torch.ops.losses import FUSED_CE_MIN_CLASSES, cross_entropy_loss
+from tpu_sandbox_torch.train.optim import Adam, clip_by_global_norm_, lm_schedule
+from tpu_sandbox_torch.train.trainer import to_device
+from tpu_sandbox_torch.utils.device import exact_fp32, resolve_device
+
+
+def make_batches(vocab: int, batch: int, seq_len: int, steps: int, seed: int):
+    """Deterministic synthetic LM stream: targets = (tokens + k) % vocab with
+    position-dependent k, the JAX script's batches bit for bit."""
+    rng = np.random.default_rng(seed)
+    for _ in range(steps):
+        tokens = rng.integers(0, vocab, size=(batch, seq_len), dtype=np.int32)
+        shift = (np.arange(seq_len, dtype=np.int32) % 3) + 1
+        targets = ((tokens + shift[None, :]) % vocab).astype(np.int32)
+        yield tokens, targets
+
+
+def check_ported(args) -> None:
+    """Raise NotImplementedError for what the port does not run yet."""
+    todo = []
+    if args.parallelism != "dp":
+        todo.append(f"--parallelism {args.parallelism}")
+    if args.devices != 1:
+        todo.append(f"--devices {args.devices}")
+    if args.grad_compress != "none":
+        todo.append(f"--grad-compress {args.grad_compress}")
+    if args.overlap_grad_sync:
+        todo.append("--overlap-grad-sync")
+    if args.remat:
+        todo.append("--remat")
+    if todo:
+        raise NotImplementedError(
+            f"{', '.join(todo)}: not ported to PyTorch yet (ROADMAP.md, "
+            "queue 1 item 7); the port trains --parallelism dp on one device")
+
+
+def build_model(args, device: torch.device, *, seed: int = 0) -> TransformerLM:
+    """The script's LM: bf16 or fp32 compute over f32 parameters, flash
+    attention with ``--flash``, compute-dtype logits where the fused CE
+    takes them (vocab >= 4096)."""
+    cfg = TransformerConfig(
+        vocab_size=args.vocab, d_model=args.d_model, n_heads=args.n_heads,
+        n_layers=args.n_layers, d_ff=args.d_ff, max_len=args.seq_len,
+        dtype=torch.bfloat16 if args.dtype == "bf16" else torch.float32,
+        fp32_logits=args.vocab < FUSED_CE_MIN_CLASSES)
+    attention_fn = flash_attention_fn() if args.flash else None
+    return TransformerLM(cfg, attention_fn, seed=seed, device=device)
+
+
+def make_optimizer(args, model: torch.nn.Module) -> Adam:
+    if args.clip_norm < 0:
+        raise SystemExit(f"--clip-norm must be >= 0, got {args.clip_norm} "
+                         "(negative max_norm would sign-flip every update)")
+    return Adam(model.parameters(),
+                lm_schedule(args.schedule, args.lr, args.steps, args.warmup))
+
+
+def make_train_step(model: TransformerLM, opt: Adam,
+                    clip_norm: float = 0.0) -> Callable:
+    """(tokens [B, S], targets [B, S]) -> loss: the mean cross-entropy over
+    ``logits.reshape(-1, V)`` (as parallel/pjit_engine.py:310-316), its
+    backward, optional global-norm clipping and one Adam update, in place."""
+    params = opt.params
+
+    def train_step(tokens: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+        model.train()
+        logits = model(tokens)
+        loss = cross_entropy_loss(logits.reshape(-1, logits.shape[-1]),
+                                  targets.reshape(-1))
+        del logits
+        loss.backward()
+        if clip_norm:
+            clip_by_global_norm_([p.grad for p in params], clip_norm)
+        opt.step()
+        return loss.detach()
+
+    return train_step
+
+
+@dataclass
+class LMRun:
+    """What ``train`` leaves for a caller: the model, the optimizer, the
+    step function, the logged losses and each step's host wall time (the
+    device's step time when every step is logged, since the log waits for
+    the loss)."""
+    model: TransformerLM
+    optimizer: Adam
+    train_step: Callable
+    losses: list = field(default_factory=list)
+    step_seconds: list = field(default_factory=list)
+    elapsed: timedelta | None = None
+
+
+def train(args) -> LMRun:
+    check_ported(args)
+    device = resolve_device("cpu" if args.force_cpu else "cuda")
+    if device.type == "cuda":
+        exact_fp32()
+    model = build_model(args, device)
+    opt = make_optimizer(args, model)
+    run = LMRun(model, opt, make_train_step(model, opt, args.clip_norm))
+    p = args.parallelism
+    start = time.monotonic()
+    for step, (tokens, targets) in enumerate(
+            make_batches(args.vocab, args.batch, args.seq_len, args.steps, 0),
+            1):
+        t0 = time.monotonic()
+        loss = run.train_step(*to_device(tokens, targets, device))
+        if step % args.log_every == 0 or step == args.steps:
+            loss_v = float(loss)
+            run.losses.append(loss_v)
+            print(f"[{p}] Step [{step}/{args.steps}], Loss: {loss_v:.4f}",
+                  flush=True)
+        run.step_seconds.append(time.monotonic() - t0)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    run.elapsed = timedelta(seconds=time.monotonic() - start)
+    print(f"Training complete in: {run.elapsed}")
+    if len(run.losses) >= 2 and not run.losses[-1] < run.losses[0]:
+        raise SystemExit(
+            f"loss did not decrease: {run.losses[0]} -> {run.losses[-1]}")
+    return run
+
+
+def build_parser() -> argparse.ArgumentParser:
+    """The JAX script's flags, one for one."""
+    parser = argparse.ArgumentParser(
+        description="transformer-LM training (PyTorch/CUDA port)")
+    parser.add_argument("--parallelism",
+                        choices=["dp", "tp", "sp", "pp", "pp_sp", "ep", "3d"],
+                        default="dp")
+    parser.add_argument("--dp", type=int, default=1,
+                        help="tp only: data-parallel axis size composed "
+                             "with model parallelism (devices = dp x tp)")
+    parser.add_argument("--devices", type=int, default=1)
+    parser.add_argument("--steps", type=int, default=60)
+    parser.add_argument("--batch", type=int, default=8)
+    parser.add_argument("--seq-len", type=int, default=128)
+    parser.add_argument("--vocab", type=int, default=64)
+    parser.add_argument("--d-model", type=int, default=64)
+    parser.add_argument("--n-heads", type=int, default=4)
+    parser.add_argument("--n-layers", type=int, default=2)
+    parser.add_argument("--d-ff", type=int, default=128)
+    parser.add_argument("--lr", type=float, default=1e-3)
+    parser.add_argument("--schedule", choices=["const", "cosine"],
+                        default="const")
+    parser.add_argument("--warmup", type=int, default=0,
+                        help="linear warmup steps (cosine schedule)")
+    parser.add_argument("--clip-norm", type=float, default=0.0,
+                        help="global-norm gradient clipping (0 = off)")
+    parser.add_argument("--microbatches", type=int, default=2,
+                        help="pp only: GPipe microbatches per step")
+    parser.add_argument("--circular-chunks", type=int, default=1,
+                        help="pp/3d: layer chunks per stage")
+    parser.add_argument("--router-top-k", type=int, default=1,
+                        help="ep only: 1 = Switch top-1, 2 = GShard top-2")
+    parser.add_argument("--log-every", type=int, default=10)
+    parser.add_argument("--dtype", choices=["bf16", "fp32"], default="fp32")
+    parser.add_argument("--attn", choices=["ring", "ulysses", "flash_ring"],
+                        default="ring",
+                        help="sp only: the sequence-parallel attention")
+    parser.add_argument("--flash", action="store_true",
+                        help="use the flash-attention kernels")
+    parser.add_argument("--remat-policy", choices=["full", "dots"],
+                        default="full",
+                        help="with --remat: what the backward recomputes")
+    parser.add_argument("--remat", action="store_true",
+                        help="recompute each block in the backward (not "
+                             "ported yet)")
+    parser.add_argument("--force-cpu", action="store_true",
+                        help="run on the CPU (the kernels' plain PyTorch "
+                             "versions) instead of the GPU")
+    # the flag groups of tpu_sandbox/utils/cli.py:52 and :71 as the JAX
+    # script registers them (no --no-error-feedback, no --prefetch)
+    parser.add_argument("--grad-compress", choices=["none", "bf16", "int8"],
+                        default="none",
+                        help="compress the data-parallel gradient sync "
+                             "(not ported yet)")
+    parser.add_argument("--overlap-grad-sync", action="store_true",
+                        help="bucket the gradient sync (not ported yet)")
+    parser.add_argument("--bucket-mb", type=float, default=25.0,
+                        metavar="MB",
+                        help="with --overlap-grad-sync: bucket size target")
+    return parser
+
+
+def main(argv=None):
+    return train(build_parser().parse_args(argv))
+
+
+if __name__ == "__main__":
+    main()

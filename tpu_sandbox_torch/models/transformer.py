@@ -1,0 +1,184 @@
+"""Decoder-only transformer LM. Counterpart of
+``tpu_sandbox/models/transformer.py``: ``TransformerConfig`` (:30),
+``SelfAttention`` (:65), ``Mlp`` (:88), ``Block`` (:99) and
+``TransformerLM`` (:114), dense MLP only.
+
+The parameters keep the Flax layouts and names, so the weight bridge is a
+rename: ``tok_emb.embedding`` [V, d], ``pos_emb.embedding`` [max_len, d],
+``block{i}.ln1.scale``/``bias``, ``block{i}.attn.qkv.kernel`` [d, 3, H, hd]
+and ``bias`` [3, H, hd], ``block{i}.attn.out.kernel`` [H, hd, d],
+``block{i}.mlp.up``/``down``, ``ln_f`` and ``lm_head.kernel`` [d, V].
+Parameters are f32; the compute dtype follows Flax: a Dense casts its input,
+kernel and bias to it and adds the bias in it; an Embed casts its table
+before the gather and ``tok + pos`` is added in it; LayerNorm computes in
+f32 with epsilon 1e-6 and the fast variance E[x^2] - E[x]^2; the MLP's
+gelu is the tanh approximation. Initial weights are drawn from the
+generator seeded with ``seed`` with Flax's distributions (lecun-normal
+kernels, zero biases, N(0, 1/d) embeddings), not Flax's numbers.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Callable
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from tpu_sandbox_torch.ops.attention import causal_attention
+
+# truncated_normal(-2, 2) has this stddev; lecun_normal divides it out
+_TRUNC_STD = 0.87962566103423978
+
+
+@dataclass(frozen=True)
+class TransformerConfig:
+    vocab_size: int = 256
+    d_model: int = 64
+    n_heads: int = 4
+    n_layers: int = 2
+    d_ff: int = 256
+    max_len: int = 2048
+    dtype: torch.dtype = torch.float32
+    # kept so that the unported options raise rather than vanish
+    n_experts: int = 0
+    remat: bool = False
+    fp32_logits: bool = True
+
+
+class Dense(nn.Module):
+    """Flax ``Dense``/``DenseGeneral``: contracts the input's last
+    ``len(in_shape)`` axes with ``kernel`` [*in_shape, *out_shape] and adds
+    ``bias`` [*out_shape], all in ``dtype``."""
+
+    def __init__(self, in_shape, out_shape, dtype, device, gen):
+        super().__init__()
+        self.in_shape, self.out_shape = tuple(in_shape), tuple(out_shape)
+        self.dtype = dtype
+        fan_in = math.prod(self.in_shape)
+        kernel = torch.empty((*self.in_shape, *self.out_shape), device=device)
+        nn.init.trunc_normal_(kernel, 0.0, 1.0, -2.0, 2.0, generator=gen)
+        self.kernel = nn.Parameter(kernel * (math.sqrt(1.0 / fan_in) / _TRUNC_STD))
+        self.bias = nn.Parameter(torch.zeros(self.out_shape, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        lead = x.shape[:x.ndim - len(self.in_shape)]
+        fan_in = math.prod(self.in_shape)
+        y = x.reshape(*lead, fan_in).to(self.dtype) @ self.kernel.reshape(
+            fan_in, -1).to(self.dtype)
+        y = y + self.bias.reshape(-1).to(self.dtype)
+        return y.reshape(*lead, *self.out_shape)
+
+
+class Embed(nn.Module):
+    """Flax ``Embed``: the table cast to ``dtype``, then the gather."""
+
+    def __init__(self, num, features, dtype, device, gen):
+        super().__init__()
+        self.dtype = dtype
+        table = torch.empty((num, features), device=device)
+        nn.init.normal_(table, 0.0, math.sqrt(1.0 / features), generator=gen)
+        self.embedding = nn.Parameter(table)
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return F.embedding(ids, self.embedding.to(self.dtype))
+
+
+class LayerNorm(nn.Module):
+    """Flax ``LayerNorm(dtype=float32)``: f32 statistics, epsilon 1e-6,
+    var = max(E[x^2] - E[x]^2, 0), y = (x - mean) * (rsqrt(var + eps) *
+    scale) + bias, f32 out."""
+
+    def __init__(self, features, device):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(features, device=device))
+        self.bias = nn.Parameter(torch.zeros(features, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.float()
+        mean = x.mean(-1, keepdim=True)
+        var = ((x * x).mean(-1, keepdim=True) - mean * mean).clamp_min(0.0)
+        return (x - mean) * (torch.rsqrt(var + 1e-6) * self.scale) + self.bias
+
+
+class SelfAttention(nn.Module):
+    def __init__(self, cfg: TransformerConfig, attention_fn, device, gen):
+        super().__init__()
+        hd = cfg.d_model // cfg.n_heads
+        self.attention_fn = attention_fn or causal_attention
+        self.qkv = Dense((cfg.d_model,), (3, cfg.n_heads, hd), cfg.dtype,
+                         device, gen)
+        self.out = Dense((cfg.n_heads, hd), (cfg.d_model,), cfg.dtype, device,
+                         gen)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        qkv = self.qkv(x)                               # [B, S, 3, H, hd]
+        out = self.attention_fn(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])
+        return self.out(out)
+
+
+class Mlp(nn.Module):
+    def __init__(self, cfg: TransformerConfig, device, gen):
+        super().__init__()
+        self.up = Dense((cfg.d_model,), (cfg.d_ff,), cfg.dtype, device, gen)
+        self.down = Dense((cfg.d_ff,), (cfg.d_model,), cfg.dtype, device, gen)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.down(F.gelu(self.up(x), approximate="tanh"))
+
+
+class Block(nn.Module):
+    def __init__(self, cfg: TransformerConfig, attention_fn, device, gen):
+        super().__init__()
+        self.ln1 = LayerNorm(cfg.d_model, device)
+        self.attn = SelfAttention(cfg, attention_fn, device, gen)
+        self.ln2 = LayerNorm(cfg.d_model, device)
+        self.mlp = Mlp(cfg, device, gen)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn(self.ln1(x))
+        return x + self.mlp(self.ln2(x))
+
+
+class TransformerLM(nn.Module):
+    """tokens [B, S] (+ positions [B, S]) -> logits [B, S, vocab], f32 when
+    ``fp32_logits``, else in the compute dtype. ``attention_fn(q, k, v)``
+    on [B, S, H, hd] replaces the plain causal attention (e.g.
+    ``ops.flash_attention.flash_attention_fn()``)."""
+
+    def __init__(self, cfg: TransformerConfig,
+                 attention_fn: Callable | None = None, *, seed: int = 0,
+                 device: str | torch.device = "cpu"):
+        super().__init__()
+        if cfg.n_experts:
+            raise NotImplementedError(
+                "the MoE MLP (n_experts > 0) is not ported to PyTorch yet "
+                "(ROADMAP.md, queue 1 item 7)")
+        if cfg.remat:
+            raise NotImplementedError(
+                "remat is not ported to PyTorch yet (ROADMAP.md, queue 1 "
+                "item 7); it computes the same function with less memory")
+        self.config = cfg
+        device = torch.device(device)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        self.tok_emb = Embed(cfg.vocab_size, cfg.d_model, cfg.dtype, device,
+                             gen)
+        self.pos_emb = Embed(cfg.max_len, cfg.d_model, cfg.dtype, device, gen)
+        for i in range(cfg.n_layers):
+            self.add_module(f"block{i}", Block(cfg, attention_fn, device, gen))
+        self.ln_f = LayerNorm(cfg.d_model, device)
+        self.lm_head = Dense((cfg.d_model,), (cfg.vocab_size,), cfg.dtype,
+                             device, gen)
+
+    def forward(self, tokens: torch.Tensor,
+                positions: torch.Tensor | None = None) -> torch.Tensor:
+        if positions is None:
+            positions = torch.arange(tokens.shape[1], device=tokens.device
+                                     ).expand(tokens.shape)
+        x = self.tok_emb(tokens) + self.pos_emb(positions)
+        for i in range(self.config.n_layers):
+            x = getattr(self, f"block{i}")(x)
+        logits = self.lm_head(self.ln_f(x))
+        return logits.float() if self.config.fp32_logits else logits

@@ -10,20 +10,24 @@ from __future__ import annotations
 def _counters():
     from tpu_sandbox_torch.ops import (
         bn_tail_t,
+        ce,
         conv1_tail_t,
         conv5_t,
         conv_t,
         fc_t,
+        flash_attention,
     )
 
     return (conv_t.LAUNCHES, fc_t.LAUNCHES, bn_tail_t.LAUNCHES,
-            conv5_t.LAUNCHES, conv1_tail_t.LAUNCHES)
+            conv5_t.LAUNCHES, conv1_tail_t.LAUNCHES, ce.LAUNCHES,
+            flash_attention.LAUNCHES)
 
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches since the last reset, keyed by kernel, kind and
     shape (e.g. ``"conv3x3_t fwd C16 CO256"``, ``"fc_dgrad_t"``,
-    ``"bn_tail_t bwd_apply C256 CO16"``, ``"conv1_tail_t wgrad CO256"``)."""
+    ``"bn_tail_t bwd_apply C256 CO16"``, ``"conv1_tail_t wgrad CO256"``,
+    ``"flash_fwd"``, ``"flash_bwd_dkv"``, ``"flash_bwd_dq"``, ``"ce_fwd"``)."""
     return {k: v for counter in _counters() for k, v in counter.items()}
 
 

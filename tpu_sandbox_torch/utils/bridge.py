@@ -4,9 +4,12 @@ port's modules.
 The pattern of ``tpu_sandbox/utils/parity.py`` (copy weights between the
 frameworks so both start from bit-identical init), without importing it.
 The port keeps the Flax layouts (conv kernels [5,5,ci,co], the fc kernel
-[H*C*W, K] in canonical (h, c, w) row order), so the bridge is a rename:
-``variables[collection][module][leaf]`` <-> the torch state-dict key
-``module.leaf``, for the ``params`` and ``batch_stats`` collections.
+[H*C*W, K] in canonical (h, c, w) row order, the transformer's qkv kernel
+[d, 3, H, hd]), so the bridge is a rename: the path through
+``variables[collection]`` joined by dots is the torch state-dict key, at any
+depth (``conv1/kernel`` <-> ``conv1.kernel``, ``block3/attn/qkv/kernel``
+<-> ``block3.attn.qkv.kernel``), for the ``params`` and ``batch_stats``
+collections.
 """
 
 from __future__ import annotations
@@ -17,27 +20,36 @@ import torch
 COLLECTIONS = ("params", "batch_stats")
 
 
+def _flatten(tree, prefix: str, out: dict) -> None:
+    for name, value in tree.items():
+        key = f"{prefix}{name}"
+        if hasattr(value, "items"):                     # a (frozen) dict
+            _flatten(value, key + ".", out)
+        else:
+            out[key] = torch.from_numpy(np.array(value, copy=True))
+
+
 def params_from_flax(variables: dict) -> dict[str, torch.Tensor]:
-    """``{'params': {...}, 'batch_stats': {...}}`` of numpy arrays -> a
-    state dict for ``module.load_state_dict`` (CPU tensors, copied)."""
-    state = {}
+    """``{'params': {...}, 'batch_stats': {...}}`` of numpy arrays, nested
+    to any depth -> a state dict for ``module.load_state_dict`` (CPU
+    tensors, copied)."""
+    state: dict = {}
     for coll in COLLECTIONS:
-        for mod, leaves in variables.get(coll, {}).items():
-            for leaf, value in leaves.items():
-                state[f"{mod}.{leaf}"] = torch.from_numpy(
-                    np.array(value, copy=True))
+        _flatten(variables.get(coll, {}), "", state)
     return state
 
 
 def params_to_flax(module: torch.nn.Module) -> dict:
-    """The module's parameters and buffers as a Flax-shaped numpy tree:
-    parameters under ``params``, buffers under ``batch_stats``."""
+    """The module's parameters and buffers as a Flax-shaped nested numpy
+    tree: parameters under ``params``, buffers under ``batch_stats``."""
     out: dict = {coll: {} for coll in COLLECTIONS}
     named = [("params", module.named_parameters()),
              ("batch_stats", module.named_buffers())]
     for coll, items in named:
         for key, t in items:
-            mod, leaf = key.rsplit(".", 1)
-            out[coll].setdefault(mod, {})[leaf] = (
-                t.detach().to("cpu").numpy().copy())
+            *path, leaf = key.split(".")
+            node = out[coll]
+            for name in path:
+                node = node.setdefault(name, {})
+            node[leaf] = t.detach().to("cpu").numpy().copy()
     return out
