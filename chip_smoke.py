@@ -24,7 +24,11 @@ card or when the port is not beside it. Phases, one JSON line each:
    apply pass, then the sparse conv1 wgrad). Then the LM's four kinds the
    same way at its shapes (flash attention B16 H8 S2048 D128 causal, the
    CE over [32768, 32768] logits; library calls SDPA, its backward and
-   F.cross_entropy); dk/dv and dq run twice, bitwise equal.
+   F.cross_entropy); dk/dv and dq run twice, bitwise equal. The NHWC
+   plan's 13 kinds are checked the same way, their plain versions timed
+   once each (library calls: cuDNN's F.conv2d on channels-last views for
+   the forward, stats and dgrad, aten.convolution_backward for the
+   wgrad; null for the tail passes).
 3. ragged: each kernel at shapes off every tile edge (W=70, H=5, N*H not
    a multiple of a slab, CO off the channel tile, co=8 blk=2; the sparse
    conv1 at H4=W4=1, where every tap is a halo, and at f1 8 and 5), and
@@ -32,7 +36,8 @@ card or when the port is not beside it. Phases, one JSON line each:
    occur: the pooled output equal, dy within one bf16 ulp of max|plain|.
    lm_ragged: the flash kernels at S 200 and 130, D 40 and 64, causal
    off, non-zero offsets, kv_len short of S, B*H = 1; the CE at N = 1 and
-   C = 4097.
+   C = 4097. The NHWC conv at CO 48 and 80 and at C 32, its tails at co 8
+   blk 2 and co 4 blk 4, and its own bf16 tie case.
 4. main_path: tpu_sandbox_torch.mnist_onegpu's own train function at
    3000x3000, batch 5, bf16, synthetic MNIST, 5 steps, on the card's
    default plan (the sparse conv1, the fused BN tails and the fused
@@ -43,9 +48,12 @@ card or when the port is not beside it. Phases, one JSON line each:
 5. the other paths, the same way, each with its own launch set: the
    unfused conv1+tail backward (2 steps), the sparse conv1 with unfused
    tails (2), the scattered-3x3 conv1 with fused tails (3) and with
-   unfused tails (3); their step times beside the main path's.
+   unfused tails (3); --plan s2d, the NHWC ConvNetS2D, with fused convs
+   and tails (3, 11 kinds a step) and with unfused tails (2, the 5 conv
+   kinds); their step times beside the main path's.
 6. profile: two more steps of the main path under torch.profiler, device
-   time per op or kernel, busy time and idle share of the step.
+   time per op or kernel, busy time and idle share of the step;
+   profile_s2d: the same for the NHWC path (path_s2d).
 7. lm_path: tpu_sandbox_torch.lm_train's own train function at the LM
    bench width (vocab 32768, d 1024, 8 heads, 12 layers, d_ff 4096, S
    2048, batch 16, bf16, --flash), 5 Adam steps, counters zeroed before
@@ -55,7 +63,8 @@ card or when the port is not beside it. Phases, one JSON line each:
    more steps under torch.profiler.
 8. card_vs_cpu: the port on the card against the port on the CPU, 64x64,
    fp32, 3 SGD steps from the same bridged weights on the same batches,
-   on each of the five plans: losses within rtol 1e-4. lm_card_vs_cpu:
+   on each of the five transposed plans and ConvNetS2D's four (fused_conv,
+   fused_tail) plans: losses within rtol 1e-4. lm_card_vs_cpu:
    the same for a small LM (vocab 4100, so the CE kernel runs; d 64, 2
    heads, 2 layers, S 256, flash, fp32, 3 Adam steps).
 9. the {"kernels": [...]} summary, the nvidia-smi line, and last
@@ -119,21 +128,44 @@ UNFUSED_BWD_KINDS = (["conv1_s2d_t_stats CO256", "conv1_s2d_t_wgrad CO256",
                       "conv3x3_t_stats C64 CO128"] + CONV2_KINDS + TAIL_KINDS)
 SPARSE_UNFUSED_KINDS = ["conv1_s2d_t fwd CO256", "conv1_s2d_t_wgrad CO256",
                         "conv3x3_t fwd C64 CO128"] + CONV2_KINDS
-#: (phase, plan options for pick_convnet, steps, launch kinds): the main
-#: path first; every kind of the kernel phase is on one of them
+#: the NHWC plan (ConvNetS2D): its conv kinds and its tails' kinds
+NHWC_CONV_SRC = "tpu_sandbox_torch/csrc/conv.cu"
+NHWC_TAIL_SRC = "tpu_sandbox_torch/csrc/bn_tail.cu"
+NHWC_TAIL_REPLACES = {
+    "fwd": "tpu_sandbox/ops/pallas_bn_tail.py:114",
+    "bwd_reduce": "tpu_sandbox/ops/pallas_bn_tail.py:136",
+    "bwd_apply": "tpu_sandbox/ops/pallas_bn_tail.py:162",
+}
+NHWC_TAIL_KINDS = [f"bn_tail {p} C{c} CO{co}" for p in TAIL_OPS
+                   for c, co, _ in TAILS]
+NHWC_BWD_KINDS = ["conv3x3 dgrad C128 CO64", "conv3x3_wgrad C16 CO256",
+                  "conv3x3_wgrad C64 CO128"]
+S2D_KINDS = (["conv3x3_stats C16 CO256", "conv3x3_stats C64 CO128"]
+             + NHWC_BWD_KINDS + NHWC_TAIL_KINDS)
+S2D_UNFUSED_TAIL_KINDS = ["conv3x3 fwd C16 CO256",
+                          "conv3x3 fwd C64 CO128"] + NHWC_BWD_KINDS
+#: (phase, --plan, plan options for pick_convnet, steps, launch kinds):
+#: the main path first; every kind of the kernel phase is on one of them
 PATHS = (
-    ("main_path", {}, STEPS, MAIN_KINDS),
-    ("path_unfused_conv1_bwd", {"fused_conv1_bwd": False}, 2,
+    ("main_path", "auto", {}, STEPS, MAIN_KINDS),
+    ("path_unfused_conv1_bwd", "auto", {"fused_conv1_bwd": False}, 2,
      UNFUSED_BWD_KINDS),
-    ("path_sparse_unfused_tails", {"fused_tail": False}, 2,
+    ("path_sparse_unfused_tails", "auto", {"fused_tail": False}, 2,
      SPARSE_UNFUSED_KINDS),
-    ("path_scattered_fused_tails", {"sparse_conv1": False}, 3,
+    ("path_scattered_fused_tails", "auto", {"sparse_conv1": False}, 3,
      SCATTERED_FUSED_KINDS),
-    ("path_scattered_unfused_tails",
+    ("path_scattered_unfused_tails", "auto",
      {"sparse_conv1": False, "fused_tail": False}, 3,
      SCATTERED_UNFUSED_KINDS),
+    ("path_s2d", "s2d", {"fused_conv": True, "fused_tail": True}, 3,
+     S2D_KINDS),
+    ("path_s2d_unfused_tails", "s2d", {"fused_conv": True,
+                                       "fused_tail": False}, 2,
+     S2D_UNFUSED_TAIL_KINDS),
 )
 ALL_KINDS = sorted({k for *_, kinds in PATHS for k in kinds})
+#: the NHWC conv's ragged (C, CO)
+NHWC_RAGGED = ((16, 48), (16, 80), (32, 48))
 #: the sparse conv1's ragged shapes (N, H4, W4, f1)
 CONV1_RAGGED = ((2, 5, 70, 16), (1, 1, 1, 16), (3, 1, 1, 8), (2, 5, 70, 8),
                 (2, 5, 70, 5))
@@ -237,24 +269,31 @@ def phase_env(build) -> str:
     return smi
 
 
-def _conv_case(gen, n, h, c, w, co, dtype):
+def _conv_case(gen, n, h, c, w, co, dtype, *, nhwc=False):
+    """x [n,h,c,w] (ops.conv_t) or, with ``nhwc``, [n,h,w,c] (ops.conv),
+    w [3,3,c,co] and bias [co] in dtype."""
     dev = "cuda"
-    x = torch.randn((n, h, c, w), generator=gen, device=dev).to(dtype)
+    x_shape = (n, h, w, c) if nhwc else (n, h, c, w)
+    x = torch.randn(x_shape, generator=gen, device=dev).to(dtype)
     wt = (torch.randn((3, 3, c, co), generator=gen, device=dev)
           / math.sqrt(9 * c)).to(dtype)
     b = torch.randn((co,), generator=gen, device=dev).to(dtype)
     return x, wt, b
 
 
-def _tail_case(bn_tail_t, gen, n, h, c, co, blk, w, dtype, *, quantised=False):
+def _tail_case(mod, gen, n, h, c, co, blk, w, dtype, *, quantised=False,
+               nhwc=False):
     """(y, g, gamma, beta, per-channel operands of the three passes): the
     statistics and the backward's columns from the plain versions, so the
-    kernel and its plain version see the same inputs."""
-    y = torch.randn((n, h, c, w), generator=gen, device="cuda")
+    kernel and its plain version see the same inputs. ``mod`` is
+    ops.bn_tail_t ([N,H,C,W]) or, with ``nhwc``, ops.bn_tail ([N,H,W,C])."""
+    y_shape, g_shape = (((n, h, w, c), (n, h, w, c // 4)) if nhwc
+                        else ((n, h, c, w), (n, h, c // 4, w)))
+    y = torch.randn(y_shape, generator=gen, device="cuda")
     if quantised:                        # quarters: bf16 pool ties
         y = torch.round(y * 4) / 4
     y = y.to(dtype)
-    g = torch.randn((n, h, c // 4, w), generator=gen, device="cuda").to(dtype)
+    g = torch.randn(g_shape, generator=gen, device="cuda").to(dtype)
     if quantised:
         gamma = torch.ones(co, device="cuda")
         beta = torch.zeros(co, device="cuda")
@@ -262,18 +301,19 @@ def _tail_case(bn_tail_t, gen, n, h, c, co, blk, w, dtype, *, quantised=False):
         gamma = 1 + 0.1 * torch.randn(co, generator=gen, device="cuda")
         beta = torch.randn(co, generator=gen, device="cuda")
     reps = blk * blk
-    mu, var = bn_tail_t.stats_t(y, co)
+    mu, var = (mod.stats if nhwc else mod.stats_t)(y, co)
     inv = torch.rsqrt(var + 1e-5)
     a_co = inv * gamma
-    a_col = bn_tail_t.col_expand(a_co, reps)
-    b_col = bn_tail_t.col_expand(beta - mu * a_co, reps)
-    s1, s2 = bn_tail_t.bwd_reduce_plain(y, g, co, blk, a_col, b_col, mu, inv)
-    cols = bn_tail_t.bwd_scales(s1, s2, gamma, inv, reps, y.numel() // co)
+    a_col = mod.col_expand(a_co, reps)
+    b_col = mod.col_expand(beta - mu * a_co, reps)
+    s1, s2 = mod.bwd_reduce_plain(y, g, co, blk, a_col, b_col, mu, inv)
+    cols = mod.bwd_scales(s1, s2, gamma, inv, reps, y.numel() // co)
     return y, g, gamma, beta, (a_col, b_col, mu, inv), cols
 
 
 def _check_tail(bn_tail_t, case, co, blk, dt_name, what) -> dict:
-    """Each tail pass against its plain version; the reduce twice."""
+    """Each tail pass against its plain version; the reduce twice.
+    ``bn_tail_t`` is either tail module (ops.bn_tail_t or ops.bn_tail)."""
     y, g, _, _, (a_col, b_col, mu, inv), cols = case
     out = {"fwd": compare(bn_tail_t.tail_fwd(y, a_col, b_col, co, blk),
                           bn_tail_t.tail_fwd_plain(y, a_col, b_col, co, blk),
@@ -369,7 +409,8 @@ def _full_res(x, g, f1):
     return img, gn
 
 
-def phase_kernels(conv_t, fc_t, bn_tail_t, conv5_t, conv1_tail_t) -> dict:
+def phase_kernels(conv_t, fc_t, bn_tail_t, conv5_t, conv1_tail_t, conv,
+                  bn_tail) -> dict:
     """Every launch kind of the paths at its main-path shape; returns the
     summary entries keyed by launch-counter name."""
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -492,47 +533,56 @@ def phase_kernels(conv_t, fc_t, bn_tail_t, conv5_t, conv1_tail_t) -> dict:
                flops=2.0 * n * 10 * wt[0].numel(),
                bytes_=nbytes(g, wt) + dy_bytes)
 
-    def tail(c, co, blk):
+    def tail(c, co, blk, nhwc=False):
+        """One tail's three passes in the transposed layout (ops.bn_tail_t)
+        or, with ``nhwc``, in NHWC (ops.bn_tail)."""
+        mod, prefix = (bn_tail, "bn_tail") if nhwc else (bn_tail_t, "bn_tail_t")
+        fused, unfused = ((mod.fused_bn_relu_pool, mod.unfused_reference)
+                          if nhwc else (mod.fused_bn_relu_pool_t,
+                                        mod.unfused_reference_t))
         what = f"C{c} CO{co}"
         rec = {p: {} for p in TAIL_OPS}
         for dt_name, dt in DTYPES:
-            case = _tail_case(bn_tail_t, gen, n, h, c, co, blk, w, dt)
-            checks = _check_tail(bn_tail_t, case, co, blk, dt_name,
-                                 "bn_tail_t " + what)
+            case = _tail_case(mod, gen, n, h, c, co, blk, w, dt, nhwc=nhwc)
+            checks = _check_tail(mod, case, co, blk, dt_name,
+                                 f"{prefix} {what}")
             for key, val in checks.items():
                 p = key.removesuffix("_s2")
                 rec[p][dt_name + key[len(p):]] = val
             # the whole fused function's statistics and output against
             # the unfused chain it replaces
             y, _, gamma, beta, _, _ = case
-            fo, fmu, fvar = bn_tail_t.fused_bn_relu_pool_t(y, gamma, beta,
-                                                           co, blk)
-            ro, rmu, rvar = bn_tail_t.unfused_reference_t(y, gamma, beta,
-                                                          co, blk)
+            fo, fmu, fvar = fused(y, gamma, beta, co, blk)
+            ro, rmu, rvar = unfused(y, gamma, beta, co, blk)
             rec["fwd"][dt_name + "_mu"] = compare(fmu, rmu, "fp32", "mu")
             rec["fwd"][dt_name + "_var"] = compare(fvar, rvar, "fp32", "var")
             rec["fwd"][dt_name + "_unfused"] = compare(fo, ro, dt_name,
                                                        "fused vs unfused")
             del fo, ro, case
             torch.cuda.empty_cache()
-        y, g, _, _, vecs, cols = _tail_case(bn_tail_t, gen, n, h, c, co, blk,
-                                            w, torch.bfloat16)
+        y, g, _, _, vecs, cols = _tail_case(mod, gen, n, h, c, co, blk, w,
+                                            torch.bfloat16, nhwc=nhwc)
         args = (y, g, co, blk, *vecs)
         out_bytes = y.numel() // 4 * y.element_size()
         runs = {
-            "fwd": (lambda: bn_tail_t.tail_fwd(y, *vecs[:2], co, blk),
-                    lambda: bn_tail_t.tail_fwd_plain(y, *vecs[:2], co, blk),
+            "fwd": (lambda: mod.tail_fwd(y, *vecs[:2], co, blk),
+                    lambda: mod.tail_fwd_plain(y, *vecs[:2], co, blk),
                     nbytes(y, *vecs[:2]) + out_bytes),
-            "bwd_reduce": (lambda: bn_tail_t.bwd_reduce(*args),
-                           lambda: bn_tail_t.bwd_reduce_plain(*args),
+            "bwd_reduce": (lambda: mod.bwd_reduce(*args),
+                           lambda: mod.bwd_reduce_plain(*args),
                            nbytes(y, g, *vecs) + 8 * co),
-            "bwd_apply": (lambda: bn_tail_t.bwd_apply(*args, *cols),
-                          lambda: bn_tail_t.bwd_apply_plain(*args, *cols),
+            "bwd_apply": (lambda: mod.bwd_apply(*args, *cols),
+                          lambda: mod.bwd_apply_plain(*args, *cols),
                           nbytes(y, g, *vecs, *cols) + nbytes(y)),  # + dy
         }
+        src, replaces = ((NHWC_TAIL_SRC, NHWC_TAIL_REPLACES) if nhwc
+                         else (TAIL_SRC, TAIL_REPLACES))
         for p, (kernel, plain, bytes_) in runs.items():
-            record(f"bn_tail_t {p} {what}", TAIL_SRC, TAIL_REPLACES[p], rec[p],
-                   cuda_ms(kernel), cuda_ms(plain, reps=5), None,
+            # the NHWC plain versions are timed once, to keep the run short
+            plain_ms = (cuda_ms(plain, reps=1, warmup=0) if nhwc
+                        else cuda_ms(plain, reps=5))
+            record(f"{prefix} {p} {what}", src, replaces[p], rec[p],
+                   cuda_ms(kernel), plain_ms, None,
                    flops=TAIL_OPS[p] * y.numel(), bytes_=bytes_,
                    peak=PEAK_F32_FLOPS,
                    library_note="no single PyTorch call computes this "
@@ -624,6 +674,98 @@ def phase_kernels(conv_t, fc_t, bn_tail_t, conv5_t, conv1_tail_t) -> dict:
         del x, args
         torch.cuda.empty_cache()
 
+    def nhwc_library(x, wt, b):
+        """One cuDNN call for the same conv on channels-last views."""
+        xv = x.permute(0, 3, 1, 2)                  # NCHW view, channels last
+        wo = wt.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        return cuda_ms(lambda: F.conv2d(xv, wo, b, padding=1), reps=5)
+
+    def nhwc_conv_fwd(c, co, kind):
+        name = f"conv3x3 {kind} C{c} CO{co}"
+        rec = {}
+        for dt_name, dt in DTYPES:
+            x, wt, b = _conv_case(gen, n, h, c, w, co, dt, nhwc=True)
+            if kind == "dgrad":
+                b = torch.zeros_like(b)
+            got = conv.conv3x3_forward(x, wt, b, kind=kind)
+            rec[dt_name] = compare(got, conv.conv3x3_plain(x, wt, b), dt_name,
+                                   name)
+            del got
+        # time in the path's dtype, on the bf16 inputs; the plain version
+        # once, to keep the run short
+        ms = cuda_ms(lambda: conv.conv3x3_forward(x, wt, b, kind=kind))
+        plain_ms = cuda_ms(lambda: conv.conv3x3_plain(x, wt, b), reps=1,
+                           warmup=0)
+        record(name, NHWC_CONV_SRC, "tpu_sandbox/ops/pallas_conv.py:135", rec,
+               ms, plain_ms, nhwc_library(x, wt, b),
+               flops=2.0 * n * h * w * co * 9 * c,
+               bytes_=nbytes(x, wt, b) + n * h * w * co * x.element_size(),
+               library_note="F.conv2d on channels-last views (cuDNN)"
+                            + (", the same conv on the flipped weights"
+                               if kind == "dgrad" else ""))
+        del x, wt, b
+        torch.cuda.empty_cache()
+
+    def nhwc_conv_stats(c, co):
+        name = f"conv3x3_stats C{c} CO{co}"
+        rec = {}
+        for dt_name, dt in DTYPES:
+            x, wt, b = _conv_case(gen, n, h, c, w, co, dt, nhwc=True)
+            got = conv.conv3x3_stats_forward(x, wt, b)
+            want = conv.conv3x3_stats_plain(x, wt, b)
+            for i, part in enumerate(("", "_sum", "_sumsq")):
+                rec[dt_name + part] = compare(got[i], want[i], dt_name,
+                                              name + part)
+            require(torch.equal(got[0], conv.conv3x3_forward(x, wt, b)),
+                    f"{name} {dt_name}: y differs from the forward kernel's")
+            require_repeatable(
+                got, lambda: conv.conv3x3_stats_forward(x, wt, b),
+                f"{name} {dt_name}")
+            del got, want
+        ms = cuda_ms(lambda: conv.conv3x3_stats_forward(x, wt, b))
+        plain_ms = cuda_ms(lambda: conv.conv3x3_stats_plain(x, wt, b),
+                           reps=1, warmup=0)
+        record(name, NHWC_CONV_SRC, "tpu_sandbox/ops/pallas_conv.py:142", rec,
+               ms, plain_ms, nhwc_library(x, wt, b),
+               flops=2.0 * n * h * w * co * 9 * c,
+               bytes_=(nbytes(x, wt, b) + n * h * w * co * x.element_size()
+                       + 2 * 4 * co),
+               library_note="F.conv2d on channels-last views (cuDNN): the "
+                            "conv without the statistics")
+        del x, wt, b
+        torch.cuda.empty_cache()
+
+    def nhwc_conv_wgrad(c, co):
+        name = f"conv3x3_wgrad C{c} CO{co}"
+        rec = {}
+        for dt_name, dt in DTYPES:
+            x = torch.randn((n, h, w, c), generator=gen, device="cuda").to(dt)
+            g = torch.randn((n, h, w, co), generator=gen, device="cuda").to(dt)
+            dw, db = conv.conv3x3_wgrad(x, g)
+            pdw, pdb = conv.conv3x3_wgrad_plain(x, g)
+            rec[dt_name] = compare(dw, pdw, dt_name, name)
+            rec[dt_name + "_db"] = compare(db, pdb, dt_name, name + " db")
+            require_repeatable((dw, db), lambda: conv.conv3x3_wgrad(x, g),
+                               f"{name} {dt_name}")
+            del dw, db, pdw, pdb
+        ms = cuda_ms(lambda: conv.conv3x3_wgrad(x, g))
+        plain_ms = cuda_ms(lambda: conv.conv3x3_wgrad_plain(x, g), reps=1,
+                           warmup=0)
+        wgt = torch.empty((co, c, 3, 3), dtype=x.dtype, device="cuda").contiguous(
+            memory_format=torch.channels_last)
+        library_ms = cuda_ms(lambda: torch.ops.aten.convolution_backward(
+            g.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), wgt, [co], [1, 1],
+            [1, 1], [1, 1], False, [0, 0], 1, [False, True, True]), reps=5)
+        record(name, NHWC_CONV_SRC, "tpu_sandbox/ops/pallas_conv.py:170", rec,
+               ms, plain_ms, library_ms,
+               flops=2.0 * n * h * w * co * 9 * c,
+               bytes_=nbytes(x, g) + 4 * (9 * c * co + co),
+               library_note="torch.ops.aten.convolution_backward, weight and "
+                            "bias, on channels-last views (cuDNN)")
+        del x, g
+        torch.cuda.empty_cache()
+
     conv1_sparse()
     conv1_tail()
     conv_fwd(16, 256, "fwd")
@@ -642,16 +784,31 @@ def phase_kernels(conv_t, fc_t, bn_tail_t, conv5_t, conv1_tail_t) -> dict:
     torch.cuda.empty_cache()
     for c, co, blk in TAILS:
         tail(c, co, blk)
+    nhwc_conv_fwd(16, 256, "fwd")
+    nhwc_conv_fwd(64, 128, "fwd")
+    nhwc_conv_fwd(128, 64, "dgrad")
+    nhwc_conv_stats(16, 256)
+    nhwc_conv_stats(64, 128)
+    nhwc_conv_wgrad(16, 256)
+    nhwc_conv_wgrad(64, 128)
+    for c, co, blk in TAILS:
+        tail(c, co, blk, nhwc=True)
     return entries
 
 
-def phase_ragged(conv_t, fc_t, bn_tail_t, conv5_t, conv1_tail_t) -> None:
+def phase_ragged(conv_t, fc_t, bn_tail_t, conv5_t, conv1_tail_t, conv,
+                 bn_tail) -> None:
     """Shapes off every tile edge: W=70, H=5, N*H=10 rows (not a multiple
     of the wgrad, stats or tail slab), CO=24 and 80 (off the 64- and
     128-channel tiles), C=16; fc with F not a multiple of the block; the
     tails at co=8 blk=2 and co=4 blk=4; the sparse conv1 and the fused
     conv1+tail wgrad at W4=70 with N*H4=10, at H4=W4=1 (every tap a halo)
-    and at f1 8 and 5 (CO 128 and 80); and the bf16 tie case."""
+    and at f1 8 and 5 (CO 128 and 80); and the bf16 tie case. The NHWC
+    kernels the same way: the conv's forward, stats and wgrad at W=70,
+    N*H=10, (C, CO) = (16, 48), (16, 80) and (32, 48) (CO a multiple of 16,
+    as the bf16 kernels take it, off the 64- and 128-channel tiles; two
+    16-channel chunks), its tails at co=8 blk=2 and co=4 blk=4, and its
+    tie case."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     out = {}
     for dt_name, dt in DTYPES:
@@ -698,22 +855,52 @@ def phase_ragged(conv_t, fc_t, bn_tail_t, conv5_t, conv1_tail_t) -> None:
             for key, val in _check_tail(bn_tail_t, case, co, blk, dt_name,
                                         f"ragged tail co{co} blk{blk}").items():
                 out[f"tail co{co} blk{blk} {key} {dt_name}"] = val
+        for c, co in NHWC_RAGGED:
+            what = f"nhwc C{c} CO{co}"
+            x, wt, b = _conv_case(gen, 2, 5, c, 70, co, dt, nhwc=True)
+            out[f"{what} fwd {dt_name}"] = compare(
+                conv.conv3x3_forward(x, wt, b), conv.conv3x3_plain(x, wt, b),
+                dt_name, f"ragged {what} fwd")
+            got = conv.conv3x3_stats_forward(x, wt, b)
+            want = conv.conv3x3_stats_plain(x, wt, b)
+            for i, part in enumerate(("y", "sum", "sumsq")):
+                out[f"{what} stats {part} {dt_name}"] = compare(
+                    got[i], want[i], dt_name, f"ragged {what} stats {part}")
+            g = torch.randn((2, 5, 70, co), generator=gen,
+                            device="cuda").to(dt)
+            dw, db = conv.conv3x3_wgrad(x, g)
+            pdw, pdb = conv.conv3x3_wgrad_plain(x, g)
+            out[f"{what} wgrad {dt_name}"] = compare(
+                dw, pdw, dt_name, f"ragged {what} wgrad")
+            out[f"{what} wgrad db {dt_name}"] = compare(
+                db, pdb, dt_name, f"ragged {what} wgrad db")
+        for co, blk in ((8, 2), (4, 4)):
+            case = _tail_case(bn_tail, gen, 2, 5, blk * blk * co, co, blk, 70,
+                              dt, nhwc=True)
+            for key, val in _check_tail(
+                    bn_tail, case, co, blk, dt_name,
+                    f"ragged nhwc tail co{co} blk{blk}").items():
+                out[f"nhwc tail co{co} blk{blk} {key} {dt_name}"] = val
     out["tie"] = _tie_case(bn_tail_t, gen)
+    out["nhwc tie"] = _tie_case(bn_tail, gen, nhwc=True)
     torch.cuda.synchronize()
     emit("ragged", checks=out)
 
 
-def _tie_case(bn_tail_t, gen) -> dict:
+def _tie_case(bn_tail_t, gen, *, nhwc=False) -> dict:
     """bf16 inputs quantised to quarters with gamma 1 and beta 0: the
     rounded z has exact ties inside pool windows, which the kernels must
-    route 0.5/0.5 as the plain version does."""
+    route 0.5/0.5 as the plain version does. ``bn_tail_t`` is either tail
+    module, ``nhwc`` says which."""
     co, blk = 8, 2
     case = _tail_case(bn_tail_t, gen, 2, 5, blk * blk * co, co, blk, 70,
-                      torch.bfloat16, quantised=True)
+                      torch.bfloat16, quantised=True, nhwc=nhwc)
     y, g, _, _, (a_col, b_col, mu, inv), cols = case
     z = bn_tail_t._windows(bn_tail_t._rounded_relu(y, a_col, b_col), blk, co)
-    ties = int(((z[:, :, :, 0, :, 0] == z[:, :, :, 0, :, 1])
-                & (z[:, :, :, 0, :, 0] > 0)).sum().item())
+    # a window's representative and its partner at offset co
+    rep, partner = ((z[..., :, 0, :, 0, :], z[..., :, 0, :, 1, :]) if nhwc
+                    else (z[:, :, :, 0, :, 0], z[:, :, :, 0, :, 1]))
+    ties = int(((rep == partner) & (rep > 0)).sum().item())
     require(ties > 0, "tie case: no pool window holds a tie")
     out = bn_tail_t.tail_fwd(y, a_col, b_col, co, blk)
     require(torch.equal(out, bn_tail_t.tail_fwd_plain(y, a_col, b_col, co,
@@ -920,14 +1107,14 @@ def phase_lm_path(ops, lm_train):
 
 
 def phase_main_path(ops, mnist_onegpu, expected: list[str], *, phase: str,
-                    steps: int, model_options: dict | None = None):
-    """mnist_onegpu's train function at 3000x3000 with the launch
-    counters zeroed just before and read just after: every expected
-    launch once per step, and no other."""
+                    plan: str, steps: int, model_options: dict | None = None):
+    """mnist_onegpu's train function at 3000x3000 with ``--plan plan``
+    and the launch counters zeroed just before and read just after: every
+    expected launch once per step, and no other."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     args = mnist_onegpu.build_parser().parse_args([
-        "--image-size", str(IMAGE), "--batch-size", str(BATCH),
+        "--plan", plan, "--image-size", str(IMAGE), "--batch-size", str(BATCH),
         "--dtype", "bf16", "--synthetic-n", str(steps * BATCH),
         "--limit-steps", str(steps), "--epochs", "1", "--log-every", "1"])
     ops.reset_launch_counts()
@@ -950,9 +1137,13 @@ def phase_main_path(ops, mnist_onegpu, expected: list[str], *, phase: str,
     step_ms = statistics.median(trainer.step_seconds[1:]) * 1e3
     model = state.model
     res = dict(image=IMAGE, batch=BATCH, dtype="bf16", steps=steps,
+               plan=plan, model=type(model).__name__,
                plan_options=model_options or {},
-               fused_tail=model.fused_tail, sparse_conv1=model.sparse_conv1,
-               fused_conv1_bwd=model.fused_conv1_bwd, losses=trainer.losses,
+               fused_tail=model.fused_tail,
+               fused_conv=getattr(model, "fused_conv", None),
+               sparse_conv1=getattr(model, "sparse_conv1", None),
+               fused_conv1_bwd=getattr(model, "fused_conv1_bwd", None),
+               losses=trainer.losses,
                step_ms_each=[s * 1e3 for s in trainer.step_seconds],
                step_ms_median_after_first=step_ms,
                images_per_s=BATCH / (step_ms / 1e3),
@@ -994,15 +1185,16 @@ def _profile(step, batch, *, phase: str, plan: str, steps: int = 2) -> None:
          ops_ms_per_step=top(ops, 15), kernels_ms_per_step=top(kernels, 12))
 
 
-def phase_profile(trainer) -> None:
-    """Two more steps of the ConvNet's main path under the profiler."""
+def phase_profile(trainer, phase: str = "profile",
+                  plan: str = "main_path") -> None:
+    """Two more steps of a ConvNet path under the profiler."""
     from tpu_sandbox_torch.data import normalize, synthetic_mnist
     from tpu_sandbox_torch.train.trainer import to_device
 
     images, labels = synthetic_mnist(n=BATCH, seed=2)
     batch = to_device(normalize(images), labels.astype("int32"),
                       torch.device("cuda"))
-    _profile(trainer.train_step, batch, phase="profile", plan="main_path")
+    _profile(trainer.train_step, batch, phase=phase, plan=plan)
 
 
 def phase_lm_profile(lm_train, run) -> None:
@@ -1015,12 +1207,14 @@ def phase_lm_profile(lm_train, run) -> None:
 
 
 def phase_card_vs_cpu() -> None:
-    """The port on the card against the port on the CPU on every plan of
-    the paths: the same bridged weights, batches and 3 SGD steps."""
+    """The port on the card against the port on the CPU on every
+    transposed plan of the paths and on ConvNetS2D's four (fused_conv,
+    fused_tail) plans: the same bridged weights, batches and 3 SGD
+    steps."""
     import numpy as np
 
     from tpu_sandbox_torch.data import BatchLoader, normalize, synthetic_mnist
-    from tpu_sandbox_torch.models import ConvNetS2DT
+    from tpu_sandbox_torch.models import ConvNetS2D, ConvNetS2DT
     from tpu_sandbox_torch.train import TrainState, make_train_step
     from tpu_sandbox_torch.train.trainer import to_device
     from tpu_sandbox_torch.utils import params_from_flax, params_to_flax
@@ -1029,12 +1223,15 @@ def phase_card_vs_cpu() -> None:
     tree = params_to_flax(ConvNetS2DT(hw, seed=0, device="cpu"))
     images, labels = synthetic_mnist(n=steps * bs, seed=0)
     res = {}
-    for phase, options, *_ in PATHS:
-        plan = {"fused_tail": True, **options}
+    plans = [(phase, ConvNetS2DT, {"fused_tail": True, **options})
+             for phase, plan, options, *_ in PATHS if plan == "auto"]
+    plans += [(f"s2d_fused_conv{int(fc)}_fused_tail{int(ft)}", ConvNetS2D,
+               {"fused_conv": fc, "fused_tail": ft})
+              for fc in (False, True) for ft in (False, True)]
+    for phase, cls, plan in plans:
         losses = {}
         for dev in ("cpu", "cuda"):
-            model = ConvNetS2DT(hw, dtype=torch.float32, seed=1, device=dev,
-                                **plan)
+            model = cls(hw, dtype=torch.float32, seed=1, device=dev, **plan)
             model.load_state_dict(params_from_flax(tree))
             step = make_train_step(TrainState(model, lr=1e-4), image_size=hw)
             loader = BatchLoader(normalize(images), labels.astype("int32"),
@@ -1042,7 +1239,8 @@ def phase_card_vs_cpu() -> None:
             losses[dev] = [float(step(*to_device(im, lb, torch.device(dev))))
                            for im, lb in loader]
         ok = np.allclose(losses["cuda"], losses["cpu"], rtol=1e-4, atol=0)
-        res[phase] = dict(plan=plan, losses_cpu=losses["cpu"],
+        res[phase] = dict(model=cls.__name__, plan=plan,
+                          losses_cpu=losses["cpu"],
                           losses_cuda=losses["cuda"], agree=bool(ok))
     emit("card_vs_cpu", image=64, dtype="fp32", steps=steps, rtol=1e-4,
          **res)
@@ -1089,9 +1287,11 @@ def main() -> int:
     try:
         from tpu_sandbox_torch import lm_train, mnist_onegpu, ops
         from tpu_sandbox_torch.ops import (
+            bn_tail,
             bn_tail_t,
             build,
             ce,
+            conv,
             conv1_tail_t,
             conv5_t,
             conv_t,
@@ -1106,16 +1306,18 @@ def main() -> int:
 
     exact_fp32()
     smi = phase_env(build)
-    entries = phase_kernels(conv_t, fc_t, bn_tail_t, conv5_t, conv1_tail_t)
+    entries = phase_kernels(conv_t, fc_t, bn_tail_t, conv5_t, conv1_tail_t,
+                            conv, bn_tail)
     require(sorted(entries) == ALL_KINDS,
             f"kernel phase covered {sorted(entries)}")
     entries.update(phase_lm_kernels(ce, fa))
-    phase_ragged(conv_t, fc_t, bn_tail_t, conv5_t, conv1_tail_t)
+    phase_ragged(conv_t, fc_t, bn_tail_t, conv5_t, conv1_tail_t, conv,
+                 bn_tail)
     phase_lm_ragged(ce, fa)
     counts, main_ms = {}, None
-    for phase, options, steps, kinds in PATHS:
+    for phase, plan, options, steps, kinds in PATHS:
         res, counts[phase], trainer = phase_main_path(
-            ops, mnist_onegpu, kinds, phase=phase, steps=steps,
+            ops, mnist_onegpu, kinds, phase=phase, plan=plan, steps=steps,
             model_options=options)
         if main_ms is None:
             require(res["fused_tail"] and res["sparse_conv1"]
@@ -1127,6 +1329,8 @@ def main() -> int:
             phase_profile(trainer)
         else:
             emit(phase, **res, main_path_step_ms_median_after_first=main_ms)
+        if phase == "path_s2d":
+            phase_profile(trainer, phase="profile_s2d", plan=phase)
         del trainer
     run, counts["lm_path"] = phase_lm_path(ops, lm_train)
     phase_lm_profile(lm_train, run)
@@ -1134,13 +1338,25 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_card_vs_cpu()
     phase_lm_card_vs_cpu(lm_train)
+    steps_of = {phase: steps for phase, _, _, steps, _ in PATHS}
+    steps_of["lm_path"] = STEPS
     for name, e in entries.items():
         e["launches_by_path"] = {p: c.get(name, 0) for p, c in counts.items()}
         # the count from the run of the first path this launch belongs to
-        e["launches"] = next(c[name] for c in counts.values() if name in c)
+        path = next(p for p, c in counts.items() if name in c)
+        e["launches"] = counts[path][name]
+        # what orders the work on the kernels: the factor a kernel loses to
+        # its library call by, and its time above its bound in one step of
+        # its first path
+        e["launches_per_step"] = e["launches"] / steps_of[path]
+        e["excess_ms_per_step"] = e["launches_per_step"] * (e["ms"]
+                                                            - e["bound_ms"])
+        e["vs_library"] = (e["ms"] / e["library_ms"] if e["library_ms"]
+                           else None)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "library_note", "fp32_rel_err", "bf16_rel_err", "launches_by_path")
+            "library_note", "fp32_rel_err", "bf16_rel_err", "launches_by_path",
+            "launches_per_step", "excess_ms_per_step", "vs_library")
     print(json.dumps({"kernels": [{k: e[k] for k in keys}
                                   for _, e in sorted(entries.items())]}))
     print(smi)

@@ -1,0 +1,228 @@
+"""The port's NHWC fused BN/ReLU/pool tail (tpu_sandbox_torch/ops/bn_tail.py)
+== the JAX Pallas fused_bn_relu_pool (interpret mode) at the geometries
+of tests/test_pallas_bn_tail.py, (blk, co) = (4, 4), (2, 16) and (4, 16),
+in fp32 and bf16: the pooled output, mu and var; dy, dgamma and dbeta
+(the reduce pass's s2 and s1); the bf16 tie case; the ysums path; and
+unfused_reference. On the CPU the port runs its kernels' plain PyTorch
+versions; the kernels are held against those on the card by
+chip_smoke.py."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tpu_sandbox.ops import pallas_bn_tail as jax_tail
+from tpu_sandbox_torch.ops import bn_tail
+
+GEOMS = [(4, 4, 12), (2, 16, 8), (4, 16, 8)]      # (blk, co, hw)
+DTYPES = {"fp32": (jnp.float32, torch.float32),
+          "bf16": (jnp.bfloat16, torch.bfloat16)}
+# fp32: the same f32 arithmetic in other orders (means, sums over the
+# batch; XLA may contract y*a + b into an FMA): 1e-5 of the scale.
+# bf16: z is rounded to bf16 on both sides, and an FMA or another
+# summation order of mu can move one rounding by one bf16 ulp (2^-8
+# relative); dy is rounded to bf16 once on each side.
+REL = {"fp32": 1e-5, "bf16": 1e-2}
+# gradients hold sums over the batch of products with t_hat: 1e-4 in fp32
+GRAD_REL = {"fp32": 1e-4, "bf16": 1e-2}
+
+
+def _inputs(blk, co, hw, seed=0, n=2):
+    rng = np.random.default_rng(seed)
+    c = blk * blk * co
+    y = rng.standard_normal((n, hw, hw, c)).astype(np.float32)
+    gamma = (1 + 0.1 * rng.standard_normal(co)).astype(np.float32)
+    beta = rng.standard_normal(co).astype(np.float32)
+    cot = rng.standard_normal((n, hw, hw, c // 4)).astype(np.float32)
+    return y, gamma, beta, cot
+
+
+def _np(t):
+    if isinstance(t, torch.Tensor):
+        return t.detach().float().numpy()
+    return np.asarray(jnp.asarray(t, jnp.float32))
+
+
+def _close(got, want, rel, what=""):
+    want = _np(want)
+    scale = float(np.max(np.abs(want))) or 1.0
+    np.testing.assert_allclose(_np(got), want, rtol=0, atol=rel * scale,
+                               err_msg=what)
+
+
+def _ysums(y):
+    """Per-channel [1,C] sums of y and y*y, in f32."""
+    yf = y.astype(np.float32)
+    return (yf.sum(axis=(0, 1, 2))[None],
+            np.square(yf).sum(axis=(0, 1, 2))[None])
+
+
+def _jax_case(y, gamma, beta, cot, co, blk, ysums=None):
+    """JAX forward (out, mu, var) and its VJP (dy, dgamma, dbeta) on the
+    pooled cotangent, jitted, as numpy."""
+    def run(y, gamma, beta, cot):
+        (out, mu, var), vjp = jax.vjp(
+            lambda y, g, b: jax_tail.fused_bn_relu_pool(
+                y, g, b, co, blk, 1e-5, None, ysums), y, gamma, beta)
+        dy, dg, db = vjp((cot.astype(out.dtype), jnp.zeros_like(mu),
+                          jnp.zeros_like(var)))
+        return out, mu, var, dy, dg, db
+    return [np.asarray(jnp.asarray(t, jnp.float32))
+            for t in jax.jit(run)(y, gamma, beta, cot)]
+
+
+def _torch_case(y, gamma, beta, cot, co, blk, ysums=None):
+    ty, tg, tb = (t.clone().requires_grad_() for t in (y, gamma, beta))
+    out, mu, var = bn_tail.fused_bn_relu_pool(ty, tg, tb, co, blk,
+                                              ysums=ysums)
+    out.backward(cot.to(out.dtype))
+    return out, mu, var, ty.grad, tg.grad, tb.grad
+
+
+@pytest.fixture(scope="module", params=[(g, d) for g in GEOMS for d in DTYPES],
+                ids=lambda p: f"blk{p[0][0]}-co{p[0][1]}-hw{p[0][2]}-{p[1]}")
+def case(request):
+    (blk, co, hw), dt = request.param
+    jd, td = DTYPES[dt]
+    y, gamma, beta, cot = _inputs(blk, co, hw)
+    want = _jax_case(jnp.asarray(y, jd), jnp.asarray(gamma),
+                     jnp.asarray(beta), jnp.asarray(cot), co, blk)
+    got = _torch_case(torch.from_numpy(y).to(td), torch.from_numpy(gamma),
+                      torch.from_numpy(beta), torch.from_numpy(cot), co, blk)
+    return dict(dt=dt, want=want, got=got)
+
+
+def test_forward_matches_jax(case):
+    got, want, dt = case["got"], case["want"], case["dt"]
+    assert got[0].dtype == DTYPES[dt][1]
+    assert tuple(got[0].shape) == want[0].shape
+    _close(got[0], want[0], REL[dt], "out")
+    _close(got[1], want[1], 1e-5, "mu")     # f32 statistics on both sides
+    _close(got[2], want[2], 1e-5, "var")
+
+
+def test_gradients_match_jax(case):
+    """dy, and dgamma = s2 and dbeta = s1 of the reduce pass, folded over
+    the groups."""
+    got, want, dt = case["got"], case["want"], case["dt"]
+    for i, name in ((3, "dy"), (4, "dgamma"), (5, "dbeta")):
+        assert tuple(got[i].shape) == want[i].shape, name
+        _close(got[i], want[i], GRAD_REL[dt], name)
+
+
+def test_bf16_tie_routing_is_exact_and_dy_within_one_ulp():
+    """Inputs quantised to quarters with gamma 1 and beta 0, so that the
+    bf16-rounded z has exact ties in pool windows: the port's routing
+    equals JAX's _route on the same rounded z, and dy through the whole
+    backward is within one bf16 ulp of max|dy|."""
+    rng = np.random.default_rng(7)
+    co, blk = 8, 2
+    y = (np.round(rng.standard_normal((2, 4, 4, blk * blk * co)) * 4)
+         / 4).astype(np.float32)
+    cot = rng.standard_normal((2, 4, 4, co)).astype(np.float32)
+    gamma, beta = np.ones(co, np.float32), np.zeros(co, np.float32)
+    ty = torch.from_numpy(y).to(torch.bfloat16)
+    tcot = torch.from_numpy(cot).to(torch.bfloat16)
+    mu, var = bn_tail.stats(ty, co)
+    inv = torch.rsqrt(var + 1e-5)
+    a = bn_tail.col_expand(inv, blk * blk)
+    b = bn_tail.col_expand(-mu * inv, blk * blk)
+    got_dz = bn_tail._dz(ty, tcot, co, blk, a, b).numpy()
+    z = bn_tail._rounded_relu(ty, a, b).numpy()
+    g_exp = jnp.asarray(_np(tcot)) @ jnp.asarray(
+        jax_tail.selection_matrix(blk, co).T)
+    want_dz = np.asarray(jax_tail._route(jnp.asarray(z), g_exp, co, blk)
+                         * (z > 0))
+    zw = bn_tail._windows(torch.from_numpy(z), blk, co)
+    pair = zw[..., :, 0, :, 0, :]
+    assert ((pair == zw[..., :, 0, :, 1, :]) & (pair > 0)).any(), "no tie"
+    np.testing.assert_array_equal(got_dz + 0.0, want_dz + 0.0)
+    want = _jax_case(jnp.asarray(y, jnp.bfloat16), jnp.asarray(gamma),
+                     jnp.asarray(beta), jnp.asarray(cot), co, blk)
+    got = _torch_case(ty, torch.from_numpy(gamma), torch.from_numpy(beta),
+                      torch.from_numpy(cot), co, blk)
+    _close(got[0], want[0], 0.0, "out")
+    _close(got[3], want[3], 2.0 ** -8, "dy")
+
+
+@pytest.mark.parametrize("blk,co,hw", [(2, 16, 8), (4, 4, 12)])
+def test_ysums_path_matches_jax_and_sums_get_zero_cotangents(blk, co, hw):
+    """The statistics from per-lane [1, C] sums (count = y.size // co),
+    as conv3x3_stats gives them, against JAX's ysums path; the sums get
+    zero cotangents, and the result equals the tail's own statistics."""
+    y, gamma, beta, cot = _inputs(blk, co, hw, seed=4)
+    s, ss = _ysums(y)
+    want = _jax_case(jnp.asarray(y), jnp.asarray(gamma), jnp.asarray(beta),
+                     jnp.asarray(cot), co, blk,
+                     ysums=(jnp.asarray(s), jnp.asarray(ss)))
+    ts = torch.from_numpy(s).requires_grad_()
+    tss = torch.from_numpy(ss).requires_grad_()
+    got = _torch_case(torch.from_numpy(y), torch.from_numpy(gamma),
+                      torch.from_numpy(beta), torch.from_numpy(cot), co, blk,
+                      ysums=(ts, tss))
+    for g, w, name in zip(got, want, ("out", "mu", "var", "dy", "dgamma",
+                                      "dbeta")):
+        _close(g, w, 1e-4 if name.startswith("d") else 1e-5, name)
+    assert torch.count_nonzero(ts.grad) == 0
+    assert torch.count_nonzero(tss.grad) == 0
+    own = _torch_case(torch.from_numpy(y), torch.from_numpy(gamma),
+                      torch.from_numpy(beta), torch.from_numpy(cot), co, blk)
+    for g, o, name in zip(got, own, ("out", "mu", "var", "dy")):
+        _close(g, o, 1e-5, name)
+
+
+@pytest.mark.parametrize("dt", ["fp32", "bf16"])
+def test_unfused_reference_and_stats_match_jax(dt):
+    blk, co, hw = 4, 4, 12
+    jd, td = DTYPES[dt]
+    y, gamma, beta, _ = _inputs(blk, co, hw, seed=3)
+    want = jax.jit(lambda *a: jax_tail.unfused_reference(*a, co, blk))(
+        jnp.asarray(y, jd), jnp.asarray(gamma), jnp.asarray(beta))
+    ty = torch.from_numpy(y).to(td)
+    got = bn_tail.unfused_reference(ty, torch.from_numpy(gamma),
+                                    torch.from_numpy(beta), co, blk)
+    for g, w, name in zip(got, want, ("out", "mu", "var")):
+        _close(g, w, REL[dt] if name == "out" else 1e-5, name)
+    jmu, jvar = jax_tail._stats(jnp.asarray(y, jd), co)
+    mu, var = bn_tail.stats(ty, co)
+    _close(mu, jmu, 1e-5, "_stats mu")
+    _close(var, jvar, 1e-5, "_stats var")
+
+
+@pytest.mark.parametrize("blk,co,hw", GEOMS)
+def test_fused_equals_the_unfused_chain(blk, co, hw):
+    """Within the port: the fused function's forward and gradients equal
+    autograd through the unfused chain (fp32)."""
+    y, gamma, beta, cot = _inputs(blk, co, hw, seed=5)
+    got = _torch_case(torch.from_numpy(y), torch.from_numpy(gamma),
+                      torch.from_numpy(beta), torch.from_numpy(cot), co, blk)
+    ty, tg, tb = (torch.from_numpy(t).requires_grad_()
+                  for t in (y, gamma, beta))
+    out, mu, var = bn_tail.unfused_reference(ty, tg, tb, co, blk)
+    out.backward(torch.from_numpy(cot))
+    for g, w, name in zip(got, (out, mu, var, ty.grad, tg.grad, tb.grad),
+                          ("out", "mu", "var", "dy", "dgamma", "dbeta")):
+        _close(g, w, 1e-4 if name.startswith("d") else 1e-5, name)
+
+
+def test_non_cpu_tensor_never_takes_the_plain_path():
+    """A tensor that is not on the CPU goes to the kernel wrapper, which
+    raises for anything it cannot launch on (here a meta tensor)."""
+    y = torch.empty((1, 2, 8, 16), device="meta")
+    g = torch.empty((1, 2, 8, 4), device="meta")
+    vec = torch.empty((16,), device="meta")
+    v = torch.empty((4,), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        bn_tail.tail_fwd(y, vec, vec, 4, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        bn_tail.bwd_reduce(y, g, 4, 2, vec, vec, v, v)
+    with pytest.raises(ValueError, match="CUDA"):
+        bn_tail.bwd_apply(y, g, 4, 2, vec, vec, v, v, vec, vec, vec)
+
+
+def test_bad_geometry_raises():
+    with pytest.raises(ValueError, match="blocks"):
+        bn_tail.tail_fwd(torch.zeros((1, 1, 4, 12)), torch.zeros(12),
+                         torch.zeros(12), 4, 2)

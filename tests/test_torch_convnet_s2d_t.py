@@ -5,7 +5,8 @@ conv1 with the fused conv1+tail backward, with the unfused conv1
 backward, and with unfused tails. The resize weights, the fused input
 stage, and at 32x32, batch 2, fp32 from bridged weights the logits, the
 loss, every gradient and the BN running stats; bf16 logits; eval mode;
-and pick_convnet's plan, options and fused_tail resolution. The JAX side
+and pick_convnet's plan, options and fused_tail resolution (the NHWC
+plan, and 'auto' on the CPU, in tests/test_torch_convnet_s2d.py). The JAX side
 runs its Pallas kernels in interpret mode on the CPU; the port runs its
 kernels' plain PyTorch versions."""
 
@@ -21,7 +22,7 @@ from tpu_sandbox.models.convnet_s2d_t import resize_weights as jax_resize_weight
 from tpu_sandbox.ops.losses import cross_entropy_loss as jax_ce
 from tpu_sandbox.train.trainer import prepare_inputs as jax_prepare_inputs
 from tpu_sandbox_torch import mnist_onegpu
-from tpu_sandbox_torch.models import pick_convnet, resolve_fused_tail
+from tpu_sandbox_torch.models import ConvNetS2D, pick_convnet, resolve_fused_tail
 from tpu_sandbox_torch.models.convnet_s2d_t import (
     ConvNetS2DT,
     block_max_pool_t,
@@ -237,6 +238,11 @@ def test_same_seed_same_weights():
 
 @pytest.mark.parametrize("kwargs", [dict(plan="s2d"), dict(plan="plain")])
 def test_unported_plans_raise(kwargs):
+    """Only the plain ConvNet is still unported and raises; the NHWC plan
+    's2d' is ported and gives ConvNetS2D."""
+    if kwargs["plan"] == "s2d":
+        assert isinstance(pick_convnet(HW, device="cpu", **kwargs), ConvNetS2D)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pick_convnet(HW, device="cpu", **kwargs)
 
@@ -244,17 +250,21 @@ def test_unported_plans_raise(kwargs):
 @pytest.mark.parametrize("option", ["sparse_conv1", "fused_conv1_bwd"])
 @pytest.mark.parametrize("value", [False, True])
 def test_pick_convnet_honours_the_conv1_options(option, value):
-    model = pick_convnet(HW, device="cpu", **{option: value})
+    model = pick_convnet(HW, plan="s2dt", device="cpu", **{option: value})
     assert getattr(model, option) is value
     assert model.conv1.sparse is (value if option == "sparse_conv1" else True)
 
 
 def test_pick_convnet_gives_the_ported_plan():
-    model = pick_convnet(32, device="cpu")
+    """The transposed plan with the JAX module's defaults under 's2dt';
+    'auto' on the CPU gives the NHWC plan, as JAX's rule does where its
+    kernels would run interpreted."""
+    model = pick_convnet(32, plan="s2dt", device="cpu")
     assert isinstance(model, ConvNetS2DT)
     # the JAX module's defaults: the sparse conv1, the fused conv1 backward
     assert model.sparse_conv1 is True and model.fused_conv1_bwd is True
     assert model.conv1.sparse and not model.conv2.sparse
+    assert isinstance(pick_convnet(32, device="cpu"), ConvNetS2D)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pick_convnet(30, device="cpu")
 
@@ -286,15 +296,26 @@ def test_fused_tail_resolves_by_device(fused_tail, device, want):
 
 
 def test_pick_convnet_fuses_the_tail_on_request_only_on_the_cpu():
-    assert pick_convnet(32, device="cpu").fused_tail is False
-    assert pick_convnet(32, device="cpu", fused_tail=True).fused_tail is True
+    assert pick_convnet(32, plan="s2dt", device="cpu").fused_tail is False
+    assert pick_convnet(32, plan="s2dt", device="cpu",
+                        fused_tail=True).fused_tail is True
 
 
 @pytest.mark.parametrize("plan", ["s2d", "plain"])
 def test_entry_plan_flag_raises_for_unported_plans(plan):
+    """--plan plain raises naming ROADMAP; --plan s2d is ported and
+    trains ConvNetS2D (unfused on the CPU)."""
+    argv = ["--force-cpu", "--plan", plan, "--image-size", "32",
+            "--limit-steps", "1", "--epochs", "1", "--synthetic-n", "5",
+            "--log-every", "1"]
+    if plan == "s2d":
+        trainer, state = mnist_onegpu.main(argv)
+        assert isinstance(state.model, ConvNetS2D)
+        assert not state.model.fused_conv and not state.model.fused_tail
+        assert state.step == 1 and np.isfinite(trainer.losses).all()
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mnist_onegpu.main(["--force-cpu", "--plan", plan, "--image-size",
-                           "32", "--limit-steps", "1"])
+        mnist_onegpu.main(argv)
 
 
 def test_eval_mode_runs_the_unfused_tail_with_running_stats(case):

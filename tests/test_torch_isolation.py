@@ -27,6 +27,8 @@ def test_import_loads_no_jax_and_no_jax_package():
         "import tpu_sandbox_torch.ops.bn_tail_t\n"
         "import tpu_sandbox_torch.ops.conv5_t\n"
         "import tpu_sandbox_torch.ops.conv1_tail_t\n"
+        "import tpu_sandbox_torch.ops.conv, tpu_sandbox_torch.ops.bn_tail\n"
+        "import tpu_sandbox_torch.models.convnet_s2d\n"
         "import tpu_sandbox_torch.ops.build, tpu_sandbox_torch.ops.losses\n"
         "import tpu_sandbox_torch.ops.ce, tpu_sandbox_torch.ops.attention\n"
         "import tpu_sandbox_torch.ops.flash_attention\n"

@@ -7,10 +7,13 @@ Seed 0, the two-block ConvNet on 3000x3000 images (the 28x28 batch is
 resized on the device), batch size 5, bf16 compute over f32 parameters,
 mean cross-entropy, SGD at 1e-4, a loss line every ``--log-every`` steps
 and the wall-clock total. Runs on ``cuda`` unless ``--force-cpu``; with
-no card and no ``--force-cpu`` it fails. ``--plan auto`` (or ``s2dt``)
-runs the transposed space-to-depth plan with the sparse conv1 and the
-fused conv1+tail backward, its BN tails fused on the card; ``s2d`` and
-``plain`` are not ported yet and raise. Without MNIST
+no card and no ``--force-cpu`` it fails. ``--plan s2dt`` runs the
+transposed space-to-depth plan with the sparse conv1 and the fused
+conv1+tail backward, its BN tails fused on the card; ``--plan s2d`` runs
+the NHWC space-to-depth plan, its convs and BN tails fused on the card;
+``--plan auto`` picks ``s2dt`` on the card and ``s2d`` on the CPU, as
+the JAX script picks by whether its kernels compile; ``plain`` is not
+ported yet and raises. Without MNIST
 IDX files a deterministic synthetic MNIST stands in. The JAX script's
 other flags (--accum-steps, --native-loader, --ckpt-every, --ckpt-dir,
 --profile, --resume) are not ported yet and argparse refuses them.
@@ -115,10 +118,11 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--plan", choices=["auto", "s2dt", "s2d", "plain"],
                         default="auto",
                         help="ConvNet execution plan: s2dt = transposed "
-                             "space-to-depth (models/convnet_s2d_t.py), its "
-                             "BN tails fused on the GPU; auto picks s2dt "
-                             "when the image size allows. s2d and plain "
-                             "are not ported yet")
+                             "space-to-depth (models/convnet_s2d_t.py), s2d "
+                             "= NHWC space-to-depth (models/convnet_s2d.py), "
+                             "their kernels fused on the GPU; auto picks "
+                             "s2dt on the GPU and s2d on the CPU when the "
+                             "image size allows. plain is not ported yet")
     parser.add_argument("--dtype", choices=["bf16", "fp32"], default="bf16",
                         help="compute dtype; params and loss stay fp32")
     parser.add_argument("--eval", action="store_true",

@@ -27,13 +27,18 @@ the fc, whose kernel rows are in canonical (h, c, w) order.
 from __future__ import annotations
 
 import functools
-import math
 
 import numpy as np
 import torch
 from torch import nn
 
-from tpu_sandbox_torch.models.convnet_s2d import scatter_kernel
+from tpu_sandbox_torch.models.convnet_s2d import (
+    Conv,
+    Dense,
+    GroupedBN,
+    as_nhw,
+    scatter_kernel,
+)
 from tpu_sandbox_torch.ops.bn_tail_t import fused_bn_relu_pool_t
 from tpu_sandbox_torch.ops.conv1_tail_t import conv1_tail_t
 from tpu_sandbox_torch.ops.conv5_t import conv1_s2d_t, conv1_s2d_t_stats
@@ -64,15 +69,6 @@ def resize_weights(src: int, dst: int) -> np.ndarray:
     return np.ascontiguousarray(w.T)
 
 
-def as_nhw(x: torch.Tensor) -> torch.Tensor:
-    """[N,H,W,1] or [N,H,W] -> [N,H,W]."""
-    if x.dim() == 4:
-        if x.shape[-1] != 1:
-            raise ValueError("the s2d plan is for the 1-channel CNN")
-        x = x[..., 0]
-    return x
-
-
 def space_to_depth_t(x: torch.Tensor, r: int) -> torch.Tensor:
     """[N,H,W] -> [N, H/r, r*r, W/r] (channel index a*r+b)."""
     n, h, w = x.shape
@@ -97,34 +93,17 @@ def block_max_pool_t(y: torch.Tensor, blk: int, co: int) -> torch.Tensor:
     return m.reshape(*lead, (blk // 2) ** 2 * co, w)
 
 
-def _lecun_normal_(t: torch.Tensor, fan_in: int,
-                   gen: torch.Generator) -> torch.Tensor:
-    """Flax's lecun_normal: truncated normal on [-2, 2] std, scaled so the
-    variance is 1/fan_in."""
-    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-    return nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std, generator=gen)
-
-
-class ConvT(nn.Module):
-    """The canonical [5,5,ci,co] kernel and bias. With ``sparse``, conv1
-    (r=4, one input channel) runs the sparse-tap union-tile conv
-    (``_ConvT.sparse``); otherwise the scattered 3x3 conv on the r-block
-    grid."""
+class ConvT(Conv):
+    """``Conv``'s canonical [5,5,ci,co] kernel and bias in the transposed
+    layout. With ``sparse``, conv1 (r=4, one input channel) runs the
+    sparse-tap union-tile conv (``_ConvT.sparse``); otherwise the
+    scattered 3x3 conv on the r-block grid."""
 
     def __init__(self, shape: tuple[int, int, int, int], r: int,
                  dtype: torch.dtype, gen: torch.Generator,
                  sparse: bool = False):
-        super().__init__()
-        self.r, self.dtype = r, dtype
+        super().__init__(shape, r, dtype, gen, fused=True)
         self.sparse = sparse and r == 4 and shape[2] == 1
-        self.kernel = nn.Parameter(_lecun_normal_(
-            torch.empty(shape), shape[0] * shape[1] * shape[2], gen))
-        self.bias = nn.Parameter(torch.zeros(shape[-1]))
-
-    def params(self) -> tuple[torch.Tensor, torch.Tensor]:
-        """(kernel, bias) in the compute dtype, as JAX's ``params_only``
-        fetches them for the fused conv1+tail unit."""
-        return self.kernel.to(self.dtype), self.bias.to(self.dtype)
 
     def forward(self, x: torch.Tensor, want_stats: bool = False):
         """y, or with ``want_stats`` (y, (sum [CO,1], sumsq [CO,1])) from
@@ -145,30 +124,9 @@ class ConvT(nn.Module):
         return conv3x3_t(x.contiguous(), wg, bias_g)
 
 
-class GroupedBNT(nn.Module):
-    """BatchNorm over the transposed layout [..., g*co, W] with Flax
-    semantics (``_GroupedBNT``): statistics in f32, the single-pass biased
-    variance max(0, E[y^2] - E[y]^2), running stats updated as
-    ``ra = 0.9*ra + 0.1*x`` with the biased variance, and the output cast
-    to the compute dtype before ReLU and pool. Not ``nn.BatchNorm2d``,
-    which updates with the unbiased variance."""
-
-    MOMENTUM = 0.9
-    EPSILON = 1e-5
-
-    def __init__(self, features: int, dtype: torch.dtype):
-        super().__init__()
-        self.features, self.dtype = features, dtype
-        self.scale = nn.Parameter(torch.ones(features))
-        self.bias = nn.Parameter(torch.zeros(features))
-        self.register_buffer("mean", torch.zeros(features))
-        self.register_buffer("var", torch.ones(features))
-
-    @torch.no_grad()
-    def _update_running(self, mu: torch.Tensor, var: torch.Tensor) -> None:
-        m = self.MOMENTUM
-        self.mean.copy_(m * self.mean + (1 - m) * mu)
-        self.var.copy_(m * self.var + (1 - m) * var)
+class GroupedBNT(GroupedBN):
+    """``GroupedBN`` (Flax's BatchNorm semantics, the same variables) over
+    the transposed layout [..., g*co, W] (``_GroupedBNT``)."""
 
     def forward(self, y: torch.Tensor) -> torch.Tensor:
         co = self.features
@@ -208,17 +166,9 @@ class GroupedBNT(nn.Module):
         return out
 
 
-class DenseT(nn.Module):
-    """The fc over the transposed map without relayout: kernel
+class DenseT(Dense):
+    """``Dense`` over the transposed map without relayout: kernel
     [h*c*w, k] in canonical (h, c, w) rows, run through ``fc_t``."""
-
-    def __init__(self, in_features: int, features: int, dtype: torch.dtype,
-                 gen: torch.Generator):
-        super().__init__()
-        self.dtype = dtype
-        self.kernel = nn.Parameter(_lecun_normal_(
-            torch.empty(in_features, features), in_features, gen))
-        self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, y: torch.Tensor) -> torch.Tensor:
         return fc_t(y, self.kernel, self.bias, self.dtype)

@@ -9,8 +9,10 @@ from __future__ import annotations
 
 def _counters():
     from tpu_sandbox_torch.ops import (
+        bn_tail,
         bn_tail_t,
         ce,
+        conv,
         conv1_tail_t,
         conv5_t,
         conv_t,
@@ -20,13 +22,14 @@ def _counters():
 
     return (conv_t.LAUNCHES, fc_t.LAUNCHES, bn_tail_t.LAUNCHES,
             conv5_t.LAUNCHES, conv1_tail_t.LAUNCHES, ce.LAUNCHES,
-            flash_attention.LAUNCHES)
+            flash_attention.LAUNCHES, conv.LAUNCHES, bn_tail.LAUNCHES)
 
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches since the last reset, keyed by kernel, kind and
     shape (e.g. ``"conv3x3_t fwd C16 CO256"``, ``"fc_dgrad_t"``,
     ``"bn_tail_t bwd_apply C256 CO16"``, ``"conv1_tail_t wgrad CO256"``,
+    ``"conv3x3_stats C16 CO256"``, ``"bn_tail fwd C128 CO32"``,
     ``"flash_fwd"``, ``"flash_bwd_dkv"``, ``"flash_bwd_dq"``, ``"ce_fwd"``)."""
     return {k: v for counter in _counters() for k, v in counter.items()}
 
