@@ -34,6 +34,9 @@ card or when the port is not beside it. Phases, one JSON line each:
    conv1 at H4=W4=1, where every tap is a halo, and at f1 8 and 5), and
    the BN tail on bf16 inputs quantised to quarters, where pool ties
    occur: the pooled output equal, dy within one bf16 ulp of max|plain|.
+   The transposed conv's forward, stats, dgrad and wgrad at W 70 and the
+   odd W 75 (2-byte-aligned rows) with N*H 10, 21 and 3 (CONV_T_RAGGED),
+   the stats y bitwise the forward's and the reducing kernels repeatable.
    lm_ragged: the flash kernels at S 200 and 130, D 40 and 64, causal
    off, non-zero offsets, kv_len short of S, B*H = 1; the CE at N = 1 and
    C = 4097. The NHWC conv at CO 48 and 80 and at C 32, its tails at co 8
@@ -66,7 +69,9 @@ card or when the port is not beside it. Phases, one JSON line each:
    on each of the five transposed plans and ConvNetS2D's four (fused_conv,
    fused_tail) plans: losses within rtol 1e-4. lm_card_vs_cpu:
    the same for a small LM (vocab 4100, so the CE kernel runs; d 64, 2
-   heads, 2 layers, S 256, flash, fp32, 3 Adam steps).
+   heads, 2 layers, S 256, flash, fp32, 3 Adam steps), after checking
+   that the LM built on the card from seed 0 holds the CPU-built weights
+   bitwise.
 9. the {"kernels": [...]} summary, the nvidia-smi line, and last
    {"ok": true, "device": {...}}.
 
@@ -166,6 +171,12 @@ PATHS = (
 ALL_KINDS = sorted({k for *_, kinds in PATHS for k in kinds})
 #: the NHWC conv's ragged (C, CO)
 NHWC_RAGGED = ((16, 48), (16, 80), (32, 48))
+#: the transposed conv's ragged (N, H, W): W 70 and the odd W 75 (rows of
+#: 150 bytes, 2-byte aligned), N*H 10, 21 and 3 (off every slab and unit
+#: count); each at (C, CO) 64->128 and 16->24 (fwd, stats, wgrad) and the
+#: dgrad's 128->64
+CONV_T_RAGGED = ((2, 5, 70), (3, 7, 75), (1, 3, 75))
+CONV_T_RAGGED_CH = ((64, 128), (16, 24))
 #: the sparse conv1's ragged shapes (N, H4, W4, f1)
 CONV1_RAGGED = ((2, 5, 70, 16), (1, 1, 1, 16), (3, 1, 1, 8), (2, 5, 70, 8),
                 (2, 5, 70, 5))
@@ -808,7 +819,8 @@ def phase_ragged(conv_t, fc_t, bn_tail_t, conv5_t, conv1_tail_t, conv,
     N*H=10, (C, CO) = (16, 48), (16, 80) and (32, 48) (CO a multiple of 16,
     as the bf16 kernels take it, off the 64- and 128-channel tiles; two
     16-channel chunks), its tails at co=8 blk=2 and co=4 blk=4, and its
-    tie case."""
+    tie case. The transposed conv's four kinds at each CONV_T_RAGGED
+    shape (_conv_t_ragged)."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     out = {}
     for dt_name, dt in DTYPES:
@@ -849,6 +861,8 @@ def phase_ragged(conv_t, fc_t, bn_tail_t, conv5_t, conv1_tail_t, conv,
             for i, part in enumerate(("y", "sum", "sumsq")):
                 out[f"stats CO{co} {part} {dt_name}"] = compare(
                     got[i], want[i], dt_name, f"ragged stats CO{co} {part}")
+        for n, h, w in CONV_T_RAGGED:
+            out.update(_conv_t_ragged(conv_t, gen, n, h, w, dt_name, dt))
         for co, blk in ((8, 2), (4, 4)):
             case = _tail_case(bn_tail_t, gen, 2, 5, blk * blk * co, co, blk,
                               70, dt)
@@ -885,6 +899,45 @@ def phase_ragged(conv_t, fc_t, bn_tail_t, conv5_t, conv1_tail_t, conv,
     out["nhwc tie"] = _tie_case(bn_tail, gen, nhwc=True)
     torch.cuda.synchronize()
     emit("ragged", checks=out)
+
+
+def _conv_t_ragged(conv_t, gen, n, h, w, dt_name, dt) -> dict:
+    """The transposed conv's four kinds at one ragged (N, H, W): the
+    forward, the stats (y bitwise the forward's, two runs bitwise equal)
+    and the wgrad (two runs bitwise equal) at each CONV_T_RAGGED_CH, and
+    the dgrad at 128 -> 64 channels."""
+    out = {}
+    for c, co in CONV_T_RAGGED_CH:
+        what = f"conv_t n{n} h{h} w{w} C{c} CO{co}"
+        x, wt, b = _conv_case(gen, n, h, c, w, co, dt)
+        y = conv_t.conv3x3_t_forward(x, wt, b)
+        out[f"{what} fwd {dt_name}"] = compare(
+            y, conv_t.conv3x3_t_plain(x, wt, b), dt_name, f"ragged {what} fwd")
+        got = conv_t.conv3x3_t_stats_forward(x, wt, b)
+        want = conv_t.conv3x3_t_stats_plain(x, wt, b)
+        for i, part in enumerate(("y", "sum", "sumsq")):
+            out[f"{what} stats {part} {dt_name}"] = compare(
+                got[i], want[i], dt_name, f"ragged {what} stats {part}")
+        require(torch.equal(got[0], y),
+                f"ragged {what} stats {dt_name}: y differs from the forward's")
+        require_repeatable(got, lambda: conv_t.conv3x3_t_stats_forward(
+            x, wt, b), f"ragged {what} stats {dt_name}")
+        g = torch.randn((n, h, co, w), generator=gen, device="cuda").to(dt)
+        dwt, db = conv_t.conv3x3_t_wgrad(x, g)
+        pdwt, pdb = conv_t.conv3x3_t_wgrad_plain(x, g)
+        out[f"{what} wgrad {dt_name}"] = compare(
+            dwt, pdwt, dt_name, f"ragged {what} wgrad")
+        out[f"{what} wgrad db {dt_name}"] = compare(
+            db, pdb, dt_name, f"ragged {what} wgrad db")
+        require_repeatable((dwt, db), lambda: conv_t.conv3x3_t_wgrad(x, g),
+                           f"ragged {what} wgrad {dt_name}")
+    what = f"conv_t n{n} h{h} w{w} C128 CO64"
+    x, wt, b = _conv_case(gen, n, h, 128, w, 64, dt)
+    b = torch.zeros_like(b)
+    out[f"{what} dgrad {dt_name}"] = compare(
+        conv_t.conv3x3_t_forward(x, wt, b, kind="dgrad"),
+        conv_t.conv3x3_t_plain(x, wt, b), dt_name, f"ragged {what} dgrad")
+    return out
 
 
 def _tie_case(bn_tail_t, gen, *, nhwc=False) -> dict:
@@ -1252,7 +1305,8 @@ def phase_lm_card_vs_cpu(lm_train) -> None:
     """The LM on the card against the LM on the CPU: vocab 4100 (so the CE
     kernel runs), d 64, 2 heads (head dim 32), 2 layers, S 256, flash,
     fp32, 3 Adam steps from the same bridged weights on make_batches'
-    batches: losses within rtol 1e-4."""
+    batches: losses within rtol 1e-4. Before that, the LM built on the
+    card from seed 0 must hold the CPU-built weights bitwise."""
     import numpy as np
 
     from tpu_sandbox_torch.train.trainer import to_device
@@ -1262,7 +1316,15 @@ def phase_lm_card_vs_cpu(lm_train) -> None:
         "--flash", "--vocab", "4100", "--d-model", "64", "--n-heads", "2",
         "--n-layers", "2", "--d-ff", "128", "--seq-len", "256", "--batch",
         "2", "--steps", "3", "--dtype", "fp32"])
-    tree = params_to_flax(lm_train.build_model(args, torch.device("cpu")))
+    on_cpu = lm_train.build_model(args, torch.device("cpu"))
+    tree = params_to_flax(on_cpu)
+    # the seeded init itself: the model built on the card from the same
+    # seed holds the CPU-built weights, bitwise
+    want = on_cpu.state_dict()
+    got = lm_train.build_model(args, torch.device("cuda")).state_dict()
+    init_equal = sorted(got) == sorted(want) and all(
+        torch.equal(got[k].cpu(), want[k]) for k in want)
+    del on_cpu, want, got
     losses = {}
     for dev in ("cpu", "cuda"):
         device = torch.device(dev)
@@ -1276,7 +1338,10 @@ def phase_lm_card_vs_cpu(lm_train) -> None:
                            0)]
     ok = bool(np.allclose(losses["cuda"], losses["cpu"], rtol=1e-4, atol=0))
     emit("lm_card_vs_cpu", dtype="fp32", steps=3, rtol=1e-4,
-         losses_cpu=losses["cpu"], losses_cuda=losses["cuda"], agree=ok)
+         losses_cpu=losses["cpu"], losses_cuda=losses["cuda"], agree=ok,
+         init_bitwise_equal=init_equal)
+    require(init_equal, "the LM built on the card from seed 0 does not "
+            "hold the CPU-built weights bitwise")
     require(ok, f"LM card and CPU losses differ: {losses}")
 
 

@@ -196,6 +196,28 @@ def test_stats_on_a_non_cpu_tensor_never_takes_the_plain_path():
 
 @pytest.mark.parametrize("rows", [1, 7, 128, 129, 3750])
 def test_wgrad_slabs_cover_every_row_once(rows):
-    slabs, per = conv_t.wgrad_slabs(rows)
-    assert slabs * per >= rows > (slabs - 1) * per
-    assert slabs <= 128
+    """Slab s takes rows [s*per, (s+1)*per): every row once, every slab
+    non-empty, and the slabs times the (co, k) tiles within the blocks the
+    card holds at once (or one slab where the tiles alone exceed them)."""
+    for tiles, slots in ((1, 128), (2, 132), (1, 132), (18, 528), (200, 132)):
+        slabs, per = conv_t.wgrad_slabs(rows, tiles, slots)
+        covered = [r // per for r in range(rows)]
+        assert sorted(set(covered)) == list(range(slabs))
+        assert slabs * per >= rows > (slabs - 1) * per
+        assert slabs * tiles <= max(slots, tiles)
+
+
+@pytest.mark.parametrize("rows,wtiles,cotiles,slots", [
+    (3750, 6, 1, 132), (3750, 3, 1, 132), (3750, 6, 2, 264), (10, 1, 1, 132),
+    (1, 1, 1, 132), (15, 2, 3, 4), (7, 5, 1, 1)])
+def test_fwd_units_cover_every_row_and_w_tile_once(rows, wtiles, cotiles,
+                                                    slots):
+    """The bf16 forward's blocks take contiguous runs of (row, W tile)
+    units: every unit once, every block non-empty, at most one wave of
+    the card per channel tile where there are units enough."""
+    blocks, per = conv_t.fwd_units(rows, wtiles, cotiles, slots)
+    seen = [(u // wtiles, u % wtiles) for b in range(blocks)
+            for u in range(b * per, min(rows * wtiles, (b + 1) * per))]
+    assert seen == [(r, t) for r in range(rows) for t in range(wtiles)]
+    assert all(b * per < rows * wtiles for b in range(blocks))
+    assert blocks <= max(1, slots // cotiles)

@@ -228,6 +228,17 @@ def _jax_pick(device, size, plan, options, monkeypatch):
                              if hasattr(m, k)})
 
 
+def _cpu_checked(cls):
+    """A stand-in for the model class ``cls`` that builds the real model
+    on the CPU (so its shape checks run) and returns (cls, kwargs)."""
+    real = getattr(models, cls)
+
+    def build(hw, **kw):
+        real(hw, **{**kw, "device": "cpu"})
+        return cls, kw
+    return build
+
+
 def _port_pick(device, size, plan, options, monkeypatch):
     if device == "cuda":
         # the tests may run without a card: the device resolution and the
@@ -235,13 +246,17 @@ def _port_pick(device, size, plan, options, monkeypatch):
         monkeypatch.setattr(models, "resolve_device",
                             lambda d: torch.device("cuda"))
         for cls in ("ConvNetS2D", "ConvNetS2DT"):
-            monkeypatch.setattr(models, cls,
-                                lambda hw, cls=cls, **kw: (cls, kw))
+            monkeypatch.setattr(models, cls, _cpu_checked(cls))
     resolved = models.resolve_plan(size, plan, device)
     try:
         m = models.pick_convnet(size, plan=plan, device=device, **options)
     except NotImplementedError as e:
         assert "ROADMAP" in str(e)
+        return resolved, None
+    except ValueError as e:
+        # an explicit s2d plan at a size not divisible by 4: the model's
+        # own shape check, as JAX's model fails on its shape assertion
+        assert "divisible by 4" in str(e) and size % 4
         return resolved, None
     if device == "cuda":
         name, kw = m
@@ -257,11 +272,30 @@ def _port_pick(device, size, plan, options, monkeypatch):
 def test_resolve_plan_and_pick_convnet_follow_jax(device, size, plan,
                                                   options, monkeypatch):
     """The same concrete plan, model and options as JAX's rule on each
-    device; where JAX gives the plain ConvNet (or a model that cannot take
-    an image not divisible by 4), the port raises naming ROADMAP."""
+    device; where JAX gives the plain ConvNet the port raises naming
+    ROADMAP, and where JAX gives a model that cannot take an image not
+    divisible by 4, the port's model raises its shape error."""
     want = _jax_pick(device, size, plan, options, monkeypatch)
     got = _port_pick(device, size, plan, options, monkeypatch)
     assert got == want
+
+
+@pytest.mark.parametrize("plan", ["s2d", "s2dt"])
+def test_explicit_s2d_plan_off_the_4_grid_fails_like_jax(plan, monkeypatch):
+    """pick_convnet((30, 30), plan=...) with an explicit space-to-depth
+    plan: JAX resolves it to that plan and its model fails on its shape
+    assertion; the port resolves it the same way and its model raises its
+    shape error (not the plain ConvNet's NotImplementedError)."""
+    monkeypatch.delenv("TPU_SANDBOX_FORCE_COMPILED_KERNELS", raising=False)
+    jm = jax_models.pick_convnet((30, 30), plan=plan)
+    assert jax_models.resolve_plan((30, 30), plan) == plan
+    assert type(jm).__name__ == {"s2d": "ConvNetS2D",
+                                 "s2dt": "ConvNetS2DT"}[plan]
+    with pytest.raises(AssertionError, match="30"):
+        jm.init(jax.random.key(0), jnp.zeros((1, 30, 30, 1)))
+    assert models.resolve_plan((30, 30), plan, "cpu") == plan
+    with pytest.raises(ValueError, match="divisible by 4"):
+        models.pick_convnet((30, 30), plan=plan, device="cpu")
 
 
 # -- the trainer ------------------------------------------------------------

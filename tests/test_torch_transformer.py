@@ -103,6 +103,26 @@ def test_config_refuses_what_is_not_ported():
         TransformerLM(TransformerConfig(remat=True))
 
 
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_init_draws_on_a_cpu_generator_whatever_the_device(device,
+                                                            monkeypatch):
+    """Every generator the constructor makes is a CPU one, whatever device
+    the model is asked for ("meta" stands in for the card here), so one
+    seed gives the same weights on every device; the parameters end on
+    the device asked for."""
+    made = []
+    real = torch.Generator
+
+    def recording_generator(device="cpu"):
+        made.append(torch.device(device).type)
+        return real()
+
+    monkeypatch.setattr(torch, "Generator", recording_generator)
+    model = TransformerLM(TransformerConfig(**SHAPE), seed=3, device=device)
+    assert made == ["cpu"]
+    assert {p.device.type for p in model.parameters()} == {device}
+
+
 def test_bf16_logits_stay_bf16_without_fp32_logits():
     cfg = TransformerConfig(**SHAPE, dtype=torch.bfloat16, fp32_logits=False)
     logits = TransformerLM(cfg)(torch.zeros((1, 8), dtype=torch.long))

@@ -66,15 +66,17 @@ def pick_convnet(image_size, *, plan: str = "auto", fused_tail=None,
       ``sparse_conv1`` and ``fused_conv1_bwd`` are dropped;
     - ``fused_conv=False`` under 's2dt' drops to 's2d', since the
       transposed plan has no unfused conv;
-    - 'plain', and image sizes not divisible by 4, raise: the plain
-      ConvNet is not ported yet.
+    - 'plain', and 'auto' at image sizes not divisible by 4, raise: the
+      plain ConvNet is not ported yet. An explicit 's2d' or 's2dt' at such
+      a size resolves to that plan, and its model raises its shape error,
+      as JAX's does.
 
     ``fused_tail`` and ``fused_conv`` left ``None`` resolve by the model's
     device (``resolve_fused_tail``)."""
     h, w = (image_size, image_size) if isinstance(image_size, int) else image_size
     device = resolve_device(kwargs.pop("device", None))
     resolved = resolve_plan((h, w), plan, device)
-    if resolved == "plain" or h % 4 or w % 4:
+    if resolved == "plain":
         raise NotImplementedError(
             f"plan {plan!r} at image size {(h, w)} resolves to the plain "
             "ConvNet, which is not ported to PyTorch yet (ROADMAP.md, queue "

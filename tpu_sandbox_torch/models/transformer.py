@@ -13,8 +13,9 @@ kernel and bias to it and adds the bias in it; an Embed casts its table
 before the gather and ``tok + pos`` is added in it; LayerNorm computes in
 f32 with epsilon 1e-6 and the fast variance E[x^2] - E[x]^2; the MLP's
 gelu is the tanh approximation. Initial weights are drawn from the
-generator seeded with ``seed`` with Flax's distributions (lecun-normal
-kernels, zero biases, N(0, 1/d) embeddings), not Flax's numbers.
+CPU generator seeded with ``seed`` with Flax's distributions (lecun-normal
+kernels, zero biases, N(0, 1/d) embeddings), not Flax's numbers, and then
+moved to the device, so one seed gives the same weights on every device.
 """
 
 from __future__ import annotations
@@ -53,15 +54,15 @@ class Dense(nn.Module):
     ``len(in_shape)`` axes with ``kernel`` [*in_shape, *out_shape] and adds
     ``bias`` [*out_shape], all in ``dtype``."""
 
-    def __init__(self, in_shape, out_shape, dtype, device, gen):
+    def __init__(self, in_shape, out_shape, dtype, gen):
         super().__init__()
         self.in_shape, self.out_shape = tuple(in_shape), tuple(out_shape)
         self.dtype = dtype
         fan_in = math.prod(self.in_shape)
-        kernel = torch.empty((*self.in_shape, *self.out_shape), device=device)
+        kernel = torch.empty((*self.in_shape, *self.out_shape))
         nn.init.trunc_normal_(kernel, 0.0, 1.0, -2.0, 2.0, generator=gen)
         self.kernel = nn.Parameter(kernel * (math.sqrt(1.0 / fan_in) / _TRUNC_STD))
-        self.bias = nn.Parameter(torch.zeros(self.out_shape, device=device))
+        self.bias = nn.Parameter(torch.zeros(self.out_shape))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         lead = x.shape[:x.ndim - len(self.in_shape)]
@@ -75,10 +76,10 @@ class Dense(nn.Module):
 class Embed(nn.Module):
     """Flax ``Embed``: the table cast to ``dtype``, then the gather."""
 
-    def __init__(self, num, features, dtype, device, gen):
+    def __init__(self, num, features, dtype, gen):
         super().__init__()
         self.dtype = dtype
-        table = torch.empty((num, features), device=device)
+        table = torch.empty((num, features))
         nn.init.normal_(table, 0.0, math.sqrt(1.0 / features), generator=gen)
         self.embedding = nn.Parameter(table)
 
@@ -91,10 +92,10 @@ class LayerNorm(nn.Module):
     var = max(E[x^2] - E[x]^2, 0), y = (x - mean) * (rsqrt(var + eps) *
     scale) + bias, f32 out."""
 
-    def __init__(self, features, device):
+    def __init__(self, features):
         super().__init__()
-        self.scale = nn.Parameter(torch.ones(features, device=device))
-        self.bias = nn.Parameter(torch.zeros(features, device=device))
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.float()
@@ -104,14 +105,12 @@ class LayerNorm(nn.Module):
 
 
 class SelfAttention(nn.Module):
-    def __init__(self, cfg: TransformerConfig, attention_fn, device, gen):
+    def __init__(self, cfg: TransformerConfig, attention_fn, gen):
         super().__init__()
         hd = cfg.d_model // cfg.n_heads
         self.attention_fn = attention_fn or causal_attention
-        self.qkv = Dense((cfg.d_model,), (3, cfg.n_heads, hd), cfg.dtype,
-                         device, gen)
-        self.out = Dense((cfg.n_heads, hd), (cfg.d_model,), cfg.dtype, device,
-                         gen)
+        self.qkv = Dense((cfg.d_model,), (3, cfg.n_heads, hd), cfg.dtype, gen)
+        self.out = Dense((cfg.n_heads, hd), (cfg.d_model,), cfg.dtype, gen)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         qkv = self.qkv(x)                               # [B, S, 3, H, hd]
@@ -120,22 +119,22 @@ class SelfAttention(nn.Module):
 
 
 class Mlp(nn.Module):
-    def __init__(self, cfg: TransformerConfig, device, gen):
+    def __init__(self, cfg: TransformerConfig, gen):
         super().__init__()
-        self.up = Dense((cfg.d_model,), (cfg.d_ff,), cfg.dtype, device, gen)
-        self.down = Dense((cfg.d_ff,), (cfg.d_model,), cfg.dtype, device, gen)
+        self.up = Dense((cfg.d_model,), (cfg.d_ff,), cfg.dtype, gen)
+        self.down = Dense((cfg.d_ff,), (cfg.d_model,), cfg.dtype, gen)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.down(F.gelu(self.up(x), approximate="tanh"))
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: TransformerConfig, attention_fn, device, gen):
+    def __init__(self, cfg: TransformerConfig, attention_fn, gen):
         super().__init__()
-        self.ln1 = LayerNorm(cfg.d_model, device)
-        self.attn = SelfAttention(cfg, attention_fn, device, gen)
-        self.ln2 = LayerNorm(cfg.d_model, device)
-        self.mlp = Mlp(cfg, device, gen)
+        self.ln1 = LayerNorm(cfg.d_model)
+        self.attn = SelfAttention(cfg, attention_fn, gen)
+        self.ln2 = LayerNorm(cfg.d_model)
+        self.mlp = Mlp(cfg, gen)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(self.ln1(x))
@@ -161,16 +160,17 @@ class TransformerLM(nn.Module):
                 "remat is not ported to PyTorch yet (ROADMAP.md, queue 1 "
                 "item 7); it computes the same function with less memory")
         self.config = cfg
-        device = torch.device(device)
-        gen = torch.Generator(device=device).manual_seed(seed)
-        self.tok_emb = Embed(cfg.vocab_size, cfg.d_model, cfg.dtype, device,
-                             gen)
-        self.pos_emb = Embed(cfg.max_len, cfg.d_model, cfg.dtype, device, gen)
+        # drawn on the CPU, then moved: one seed, the same weights on
+        # every device (as JAX's init is the same on every backend)
+        gen = torch.Generator().manual_seed(seed)
+        self.tok_emb = Embed(cfg.vocab_size, cfg.d_model, cfg.dtype, gen)
+        self.pos_emb = Embed(cfg.max_len, cfg.d_model, cfg.dtype, gen)
         for i in range(cfg.n_layers):
-            self.add_module(f"block{i}", Block(cfg, attention_fn, device, gen))
-        self.ln_f = LayerNorm(cfg.d_model, device)
+            self.add_module(f"block{i}", Block(cfg, attention_fn, gen))
+        self.ln_f = LayerNorm(cfg.d_model)
         self.lm_head = Dense((cfg.d_model,), (cfg.vocab_size,), cfg.dtype,
-                             device, gen)
+                             gen)
+        self.to(torch.device(device))
 
     def forward(self, tokens: torch.Tensor,
                 positions: torch.Tensor | None = None) -> torch.Tensor:

@@ -33,9 +33,6 @@ from tpu_sandbox_torch.ops import build
 LAUNCHES: Counter = Counter()
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: about this many wgrad slabs, so that the (co, k) tiles times the slabs
-#: keep every SM busy
-_WGRAD_SLABS = 128
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -43,15 +40,20 @@ _I = ctypes.c_int
 def _lib() -> ctypes.CDLL:
     lib = build.load("conv_t")
     if not getattr(lib, "_bound", False):
-        lib.conv3x3_t_fwd.argtypes = [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+        lib.conv3x3_t_fwd.argtypes = [
+            _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
         lib.conv3x3_t_fwd.restype = _I
         lib.conv3x3_t_fwd_stats.argtypes = [
-            _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+            _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
         lib.conv3x3_t_fwd_stats.restype = _I
-        lib.conv3x3_t_stats_wtiles.argtypes = [_I, _I, _I]
+        lib.conv3x3_t_fwd_plan.argtypes = [_I, _I, _I]
+        lib.conv3x3_t_fwd_plan.restype = _I
+        lib.conv3x3_t_stats_wtiles.argtypes = [_I]
         lib.conv3x3_t_stats_wtiles.restype = _I
         lib.conv3x3_t_stats_rows.argtypes = []
         lib.conv3x3_t_stats_rows.restype = _I
+        lib.conv3x3_t_wgrad_plan.argtypes = [_I, _I, _I, _I]
+        lib.conv3x3_t_wgrad_plan.restype = _I
         lib.conv3x3_t_wgrad.argtypes = [
             _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
         lib.conv3x3_t_wgrad.restype = _I
@@ -125,6 +127,11 @@ def conv3x3_t_wgrad_plain(x: torch.Tensor, g: torch.Tensor):
 # -- kernel wrappers -------------------------------------------------------
 
 
+#: most channels the bf16 forward takes: its [BCO, 9C] weight tile stays
+#: in a block's shared memory
+MAX_BF16_FWD_C = 144
+
+
 def _fwd_operands(x: torch.Tensor, w: torch.Tensor,
                   bias: torch.Tensor) -> torch.Tensor:
     """Checks a forward launch's operands; returns wT [CO, 9C]."""
@@ -133,17 +140,42 @@ def _fwd_operands(x: torch.Tensor, w: torch.Tensor,
     if x.dtype not in _DTYPES:
         raise ValueError(f"conv3x3_t kernel takes float32 or bfloat16, got "
                          f"{x.dtype}")
-    if x.dtype == torch.bfloat16 and c % 16:
-        raise ValueError(f"conv3x3_t bf16 kernel takes C a multiple of 16, "
-                         f"got {c}")
-    if n * h > 65535:
-        raise ValueError(f"conv3x3_t kernel takes N*H <= 65535 rows, got "
-                         f"{n * h}")
+    if x.dtype == torch.bfloat16 and (c % 16 or c > MAX_BF16_FWD_C):
+        raise ValueError(f"conv3x3_t bf16 kernel takes C a multiple of 16 "
+                         f"up to {MAX_BF16_FWD_C}, got {c}")
+    if x.dtype == torch.float32 and n * h > 65535:
+        raise ValueError(f"conv3x3_t fp32 kernel takes N*H <= 65535 rows, "
+                         f"got {n * h}")
     wt = w.reshape(9 * c, co).t().contiguous()
     _check_cuda("x", x, x.dtype, (n, h, c, wd))
     _check_cuda("wt", wt, x.dtype, (co, 9 * c))
     _check_cuda("bias", bias, x.dtype, (co,))
     return wt
+
+
+def fwd_units(rows: int, wtiles: int, cotiles: int,
+              slots: int) -> tuple[int, int]:
+    """(blocks, units_per_block) of the bf16 forward: its rows * wtiles
+    (row, W tile) units in contiguous runs over about ``slots // cotiles``
+    blocks per channel tile (one wave of the card), every block
+    non-empty."""
+    units = rows * wtiles
+    per = -(-units // min(units, max(1, slots // cotiles)))
+    return -(-units // per), per
+
+
+def _fwd_plan(lib, x: torch.Tensor, co: int) -> tuple[int, int, int]:
+    """(blocks, units_per_block, stats partials) of a forward launch."""
+    n, h, c, wd = x.shape
+    if x.dtype == torch.float32:
+        rows = lib.conv3x3_t_stats_rows()
+        return 0, 0, -(-(n * h) // rows) * lib.conv3x3_t_stats_wtiles(wd)
+    with torch.cuda.device(x.device):
+        bw, bco, slots = (lib.conv3x3_t_fwd_plan(c, co, i) for i in range(3))
+    if min(bw, bco, slots) <= 0:
+        raise RuntimeError(f"conv3x3_t bf16: no plan for C {c}, CO {co}")
+    blocks, per = fwd_units(n * h, -(-wd // bw), -(-co // bco), slots)
+    return blocks, per, blocks
 
 
 def conv3x3_t_forward(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
@@ -158,11 +190,12 @@ def conv3x3_t_forward(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     co = w.shape[-1]
     y = torch.empty((n, h, co, wd), dtype=x.dtype, device=x.device)
     lib = _lib()
+    blocks, per, _ = _fwd_plan(lib, x, co)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.conv3x3_t_fwd(_DTYPES[x.dtype], x.data_ptr(), wt.data_ptr(),
                                 bias.data_ptr(), y.data_ptr(), n, h, c, co, wd,
-                                stream)
+                                blocks, per, stream)
     build.check(lib, err, "conv3x3_t_fwd")
     LAUNCHES[f"conv3x3_t {kind} C{c} CO{co}"] += 1
     return y
@@ -178,28 +211,31 @@ def conv3x3_t_stats_forward(x: torch.Tensor, w: torch.Tensor,
     wt = _fwd_operands(x, w, bias)
     n, h, c, wd = x.shape
     co = w.shape[-1]
-    dt = _DTYPES[x.dtype]
     lib = _lib()
-    rows = lib.conv3x3_t_stats_rows()
-    parts = -(-(n * h) // rows) * lib.conv3x3_t_stats_wtiles(dt, co, wd)
+    blocks, per, parts = _fwd_plan(lib, x, co)
     y = torch.empty((n, h, co, wd), dtype=x.dtype, device=x.device)
     part = torch.empty((parts, 2 * co), dtype=torch.float32, device=x.device)
     sums = torch.empty((2 * co,), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.conv3x3_t_fwd_stats(dt, x.data_ptr(), wt.data_ptr(),
-                                      bias.data_ptr(), y.data_ptr(),
-                                      part.data_ptr(), sums.data_ptr(), n, h,
-                                      c, co, wd, stream)
+        err = lib.conv3x3_t_fwd_stats(_DTYPES[x.dtype], x.data_ptr(),
+                                      wt.data_ptr(), bias.data_ptr(),
+                                      y.data_ptr(), part.data_ptr(),
+                                      sums.data_ptr(), n, h, c, co, wd,
+                                      blocks, per, stream)
     build.check(lib, err, "conv3x3_t_fwd_stats")
     LAUNCHES[f"conv3x3_t_stats C{c} CO{co}"] += 1
     return y, sums[:co, None], sums[co:, None]
 
 
-def wgrad_slabs(rows: int) -> tuple[int, int]:
-    """(slabs, rows_per_slab) for the wgrad's split of the N*H rows:
-    at most ``_WGRAD_SLABS`` slabs, every one non-empty."""
-    per = -(-rows // min(rows, _WGRAD_SLABS))
+def wgrad_slabs(rows: int, tiles: int = 1,
+                slots: int = 128) -> tuple[int, int]:
+    """(slabs, rows_per_slab) for a wgrad's split of the N*H rows: about
+    ``slots // tiles`` slabs, so that the (co, k) tiles times the slabs
+    fill the ``slots`` blocks the card holds at once (one wave), every
+    slab non-empty. The other wgrads (ops/conv5_t.py, conv1_tail_t.py,
+    conv.py) take the defaults: at most 128 slabs."""
+    per = -(-rows // min(rows, max(1, slots // tiles)))
     return -(-rows // per), per
 
 
@@ -213,16 +249,24 @@ def conv3x3_t_wgrad(x: torch.Tensor, g: torch.Tensor):
     if x.dtype not in _DTYPES:
         raise ValueError(f"conv3x3_t_wgrad kernel takes float32 or bfloat16, "
                          f"got {x.dtype}")
+    if x.dtype == torch.bfloat16 and c % 16:
+        raise ValueError(f"conv3x3_t_wgrad bf16 kernel takes C a multiple of "
+                         f"16, got {c}")
     _check_cuda("x", x, x.dtype, (n, h, c, wd))
     _check_cuda("g", g, x.dtype, (n, h, co, wd))
-    slabs, per = wgrad_slabs(n * h)
+    lib = _lib()
+    dt = _DTYPES[x.dtype]
+    with torch.cuda.device(x.device):
+        tiles, slots = (lib.conv3x3_t_wgrad_plan(dt, c, co, i) for i in (0, 1))
+    if min(tiles, slots) <= 0:
+        raise RuntimeError(f"conv3x3_t_wgrad: no plan for C {c}, CO {co}")
+    slabs, per = wgrad_slabs(n * h, tiles, slots)
     m = co * 9 * c + co
     part = torch.empty((slabs, m), dtype=torch.float32, device=x.device)
     out = torch.empty((m,), dtype=torch.float32, device=x.device)
-    lib = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.conv3x3_t_wgrad(_DTYPES[x.dtype], x.data_ptr(), g.data_ptr(),
+        err = lib.conv3x3_t_wgrad(dt, x.data_ptr(), g.data_ptr(),
                                   part.data_ptr(), out.data_ptr(), n, h, c, co,
                                   wd, slabs, per, stream)
     build.check(lib, err, "conv3x3_t_wgrad")
