@@ -31,7 +31,9 @@ card or when the port is not beside it. Phases, one JSON line each:
    wgrad; null for the tail passes).
 3. ragged: each kernel at shapes off every tile edge (W=70, H=5, N*H not
    a multiple of a slab, CO off the channel tile, co=8 blk=2; the sparse
-   conv1 at H4=W4=1, where every tap is a halo, and at f1 8 and 5), and
+   conv1 at H4=W4=1, where every tap is a halo, at f1 8 and 5, at the odd
+   W 75, at W 65 and with more (row, column) units than the card's
+   blocks: CONV1_RAGGED), and
    the BN tail on bf16 inputs quantised to quarters, where pool ties
    occur: the pooled output equal, dy within one bf16 ulp of max|plain|.
    The transposed conv's forward, stats, dgrad and wgrad at W 70 and the
@@ -177,9 +179,13 @@ NHWC_RAGGED = ((16, 48), (16, 80), (32, 48))
 #: dgrad's 128->64
 CONV_T_RAGGED = ((2, 5, 70), (3, 7, 75), (1, 3, 75))
 CONV_T_RAGGED_CH = ((64, 128), (16, 24))
-#: the sparse conv1's ragged shapes (N, H4, W4, f1)
+#: the sparse conv1's ragged shapes (N, H4, W4, f1): besides W 70 and
+#: H4=W4=1, the bf16 bodies' edges: the odd W 75 (2-byte-aligned rows), W
+#: 65 (one past a 64-column unit), N*H4 183 x 3 units (more units than the
+#: card's blocks, the last block's run short), and f1 8 and 5 (CO 128, 80)
 CONV1_RAGGED = ((2, 5, 70, 16), (1, 1, 1, 16), (3, 1, 1, 8), (2, 5, 70, 8),
-                (2, 5, 70, 5))
+                (2, 5, 70, 5), (3, 7, 75, 16), (1, 3, 65, 16),
+                (3, 61, 130, 16), (3, 7, 75, 5))
 FLASH_SRC = "tpu_sandbox_torch/csrc/flash_attention.cu"
 CE_SRC = "tpu_sandbox_torch/csrc/ce.cu"
 #: the LM's bench width (bench.py:4031-4040) through lm_train's flags

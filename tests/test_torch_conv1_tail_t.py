@@ -5,9 +5,10 @@ every tap a halo), f1 8, in fp32 and bf16: the pooled output, mu and var;
 dk5, dgamma and dbeta through the fused backward; the conv bias gradient,
 which is analytically zero under BN, as tiny on both sides. The same
 against the port's own unfused composition (conv1_tail_t_reference), and
-the data-only guard. On the CPU the fused wgrad runs its plain PyTorch
-version (the tail's apply pass, then the sparse wgrad); the kernel is held
-against it on the card by chip_smoke.py."""
+the data-only guard; the bf16 kernel's dy pass, mirrored, takes every
+(window, column) of a unit once. On the CPU the fused wgrad runs its
+plain PyTorch version (the tail's apply pass, then the sparse wgrad); the
+kernel is held against it on the card by chip_smoke.py."""
 
 import jax
 import jax.numpy as jnp
@@ -167,3 +168,27 @@ def test_non_cpu_tensor_never_takes_the_plain_path():
     with pytest.raises(ValueError, match="CUDA"):
         conv1_tail_t.fused_wgrad(x, y1, g, F1, BLK, col, col, v, v, col, col,
                                  col)
+
+
+def _dy_pass_map(cout: int, threads: int = 256, unit_w: int = 64):
+    """The (window, column) pairs each thread of the bf16 fused wgrad's dy
+    pass takes in one unit, in its order: thread i keeps window i % 64
+    and takes the 16 columns from (i // 64)*16, starting at its lane's
+    (i % 32) so that a warp's windows spread over the banks (TailDy::
+    prepare in csrc/conv1_tail_t.cu)."""
+    taken = []
+    for i in range(threads):
+        o, j0, lane = i % 64, i // 64 * 16, i % 32
+        if o < cout:
+            taken += [(o, j0 + (lane + s) % 16) for s in range(unit_w // 4)]
+    return taken
+
+
+@pytest.mark.parametrize("f1", [5, 8, 16])
+def test_bf16_dy_pass_takes_every_window_and_column_once(f1):
+    """At f1 5, 8 and 16 (C/4 = 20, 32, 64 windows) the dy pass computes
+    each window's dy at each of the unit's 64 columns once: in place over
+    its staged y1, so a pair taken twice or missed would corrupt dW1."""
+    cout = 16 * f1 // 4
+    taken = _dy_pass_map(cout)
+    assert sorted(taken) == [(o, j) for o in range(cout) for j in range(64)]

@@ -5,9 +5,11 @@ every tap a halo), f1 8, in fp32 and bf16: the forward, the fused BN
 statistics, the fused wgrad and the autograd dk5/dbias; scatter_k5 and
 gather_dk5 against JAX's, equal and adjoint; the union tile's index map
 against the full-resolution image; the plain sparse conv against the
-port's scattered-3x3 path; and the data-only guard. On the CPU the port
-runs its kernels' plain PyTorch versions; the kernels are held against
-those on the card by chip_smoke.py."""
+port's scattered-3x3 path; the data-only guard; the bf16 kernels' split
+of the rows into persistent blocks of (row, 64-column) units, the fp32
+wgrad's slabs, and the tap pairs the bf16 forward reads as one word. On
+the CPU the port runs its kernels' plain PyTorch versions; the kernels
+are held against those on the card by chip_smoke.py."""
 
 import jax
 import jax.numpy as jnp
@@ -221,3 +223,58 @@ def test_input_that_is_not_the_s2d_image_raises():
     with pytest.raises(ValueError, match="1-channel-input"):
         conv5_t.conv1_s2d_t_plain(torch.zeros((1, 2, 4, 3)),
                                   torch.zeros((128, 64)), torch.zeros(128))
+
+
+@pytest.mark.parametrize("rows", [1, 3, 10, 21, 3750])
+def test_bf16_units_cover_every_row_and_column_tile_once(rows):
+    """The bf16 forward's and wgrad's persistent blocks take contiguous
+    runs of (row, UNIT_W-column) units: every unit once, every block
+    non-empty, at most ``slots`` blocks, at odd W, at W one past a unit
+    and at the main path's W 750."""
+    for w in (1, 64, 65, 75, 750):
+        tiles = -(-w // conv5_t.UNIT_W)
+        for slots in (132, 7, 1):
+            blocks, per = conv5_t.units_plan(rows, w, slots)
+            seen = [(u // tiles, u % tiles) for b in range(blocks)
+                    for u in range(b * per, min(rows * tiles, (b + 1) * per))]
+            assert seen == [(r, t) for r in range(rows) for t in range(tiles)]
+            assert all(b * per < rows * tiles for b in range(blocks))
+            assert blocks <= slots
+
+
+@pytest.mark.parametrize("rows", [1, 3, 10, 21, 3750])
+def test_wgrad_splits_cover_every_row_once(rows):
+    """The fp32 wgrad's slabs and the bf16 wgrad's blocks of units each
+    take every row once: a row's units are all in one block or in
+    consecutive ones."""
+    slabs, per = conv5_t.wgrad_slabs(rows)
+    assert [r // per for r in range(rows)] == sorted(
+        r // per for r in range(rows))
+    assert sorted({r // per for r in range(rows)}) == list(range(slabs))
+    tiles = -(-750 // conv5_t.UNIT_W)
+    blocks, per = conv5_t.units_plan(rows, 750, 132)
+    rows_of = [sorted({u // tiles for u in range(b * per,
+                                                  min(rows * tiles,
+                                                      (b + 1) * per))})
+               for b in range(blocks)]
+    assert sorted({r for rs in rows_of for r in rs}) == list(range(rows))
+    assert sum(len(rs) for rs in rows_of) <= rows + blocks - 1
+
+
+def test_tap_pairs_are_adjacent_channels_of_one_strip_row():
+    """The bf16 forward reads taps 2p and 2p+1 as one 32-bit word of its
+    [block row][column][16 channels] copy of x: the two share their block
+    row and column offset and are channels 2q and 2q+1. So the kernels
+    keep the union tile's tap order (that of scatter_k5 and gather_dk5),
+    and the tile rows 2p, 2p+1 are those two channels of x, shifted."""
+    _, x, *_ = _inputs(32, seed=7, n=1)
+    tile = conv5_t.union_tile_plain(torch.from_numpy(x)).numpy()
+    xp = np.pad(x, ((0, 0), (1, 1), (0, 0), (1, 1)))
+    h4, w4 = x.shape[1], x.shape[3]
+    for p in range(conv5_t.NT // 2):
+        rr0, ch0, dc0 = conv5_t._tap(2 * p)
+        rr1, ch1, dc1 = conv5_t._tap(2 * p + 1)
+        assert (rr0, dc0) == (rr1, dc1) and ch0 % 2 == 0 and ch1 == ch0 + 1
+        for k, ch in ((0, ch0), (1, ch1)):
+            np.testing.assert_array_equal(
+                tile[0, :, 2 * p + k], xp[0, rr0:rr0 + h4, ch, dc0:dc0 + w4])

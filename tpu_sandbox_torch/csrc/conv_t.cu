@@ -820,24 +820,6 @@ cudaError_t launch_wgrad_bf16(const bf16* x, const bf16* g, float* part, int N, 
   return cudaErrorInvalidValue;
 }
 
-// Resident blocks of ``kernel`` with ``bytes`` of dynamic shared memory
-// on the whole current device.
-template <typename K>
-int device_slots(K kernel, size_t bytes) {
-  int dev = 0, sms = 0, per_sm = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-    return 0;
-  if (bytes > 48 * 1024 &&
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes) !=
-          cudaSuccess)
-    return 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, bytes) !=
-      cudaSuccess)
-    return 0;
-  return sms * per_sm;
-}
-
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (C a multiple of 16, the [BCO, 9C]

@@ -1,10 +1,12 @@
 // Inline-PTX building blocks of the tensor-core kernels: cp.async copies
-// into shared memory, ldmatrix and the m16n8k16 bf16 mma.sync, and the
-// staging of windows of rows of a bf16 tensor whose rows may be only 2-
-// or 4-byte aligned.
+// into shared memory, bulk copies out of it, ldmatrix and the m16n8k16
+// bf16 mma.sync, and the staging of windows of rows of a bf16 tensor
+// whose rows may be only 2- or 4-byte aligned; and the resident-block
+// count that sizes the persistent kernels' grids.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
@@ -29,6 +31,37 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Bulk copies (the copy engine, no registers): ``bytes`` (a multiple of
+// 16) from shared to global memory, both 16-byte aligned. Shared memory
+// written by ordinary stores is made visible to them by
+// fence_proxy_async in the writing threads; a thread's bulk copies are
+// grouped by bulk_commit, and bulk_wait_read<N> returns once at most N of
+// its groups may still read their shared memory (bulk_wait<N>: still
+// write theirs).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void bulk_store(void* gdst, const void* ssrc, int bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(gdst),
+               "r"(smem_u32(ssrc)), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // four 8x8 b16 matrices; lane l gives the address of row l % 8 of matrix
@@ -106,6 +139,23 @@ __device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, int pitch,
       dst[r * pitch + v] = ok ? src[(size_t)r * W + e] : __float2bfloat16_rn(0.f);
     }
   }
+}
+
+// Blocks of ``kernel`` (256 threads, ``bytes`` of dynamic shared memory)
+// resident on the whole current device at once; 0 if it cannot be asked.
+template <typename K>
+int device_slots(K kernel, size_t bytes) {
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 0;
+  if (bytes > 48 * 1024 &&
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes) !=
+          cudaSuccess)
+    return 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 256, bytes) != cudaSuccess)
+    return 0;
+  return sms * per_sm;
 }
 
 }  // namespace

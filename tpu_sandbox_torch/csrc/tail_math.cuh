@@ -81,6 +81,36 @@ __device__ __forceinline__ void load_window(const T* __restrict__ y, size_t row_
   }
 }
 
+// The apply pass for one window from its four y values yf (in f32, as
+// loaded from a tensor of dtype T): dy of its four channels, each rounded
+// once to T. g is the pooled cotangent; col(k, i) is column k (0 a, 1 b,
+// 2 mu, 3 inv, 4 gi, 5 c1, 6 c2) at member i's channel, read where it is
+// used.
+template <typename T, class Col>
+__device__ __forceinline__ void window_dy_of(const float yf[4], float g, const Col& col,
+                                             T dy[4]) {
+  float z[4], dz[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) z[i] = rounded_relu<T>(yf[i], col(0, i), col(1, i));
+  route(z, g, dz);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float t = __fmul_rn(__fsub_rn(yf[i], col(2, i)), col(3, i));
+    const float v = __fsub_rn(__fsub_rn(dz[i], col(5, i)), __fmul_rn(t, col(6, i)));
+    dy[i] = from_f<T>(__fmul_rn(col(4, i), v));
+  }
+}
+
+// The columns of a window read from the f32 column vectors [C].
+struct WindowCols {
+  const int* ch;
+  const float *a, *b, *mu, *inv, *gi, *c1, *c2;
+  __device__ __forceinline__ float operator()(int k, int i) const {
+    const float* v[7] = {a, b, mu, inv, gi, c1, c2};
+    return v[k][ch[i]];
+  }
+};
+
 // The apply pass for one window at (row, w): dy of its four channels,
 // each rounded once to T. g is the pooled cotangent at (row, o, w).
 template <typename T>
@@ -93,16 +123,10 @@ __device__ __forceinline__ void window_dy(const T* __restrict__ y, size_t row_of
                                           const float* __restrict__ gi,
                                           const float* __restrict__ c1,
                                           const float* __restrict__ c2, T dy[4]) {
-  float yf[4], z[4], dz[4];
-  load_window<T>(y, row_off, W, w, ch, a, b, yf, z);
-  route(z, g, dz);
+  float yf[4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int c = ch[i];
-    const float t = __fmul_rn(__fsub_rn(yf[i], mu[c]), inv[c]);
-    const float v = __fsub_rn(__fsub_rn(dz[i], c1[c]), __fmul_rn(t, c2[c]));
-    dy[i] = from_f<T>(__fmul_rn(gi[c], v));
-  }
+  for (int i = 0; i < 4; ++i) yf[i] = to_f(y[row_off + (size_t)ch[i] * W + w]);
+  window_dy_of<T>(yf, g, WindowCols{ch, a, b, mu, inv, gi, c1, c2}, dy);
 }
 
 inline bool bad_tail_geometry(int NH, int C, int co, int blk) {

@@ -47,6 +47,8 @@ def _lib() -> ctypes.CDLL:
         lib.conv1_tail_t_wgrad.argtypes = (
             [_I] + [_P] * 12 + [_I] * 8 + [_P])
         lib.conv1_tail_t_wgrad.restype = _I
+        lib.conv1_tail_t_wgrad_plan.argtypes = [_I]
+        lib.conv1_tail_t_wgrad_plan.restype = _I
         lib._bound = True
     return lib
 
@@ -77,17 +79,21 @@ def fused_wgrad(x: torch.Tensor, y1: torch.Tensor, g: torch.Tensor, co: int,
     bn_tail_t._cuda_operands("conv1_tail_t wgrad", y1, g, cols)
     n, h, c, wd = y1.shape
     _check_cuda("x", x, y1.dtype, (n, h, conv5_t.R * conv5_t.R, wd))
-    slabs, per = wgrad_slabs(n * h)
-    m = c * conv5_t.NT + c
-    part = torch.empty((slabs, m), dtype=torch.float32, device=x.device)
-    out = torch.empty((m,), dtype=torch.float32, device=x.device)
     lib = _lib()
+    if y1.dtype == torch.float32:
+        parts, per = wgrad_slabs(n * h)
+    else:
+        parts, per = conv5_t.bf16_units(lib.conv1_tail_t_wgrad_plan, x, c,
+                                        "conv1_tail_t wgrad")
+    m = c * conv5_t.NT + c
+    part = torch.empty((parts, m), dtype=torch.float32, device=x.device)
+    out = torch.empty((m,), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.conv1_tail_t_wgrad(
             bn_tail_t._DTYPES[y1.dtype], x.data_ptr(), y1.data_ptr(),
             g.data_ptr(), *[t.data_ptr() for t in cols], part.data_ptr(),
-            out.data_ptr(), n, h, c, co, blk, wd, slabs, per, stream)
+            out.data_ptr(), n, h, c, co, blk, wd, parts, per, stream)
     build.check(lib, err, "conv1_tail_t_wgrad")
     LAUNCHES[f"conv1_tail_t wgrad CO{c}"] += 1
     nt = conv5_t.NT

@@ -41,11 +41,15 @@ import torch
 import torch.nn.functional as F
 
 from tpu_sandbox_torch.ops import build
-from tpu_sandbox_torch.ops.conv_t import _check_cuda, conv3x3_t, wgrad_slabs
+from tpu_sandbox_torch.ops.conv_t import (_check_cuda, conv3x3_t, fwd_units,
+                                          wgrad_slabs)
 
 R = 4          # s2d factor of conv1
 K5 = 5         # original kernel size
 NT = 8 * 8     # union tap tile rows: (m', j) in (-2..5)^2
+#: columns of a unit of work of the bf16 kernels (forward and wgrad, here
+#: and in ops/conv1_tail_t.py): one (row, UNIT_W-column) piece of the output
+UNIT_W = 64
 
 #: launches of the CUDA kernels, by kind and output channels
 #: ("conv1_s2d_t fwd CO256", "conv1_s2d_t_stats CO256",
@@ -60,11 +64,15 @@ _I = ctypes.c_int
 def _lib() -> ctypes.CDLL:
     lib = build.load("conv5_t")
     if not getattr(lib, "_bound", False):
-        lib.conv1_s2d_t_fwd.argtypes = [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P]
+        lib.conv1_s2d_t_fwd.argtypes = [
+            _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
         lib.conv1_s2d_t_fwd.restype = _I
         lib.conv1_s2d_t_fwd_stats.argtypes = [
-            _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
+            _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
         lib.conv1_s2d_t_fwd_stats.restype = _I
+        for plan in (lib.conv1_s2d_t_fwd_plan, lib.conv1_s2d_t_wgrad_plan):
+            plan.argtypes = [_I]
+            plan.restype = _I
         lib.conv1_s2d_t_stats_rows.argtypes = []
         lib.conv1_s2d_t_stats_rows.restype = _I
         lib.conv1_s2d_t_stats_wtiles.argtypes = [_I]
@@ -184,6 +192,30 @@ def conv1_s2d_t_wgrad_plain(x: torch.Tensor, g: torch.Tensor):
 # -- kernel wrappers -------------------------------------------------------
 
 
+def units_plan(rows: int, w: int, slots: int) -> tuple[int, int]:
+    """(blocks, units_per_block) of a bf16 kernel's persistent blocks: the
+    ``rows`` * ceil(w / UNIT_W) (row, column) units in contiguous runs over
+    at most ``slots`` blocks (``fwd_units`` with one channel tile: a block
+    covers all of CO)."""
+    return fwd_units(rows, -(-w // UNIT_W), 1, slots)
+
+
+def bf16_units(plan, x: torch.Tensor, co: int, what: str) -> tuple[int, int]:
+    """(blocks, per) of a bf16 launch over x [N,H,16,W] with ``co`` output
+    channels. ``plan(i)`` is the library's plan entry: 0 its unit width, 1
+    its blocks resident on the card at once, 2 the most channels it
+    takes."""
+    with torch.cuda.device(x.device):
+        unit_w, slots, max_co = plan(0), plan(1), plan(2)
+    if unit_w != UNIT_W or slots <= 0:
+        raise RuntimeError(f"{what}: no plan (unit {unit_w}, slots {slots})")
+    if co > max_co:
+        raise ValueError(f"{what} bf16 kernel takes at most {max_co} output "
+                         f"channels, got {co}")
+    n, h, _, wd = x.shape
+    return units_plan(n * h, wd, slots)
+
+
 def _fwd_operands(x: torch.Tensor, w1: torch.Tensor,
                   bias_g: torch.Tensor) -> None:
     n, h, c, wd = x.shape
@@ -196,6 +228,17 @@ def _fwd_operands(x: torch.Tensor, w1: torch.Tensor,
     _check_cuda("bias", bias_g, x.dtype, (co,))
 
 
+def _fwd_plan(lib, x: torch.Tensor, co: int) -> tuple[int, int, int]:
+    """(blocks, units_per_block, stats partials) of a forward launch."""
+    n, h, _, wd = x.shape
+    if x.dtype == torch.float32:
+        return 0, 0, (-(-(n * h) // lib.conv1_s2d_t_stats_rows())
+                      * lib.conv1_s2d_t_stats_wtiles(wd))
+    blocks, per = bf16_units(lib.conv1_s2d_t_fwd_plan, x, co,
+                               "conv1_s2d_t")
+    return blocks, per, blocks
+
+
 def conv1_s2d_t_forward(x: torch.Tensor, w1: torch.Tensor,
                         bias_g: torch.Tensor) -> torch.Tensor:
     """Non-differentiable forward: x [N,H4,16,W4], W1 [CO, 64], bias [CO]
@@ -206,13 +249,15 @@ def conv1_s2d_t_forward(x: torch.Tensor, w1: torch.Tensor,
     _fwd_operands(x, w1, bias_g)
     n, h, _, wd = x.shape
     co = w1.shape[0]
-    y = torch.empty((n, h, co, wd), dtype=x.dtype, device=x.device)
     lib = _lib()
+    blocks, per, _ = _fwd_plan(lib, x, co)
+    y = torch.empty((n, h, co, wd), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.conv1_s2d_t_fwd(_DTYPES[x.dtype], x.data_ptr(),
                                   w1.data_ptr(), bias_g.data_ptr(),
-                                  y.data_ptr(), n, h, co, wd, stream)
+                                  y.data_ptr(), n, h, co, wd, blocks, per,
+                                  stream)
     build.check(lib, err, "conv1_s2d_t_fwd")
     LAUNCHES[f"conv1_s2d_t fwd CO{co}"] += 1
     return y
@@ -229,8 +274,7 @@ def conv1_s2d_t_stats_forward(x: torch.Tensor, w1: torch.Tensor,
     n, h, _, wd = x.shape
     co = w1.shape[0]
     lib = _lib()
-    parts = (-(-(n * h) // lib.conv1_s2d_t_stats_rows())
-             * lib.conv1_s2d_t_stats_wtiles(wd))
+    blocks, per, parts = _fwd_plan(lib, x, co)
     y = torch.empty((n, h, co, wd), dtype=x.dtype, device=x.device)
     part = torch.empty((parts, 2 * co), dtype=torch.float32, device=x.device)
     sums = torch.empty((2 * co,), dtype=torch.float32, device=x.device)
@@ -239,7 +283,8 @@ def conv1_s2d_t_stats_forward(x: torch.Tensor, w1: torch.Tensor,
         err = lib.conv1_s2d_t_fwd_stats(_DTYPES[x.dtype], x.data_ptr(),
                                         w1.data_ptr(), bias_g.data_ptr(),
                                         y.data_ptr(), part.data_ptr(),
-                                        sums.data_ptr(), n, h, co, wd, stream)
+                                        sums.data_ptr(), n, h, co, wd, blocks,
+                                        per, stream)
     build.check(lib, err, "conv1_s2d_t_fwd_stats")
     LAUNCHES[f"conv1_s2d_t_stats CO{co}"] += 1
     return y, sums[:co, None], sums[co:, None]
@@ -258,16 +303,20 @@ def conv1_s2d_t_wgrad(x: torch.Tensor, g: torch.Tensor):
                          f"bfloat16, got {x.dtype}")
     _check_cuda("x", x, x.dtype, (n, h, c, wd))
     _check_cuda("g", g, x.dtype, (n, h, co, wd))
-    slabs, per = wgrad_slabs(n * h)
-    m = co * NT + co
-    part = torch.empty((slabs, m), dtype=torch.float32, device=x.device)
-    out = torch.empty((m,), dtype=torch.float32, device=x.device)
     lib = _lib()
+    if x.dtype == torch.float32:
+        parts, per = wgrad_slabs(n * h)
+    else:
+        parts, per = bf16_units(lib.conv1_s2d_t_wgrad_plan, x, co,
+                                "conv1_s2d_t_wgrad")
+    m = co * NT + co
+    part = torch.empty((parts, m), dtype=torch.float32, device=x.device)
+    out = torch.empty((m,), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.conv1_s2d_t_wgrad(_DTYPES[x.dtype], x.data_ptr(),
                                     g.data_ptr(), part.data_ptr(),
-                                    out.data_ptr(), n, h, co, wd, slabs, per,
+                                    out.data_ptr(), n, h, co, wd, parts, per,
                                     stream)
     build.check(lib, err, "conv1_s2d_t_wgrad")
     LAUNCHES[f"conv1_s2d_t_wgrad CO{co}"] += 1
