@@ -24,7 +24,14 @@ card or when the port is not beside it. Phases, one JSON line each:
    apply pass, then the sparse conv1 wgrad). Then the LM's four kinds the
    same way at its shapes (flash attention B16 H8 S2048 D128 causal, the
    CE over [32768, 32768] logits; library calls SDPA, its backward and
-   F.cross_entropy); dk/dv and dq run twice, bitwise equal. The NHWC
+   F.cross_entropy); dk/dv and dq run twice, bitwise equal, and with bf16
+   inputs also write f32 outputs, which must come within 1e-4 of
+   max|plain| of the plain version's f32 outputs (the precision witness
+   of their split products). The flash backward's bound counts every
+   product as bf16 tensor-core work, its f32-operand products twice (hi
+   and lo); its kernel lines carry the registers and local memory a
+   thread of their D 128 instances, as the CUDA runtime reports them for
+   the loaded module. The NHWC
    plan's 13 kinds are checked the same way, their plain versions timed
    once each (library calls: cuDNN's F.conv2d on channels-last views for
    the forward, stats and dgrad, aten.convolution_backward for the
@@ -40,7 +47,8 @@ card or when the port is not beside it. Phases, one JSON line each:
    odd W 75 (2-byte-aligned rows) with N*H 10, 21 and 3 (CONV_T_RAGGED),
    the stats y bitwise the forward's and the reducing kernels repeatable.
    lm_ragged: the flash kernels at S 200 and 130, D 40 and 64, causal
-   off, non-zero offsets, kv_len short of S, B*H = 1; the CE at N = 1 and
+   off, non-zero offsets, kv_len short of S, B*H = 1, the backward's f32
+   outputs of bf16 inputs among them; the CE at N = 1 and
    C = 4097. The NHWC conv at CO 48 and 80 and at C 32, its tails at co 8
    blk 2 and co 4 blk 4, and its own bf16 tie case.
 4. main_path: tpu_sandbox_torch.mnist_onegpu's own train function at
@@ -99,7 +107,11 @@ IMAGE = 3000
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 (data sheet)
 PEAK_F32_FLOPS = 67e12        # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3
-TOL = {"fp32": 1e-4, "bf16": 1e-2}
+#: of max|plain|; "bf16_f32": the flash backward's bf16 inputs with f32
+#: outputs, where only the kernel's arithmetic differs from the plain
+#: version's f32 (split products carry about 2^-17 a term; TF32 or one
+#: bf16 rounding of p or ds would not pass)
+TOL = {"fp32": 1e-4, "bf16": 1e-2, "bf16_f32": 1e-4}
 DTYPES = (("fp32", torch.float32), ("bf16", torch.bfloat16))
 CONV_SRC = "tpu_sandbox_torch/csrc/conv_t.cu"
 FC_SRC = "tpu_sandbox_torch/csrc/fc_t.cu"
@@ -201,6 +213,8 @@ LM_KINDS = {"flash_fwd": 12, "flash_bwd_dkv": 12, "flash_bwd_dq": 12,
 #: the flash kernels' ragged cases (B, H, Sq, Sk, D, causal, q_offset,
 #: kv_offset, kv_len); D 40 runs zero-padded to the 64 head width
 FLASH_RAGGED = ((1, 1, 200, 200, 64, True, 0, 0, 200),
+                (1, 2, 200, 200, 32, True, 0, 0, 200),
+                (2, 1, 130, 200, 32, False, 70, 5, 190),
                 (2, 2, 200, 200, 40, True, 0, 0, 200),
                 (1, 2, 200, 200, 64, False, 0, 0, 197),
                 (2, 2, 200, 200, 40, False, 0, 0, 200),
@@ -1011,26 +1025,61 @@ def _check_flash(fa, q, k, v, g, kw, dt_name, what) -> dict:
                                   dt_name, what + " dq")
     require_repeatable((dq,), lambda: (fa.flash_bwd_dq(*args, **kw),),
                        what + " dq")
+    del dk, dv, dq
+    if dt_name == "bf16":                 # the precision witness
+        f32 = dict(kw, out_dtype=torch.float32)
+        dk, dv = fa.flash_bwd_dkv(*args, **f32)
+        pdk, pdv = fa.flash_bwd_dkv_plain(*args, **f32)
+        rec["flash_bwd_dkv_f32out"] = compare(dk, pdk, "bf16_f32",
+                                              what + " dk f32 out")
+        rec["flash_bwd_dkv_dv_f32out"] = compare(dv, pdv, "bf16_f32",
+                                                 what + " dv f32 out")
+        del dk, dv, pdk, pdv
+        rec["flash_bwd_dq_f32out"] = compare(
+            fa.flash_bwd_dq(*args, **f32), fa.flash_bwd_dq_plain(*args, **f32),
+            "bf16_f32", what + " dq f32 out")
     return rec
 
 
 def _entry(name, source, replaces, rec, ms, plain_ms, library_ms, *,
            flops, bytes_, f32_flops=0.0, peak=PEAK_BF16_FLOPS,
-           library_note=None) -> dict:
+           library_note=None, attrs=None) -> dict:
     b_ms, b_by = bound(flops, bytes_, peak, f32_flops)
+    f32out = [v["rel_err"] for k, v in rec.items() if "f32out" in k]
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 max_abs_err=rec["bf16"]["max_abs_err"], ms=ms,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=library_ms, library_note=library_note,
                 fp32_rel_err=rec["fp32"]["rel_err"],
-                bf16_rel_err=rec["bf16"]["rel_err"])
+                bf16_rel_err=rec["bf16"]["rel_err"],
+                bf16_f32out_rel_err=max(f32out) if f32out else None,
+                attrs=attrs)
+
+
+def _attrs_of(fa, kind: str) -> dict:
+    """Registers a thread and local memory bytes of the bf16 wgmma
+    instances of a flash backward kind at D 128, by output type, as the
+    CUDA runtime reports them for the loaded module."""
+    out = {}
+    for label, dt in (("bf16 out", torch.bfloat16),
+                      ("f32 out", torch.float32)):
+        out[label] = fa.bwd_kernel_attrs(kind, dt)
+        require(out[label]["registers"] > 0,
+                f"{kind} {label}: no register count from the runtime")
+    return out
 
 
 def phase_lm_kernels(ce, fa) -> dict:
     """The LM path's four launch kinds at its shapes (B16 H8 S2048 D128
     causal attention, CE over [32768, 32768] logits) against their plain
-    versions in fp32 and bf16, timed in bf16 beside the plain versions and
-    one PyTorch call (SDPA, its backward, F.cross_entropy: timed only)."""
+    versions in fp32 and bf16, and the flash backward's bf16 inputs with
+    f32 outputs against the plain f32 outputs (TOL["bf16_f32"]); timed in
+    bf16 beside the plain versions and one PyTorch call (SDPA, its
+    backward, F.cross_entropy: timed only). The flash backward's bound
+    counts its split products (hi + lo, two bf16 products each) as bf16
+    work: dk/dv 6 products of P*D multiply-adds, dq 4. Its kernel lines
+    carry the registers and local memory (spills included) a thread of
+    its D 128 wgmma instances, from cudaFuncGetAttributes."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     b, h, s, d = LM_B, LM_H, LM_S, LM_D
     kw = dict(scale=1.0 / math.sqrt(d), causal=True, kv_len=s)
@@ -1080,14 +1129,14 @@ def phase_lm_kernels(ce, fa) -> dict:
         "flash_bwd_dkv", FLASH_SRC, "tpu_sandbox/ops/pallas_attention.py:199",
         rec["flash_bwd_dkv"], cuda_ms(lambda: fa.flash_bwd_dkv(*args, **kw)),
         cuda_ms(lambda: fa.flash_bwd_dkv_plain(*args, **kw), reps=3),
-        lib_bwd, flops=2 * mac, f32_flops=2 * mac,
-        bytes_=nbytes(*args) + nbytes(k, v), library_note=bwd_note)
+        lib_bwd, flops=6 * mac, bytes_=nbytes(*args) + nbytes(k, v),
+        library_note=bwd_note, attrs=_attrs_of(fa, "flash_bwd_dkv"))
     entries["flash_bwd_dq"] = _entry(
         "flash_bwd_dq", FLASH_SRC, "tpu_sandbox/ops/pallas_attention.py:262",
         rec["flash_bwd_dq"], cuda_ms(lambda: fa.flash_bwd_dq(*args, **kw)),
         cuda_ms(lambda: fa.flash_bwd_dq_plain(*args, **kw), reps=3),
-        lib_bwd, flops=2 * mac, f32_flops=mac,
-        bytes_=nbytes(*args) + nbytes(q), library_note=bwd_note)
+        lib_bwd, flops=4 * mac, bytes_=nbytes(*args) + nbytes(q),
+        library_note=bwd_note, attrs=_attrs_of(fa, "flash_bwd_dq"))
     del q, k, v, g, out, lse, delta, args, qr, kr, vr, o_lib
     torch.cuda.empty_cache()
     logits = (3 * torch.randn((n, c), generator=gen, device="cuda")).to(
@@ -1109,8 +1158,8 @@ def phase_lm_kernels(ce, fa) -> dict:
 
 
 def phase_lm_ragged(ce, fa) -> None:
-    """The flash kernels at S 200 and 130 (off the 64-row tile), D 40
-    (padded) and 64, causal off, non-zero offsets, kv_len short of S, and
+    """The flash kernels at S 200 and 130 (off the 64-row tile), D 32,
+    40 (padded) and 64, causal off, non-zero offsets, kv_len short of S, and
     B*H = 1; the CE kernel at N = 1 and at C = 4097 (rows off 16 bytes)."""
     gen = torch.Generator(device="cuda").manual_seed(4)
     out = {}
@@ -1426,7 +1475,8 @@ def main() -> int:
                            else None)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "library_note", "fp32_rel_err", "bf16_rel_err", "launches_by_path",
+            "library_note", "fp32_rel_err", "bf16_rel_err",
+            "bf16_f32out_rel_err", "attrs", "launches_by_path",
             "launches_per_step", "excess_ms_per_step", "vs_library")
     print(json.dumps({"kernels": [{k: e[k] for k in keys}
                                   for _, e in sorted(entries.items())]}))

@@ -2,7 +2,8 @@
 == the JAX flash attention with its Pallas kernels in interpret mode: the
 forward and the gradients through jax.vjp on [B, S, H, D] inputs, with S
 off the block and D off every head width; the port's plain backward
-against JAX's blockwise reference backward; the offset/lse forward
+against JAX's blockwise reference backward and, with float32 outputs for
+bfloat16 inputs, against JAX's _flash_bwd; the offset/lse forward
 against flash_attention_lse. On the CPU the port runs its kernels' plain
 versions; chip_smoke.py holds the kernels against them on the card."""
 
@@ -14,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from tpu_sandbox.ops.pallas_attention import _blockwise_bwd
+from tpu_sandbox.ops.pallas_attention import _blockwise_bwd, _flash_bwd
 from tpu_sandbox.ops.pallas_attention import flash_attention as jax_flash
 from tpu_sandbox.ops.pallas_attention import flash_attention_lse as jax_flash_lse
 from tpu_sandbox_torch.ops import flash_attention as fa
@@ -88,6 +89,54 @@ def test_plain_backward_matches_blockwise_reference(causal):
     for name, got, want in (("dq", dq, jdq), ("dk", dk, jdk), ("dv", dv, jdv)):
         err = _err(got, want)
         assert err <= 1e-5, f"{name}: {err:.3g} of max|ref|"
+
+
+@pytest.mark.parametrize("s,kv_len", [(128, 128), (256, 200)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_backward_f32_out_matches_jax_flash_bwd(causal, s, kv_len):
+    """bf16 q, k, v, do with float32 gradients (``out_dtype``): the port's
+    backward (its plain version here) against JAX's _flash_bwd(...,
+    out_dtype=float32) with its Pallas kernels in interpret mode, on the
+    same inputs, lse and delta, keys from kv_len on padding. Both compute
+    in f32 from the same bf16 values, so they agree to f32 summation
+    order."""
+    b, h, d = 1, 2, 128
+    rng = np.random.default_rng(s + kv_len)
+    q, k, v, g = (rng.standard_normal((b, h, s, d)).astype(np.float32)
+                  for _ in range(4))
+    tq, tk, tv, tg = (torch.from_numpy(x).to(torch.bfloat16)
+                      for x in (q, k, v, g))
+    scale = 1.0 / math.sqrt(d)
+    kw = dict(scale=scale, causal=causal, kv_len=kv_len)
+    out, lse = fa.flash_fwd_plain(tq.float(), tk.float(), tv.float(), **kw)
+    delta = (tg.float() * out).sum(-1)
+    dk, dv = fa.flash_bwd_dkv(tq, tk, tv, tg, lse, delta, **kw,
+                              out_dtype=torch.float32)
+    dq = fa.flash_bwd_dq(tq, tk, tv, tg, lse, delta, **kw,
+                         out_dtype=torch.float32)
+    jq, jk, jv, jg = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v, g))
+    jdq, jdk, jdv = _flash_bwd(jq, jk, jv, jnp.asarray(delta.numpy()),
+                               jnp.asarray(lse.numpy()), jg, scale, causal,
+                               128, 128, True, kv_len,
+                               out_dtype=jnp.float32)
+    for name, got, want in (("dq", dq, jdq), ("dk", dk, jdk), ("dv", dv, jdv)):
+        assert got.dtype == torch.float32 and want.dtype == jnp.float32, name
+        err = _err(got, want)
+        assert err <= 1e-5, f"{name}: {err:.3g} of max|ref|"
+
+
+def test_kernel_output_dtypes():
+    """The kernels write the input dtype or, for bfloat16 inputs, float32
+    (the default is the input dtype); anything else is refused."""
+    bf, f32 = (torch.empty((1, 1, 64, 64), dtype=t)
+               for t in (torch.bfloat16, torch.float32))
+    assert fa._out_code("x", bf, None) == (torch.bfloat16, 1)
+    assert fa._out_code("x", bf, torch.float32) == (torch.float32, 0)
+    assert fa._out_code("x", f32, None) == (torch.float32, 0)
+    with pytest.raises(ValueError, match="float32"):
+        fa._out_code("x", f32, torch.bfloat16)
+    with pytest.raises(ValueError):
+        fa._out_code("x", bf, torch.float16)
 
 
 @pytest.mark.parametrize("causal,q_offset,kv_offset",

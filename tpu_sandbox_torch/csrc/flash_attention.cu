@@ -10,36 +10,73 @@
 //                     (pallas_call at :361): dk, dv, kv-major
 //   flash_bwd_dq   <- _bwd_dq_kernel (:262), launched by _flash_bwd
 //                     (pallas_call at :379): dq, q-major
+// The backward's outputs are in the input dtype or, as _flash_bwd's
+// out_dtype allows, float32 for bfloat16 inputs.
 //
 // What bounds them on the H100, at the LM's shapes (B 16, H 8, S 2048,
-// D 128, causal, bf16): operations. The forward's two products over the
-// causal half are 4*B*H*S^2*D/2 = 1.37e11 FLOP, 0.139 ms at 989 TFLOP/s
+// D 128, causal, bf16; P = B*H*S*(S+1)/2 visible pairs): operations. The
+// forward's two products are 4*P*D = 1.37e11 FLOP, 0.139 ms at 989 TFLOP/s
 // bf16, against 0.27 GB of q, k, v and out (0.08 ms at 3.35 TB/s). The
-// backward adds, per kernel, the bf16 q.k^T (and do.v^T) at the bf16 rate
-// and its f32 products at 67 TFLOP/s: dk/dv about 2.19 ms, dq 1.17 ms.
+// bf16 backward runs every product on the tensor cores, each of the three
+// with an f32 operand as two: dk/dv 12*P*D FLOP (0.417 ms), dq 8*P*D
+// (0.278 ms), against about 0.41 GB each (0.12 ms).
 //
-// Design. A block owns one 64-row tile of its loop-invariant side (q rows
-// for the forward and dq, key rows for dk/dv) in shared memory and walks
-// the other side in 64-row tiles, skipping tiles wholly past kv_len and,
-// with causal, wholly above the block diagonal (the Pallas kernels'
-// should_run predicate). Nothing is carried between blocks and there are
-// no atomics: every sum runs in a fixed order, so two runs are bitwise
-// equal.
+// Forward (both dtypes) and the float32 backward: a block owns one 64-row
+// tile of its loop-invariant side (q rows for the forward and dq, key rows
+// for dk/dv) in shared memory and walks the other side in 64-row tiles,
+// skipping tiles wholly past kv_len and, with causal, wholly above the
+// block diagonal (the Pallas kernels' should_run predicate).
 // - Forward: s = q.k^T on the tensor cores (bf16 WMMA, f32 accumulation)
 //   into a shared f32 tile; four threads per row keep the running max and
 //   sum in registers; p is rounded to v's dtype before p.v (as :120), and
 //   the f32 output accumulator lives in shared memory, rescaled by alpha
 //   before each p.v product on the tensor cores. out = acc / max(l, 1e-30),
 //   lse = m + log(max(l, 1e-30)).
-// - Backward: q.k^T and do.v^T are bf16 operands, whose products f32 holds
-//   exactly, so they run on the tensor cores with f32 accumulation. The
-//   products with p or ds (p^T.do, ds^T.q, ds.k) have an f32 operand and
-//   stay in f32 on the CUDA cores, as the Pallas kernels compute them;
-//   each thread owns a 4 x D/16 accumulator tile in registers.
-// - float32 inputs run every product on the CUDA cores in f32: they are
-//   the tight check against the plain version.
-// Not yet done: wgmma, TMA, a pipelined ring of kv tiles, and bf16
-// products for the f32 operands of the backward.
+// - float32 inputs run every product on the CUDA cores in f32, each thread
+//   owning a 4 x D/16 accumulator tile: they are the tight check against
+//   the plain version.
+//
+// bfloat16 backward (flash_bwd_dkv_tc_kernel, flash_bwd_dq_tc_kernel), on
+// warpgroup MMA (wgmma.cuh):
+// - Products. q.k^T and do.v^T have bf16 operands, whose products f32 holds
+//   exactly: bf16 wgmma, f32 accumulation. p^T.do, ds^T.q and ds.k have one
+//   f32 operand x (p or ds, as the Pallas kernels compute them) and one
+//   bf16 operand y. x is split into hi = bf16(x) and lo = bf16(x - hi), and
+//   hi.y + lo.y run as two bf16 wgmmas into one f32 accumulator, hi then lo
+//   at each 16-wide k-step. |x - hi - lo| <= 2^-18 |x| and y is exact, so
+//   each term is within about 2^-17 of its f32 value (TF32 would be 2^-11,
+//   one bf16 rounding of p or ds 2^-9).
+// - Registers hold p and ds. dk/dv computes S^T = K.Q^T and dP^T = V.dO^T
+//   with the block's keys as M, so p^T and ds^T come out in accumulator
+//   registers, whose hi/lo pairs are the A operands of dv += P^T.dO and
+//   dk += dS^T.Q; lse and delta index the columns. dq computes S = Q.K^T
+//   and dP = dO.V^T with q rows as M, and dS is the A operand of
+//   dq += dS.K. The walked side's tiles are B from shared memory, K-major
+//   for the scores and MN-major (transposed) for the gradients. No score
+//   tile goes through shared memory.
+// - Layout. A tile is whole rows (16-byte aligned, D*2 bytes) stored as
+//   128-byte swizzled halves of 64 columns; D 32 runs on 64 with zero lanes.
+// - Blocks. Two warpgroups of 64 rows of the block's side (128 keys for
+//   dk/dv, 128 q rows for dq), one block an SM (162.5 and 193 KiB of
+//   shared memory at D 128). The walked side (q, do, lse and delta for
+//   dk/dv; k and v for dq) streams through a cp.async ring, two tiles
+//   ahead of the one in use, with one barrier a tile. dq's ring has a
+//   fourth stage, so that a tile's dS.K product runs on while the next
+//   tile starts.
+// - Each warpgroup issues its two score products (S and dP), and then its
+//   two gradient products (dk/dv), as two chains of dependent k-steps in
+//   turn. Registers at D 128 (ptxas): dk/dv 254 a thread, dq 212, no
+//   spills.
+// - Masks only on tiles that cross the diagonal or kv_len; a warpgroup
+//   skips the tiles it cannot see, a block those neither warpgroup sees.
+//   The longest causal blocks start first.
+// No atomics anywhere: every sum runs in a fixed order, so two runs are
+// bitwise equal.
+// Not yet done: TMA with a producer warp and setmaxnreg, overlap of one
+// warpgroup's exp and split with the other's products (the two run in
+// step, one barrier a tile), and wgmma in the forward. The S and dP
+// products read both operands from shared memory (4 KB a k-step), which
+// holds them near the shared-memory rate.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -50,6 +87,8 @@
 #include <type_traits>
 
 #include "dtypes.cuh"
+#include "mma.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -83,8 +122,11 @@ constexpr size_t fwd_bytes() {
          (std::is_same<T, bf16>::value ? align128(sizeof(float) * kB * (D + 4)) : 0);
 }
 
-template <typename T, int D>
-constexpr size_t bwd_bytes() { return 4 * tile_bytes<T, D>() + 2 * kScoreBytes + 2 * kRowBytes; }
+// the float32 backward
+template <int D>
+constexpr size_t bwd_bytes() {
+  return 4 * tile_bytes<float, D>() + 2 * kScoreBytes + 2 * kRowBytes;
+}
 
 // hands out 128-byte aligned pieces of the dynamic shared memory, in the
 // order the byte counts above add them up
@@ -192,16 +234,25 @@ __device__ __forceinline__ void scores(float* s, const T* x, const T* y) {
   }
 }
 
-// number of kv tiles a q tile starting at q0 visits: up to kv_len and, with
-// causal, up to the last tile whose first key it may see
-__device__ __forceinline__ int kv_tiles(int q0, int Sk, int causal, int kv_len, int q_off,
+// number of 64-key tiles that q rows up to local row q_last visit: up to
+// kv_len and, with causal, up to the last tile whose first key they may see
+__device__ __forceinline__ int kv_tiles(int q_last, int Sk, int causal, int kv_len, int q_off,
                                         int kv_off) {
   int n = (min(kv_len, Sk) + kB - 1) / kB;
   if (causal) {
-    const int last = q_off + q0 + kB - 1 - kv_off;   // last visible local key
+    const int last = q_off + q_last - kv_off;          // last visible local key
     n = last < 0 ? 0 : min(n, last / kB + 1);
   }
   return n;
+}
+
+// the first 64-row q tile that sees some key from local key k0 on: with
+// causal the first whose last row reaches k0; n_q (none) past kv_len
+__device__ __forceinline__ int first_q_tile(int k0, int n_q, int causal, int kv_len, int q_off,
+                                            int kv_off) {
+  if (k0 >= kv_len) return n_q;
+  const int t = kv_off + k0 - q_off + 1;               // rows needed: (i+1)*kB >= t
+  return causal && t > 0 ? min(n_q, (t + kB - 1) / kB - 1) : 0;
 }
 
 template <typename T, int D>
@@ -240,7 +291,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int row = tid / 4, part = tid % 4;
   const int qpos = q_off + q0 + row;
   float m_run = kNeg, l_run = 0.f;
-  const int n_kv = kv_tiles(q0, Sk, causal, kv_len, q_off, kv_off);
+  const int n_kv = kv_tiles(q0 + kB - 1, Sk, causal, kv_len, q_off, kv_off);
   for (int j = 0; j < n_kv; ++j) {
     __syncthreads();                                    // k, v, p free again
     load_rows<T, D>(ks, k, j * kB, Sk);
@@ -330,13 +381,14 @@ __device__ __forceinline__ void p_and_ds(float* s, float* dp, const float* lse_s
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     const T* __restrict__ g, const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-                     int Sq, int Sk, float scale, int causal, int kv_len, int q_off,
-                     int kv_off) {
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ g,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     float* __restrict__ dk, float* __restrict__ dv, int Sq, int Sk, float scale,
+                     int causal, int kv_len, int q_off, int kv_off) {
+  using T = float;
   constexpr int LD = Ld<T, D>::v;
   extern __shared__ __align__(128) unsigned char smem[];
   Carve cv{smem};
@@ -365,16 +417,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   load_rows<T, D>(vs, v, k0, Sk);
   float dk_acc[4][D / 16] = {}, dv_acc[4][D / 16] = {};
 
-  // q tiles that see some key of this tile: with causal from the first one
-  // whose last row reaches the tile's first key; none past kv_len
   const int n_q = (Sq + kB - 1) / kB;
-  int i0 = 0;
-  if (causal) {
-    const int t = kv_off + k0 - q_off + 1;              // rows needed: (i+1)*kB >= t
-    if (t > 0) i0 = (t + kB - 1) / kB - 1;
-  }
-  if (k0 >= kv_len) i0 = n_q;
-  for (int i = i0; i < n_q; ++i) {
+  for (int i = first_q_tile(k0, n_q, causal, kv_len, q_off, kv_off); i < n_q; ++i) {
     const int q0 = i * kB;
     __syncthreads();
     load_rows<T, D>(qs, q, q0, Sq);
@@ -388,9 +432,9 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     p_and_ds<true>(ss, dps, lse_s, delta_s, q0, k0, scale, causal, kv_len, q_off, kv_off);
     __syncthreads();
     fma_tile<D, kB>(dv_acc, [&](int m, int kk) { return ss[kk * kSLd + m]; },
-                    [&](int kk, int n) { return to_f(gs[kk * LD + n]); });    // p^T.do
+                    [&](int kk, int n) { return gs[kk * LD + n]; });          // p^T.do
     fma_tile<D, kB>(dk_acc, [&](int m, int kk) { return dps[kk * kSLd + m]; },
-                    [&](int kk, int n) { return to_f(qs[kk * LD + n]); });    // ds^T.q
+                    [&](int kk, int n) { return qs[kk * LD + n]; });          // ds^T.q
   }
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -398,18 +442,20 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     if (r < Sk)
 #pragma unroll
       for (int jj = 0; jj < D / 16; ++jj) {
-        dk[(size_t)r * D + tx + 16 * jj] = from_f<T>(dk_acc[i][jj]);
-        dv[(size_t)r * D + tx + 16 * jj] = from_f<T>(dv_acc[i][jj]);
+        dk[(size_t)r * D + tx + 16 * jj] = dk_acc[i][jj];
+        dv[(size_t)r * D + tx + 16 * jj] = dv_acc[i][jj];
       }
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    const T* __restrict__ g, const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq, int Sq, int Sk,
-                    float scale, int causal, int kv_len, int q_off, int kv_off) {
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ g,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    float* __restrict__ dq, int Sq, int Sk, float scale, int causal, int kv_len,
+                    int q_off, int kv_off) {
+  using T = float;
   constexpr int LD = Ld<T, D>::v;
   extern __shared__ __align__(128) unsigned char smem[];
   Carve cv{smem};
@@ -438,7 +484,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   load_vec(lse_s, lse, q0, Sq);
   load_vec(delta_s, delta, q0, Sq);
   float dq_acc[4][D / 16] = {};
-  const int n_kv = kv_tiles(q0, Sk, causal, kv_len, q_off, kv_off);
+  const int n_kv = kv_tiles(q0 + kB - 1, Sk, causal, kv_len, q_off, kv_off);
   for (int j = 0; j < n_kv; ++j) {
     __syncthreads();
     load_rows<T, D>(ks, k, j * kB, Sk);
@@ -450,16 +496,362 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     p_and_ds<false>(ss, dps, lse_s, delta_s, q0, j * kB, scale, causal, kv_len, q_off, kv_off);
     __syncthreads();
     fma_tile<D, kB>(dq_acc, [&](int m, int kk) { return dps[m * kSLd + kk]; },
-                    [&](int kk, int n) { return to_f(ks[kk * LD + n]); });    // ds.k
+                    [&](int kk, int n) { return ks[kk * LD + n]; });          // ds.k
   }
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = q0 + ty * 4 + i;
     if (r < Sq)
 #pragma unroll
-      for (int jj = 0; jj < D / 16; ++jj)
-        dq[(size_t)r * D + tx + 16 * jj] = from_f<T>(dq_acc[i][jj]);
+      for (int jj = 0; jj < D / 16; ++jj) dq[(size_t)r * D + tx + 16 * jj] = dq_acc[i][jj];
   }
+}
+
+// ---- the bfloat16 backward on wgmma --------------------------------------
+
+constexpr int kWG = 2;                   // warpgroups a block, 64 rows each
+constexpr int kTcThreads = 128 * kWG;
+constexpr int kAhead = 2;                // walked-side tiles in flight ahead of the one in use
+constexpr int kDkvStages = kAhead + 1;   // ring stages; dq's has one more, as a tile's last
+constexpr int kDqStages = kAhead + 2;    // product still reads it while the next tile starts
+constexpr float kLog2e = 1.4426950408889634f;
+
+// the bf16 backward's head width: D 32 runs on 64 with zero lanes
+template <int D> struct Dp { static constexpr int v = D < 64 ? 64 : D; };
+
+template <int D>
+__host__ __device__ constexpr size_t tile_sw_bytes(int rows) { return (size_t)rows * Dp<D>::v * 2; }
+
+// shared memory: 1024 bytes to align the base, the block's two tiles, the
+// ring's tiles and (dk/dv) after them each stage's lse and delta, so that
+// every tile stays 1024-byte aligned
+template <int D>
+constexpr size_t dkv_tc_bytes() {
+  return 1024 + 2 * tile_sw_bytes<D>(64 * kWG) +
+         kDkvStages * (2 * tile_sw_bytes<D>(kB) + 2 * kB * 4);
+}
+
+template <int D>
+constexpr size_t dq_tc_bytes() {
+  return 1024 + 2 * tile_sw_bytes<D>(64 * kWG) + kDqStages * 2 * tile_sw_bytes<D>(kB);
+}
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
+}
+
+// rows [r0, r0 + R) of a [S, D] bf16 matrix into an R-row swizzled tile at
+// dst (1024-byte aligned): column half h at dst + h * R * 128, row r at
+// + r * 128, its 16-byte chunk c at chunk c ^ (r % 8). Rows at or past S
+// and columns at or past D are zero. Asynchronous: the caller commits.
+template <int R, int D>
+__device__ __forceinline__ void load_sw(unsigned char* dst, const bf16* __restrict__ src, int r0,
+                                        int S) {
+  constexpr int CPR = Dp<D>::v / 8;                     // 16-byte chunks a row
+  for (int i = threadIdx.x; i < R * CPR; i += kTcThreads) {
+    const int r = i / CPR, c = i % CPR;
+    const bool ok = r0 + r < S && c * 8 < D;
+    cp_async16(dst + (c / 8) * (R * 128) + r * 128 + (((c % 8) ^ (r % 8)) << 4),
+               ok ? src + (size_t)(r0 + r) * D + c * 8 : src, ok ? 16 : 0);
+  }
+}
+
+// entries [r0, r0 + 64) of a per-row f32 vector, zero at or past S
+__device__ __forceinline__ void load_vec_async(float* dst, const float* __restrict__ src, int r0,
+                                               int S) {
+  const int i = threadIdx.x;
+  if (i < kB) cp_async4(dst + i, r0 + i < S ? src + r0 + i : src, r0 + i < S ? 4 : 0);
+}
+
+// descriptor of k-step kk of an R-row swizzled tile read K-major from row r0
+template <int R>
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int r0, int kk) {
+  return gmma_desc(tile + (kk / 4) * (R * 128) + r0 * 128 + (kk % 4) * 32, 16, 1024);
+}
+
+// descriptor of k-step kk (rows 16kk ..) of a 64-row swizzled tile read
+// MN-major (its columns the N of the product)
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
+  return gmma_desc(tile + kk * 16 * 128, kB * 128, 1024);
+}
+
+// a[64 x 64] = X Y^T and b[64 x 64] = U V^T over DP columns: X, U rows r0 ..
+// of RX-row tiles, Y, V 64-row tiles. The two chains of dependent k-steps
+// are issued in turn, so each wgmma has the other chain's to hide behind;
+// committed as one group.
+template <int RX, int DP>
+__device__ __forceinline__ void wg_scores(float (&a)[32], float (&b)[32], uint32_t x, uint32_t u,
+                                          int r0, uint32_t y, uint32_t v) {
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    wgmma_ss_n64(a, desc_k<RX>(x, r0, kk), desc_k<kB>(y, 0, kk), kk > 0);
+    wgmma_ss_n64(b, desc_k<RX>(u, r0, kk), desc_k<kB>(v, 0, kk), kk > 0);
+  }
+  wg_commit();
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 h) {
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// X (64 x 64 f32, accumulator layout) as the A fragments of its 4 k-steps,
+// hi = bf16(X) and lo = bf16(X - hi): |X - hi - lo| <= 2^-18 |X|
+__device__ __forceinline__ void split(const float (&x)[32], uint32_t (&hi)[4][4],
+                                      uint32_t (&lo)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float x0 = x[8 * kk + 2 * r], x1 = x[8 * kk + 2 * r + 1];
+      const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+      const float2 hf = __bfloat1622float2(h);
+      hi[kk][r] = bf16x2_bits(h);
+      lo[kk][r] = bf16x2_bits(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
+    }
+}
+
+// acc[64 x DP] += X[64 x 64] Y[64 x DP] for X split into hi and lo and Y
+// the 64-row tile y (MN-major): two bf16 wgmmas a k-step, hi then lo, into
+// the same accumulator; not committed
+template <int DP>
+__device__ __forceinline__ void wg_split_step(float (&acc)[DP / 2], const uint32_t (&hi)[4],
+                                              const uint32_t (&lo)[4], uint64_t y) {
+  if constexpr (DP == 128) {
+    wgmma_rs_n128(acc, hi, y);
+    wgmma_rs_n128(acc, lo, y);
+  } else {
+    wgmma_rs_n64(acc, hi, y);
+    wgmma_rs_n64(acc, lo, y);
+  }
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// rows r0 + 16 w + g (+ 8) of an accumulator of DP columns into a [S, D]
+// matrix, columns below D, rows below S
+template <int D, typename OutT>
+__device__ __forceinline__ void store_acc(OutT* __restrict__ out, const float (&acc)[Dp<D>::v / 2],
+                                          int r0, int S) {
+  const int lane = threadIdx.x % 32, w = (threadIdx.x / 32) % 4;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + 16 * w + lane / 4 + 8 * h;
+    if (r < S)
+#pragma unroll
+      for (int j = 0; j < Dp<D>::v / 8; ++j) {
+        const int c = 8 * j + 2 * (lane % 4);
+        if (c < D) store2(out + (size_t)r * D + c, acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      }
+  }
+}
+
+// dk, dv for 128 keys a block: warpgroup wg owns keys k0 + 64 wg .. and
+// walks the q tiles that see any key of the block
+template <int D, typename OutT>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const bf16* __restrict__ g,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        OutT* __restrict__ dk, OutT* __restrict__ dv, int Sq, int Sk, float scale,
+                        int causal, int kv_len, int q_off, int kv_off) {
+  constexpr int DP = Dp<D>::v, KR = 64 * kWG;
+  constexpr int TILE = (int)tile_sw_bytes<D>(kB), STAGE = 2 * TILE;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* ks = align1024(smem_raw);
+  unsigned char* vs = ks + tile_sw_bytes<D>(KR);
+  unsigned char* ring = vs + tile_sw_bytes<D>(KR);
+  float* vecs = reinterpret_cast<float*>(ring + kDkvStages * STAGE);   // a stage's lse, delta
+
+  const int tid = threadIdx.x, wg = tid / 128, w = (tid / 32) % 4, lane = tid % 32;
+  const int k0 = blockIdx.x * KR;                       // the longest causal columns first
+  const size_t bh = blockIdx.y;
+  q += bh * Sq * D;
+  g += bh * Sq * D;
+  k += bh * Sk * D;
+  v += bh * Sk * D;
+  dk += bh * Sk * D;
+  dv += bh * Sk * D;
+  lse += bh * Sq;
+  delta += bh * Sq;
+
+  const int n_q = (Sq + kB - 1) / kB;
+  const int i0 = first_q_tile(k0, n_q, causal, kv_len, q_off, kv_off);
+  auto load_stage = [&](int i) {
+    const int slot = (i - i0) % kDkvStages;
+    load_sw<kB, D>(ring + slot * STAGE, q, i * kB, Sq);
+    load_sw<kB, D>(ring + slot * STAGE + TILE, g, i * kB, Sq);
+    load_vec_async(vecs + slot * 2 * kB, lse, i * kB, Sq);
+    load_vec_async(vecs + slot * 2 * kB + kB, delta, i * kB, Sq);
+  };
+  load_sw<KR, D>(ks, k, k0, Sk);
+  load_sw<KR, D>(vs, v, k0, Sk);
+#pragma unroll
+  for (int s = 0; s < kAhead; ++s) {
+    if (i0 + s < n_q) load_stage(i0 + s);
+    cp_async_commit();
+  }
+
+  float dk_acc[DP / 2], dv_acc[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  const int kw0 = k0 + 64 * wg;                         // this warpgroup's first key
+  const float sl = scale * kLog2e;
+  const uint32_t ks_a = smem_u32(ks), vs_a = smem_u32(vs);
+  for (int i = i0; i < n_q; ++i) {
+    cp_async_wait<kAhead - 1>();
+    fence_proxy_async();                                // cp.async writes -> wgmma reads
+    __syncthreads();                                    // tile i landed; tile i-1's stage free
+    if (i + kAhead < n_q) load_stage(i + kAhead);
+    cp_async_commit();
+    const int q0 = i * kB;
+    if (kw0 >= kv_len || (causal && q_off + q0 + kB - 1 < kv_off + kw0)) continue;
+    const bool full = kw0 + kB <= kv_len && (!causal || q_off + q0 >= kv_off + kw0 + kB - 1);
+    const int slot = (i - i0) % kDkvStages;
+    const uint32_t qs_a = smem_u32(ring + slot * STAGE), gs_a = qs_a + TILE;
+    const float* lse_s = vecs + slot * 2 * kB;
+    const float* delta_s = lse_s + kB;
+
+    float s[32], dp[32];
+    wg_fence();
+    wg_scores<KR, DP>(s, dp, ks_a, vs_a, 64 * wg, qs_a, gs_a);   // S^T = K.Q^T, dP^T = V.dO^T
+    wg_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {                      // p^T, ds^T: rows keys, columns q rows
+      const int col = 8 * (e / 4) + 2 * (lane % 4) + (e & 1);
+      float p = exp2f(fmaf(s[e], sl, -lse_s[col] * kLog2e));
+      if (!full) {
+        const int key = kw0 + 16 * w + lane / 4 + 8 * ((e >> 1) & 1);
+        if (key >= kv_len || (causal && q_off + q0 + col < kv_off + key)) p = 0.f;
+      }
+      s[e] = p;
+      dp[e] = p * (dp[e] - delta_s[col]) * scale;
+    }
+    uint32_t phi[4][4], plo[4][4], dhi[4][4], dlo[4][4];
+    split(s, phi, plo);
+    split(dp, dhi, dlo);
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {                    // the two chains in turn:
+      wg_split_step<DP>(dv_acc, phi[kk], plo[kk], desc_mn(gs_a, kk));   // dV += P^T.dO
+      wg_split_step<DP>(dk_acc, dhi[kk], dlo[kk], desc_mn(qs_a, kk));   // dK += dS^T.Q
+    }
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
+  }
+  cp_async_wait<0>();
+  store_acc<D>(dk, dk_acc, kw0, Sk);
+  store_acc<D>(dv, dv_acc, kw0, Sk);
+}
+
+// dq for 128 q rows a block: warpgroup wg owns rows q0 + 64 wg .. and walks
+// the kv tiles that the block's rows see
+template <int D, typename OutT>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, const bf16* __restrict__ g,
+                       const float* __restrict__ lse, const float* __restrict__ delta,
+                       OutT* __restrict__ dq, int Sq, int Sk, float scale, int causal, int kv_len,
+                       int q_off, int kv_off) {
+  constexpr int DP = Dp<D>::v, QR = 64 * kWG;
+  constexpr int TILE = (int)tile_sw_bytes<D>(kB), STAGE = 2 * TILE;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* qs = align1024(smem_raw);
+  unsigned char* gs = qs + tile_sw_bytes<D>(QR);
+  unsigned char* ring = gs + tile_sw_bytes<D>(QR);
+
+  const int tid = threadIdx.x, wg = tid / 128, w = (tid / 32) % 4, lane = tid % 32;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * QR;     // the longest causal rows first
+  const size_t bh = blockIdx.y;
+  q += bh * Sq * D;
+  g += bh * Sq * D;
+  dq += bh * Sq * D;
+  k += bh * Sk * D;
+  v += bh * Sk * D;
+  lse += bh * Sq;
+  delta += bh * Sq;
+
+  const int n_kv = kv_tiles(q0 + QR - 1, Sk, causal, kv_len, q_off, kv_off);
+  auto load_stage = [&](int j) {
+    unsigned char* st = ring + (j % kDqStages) * STAGE;
+    load_sw<kB, D>(st, k, j * kB, Sk);
+    load_sw<kB, D>(st + TILE, v, j * kB, Sk);
+  };
+  load_sw<QR, D>(qs, q, q0, Sq);
+  load_sw<QR, D>(gs, g, q0, Sq);
+#pragma unroll
+  for (int s = 0; s < kAhead; ++s) {
+    if (s < n_kv) load_stage(s);
+    cp_async_commit();
+  }
+
+  const int qw0 = q0 + 64 * wg;                         // this warpgroup's first row
+  float lse2[2], dl[2];                                 // of rows qw0 + 16 w + lane / 4 (+ 8)
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = qw0 + 16 * w + lane / 4 + 8 * h;
+    lse2[h] = r < Sq ? lse[r] * kLog2e : 0.f;
+    dl[h] = r < Sq ? delta[r] : 0.f;
+  }
+  float dq_acc[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) dq_acc[i] = 0.f;
+  const float sl = scale * kLog2e;
+  const uint32_t qs_a = smem_u32(qs), gs_a = smem_u32(gs);
+  uint32_t hi[4][4], lo[4][4];                          // dS of the product in flight
+  for (int j = 0; j < n_kv; ++j) {
+    cp_async_wait<kAhead - 1>();
+    fence_proxy_async();
+    __syncthreads();                                    // tile j landed; tile j-2's stage free
+    if (j + kAhead < n_kv) load_stage(j + kAhead);
+    cp_async_commit();
+    const int c0 = j * kB;                              // the tile's first key
+    if (c0 >= kv_len || (causal && q_off + qw0 + kB - 1 < kv_off + c0)) {
+      wg_wait<0>();                                     // tile j-1's product ends here
+      continue;
+    }
+    const bool full = c0 + kB <= kv_len && (!causal || q_off + qw0 >= kv_off + c0 + kB - 1);
+    const uint32_t ks_a = smem_u32(ring + (j % kDqStages) * STAGE), vs_a = ks_a + TILE;
+
+    float s[32], dp[32];
+    wg_fence();
+    wg_scores<QR, DP>(s, dp, qs_a, gs_a, 64 * wg, ks_a, vs_a);   // S = Q.K^T, dP = dO.V^T
+    wg_wait<0>();                                       // and tile j-1's dQ product
+    fence_regs(s);
+    fence_regs(dp);
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int h = (e >> 1) & 1;
+      float p = exp2f(fmaf(s[e], sl, -lse2[h]));
+      if (!full) {
+        const int key = c0 + 8 * (e / 4) + 2 * (lane % 4) + (e & 1);
+        const int row = qw0 + 16 * w + lane / 4 + 8 * h;
+        if (key >= kv_len || (causal && q_off + row < kv_off + key)) p = 0.f;
+      }
+      dp[e] = p * (dp[e] - dl[h]) * scale;
+    }
+    split(dp, hi, lo);
+    fence_regs(dq_acc);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wg_split_step<DP>(dq_acc, hi[kk], lo[kk], desc_mn(ks_a, kk));      // dQ += dS.K
+    wg_commit();                                        // waited for with the next tile's S, dP
+  }
+  wg_wait<0>();
+  fence_regs(dq_acc);
+  cp_async_wait<0>();
+  store_acc<D>(dq, dq_acc, qw0, Sq);
 }
 
 struct Args {
@@ -471,91 +863,149 @@ struct Args {
   int causal, kv_len, q_off, kv_off;
 };
 
-// which: 0 the forward, 1 dk/dv, 2 dq
+template <typename K>
+cudaError_t launch_setup(K kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// which: 0 the forward (float32 or bfloat16), 1 dk/dv, 2 dq (float32)
 template <typename T, int D>
 cudaError_t run(int which, const Args& a, cudaStream_t st) {
-  size_t bytes;
-  int tiles;
+  const size_t bytes = which == 0 ? fwd_bytes<T, D>() : bwd_bytes<D>();
   cudaError_t e;
   if (which == 0) {
-    bytes = fwd_bytes<T, D>();
-    tiles = (a.Sq + kB - 1) / kB;
-    e = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    e = launch_setup(flash_fwd_kernel<T, D>, bytes);
     if (e != cudaSuccess) return e;
-    flash_fwd_kernel<T, D><<<dim3(tiles, a.BH), kThreads, bytes, st>>>(
+    flash_fwd_kernel<T, D><<<dim3((a.Sq + kB - 1) / kB, a.BH), kThreads, bytes, st>>>(
         (const T*)a.q, (const T*)a.k, (const T*)a.v, (T*)a.o0, a.lse_out, a.Sq, a.Sk,
         a.scale, a.causal, a.kv_len, a.q_off, a.kv_off);
-  } else if (which == 1) {
-    bytes = bwd_bytes<T, D>();
-    tiles = (a.Sk + kB - 1) / kB;
-    e = cudaFuncSetAttribute(flash_bwd_dkv_kernel<T, D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (e != cudaSuccess) return e;
-    flash_bwd_dkv_kernel<T, D><<<dim3(tiles, a.BH), kThreads, bytes, st>>>(
-        (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.g, (const float*)a.lse_in,
-        (const float*)a.delta, (T*)a.o0, (T*)a.o1, a.Sq, a.Sk, a.scale, a.causal, a.kv_len,
-        a.q_off, a.kv_off);
+  } else if constexpr (std::is_same<T, float>::value) {
+    if (which == 1) {
+      e = launch_setup(flash_bwd_dkv_kernel<D>, bytes);
+      if (e != cudaSuccess) return e;
+      flash_bwd_dkv_kernel<D><<<dim3((a.Sk + kB - 1) / kB, a.BH), kThreads, bytes, st>>>(
+          (const float*)a.q, (const float*)a.k, (const float*)a.v, (const float*)a.g,
+          (const float*)a.lse_in, (const float*)a.delta, (float*)a.o0, (float*)a.o1, a.Sq,
+          a.Sk, a.scale, a.causal, a.kv_len, a.q_off, a.kv_off);
+    } else {
+      e = launch_setup(flash_bwd_dq_kernel<D>, bytes);
+      if (e != cudaSuccess) return e;
+      flash_bwd_dq_kernel<D><<<dim3((a.Sq + kB - 1) / kB, a.BH), kThreads, bytes, st>>>(
+          (const float*)a.q, (const float*)a.k, (const float*)a.v, (const float*)a.g,
+          (const float*)a.lse_in, (const float*)a.delta, (float*)a.o0, a.Sq, a.Sk, a.scale,
+          a.causal, a.kv_len, a.q_off, a.kv_off);
+    }
   } else {
-    bytes = bwd_bytes<T, D>();
-    tiles = (a.Sq + kB - 1) / kB;
-    e = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (e != cudaSuccess) return e;
-    flash_bwd_dq_kernel<T, D><<<dim3(tiles, a.BH), kThreads, bytes, st>>>(
-        (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.g, (const float*)a.lse_in,
-        (const float*)a.delta, (T*)a.o0, a.Sq, a.Sk, a.scale, a.causal, a.kv_len, a.q_off,
-        a.kv_off);
+    return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t run_d(int which, int d, const Args& a, cudaStream_t st) {
-  if (d == 32) return run<T, 32>(which, a, st);
-  if (d == 64) return run<T, 64>(which, a, st);
-  if (d == 128) return run<T, 128>(which, a, st);
-  return cudaErrorInvalidValue;
+// the bfloat16 backward, outputs in OutT: which 1 dk/dv, 2 dq
+template <int D, typename OutT>
+cudaError_t run_tc(int which, const Args& a, cudaStream_t st) {
+  constexpr int rows = 64 * kWG;
+  cudaError_t e;
+  if (which == 1) {
+    constexpr size_t bytes = dkv_tc_bytes<D>();
+    e = launch_setup(flash_bwd_dkv_tc_kernel<D, OutT>, bytes);
+    if (e != cudaSuccess) return e;
+    flash_bwd_dkv_tc_kernel<D, OutT><<<dim3((a.Sk + rows - 1) / rows, a.BH), kTcThreads, bytes,
+                                       st>>>(
+        (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v, (const bf16*)a.g,
+        (const float*)a.lse_in, (const float*)a.delta, (OutT*)a.o0, (OutT*)a.o1, a.Sq, a.Sk,
+        a.scale, a.causal, a.kv_len, a.q_off, a.kv_off);
+  } else {
+    constexpr size_t bytes = dq_tc_bytes<D>();
+    e = launch_setup(flash_bwd_dq_tc_kernel<D, OutT>, bytes);
+    if (e != cudaSuccess) return e;
+    flash_bwd_dq_tc_kernel<D, OutT><<<dim3((a.Sq + rows - 1) / rows, a.BH), kTcThreads, bytes,
+                                      st>>>(
+        (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v, (const bf16*)a.g,
+        (const float*)a.lse_in, (const float*)a.delta, (OutT*)a.o0, a.Sq, a.Sk, a.scale,
+        a.causal, a.kv_len, a.q_off, a.kv_off);
+  }
+  return cudaGetLastError();
 }
 
-int dispatch(int which, int dtype, int d, const Args& a, void* stream) {
+// dtype, out_dtype: 0 float32, 1 bfloat16; the backward of bfloat16 inputs
+// runs on wgmma and writes either, every other pass writes its input dtype
+int dispatch(int which, int dtype, int out_dtype, int d, const Args& a, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (a.BH < 1 || a.BH > 65535 || a.Sq < 1 || a.Sk < 1) return (int)cudaErrorInvalidValue;
-  if (dtype == 0) return (int)run_d<float>(which, d, a, st);
-  if (dtype == 1) return (int)run_d<bf16>(which, d, a, st);
+  if (a.BH < 1 || a.BH > 65535 || a.Sq < 1 || a.Sk < 1 || (d != 32 && d != 64 && d != 128))
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 1 && which != 0 && (out_dtype == 0 || out_dtype == 1)) {
+    if (out_dtype == 1)
+      return (int)(d == 32 ? run_tc<32, bf16>(which, a, st)
+                   : d == 64 ? run_tc<64, bf16>(which, a, st)
+                             : run_tc<128, bf16>(which, a, st));
+    return (int)(d == 32 ? run_tc<32, float>(which, a, st)
+                 : d == 64 ? run_tc<64, float>(which, a, st)
+                           : run_tc<128, float>(which, a, st));
+  }
+  if (out_dtype != dtype) return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return (int)(d == 32 ? run<float, 32>(which, a, st)
+                 : d == 64 ? run<float, 64>(which, a, st)
+                           : run<float, 128>(which, a, st));
+  if (dtype == 1 && which == 0)
+    return (int)(d == 32 ? run<bf16, 32>(which, a, st)
+                 : d == 64 ? run<bf16, 64>(which, a, st)
+                           : run<bf16, 128>(which, a, st));
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (of q, k, v, do and of the outputs);
-// d: the head width, 32, 64 or 128; q, do, out, dq [BH, Sq, d]; k, v, dk,
-// dv [BH, Sk, d]; lse, delta [BH, Sq] float32. Every pointer 16-byte aligned
-// (the wrapper checks).
+// dtype: 0 = float32, 1 = bfloat16, of q, k, v and do and of the forward's
+// out; out_dtype: that of the backward's outputs, dtype or (for bfloat16
+// inputs) 0; d: the head width, 32, 64 or 128; q, do, out, dq [BH, Sq, d];
+// k, v, dk, dv [BH, Sk, d]; lse, delta [BH, Sq] float32. Every pointer
+// 16-byte aligned (the wrapper checks).
 extern "C" int flash_fwd(int dtype, int d, const void* q, const void* k, const void* v,
                          void* out, float* lse, int BH, int Sq, int Sk, float scale,
                          int causal, int kv_len, int q_off, int kv_off, void* stream) {
   Args a{q, k, v, nullptr, nullptr, nullptr, out, nullptr, lse, BH, Sq, Sk,
          scale, causal, kv_len, q_off, kv_off};
-  return dispatch(0, dtype, d, a, stream);
+  return dispatch(0, dtype, dtype, d, a, stream);
 }
 
-extern "C" int flash_bwd_dkv(int dtype, int d, const void* q, const void* k, const void* v,
-                             const void* g, const float* lse, const float* delta, void* dk,
-                             void* dv, int BH, int Sq, int Sk, float scale, int causal,
+extern "C" int flash_bwd_dkv(int dtype, int out_dtype, int d, const void* q, const void* k,
+                             const void* v, const void* g, const float* lse, const float* delta,
+                             void* dk, void* dv, int BH, int Sq, int Sk, float scale, int causal,
                              int kv_len, int q_off, int kv_off, void* stream) {
   Args a{q, k, v, g, lse, delta, dk, dv, nullptr, BH, Sq, Sk,
          scale, causal, kv_len, q_off, kv_off};
-  return dispatch(1, dtype, d, a, stream);
+  return dispatch(1, dtype, out_dtype, d, a, stream);
 }
 
-extern "C" int flash_bwd_dq(int dtype, int d, const void* q, const void* k, const void* v,
-                            const void* g, const float* lse, const float* delta, void* dq,
-                            int BH, int Sq, int Sk, float scale, int causal, int kv_len,
+extern "C" int flash_bwd_dq(int dtype, int out_dtype, int d, const void* q, const void* k,
+                            const void* v, const void* g, const float* lse, const float* delta,
+                            void* dq, int BH, int Sq, int Sk, float scale, int causal, int kv_len,
                             int q_off, int kv_off, void* stream) {
   Args a{q, k, v, g, lse, delta, dq, nullptr, nullptr, BH, Sq, Sk,
          scale, causal, kv_len, q_off, kv_off};
-  return dispatch(2, dtype, d, a, stream);
+  return dispatch(2, dtype, out_dtype, d, a, stream);
+}
+
+// registers a thread and local memory bytes a thread (spills included) of
+// the loaded bfloat16 backward kernel at D 128: which 1 dk/dv, 2 dq;
+// out_dtype 0 float32, 1 bfloat16
+extern "C" int flash_bwd_tc_attrs(int which, int out_dtype, int* regs, int* local_bytes) {
+  cudaFuncAttributes fa;
+  cudaError_t e = cudaErrorInvalidValue;
+  if (which == 1 && out_dtype == 1)
+    e = cudaFuncGetAttributes(&fa, flash_bwd_dkv_tc_kernel<128, bf16>);
+  else if (which == 1 && out_dtype == 0)
+    e = cudaFuncGetAttributes(&fa, flash_bwd_dkv_tc_kernel<128, float>);
+  else if (which == 2 && out_dtype == 1)
+    e = cudaFuncGetAttributes(&fa, flash_bwd_dq_tc_kernel<128, bf16>);
+  else if (which == 2 && out_dtype == 0)
+    e = cudaFuncGetAttributes(&fa, flash_bwd_dq_tc_kernel<128, float>);
+  if (e != cudaSuccess) return (int)e;
+  *regs = fa.numRegs;
+  *local_bytes = (int)fa.localSizeBytes;
+  return 0;
 }
 
 extern "C" const char* cuda_error_string(int err) {

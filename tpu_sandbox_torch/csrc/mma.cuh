@@ -23,6 +23,13 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes
                : "memory");
 }
 
+// 4-byte cp.async (both 4-byte aligned): ``bytes`` 0 zero-fills
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

@@ -1,7 +1,8 @@
 """Flash attention whose forward and two backward passes are CUDA kernels.
 
 Counterpart of ``tpu_sandbox/ops/pallas_attention.py``: ``_to_bhsd`` /
-``_from_bhsd`` (:52-67), ``_flash_fwd`` (:139), ``_flash_bwd`` (:314), the
+``_from_bhsd`` (:52-67), ``_flash_fwd`` (:139), ``_flash_bwd`` (:314, with
+its ``out_dtype``: float32 gradients for bfloat16 inputs), the
 custom VJP ``_flash_core`` (:440-460), ``flash_attention`` (:463) and
 ``flash_attention_fn`` (:572). On a CUDA tensor each pass is a kernel of
 ``csrc/flash_attention.cu``; on a CPU tensor it is the plain version
@@ -44,9 +45,14 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("flash_attention")
     if not getattr(lib, "_bound", False):
         lib.flash_fwd.argtypes = [_I, _I, _P, _P, _P, _P, _P] + _ROW
-        lib.flash_bwd_dkv.argtypes = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P] + _ROW
-        lib.flash_bwd_dq.argtypes = [_I, _I, _P, _P, _P, _P, _P, _P, _P] + _ROW
-        for fn in (lib.flash_fwd, lib.flash_bwd_dkv, lib.flash_bwd_dq):
+        lib.flash_bwd_dkv.argtypes = [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                                      _P] + _ROW
+        lib.flash_bwd_dq.argtypes = [_I, _I, _I, _P, _P, _P, _P, _P, _P,
+                                     _P] + _ROW
+        lib.flash_bwd_tc_attrs.argtypes = [_I, _I, ctypes.POINTER(_I),
+                                           ctypes.POINTER(_I)]
+        for fn in (lib.flash_fwd, lib.flash_bwd_dkv, lib.flash_bwd_dq,
+                   lib.flash_bwd_tc_attrs):
             fn.restype = _I
         lib._bound = True
     return lib
@@ -104,22 +110,23 @@ def _p_ds(q, k, v, g, lse, delta, scale, causal, kv_len, q_offset,
 
 
 def flash_bwd_dkv_plain(q, k, v, g, lse, delta, *, scale, causal, kv_len,
-                        q_offset=0, kv_offset=0):
-    """(dk, dv) in k's and v's dtype: dv = p^T.do and dk = ds^T.q in f32."""
+                        q_offset=0, kv_offset=0, out_dtype=None):
+    """(dk, dv) in ``out_dtype``, by default k's and v's dtype: dv = p^T.do
+    and dk = ds^T.q in f32."""
     p, ds = _p_ds(q, k, v, g, lse, delta, scale, causal, kv_len, q_offset,
                   kv_offset)
     dv = torch.matmul(p.transpose(-1, -2), g.float())
     del p
     dk = torch.matmul(ds.transpose(-1, -2), q.float())
-    return dk.to(k.dtype), dv.to(v.dtype)
+    return dk.to(out_dtype or k.dtype), dv.to(out_dtype or v.dtype)
 
 
 def flash_bwd_dq_plain(q, k, v, g, lse, delta, *, scale, causal, kv_len,
-                       q_offset=0, kv_offset=0):
-    """dq in q's dtype: ds.k in f32."""
+                       q_offset=0, kv_offset=0, out_dtype=None):
+    """dq in ``out_dtype``, by default q's dtype: ds.k in f32."""
     _, ds = _p_ds(q, k, v, g, lse, delta, scale, causal, kv_len, q_offset,
                   kv_offset)
-    return torch.matmul(ds, k.float()).to(q.dtype)
+    return torch.matmul(ds, k.float()).to(out_dtype or q.dtype)
 
 
 def _check(name, tensors, rows):
@@ -182,19 +189,33 @@ def flash_fwd(q, k, v, *, scale, causal, kv_len, q_offset=0, kv_offset=0):
     return out, lse
 
 
+def _out_code(name, q, out_dtype):
+    """The kernels' code of the backward's output dtype: the input dtype,
+    or float32 for bfloat16 inputs (``_flash_bwd``'s ``out_dtype``)."""
+    out_dtype = out_dtype or q.dtype
+    if out_dtype not in (q.dtype, torch.float32):
+        raise ValueError(f"{name} kernel writes {q.dtype} or float32 for "
+                         f"{q.dtype} inputs, not {out_dtype}")
+    return out_dtype, _DTYPES[out_dtype]
+
+
 def flash_bwd_dkv(q, k, v, g, lse, delta, *, scale, causal, kv_len,
-                  q_offset=0, kv_offset=0):
-    """(dk, dv) in k's dtype: the kv-major kernel on CUDA tensors, the
-    plain version on CPU tensors."""
+                  q_offset=0, kv_offset=0, out_dtype=None):
+    """(dk, dv) in ``out_dtype``, by default k's dtype (float32 for
+    bfloat16 inputs is the other choice): the kv-major kernel on CUDA
+    tensors, the plain version on CPU tensors."""
     kw = dict(scale=scale, causal=causal, kv_len=kv_len, q_offset=q_offset,
               kv_offset=kv_offset)
     if q.device.type == "cpu":
-        return flash_bwd_dkv_plain(q, k, v, g, lse, delta, **kw)
+        return flash_bwd_dkv_plain(q, k, v, g, lse, delta, out_dtype=out_dtype,
+                                   **kw)
     dt, d = _check("flash_bwd_dkv", (q, k, v, g, lse, delta), q.shape[2])
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    out_dtype, ot = _out_code("flash_bwd_dkv", q, out_dtype)
+    dk = torch.empty(k.shape, dtype=out_dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=out_dtype, device=v.device)
     lib = _lib()
     with torch.cuda.device(q.device):
-        err = lib.flash_bwd_dkv(dt, d, q.data_ptr(), k.data_ptr(),
+        err = lib.flash_bwd_dkv(dt, ot, d, q.data_ptr(), k.data_ptr(),
                                 v.data_ptr(), g.data_ptr(), lse.data_ptr(),
                                 delta.data_ptr(), dk.data_ptr(),
                                 dv.data_ptr(), *_row_args(q, k, **kw))
@@ -204,24 +225,41 @@ def flash_bwd_dkv(q, k, v, g, lse, delta, *, scale, causal, kv_len,
 
 
 def flash_bwd_dq(q, k, v, g, lse, delta, *, scale, causal, kv_len,
-                 q_offset=0, kv_offset=0):
-    """dq in q's dtype: the q-major kernel on CUDA tensors, the plain
-    version on CPU tensors."""
+                 q_offset=0, kv_offset=0, out_dtype=None):
+    """dq in ``out_dtype``, by default q's dtype (float32 for bfloat16
+    inputs is the other choice): the q-major kernel on CUDA tensors, the
+    plain version on CPU tensors."""
     kw = dict(scale=scale, causal=causal, kv_len=kv_len, q_offset=q_offset,
               kv_offset=kv_offset)
     if q.device.type == "cpu":
-        return flash_bwd_dq_plain(q, k, v, g, lse, delta, **kw)
+        return flash_bwd_dq_plain(q, k, v, g, lse, delta, out_dtype=out_dtype,
+                                  **kw)
     dt, d = _check("flash_bwd_dq", (q, k, v, g, lse, delta), q.shape[2])
-    dq = torch.empty_like(q)
+    out_dtype, ot = _out_code("flash_bwd_dq", q, out_dtype)
+    dq = torch.empty(q.shape, dtype=out_dtype, device=q.device)
     lib = _lib()
     with torch.cuda.device(q.device):
-        err = lib.flash_bwd_dq(dt, d, q.data_ptr(), k.data_ptr(),
+        err = lib.flash_bwd_dq(dt, ot, d, q.data_ptr(), k.data_ptr(),
                                v.data_ptr(), g.data_ptr(), lse.data_ptr(),
                                delta.data_ptr(), dq.data_ptr(),
                                *_row_args(q, k, **kw))
     build.check(lib, err, "flash_bwd_dq")
     LAUNCHES["flash_bwd_dq"] += 1
     return dq
+
+
+def bwd_kernel_attrs(name: str, out_dtype: torch.dtype) -> dict:
+    """Registers a thread and local memory bytes a thread (spills
+    included) of the loaded bfloat16 backward kernel ``name``
+    ("flash_bwd_dkv" or "flash_bwd_dq") at D 128 writing ``out_dtype``,
+    as the CUDA runtime reports them for the module in use."""
+    which = {"flash_bwd_dkv": 1, "flash_bwd_dq": 2}[name]
+    regs, local = _I(0), _I(0)
+    lib = _lib()
+    err = lib.flash_bwd_tc_attrs(which, _DTYPES[out_dtype], ctypes.byref(regs),
+                                 ctypes.byref(local))
+    build.check(lib, err, name + " attributes")
+    return {"registers": regs.value, "local_bytes": local.value}
 
 
 class _FlashCore(torch.autograd.Function):
