@@ -27,11 +27,14 @@ card or when the port is not beside it. Phases, one JSON line each:
    F.cross_entropy); dk/dv and dq run twice, bitwise equal, and with bf16
    inputs also write f32 outputs, which must come within 1e-4 of
    max|plain| of the plain version's f32 outputs (the precision witness
-   of their split products). The flash backward's bound counts every
+   of their split products). The forward's f32 out of bf16 inputs is held
+   to 1e-4 on inputs whose p are exact in bf16 (integer scores at scale
+   ln 2; its precision witness) and reported, at the bf16 tolerance, on
+   the random inputs. The flash backward's bound counts every
    product as bf16 tensor-core work, its f32-operand products twice (hi
-   and lo); its kernel lines carry the registers and local memory a
-   thread of their D 128 instances, as the CUDA runtime reports them for
-   the loaded module. The NHWC
+   and lo); the three flash kernel lines carry the registers and local
+   memory a thread of their D 128 wgmma instances, as the CUDA runtime
+   reports them for the loaded module. The NHWC
    plan's 13 kinds are checked the same way, their plain versions timed
    once each (library calls: cuDNN's F.conv2d on channels-last views for
    the forward, stats and dgrad, aten.convolution_backward for the
@@ -50,7 +53,11 @@ card or when the port is not beside it. Phases, one JSON line each:
    off, non-zero offsets, kv_len short of S, B*H = 1, the backward's f32
    outputs of bf16 inputs among them; the CE at N = 1 and
    C = 4097. The NHWC conv at CO 48 and 80 and at C 32, its tails at co 8
-   blk 2 and co 4 blk 4, and its own bf16 tie case.
+   blk 2 and co 4 blk 4, and its own bf16 tie case; its bf16 forward's
+   runs of rows at W 65 and 130, N*H 134 (more rows than the card's
+   blocks, the last run short) and 140 one-row images, for the forward,
+   the stats (bitwise repeatable, y the forward's) and the dgrad
+   (NHWC_RAGGED_RUNS).
 4. main_path: tpu_sandbox_torch.mnist_onegpu's own train function at
    3000x3000, batch 5, bf16, synthetic MNIST, 5 steps, on the card's
    default plan (the sparse conv1, the fused BN tails and the fused
@@ -107,10 +114,12 @@ IMAGE = 3000
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 (data sheet)
 PEAK_F32_FLOPS = 67e12        # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3
-#: of max|plain|; "bf16_f32": the flash backward's bf16 inputs with f32
+#: of max|plain|; "bf16_f32": the flash kernels' bf16 inputs with f32
 #: outputs, where only the kernel's arithmetic differs from the plain
-#: version's f32 (split products carry about 2^-17 a term; TF32 or one
-#: bf16 rounding of p or ds would not pass)
+#: version's f32 (the backward's split products carry about 2^-17 a term,
+#: the forward's p are exact in bf16 on its witness inputs; TF32, one bf16
+#: rounding of p or ds in the backward or a bf16-rounded out would not
+#: pass)
 TOL = {"fp32": 1e-4, "bf16": 1e-2, "bf16_f32": 1e-4}
 DTYPES = (("fp32", torch.float32), ("bf16", torch.bfloat16))
 CONV_SRC = "tpu_sandbox_torch/csrc/conv_t.cu"
@@ -185,6 +194,14 @@ PATHS = (
 ALL_KINDS = sorted({k for *_, kinds in PATHS for k in kinds})
 #: the NHWC conv's ragged (C, CO)
 NHWC_RAGGED = ((16, 48), (16, 80), (32, 48))
+#: the NHWC bf16 forward's run edges (N, H, W): W 65 and 130 (one and two
+#: pixels past a 64- and 128-pixel W tile), N*H 2*67 in 128-pixel tiles
+#: (268 rows: more than the card's blocks, runs crossing columns, the last
+#: run short) and 140 one-row images (runs of whole columns, every row
+#: between two halo rows); each for the forward and the stats at 64 -> 128
+#: and 16 -> 256 channels and the dgrad's 128 -> 64 (64-pixel tiles)
+NHWC_RAGGED_RUNS = ((1, 3, 65), (2, 67, 130), (140, 1, 65))
+NHWC_RAGGED_RUNS_CH = ((64, 128, "fwd"), (16, 256, "fwd"), (128, 64, "dgrad"))
 #: the transposed conv's ragged (N, H, W): W 70 and the odd W 75 (rows of
 #: 150 bytes, 2-byte aligned), N*H 10, 21 and 3 (off every slab and unit
 #: count); each at (C, CO) 64->128 and 16->24 (fwd, stats, wgrad) and the
@@ -908,6 +925,8 @@ def phase_ragged(conv_t, fc_t, bn_tail_t, conv5_t, conv1_tail_t, conv,
                 dw, pdw, dt_name, f"ragged {what} wgrad")
             out[f"{what} wgrad db {dt_name}"] = compare(
                 db, pdb, dt_name, f"ragged {what} wgrad db")
+        for n, h, w in NHWC_RAGGED_RUNS:
+            out.update(_nhwc_runs(conv, gen, n, h, w, dt_name, dt))
         for co, blk in ((8, 2), (4, 4)):
             case = _tail_case(bn_tail, gen, 2, 5, blk * blk * co, co, blk, 70,
                               dt, nhwc=True)
@@ -957,6 +976,34 @@ def _conv_t_ragged(conv_t, gen, n, h, w, dt_name, dt) -> dict:
     out[f"{what} dgrad {dt_name}"] = compare(
         conv_t.conv3x3_t_forward(x, wt, b, kind="dgrad"),
         conv_t.conv3x3_t_plain(x, wt, b), dt_name, f"ragged {what} dgrad")
+    return out
+
+
+def _nhwc_runs(conv, gen, n, h, w, dt_name, dt) -> dict:
+    """The NHWC forward at one NHWC_RAGGED_RUNS shape: for each
+    NHWC_RAGGED_RUNS_CH the forward (or dgrad) against its plain version
+    and, for the forwards, the stats (y bitwise the forward's, two runs
+    bitwise equal)."""
+    out = {}
+    for c, co, kind in NHWC_RAGGED_RUNS_CH:
+        what = f"nhwc n{n} h{h} w{w} C{c} CO{co}"
+        x, wt, b = _conv_case(gen, n, h, c, w, co, dt, nhwc=True)
+        if kind == "dgrad":
+            b = torch.zeros_like(b)
+        y = conv.conv3x3_forward(x, wt, b, kind=kind)
+        out[f"{what} {kind} {dt_name}"] = compare(
+            y, conv.conv3x3_plain(x, wt, b), dt_name, f"ragged {what} {kind}")
+        if kind == "dgrad":
+            continue
+        got = conv.conv3x3_stats_forward(x, wt, b)
+        want = conv.conv3x3_stats_plain(x, wt, b)
+        for i, part in enumerate(("y", "sum", "sumsq")):
+            out[f"{what} stats {part} {dt_name}"] = compare(
+                got[i], want[i], dt_name, f"ragged {what} stats {part}")
+        require(torch.equal(got[0], y),
+                f"ragged {what} stats {dt_name}: y differs from the forward's")
+        require_repeatable(got, lambda: conv.conv3x3_stats_forward(x, wt, b),
+                           f"ragged {what} stats {dt_name}")
     return out
 
 
@@ -1011,6 +1058,8 @@ def _check_flash(fa, q, k, v, g, kw, dt_name, what) -> dict:
     rec = {"flash_fwd": compare(out, pout, dt_name, what + " out"),
            "flash_fwd_lse": compare(lse, plse, "fp32", what + " lse")}
     del pout, plse
+    if dt_name == "bf16":
+        rec.update(_flash_fwd_witness(fa, q, k, v, kw, what))
     delta = (g.float() * out.float()).sum(-1)
     args = (q, k, v, g, lse, delta)
     dk, dv = fa.flash_bwd_dkv(*args, **kw)
@@ -1041,6 +1090,42 @@ def _check_flash(fa, q, k, v, g, kw, dt_name, what) -> dict:
     return rec
 
 
+def _exact_p(x):
+    """x's entries beyond one standard deviation as -1 or 1, the rest 0,
+    in x's dtype: q.k^T of two such tensors is a sum of integers."""
+    xf = x.float()
+    return torch.where(xf.abs() > 1.0, torch.sign(xf),
+                       torch.zeros_like(xf)).to(x.dtype)
+
+
+def _flash_fwd_witness(fa, q, k, v, kw, what) -> dict:
+    """The forward's float32 out of bfloat16 inputs against the plain
+    version's. Both round p to bf16 once before p.v, but from different
+    maxima (the kernel's running max over its key tiles, the plain
+    version's max over the row), so on random inputs one rounding of p
+    may differ by a bf16 ulp (2^-8 of p/l |v|): that comparison is held
+    to the bf16 tolerance and reported. The witness proper takes integer scores
+    (entries -1, 0, 1 of q and k) at scale ln 2, so every p is a power of
+    two, exact in bf16 from either maximum: only the kernel's f32
+    arithmetic can differ, and out must come within TOL["bf16_f32"] of
+    max|plain| (a bf16-rounded out would be 2^-9 off)."""
+    f32 = dict(kw, out_dtype=torch.float32)
+    out, _ = fa.flash_fwd(q, k, v, **f32)
+    require(out.dtype == torch.float32, f"{what}: f32 out is {out.dtype}")
+    rec = {"flash_fwd_f32_random": compare(
+        out, fa.flash_fwd_plain(q, k, v, **f32)[0], "bf16",
+        what + " out f32, random inputs")}
+    qi, ki = _exact_p(q), _exact_p(k)
+    exact = dict(f32, scale=math.log(2.0))
+    out, lse = fa.flash_fwd(qi, ki, v, **exact)
+    pout, plse = fa.flash_fwd_plain(qi, ki, v, **exact)
+    rec["flash_fwd_f32out"] = compare(out, pout, "bf16_f32",
+                                      what + " out f32, exact p")
+    rec["flash_fwd_lse_exact_p"] = compare(lse, plse, "fp32",
+                                           what + " lse, exact p")
+    return rec
+
+
 def _entry(name, source, replaces, rec, ms, plain_ms, library_ms, *,
            flops, bytes_, f32_flops=0.0, peak=PEAK_BF16_FLOPS,
            library_note=None, attrs=None) -> dict:
@@ -1058,12 +1143,12 @@ def _entry(name, source, replaces, rec, ms, plain_ms, library_ms, *,
 
 def _attrs_of(fa, kind: str) -> dict:
     """Registers a thread and local memory bytes of the bf16 wgmma
-    instances of a flash backward kind at D 128, by output type, as the
-    CUDA runtime reports them for the loaded module."""
+    instances of a flash kind at D 128, by output type, as the CUDA
+    runtime reports them for the loaded module."""
     out = {}
     for label, dt in (("bf16 out", torch.bfloat16),
                       ("f32 out", torch.float32)):
-        out[label] = fa.bwd_kernel_attrs(kind, dt)
+        out[label] = fa.kernel_attrs(kind, dt)
         require(out[label]["registers"] > 0,
                 f"{kind} {label}: no register count from the runtime")
     return out
@@ -1122,7 +1207,7 @@ def phase_lm_kernels(ce, fa) -> dict:
                                                        is_causal=True)),
         flops=2 * mac, bytes_=t_bytes + nbytes(out, lse),
         library_note="F.scaled_dot_product_attention(is_causal=True), "
-                     "forward")
+                     "forward", attrs=_attrs_of(fa, "flash_fwd"))
     bwd_note = ("the backward of F.scaled_dot_product_attention: dq, dk and "
                 "dv together")
     entries["flash_bwd_dkv"] = _entry(

@@ -203,3 +203,17 @@ def test_non_cpu_tensor_never_takes_the_plain_path():
         conv.conv3x3_stats_forward(x, w, b)
     with pytest.raises(ValueError, match="CUDA"):
         conv.conv3x3_wgrad(x, torch.empty((1, 4, 8, 16), device="meta"))
+
+
+@pytest.mark.parametrize("c,co", [(144, 16), (24, 16), (16, 24)])
+def test_bf16_forward_refuses_what_its_kernel_cannot_take(c, co):
+    """The bf16 forward's kernel holds a [9C, CO] weight tile and a ring of
+    input rows in one block's shared memory and works in 16-channel steps:
+    C above MAX_BF16_FWD_C, or C or CO off a multiple of 16, is refused
+    before any launch (the plain version on the CPU takes any shape)."""
+    x = torch.empty((1, 4, 8, c), dtype=torch.bfloat16, device="meta")
+    w = torch.empty((3, 3, c, co), dtype=torch.bfloat16, device="meta")
+    b = torch.empty((co,), dtype=torch.bfloat16, device="meta")
+    for fwd in (conv.conv3x3_forward, conv.conv3x3_stats_forward):
+        with pytest.raises(ValueError, match="multiples of 16"):
+            fwd(x, w, b)

@@ -4,7 +4,8 @@ forward and the gradients through jax.vjp on [B, S, H, D] inputs, with S
 off the block and D off every head width; the port's plain backward
 against JAX's blockwise reference backward and, with float32 outputs for
 bfloat16 inputs, against JAX's _flash_bwd; the offset/lse forward
-against flash_attention_lse. On the CPU the port runs its kernels' plain
+against flash_attention_lse, whose out is float32 for either input
+dtype. On the CPU the port runs its kernels' plain
 versions; chip_smoke.py holds the kernels against them on the card."""
 
 import math
@@ -139,25 +140,55 @@ def test_kernel_output_dtypes():
         fa._out_code("x", bf, torch.float16)
 
 
+# flash_attention_lse's out against JAX's, of max|ref|, bf16 inputs: both
+# write float32 out, but p is rounded to bf16 on each side before p.v,
+# and JAX's per-block online max and the plain version's global max can
+# put a p across a rounding boundary (measured on the CPU: <= 3.3e-7 on
+# the three offset cases below, 3.0e-4 at S 200 D 64 causal)
+LSE_OUT_TOL = {"fp32": 1e-5, "bf16": 1e-3}
+
+
 @pytest.mark.parametrize("causal,q_offset,kv_offset",
                          [(True, 96, 0), (True, 40, 24), (False, 7, 300)])
-def test_offset_lse_forward_matches_flash_attention_lse(causal, q_offset,
+@pytest.mark.parametrize("dt", ["fp32", "bf16"])
+def test_offset_lse_forward_matches_flash_attention_lse(dt, causal, q_offset,
                                                         kv_offset):
     """Queries and keys at global offsets, q and kv of different lengths
-    (every query sees some key), out and lse against the JAX forward."""
+    (every query sees some key), out and lse against the JAX forward; out
+    is float32 for either input dtype, as JAX's partials are."""
+    jd, td = DTYPES[dt]
     rng = np.random.default_rng(11)
     q = rng.standard_normal((2, 72, 2, 40)).astype(np.float32)
     k, v = (rng.standard_normal((2, 100, 2, 40)).astype(np.float32)
             for _ in range(2))
-    out, lse = jax_flash_lse(*(jnp.asarray(x) for x in (q, k, v)),
+    out, lse = jax_flash_lse(*(jnp.asarray(x, jd) for x in (q, k, v)),
                              causal=causal, q_offset=q_offset,
                              kv_offset=kv_offset, interpret=True)
+    assert out.dtype == jnp.float32
     tout, tlse = fa.flash_attention_with_lse(
-        *(torch.from_numpy(x) for x in (q, k, v)), causal=causal,
+        *(torch.from_numpy(x).to(td) for x in (q, k, v)), causal=causal,
         q_offset=q_offset, kv_offset=kv_offset)
+    assert tout.dtype == torch.float32 and tuple(tout.shape) == (2, 72, 2, 40)
     assert tlse.dtype == torch.float32 and tuple(tlse.shape) == (2, 72, 2)
-    assert _err(tout, out) <= 1e-5
+    assert _err(tout, out) <= LSE_OUT_TOL[dt]
     assert _err(tlse, lse) <= 1e-6
+
+
+def test_forward_output_dtypes():
+    """flash_fwd writes the input dtype or, for bfloat16 inputs, float32;
+    every other out_dtype is refused, by the kernel wrapper and by the
+    plain version alike."""
+    kw = dict(scale=0.125, causal=True, kv_len=64)
+    bf, f32 = (torch.zeros((1, 1, 64, 32), dtype=t)
+               for t in (torch.bfloat16, torch.float32))
+    assert fa.flash_fwd(bf, bf, bf, **kw)[0].dtype == torch.bfloat16
+    assert fa.flash_fwd(bf, bf, bf, out_dtype=torch.float32,
+                        **kw)[0].dtype == torch.float32
+    assert fa.flash_fwd(f32, f32, f32, **kw)[0].dtype == torch.float32
+    with pytest.raises(ValueError, match="float32"):
+        fa.flash_fwd(f32, f32, f32, out_dtype=torch.bfloat16, **kw)
+    with pytest.raises(ValueError):
+        fa.flash_fwd_plain(bf, bf, bf, out_dtype=torch.float16, **kw)
 
 
 def test_padding_contract_does_not_change_the_result():

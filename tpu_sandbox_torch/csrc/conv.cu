@@ -21,25 +21,44 @@
 // Design (forward). Per output row (n, h) the conv is the implicit GEMM
 //   y[w, co] = b[co] + sum_{k=(dy,dx,c)} x[n, h+dy-1, w+dx-1, c] * wm[k, co]
 // with M = the row's pixels, K = 9C and N = CO; wm is w [3,3,C,CO] read as
-// [9C, CO], JAX's (dy, dx, C) row order. NHWC keeps a pixel's channels
-// contiguous, so a block stages, per 16-channel chunk, the 3-row x
-// (BW+2)-pixel halo strip of those channels in shared memory with 16-byte
-// loads (32 bytes a pixel; zeros outside the image, which is SAME's
-// padding at all four edges: no padded copy of x exists). The tap tile of
-// (dy, dx) is the strip row dy shifted by dx pixels: a pointer offset,
-// never a copy, and never an im2col tensor in device memory. bf16 runs on
-// the tensor cores (WMMA, mma.sync, f32 accumulation): 8 warps of 32
-// pixels x 32 channels, A from the strip, B straight from wm (it is small
-// and stays in L1/L2). fp32 runs the same tiling on the CUDA cores (FMA
-// peak 67 TFLOP/s) and is the tight check against the plain version. The
-// bias is added in f32 and the result rounded once.
+// [9C, CO], JAX's (dy, dx, C) row order. Zeros outside the image are made
+// while staging (SAME's padding at all four edges: no padded copy of x, no
+// im2col tensor in device memory). The bias is added in f32 and the result
+// rounded once.
+// - bf16 (conv3x3_fwd_tc_kernel) runs on warpgroup MMA (wgmma.cuh), with
+//   the weights as B: persistent blocks, one an SM and channel tile, each
+//   walking a contiguous run of the (image, W tile, h) output rows down
+//   the rows, its [9C, BCO] weight tile resident in shared memory for the
+//   whole run (147,456 bytes at conv2 and at the dgrad; re-read from L2 for
+//   every row it would be about 6.6 GB a conv2 pass). Input rows stream
+//   through a 4-slot cp.async ring: the 3-row halo window slides, so each
+//   output row loads one new input row (x is read once, plus two rows a
+//   run). A pixel's channels are contiguous in NHWC, so the tap (dy, dx) is
+//   the staged row dy shifted by dx whole pixels: each warp loads its A
+//   fragments with ldmatrix at that shift (pixel pitch an odd number of
+//   16-byte chunks: no bank conflicts at any shift) and the warpgroup
+//   issues wgmma.m64nBCOk16 with A from registers. The epilogue runs from
+//   the accumulator registers. Tiles: C <= 64, two warpgroups of 64 pixels
+//   and BCO 128 (64 for CO <= 64); C up to 128 (the dgrad), one warpgroup
+//   and BCO 64, which fits the weights and the ring in one block's shared
+//   memory (215 KiB at C 128). What bounds it now: each warpgroup issues
+//   its 9 C/16 products of a row, then waits for them before its epilogue,
+//   and a block barrier a row keeps the ring in step; no TMA or producer
+//   warp.
+// - fp32 runs a 64-pixel x 16*TCO-channel register tiling on the CUDA cores
+//   (FMA peak 67 TFLOP/s), 16-channel chunks of the 3-row halo strip and
+//   of the weights staged in shared memory; it is the tight check against
+//   the plain version.
 //
 // Design (stats). BN's sum and sum of squares per channel of the ROUNDED
-// output are an epilogue of the forward: y is never read back. Each block
-// walks a slab of kStatsRows rows, sums its tile's rounded outputs in
-// registers, combines its threads in a fixed order and writes one partial
-// per (slab, W tile); reduce_partials (reduce.cuh) adds the partials in a
-// fixed order. No float atomics: two runs are bitwise equal.
+// output are an epilogue of the forward: y is never read back, and the
+// stats y is the forward's y bitwise (one body). bf16: each thread adds its
+// rounded outputs and their squares per channel to registers over its
+// block's run, in order; at the end the 8 rows of a warp combine by a fixed
+// shuffle tree and the warps in a fixed order through shared memory, and
+// the block writes one partial row. fp32: one partial per slab of
+// kStatsRows rows and W tile. reduce_partials (reduce.cuh) adds the
+// partials in a fixed order. No float atomics: two runs are bitwise equal.
 //
 // Design (wgrad). dw[k=(dy,dx,c), co] = sum_{n,h,w} x[n,h+dy-1,w+dx-1,c] *
 // g[n,h,w,co] and db[co] = sum g. The TPU carries the sum across its
@@ -51,7 +70,7 @@
 // and contracts over the pixels with the strip read as a column-major A.
 // fp32: 64x64 (k, co) tiles on the CUDA cores.
 //
-// This is the simple, right version: no cp.async or TMA pipeline, no
+// The wgrad is the simple, right version: no cp.async or TMA pipeline, no
 // wgmma, one barrier pair per 16-channel chunk. Those are later work.
 
 #include <cuda_bf16.h>
@@ -59,7 +78,9 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "mma.cuh"
 #include "reduce.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -280,12 +301,13 @@ conv3x3_wgrad_kernel(const float* __restrict__ x, const float* __restrict__ g,
   if (db_block && tid < kWT && co0 + tid < CO) out[(size_t)K9 * CO + co0 + tid] = dbacc;
 }
 
-// ---- bf16 on the tensor cores (WMMA 16x16x16, f32 accumulation) --------
+// ---- bf16 on the tensor cores ---------------------------------------------
 
-// The halo strip of one 16-channel chunk: rows h-1..h+1 of image n, pixels
-// w0-1 .. w0+BW, 32 bytes a pixel (two 16-byte loads), zero outside the
-// image. s[dy][j][c] holds pixel w0-1+j; a row of 16 bf16 is 32 bytes, so
-// every pixel of the strip starts on a WMMA-aligned (256-bit) address.
+// The halo strip of one 16-channel chunk (the wgrad's): rows h-1..h+1 of
+// image n, pixels w0-1 .. w0+BW, 32 bytes a pixel (two 16-byte loads),
+// zero outside the image. s[dy][j][c] holds pixel w0-1+j; a row of 16 bf16
+// is 32 bytes, so every pixel of the strip starts on a WMMA-aligned
+// (256-bit) address.
 template <int BW>
 __device__ __forceinline__ void stage_strip(const bf16* __restrict__ x, bf16 (*s)[BW + 2][kKC],
                                             int n, int h, int H, int W, int C, int w0,
@@ -302,131 +324,203 @@ __device__ __forceinline__ void stage_strip(const bf16* __restrict__ x, bf16 (*s
   }
 }
 
-// Forward tiling: BCO output channels x BW pixels per block, 8 warps of
-// 32x32 (BCO = 128: 2 pixel warps x 4 channel warps over 64 pixels; BCO =
-// 64, for the 64-channel input gradient of conv2: 4 x 2 over 128 pixels).
-template <int BCO>
+// Forward on warpgroup MMA. A block of NWG warpgroups owns a BCO-channel
+// tile of the output and a contiguous run of output rows of the flattened
+// (column, h) space, a column being (image n, W tile of BW = 64 NWG
+// pixels); warpgroup wg computes pixels w0 + 64 wg .. of each row. The
+// block's [9C, BCO] weight tile sits in shared memory for the whole run,
+// as the B operand of wgmma (MN-major, 128-byte swizzled 64-column groups:
+// group g at + g * 9C * 128 bytes, row k at + k * 128, its 16-byte chunk
+// c at chunk c ^ (k % 8)). Input rows of BW + 2 pixels (zero outside the
+// image) stream through a ring of kRing slots, one new row per output row,
+// loaded by cp.async one row ahead; a pixel's C channels are followed by 16
+// bytes of padding, so a pitch of an odd number of 16-byte chunks puts the
+// 8 pixels an ldmatrix reads on distinct banks at any tap shift dx. Per
+// output row and tap (dy, dx), each warp loads the m16n8k16 A fragments of
+// its 16 pixels (shifted by dx) with ldmatrix and the warpgroup issues C/16
+// wgmma.m64nBCOk16 with A from registers into the f32 accumulators; the A
+// registers of two taps alternate, so one tap's loads overlap the other's
+// products. The epilogue runs from the accumulators: bias in f32, one
+// rounding, bf16 pairs stored to y, and with STATS the rounded values and
+// their squares added per channel to registers in a fixed order.
+constexpr int kRing = 4;         // input row slots: rows h-1, h, h+1 and h+2 in flight
+constexpr int kMaxBf16C = 128;   // C the resident weight tile and ring fit for
+
+template <int BCO, int NWG, int KSMAX>
 struct FwdTc {
-  static constexpr int WCO = BCO / 32, WP = 8 / WCO, BW = WP * 32;
-  static constexpr int CLd = BCO + 4;                 // f32 epilogue tile
-  static constexpr int TPC = kThreads / BCO;          // stats threads a channel
-  static constexpr size_t kStrip = sizeof(bf16) * 3 * (BW + 2) * kKC;
-  static constexpr size_t kTile = sizeof(float) * BW * CLd;
-  static constexpr size_t kBytes = kStrip > kTile ? kStrip : kTile;
+  static constexpr int kThr = 128 * NWG, BW = 64 * NWG, BJ = BW + 2;   // staged pixels
+  __host__ __device__ static constexpr int pitch(int C) { return 2 * C + 16; }   // bytes a pixel
+  static size_t bytes(int C) {
+    return 1024 + (size_t)9 * C * BCO * 2 + (size_t)kRing * BJ * pitch(C) + BCO * 4;
+  }
 };
 
-// With STATS the epilogue leaves the rounded tile in shared memory, and
-// TPC threads per channel each add BW/TPC of its pixels (and their
-// squares) to registers that run over the slab; at the end the TPC
-// threads of a channel combine in a fixed order through shared memory.
-template <int BCO, bool STATS>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
+}
+
+// a segment of the block's run: column col, output rows h0 .. h0+len-1;
+// load k (0 .. len+1) brings input row h0 - 1 + k. col < 0: the run is over.
+struct Seg {
+  int col, h0, len, k;
+};
+
+template <int BCO, int NWG, int KSMAX, bool STATS>
+__global__ void __launch_bounds__(128 * NWG, 1)
 conv3x3_fwd_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wm,
                       const bf16* __restrict__ bias, bf16* __restrict__ y,
-                      float* __restrict__ part, int NH, int H, int W, int C, int CO,
-                      int rows_per_slab) {
-  using namespace nvcuda;
-  using P = FwdTc<BCO>;
-  constexpr int BW = P::BW, CLd = P::CLd;
-  __shared__ __align__(128) unsigned char smem[P::kBytes];
-  auto strip = reinterpret_cast<bf16(*)[BW + 2][kKC]>(smem);
-  float* cs = reinterpret_cast<float*>(smem);    // reused after the K loop
+                      float* __restrict__ part, int N, int H, int W, int C, int CO, int per) {
+  using P = FwdTc<BCO, NWG, KSMAX>;
+  constexpr int NT = P::kThr, BW = P::BW, BJ = P::BJ;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* ws = align1024(smem_raw);
+  const int K9 = 9 * C, KS = C / 16, CPR = C / 8, pitch = P::pitch(C);
+  unsigned char* ring = ws + (size_t)K9 * BCO * 2;
+  float* bs = reinterpret_cast<float*>(ring + kRing * BJ * pitch);
 
-  const int tid = threadIdx.x, warp = tid / 32;
-  const int wco = warp % P::WCO, wp = warp / P::WCO;   // warp's 32x32 sub-tile
-  const int w0 = blockIdx.x * BW;
+  const int tid = threadIdx.x, wg = tid / 128, w = (tid / 32) % 4, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
   const int co0 = blockIdx.y * BCO;
-  const int r_begin = blockIdx.z * rows_per_slab;
-  const int r_end = min(NH, r_begin + rows_per_slab);
-  // a 16-wide column group of wm is whole or absent: CO is a multiple of 16
-  bool col_ok[2];
-#pragma unroll
-  for (int j = 0; j < 2; ++j) col_ok[j] = co0 + wco * 32 + j * 16 < CO;
-  float st = 0.f, st2 = 0.f;
+  const int wtiles = (W + BW - 1) / BW;
+  const int total = N * wtiles * H;
+  const int fb = min(total, (int)blockIdx.x * per), fe = min(total, fb + per);
 
-  for (int row = r_begin; row < r_end; ++row) {   // row = n * H + h
-    const int h = row % H, n = row / H;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+  for (int i = tid; i < K9 * (BCO / 8); i += NT) {
+    const int kr = i / (BCO / 8), c = i % (BCO / 8);
+    const bool ok = co0 + 8 * c < CO;
+    cp_async16(ws + (c / 8) * (K9 * 128) + kr * 128 + (((c % 8) ^ (kr % 8)) << 4),
+               ok ? wm + (size_t)kr * CO + co0 + 8 * c : wm, ok ? 16 : 0);
+  }
+  for (int i = tid; i < BCO; i += NT)
+    bs[i] = co0 + i < CO ? __bfloat162float(bias[co0 + i]) : 0.f;
 
-    for (int c0 = 0; c0 < C; c0 += kKC) {
-      stage_strip<BW>(x, strip, n, h, H, W, C, w0, c0);
-      __syncthreads();
+  auto seg_at = [&](int f) -> Seg {
+    if (f >= fe) return Seg{-1, 0, 0, 0};
+    const int col = f / H, h0 = f - col * H;
+    return Seg{col, h0, min(H - h0, fe - f), 0};
+  };
+  auto advance = [&](Seg s) -> Seg {
+    if (s.k <= s.len) {
+      ++s.k;
+      return s;
+    }
+    return seg_at(s.col * H + s.h0 + s.len);
+  };
+  auto issue = [&](const Seg& s, int slot) {      // load s.k of segment s into a slot
+    const int n = s.col / wtiles, w0 = (s.col - n * wtiles) * BW, hh = s.h0 - 1 + s.k;
+    const bool row_ok = hh >= 0 && hh < H;
+    const bf16* src = x + (size_t)(n * H + (row_ok ? hh : 0)) * W * C;
+    unsigned char* dst = ring + slot * BJ * pitch;
+    for (int i = tid; i < BJ * CPR; i += NT) {
+      const int j = i / CPR, c = i - j * CPR, ww = w0 - 1 + j;
+      const bool ok = row_ok && ww >= 0 && ww < W;
+      cp_async16(dst + j * pitch + c * 16, ok ? src + (size_t)ww * C + c * 8 : x, ok ? 16 : 0);
+    }
+  };
+
+  float acc[BCO / 2];
+#pragma unroll
+  for (int i = 0; i < BCO / 2; ++i) acc[i] = 0.f;
+  // channels 8 j + 2 t + e of this thread's columns: index 2 j + e
+  float st[STATS ? BCO / 4 : 1], st2[STATS ? BCO / 4 : 1];
+#pragma unroll
+  for (int i = 0; i < (STATS ? BCO / 4 : 1); ++i) st[i] = st2[i] = 0.f;
+
+  const uint32_t ws_a = smem_u32(ws);
+  const uint32_t lbo = (uint32_t)K9 * 128;          // between 64-column groups of the weights
+  const int pix = 64 * wg + 16 * w + (lane & 15);  // the pixel this lane's ldmatrix row reads
+  uint32_t a[2][KSMAX][4];                         // two taps' A fragments
+  Seg cur = seg_at(fb);
+  if (cur.col >= 0) issue(cur, 0);
+  cp_async_commit();                               // with the weights
+  for (int i = 0; cur.col >= 0; ++i) {
+    cp_async_wait<0>();
+    fence_proxy_async();                           // cp.async writes -> wgmma reads
+    __syncthreads();                               // load i landed; slot (i+1) % kRing free
+    const Seg nxt = advance(cur);
+    if (nxt.col >= 0) issue(nxt, (i + 1) % kRing);
+    cp_async_commit();
+    if (cur.k >= 2) {                              // output row h0 + k - 2: loads i-2, i-1, i
+#pragma unroll
       for (int tap = 0; tap < 9; ++tap) {
-        const int dy = tap / 3, dx = tap % 3;
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[2];
+        const int dy = tap / 3, dx = tap % 3, b = tap & 1;
+        if (tap >= 2) wg_wait<1>();                // tap-2's products read a[b]
+        const unsigned char* arow = ring + ((i - 2 + dy) % kRing) * BJ * pitch +
+                                    (pix + dx) * pitch + (lane >> 4) * 16;
 #pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wmma::load_matrix_sync(fa[i], &strip[dy][wp * 32 + i * 16 + dx][0], kKC);
+        for (int kc = 0; kc < KSMAX; ++kc)
+          if (kc < KS) ldsm_x4(a[b][kc], arow + kc * 32);
+        wg_fence();
 #pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          if (!col_ok[j]) continue;
-          wmma::load_matrix_sync(
-              fb[j], wm + ((size_t)tap * C + c0) * CO + co0 + wco * 32 + j * 16, CO);
-#pragma unroll
-          for (int i = 0; i < 2; ++i) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+        for (int kc = 0; kc < KSMAX; ++kc) {
+          if (kc >= KS) continue;
+          const uint64_t db = gmma_desc(ws_a + (tap * KS + kc) * 16 * 128, lbo, 1024);
+          if constexpr (BCO == 128)
+            wgmma_rs_n128(acc, a[b][kc], db);
+          else
+            wgmma_rs_n64(acc, a[b][kc], db);
         }
+        wg_commit();
       }
-      __syncthreads();
-    }
+      wg_wait<0>();
+      fence_regs(acc);
 
+      const int n = cur.col / wtiles, w0 = (cur.col - n * wtiles) * BW;
+      bf16* yr = y + (size_t)(n * H + cur.h0 + cur.k - 2) * W * CO + co0;
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+      for (int hf = 0; hf < 2; ++hf) {
+        const int wpx = w0 + 64 * wg + 16 * w + g + 8 * hf;
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::store_matrix_sync(cs + (wp * 32 + i * 16) * CLd + wco * 32 + j * 16, acc[i][j],
-                                CLd, wmma::mem_row_major);
-    __syncthreads();
-    // 8 channels (16 bytes of y) a thread and step; neighbouring threads on
-    // neighbouring channels of one pixel
-    for (int i = tid; i < BW * BCO / 8; i += kThreads) {
-      const int p = i / (BCO / 8), cg = (i % (BCO / 8)) * 8;
-      const int w = w0 + p, co = co0 + cg;
-      const bool ok = w < W && co < CO;
-      __align__(16) bf16 out[8];
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        float v = 0.f;
-        if (ok) {
-          out[k] = __float2bfloat16_rn(cs[p * CLd + cg + k] + __bfloat162float(bias[co + k]));
-          v = __bfloat162float(out[k]);
+        for (int j = 0; j < BCO / 8; ++j) {
+          const int c = 8 * j + 2 * t;
+          const __nv_bfloat162 v = __floats2bfloat162_rn(acc[4 * j + 2 * hf] + bs[c],
+                                                         acc[4 * j + 2 * hf + 1] + bs[c + 1]);
+          acc[4 * j + 2 * hf] = acc[4 * j + 2 * hf + 1] = 0.f;
+          if (wpx >= W) continue;
+          if (co0 + c < CO) *reinterpret_cast<__nv_bfloat162*>(yr + (size_t)wpx * CO + c) = v;
+          if constexpr (STATS) {
+            const float2 f = __bfloat1622float2(v);
+            st[2 * j] += f.x;
+            st2[2 * j] += f.x * f.x;
+            st[2 * j + 1] += f.y;
+            st2[2 * j + 1] += f.y * f.y;
+          }
         }
-        if (STATS) cs[p * CLd + cg + k] = v;
-      }
-      if (ok) *reinterpret_cast<uint4*>(y + ((size_t)row * W + w) * CO + co) =
-          *reinterpret_cast<const uint4*>(out);
-    }
-    if (STATS) {
-      __syncthreads();
-      const int ch = tid % BCO, q = tid / BCO;
-      for (int p = q * (BW / P::TPC); p < (q + 1) * (BW / P::TPC); ++p) {
-        const float v = cs[p * CLd + ch];
-        st += v;
-        st2 += v * v;
       }
     }
-    // the next row's staging overwrites the epilogue tile
-    __syncthreads();
+    cur = nxt;
   }
 
-  if (STATS) {
-    cs[tid] = st;
-    cs[kThreads + tid] = st2;
-    __syncthreads();
-    const int gco = co0 + tid;
-    if (tid < BCO && gco < CO) {
-      float s = 0.f, s2 = 0.f;
-      for (int q = 0; q < P::TPC; ++q) {
-        s += cs[q * BCO + tid];
-        s2 += cs[kThreads + q * BCO + tid];
+  if constexpr (STATS) {
+    // the 8 rows of a warp's column (lanes g), then the warps in order
+#pragma unroll
+    for (int i = 0; i < BCO / 4; ++i)
+#pragma unroll
+      for (int off = 4; off < 32; off *= 2) {
+        st[i] += __shfl_xor_sync(0xffffffffu, st[i], off);
+        st2[i] += __shfl_xor_sync(0xffffffffu, st2[i], off);
       }
-      float* out = part + ((size_t)blockIdx.z * gridDim.x + blockIdx.x) * 2 * CO;
-      out[gco] = s;
-      out[CO + gco] = s2;
+    cp_async_wait<0>();
+    __syncthreads();                               // the ring is free: [NWG*4][BCO][2] sums
+    float* red = reinterpret_cast<float*>(ring);
+    if (g == 0)
+#pragma unroll
+      for (int i = 0; i < BCO / 4; ++i) {
+        const int c = 8 * (i / 2) + 2 * t + (i & 1);
+        red[((wg * 4 + w) * BCO + c) * 2] = st[i];
+        red[((wg * 4 + w) * BCO + c) * 2 + 1] = st2[i];
+      }
+    __syncthreads();
+    for (int c = tid; c < BCO; c += NT) {
+      if (co0 + c >= CO) continue;
+      float s = 0.f, s2 = 0.f;
+      for (int k = 0; k < NWG * 4; ++k) {
+        s += red[(k * BCO + c) * 2];
+        s2 += red[(k * BCO + c) * 2 + 1];
+      }
+      float* out = part + (size_t)blockIdx.x * 2 * CO;
+      out[co0 + c] = s;
+      out[CO + co0 + c] = s2;
     }
   }
 }
@@ -515,11 +609,18 @@ conv3x3_wgrad_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
 
 // ---- launches ------------------------------------------------------------
 
-// W tiles of the forward's grid for this dtype and CO (stats partials per
-// slab).
-int fwd_wtiles(int dtype, int CO, int W) {
-  const int bw = dtype == 0 ? kBW : (CO > 64 ? FwdTc<128>::BW : FwdTc<64>::BW);
-  return (W + bw - 1) / bw;
+// W tiles of the fp32 forward's grid (stats partials per slab)
+int fwd_wtiles_f32(int W) { return (W + kBW - 1) / kBW; }
+
+// blocks of the bf16 forward a channel tile (and its stats partials): one
+// an SM, each with a contiguous run of output rows; 0 if it cannot be
+// asked
+int fwd_blocks_bf16() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 0;
+  return sms;
 }
 
 // ``part`` null: one row per block (grid z = N*H); else slabs of
@@ -530,7 +631,7 @@ cudaError_t launch_fwd_f32(const float* x, const float* wm, const float* b, floa
                            cudaStream_t st) {
   const int NH = N * H, rows = STATS ? kStatsRows : 1;
   const int slabs = (NH + rows - 1) / rows;
-  const int wtiles = fwd_wtiles(0, CO, W);
+  const int wtiles = fwd_wtiles_f32(W);
   if (CO > 64) {
     const dim3 grid(wtiles, (CO + 127) / 128, slabs);
     conv3x3_fwd_kernel<8, STATS><<<grid, kThreads, 0, st>>>(x, wm, b, y, part, NH, H, W,
@@ -543,30 +644,45 @@ cudaError_t launch_fwd_f32(const float* x, const float* wm, const float* b, floa
   return cudaGetLastError();
 }
 
+template <int BCO, int NWG, int KSMAX, bool STATS>
+cudaError_t launch_fwd_tc(const bf16* x, const bf16* wm, const bf16* b, bf16* y, float* part,
+                          int N, int H, int W, int C, int CO, cudaStream_t st) {
+  auto kernel = conv3x3_fwd_tc_kernel<BCO, NWG, KSMAX, STATS>;
+  const size_t bytes = FwdTc<BCO, NWG, KSMAX>::bytes(C);
+  const int blocks = fwd_blocks_bf16();
+  if (blocks == 0) return cudaErrorInvalidValue;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e != cudaSuccess) return e;
+  const int bw = FwdTc<BCO, NWG, KSMAX>::BW;
+  const long long total = (long long)N * ((W + bw - 1) / bw) * H;
+  if (total > 0x7fffffff) return cudaErrorInvalidValue;
+  const int per = (int)((total + blocks - 1) / blocks);
+  kernel<<<dim3(blocks, (CO + BCO - 1) / BCO), 128 * NWG, bytes, st>>>(x, wm, b, y, part, N, H,
+                                                                     W, C, CO, per);
+  return cudaGetLastError();
+}
+
+// the instance for C: C 16 one k-step a tap, C up to 64 two warpgroups of
+// 64 pixels and (CO > 64) 128-channel tiles, C up to kMaxBf16C one
+// warpgroup and 64-channel tiles (the weights and the ring fit then)
 template <bool STATS>
 cudaError_t launch_fwd_bf16(const bf16* x, const bf16* wm, const bf16* b, bf16* y,
                             float* part, int N, int H, int W, int C, int CO,
                             cudaStream_t st) {
-  if (C % kKC || CO % 16) return cudaErrorInvalidValue;
-  const int NH = N * H, rows = STATS ? kStatsRows : 1;
-  const int slabs = (NH + rows - 1) / rows;
-  const int wtiles = fwd_wtiles(1, CO, W);
-  if (CO > 64) {
-    const dim3 grid(wtiles, (CO + 127) / 128, slabs);
-    conv3x3_fwd_tc_kernel<128, STATS><<<grid, kThreads, 0, st>>>(x, wm, b, y, part, NH,
-                                                                 H, W, C, CO, rows);
-  } else {
-    const dim3 grid(wtiles, 1, slabs);
-    conv3x3_fwd_tc_kernel<64, STATS><<<grid, kThreads, 0, st>>>(x, wm, b, y, part, NH,
-                                                                H, W, C, CO, rows);
-  }
-  return cudaGetLastError();
+  if (C % kKC || CO % 16 || C > kMaxBf16C) return cudaErrorInvalidValue;
+  if (C > 64) return launch_fwd_tc<64, 1, 8, STATS>(x, wm, b, y, part, N, H, W, C, CO, st);
+  if (CO > 64)
+    return C == 16 ? launch_fwd_tc<128, 2, 1, STATS>(x, wm, b, y, part, N, H, W, C, CO, st)
+                   : launch_fwd_tc<128, 2, 4, STATS>(x, wm, b, y, part, N, H, W, C, CO, st);
+  return C == 16 ? launch_fwd_tc<64, 2, 1, STATS>(x, wm, b, y, part, N, H, W, C, CO, st)
+                 : launch_fwd_tc<64, 2, 4, STATS>(x, wm, b, y, part, N, H, W, C, CO, st);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (C and CO multiples of 16). x
-// [N,H,W,C], wm [9C, CO] (w [3,3,C,CO] flattened), bias [CO], y
+// dtype: 0 = float32, 1 = bfloat16 (C and CO multiples of 16, C at most
+// 128). x [N,H,W,C], wm [9C, CO] (w [3,3,C,CO] flattened), bias [CO], y
 // [N,H,W,CO]; all of dtype, contiguous, 32-byte aligned.
 extern "C" int conv3x3_fwd(int dtype, const void* x, const void* wm, const void* bias,
                            void* y, int N, int H, int W, int C, int CO, void* stream) {
@@ -582,9 +698,11 @@ extern "C" int conv3x3_fwd(int dtype, const void* x, const void* wm, const void*
 }
 
 // Stats partials of conv3x3_fwd_stats: the wrapper sizes ``part`` as this
-// many rows of 2*CO floats.
+// many rows of 2*CO floats (fp32: one per slab and W tile; bf16: one per
+// block, 0 if the device cannot be asked).
 extern "C" int conv3x3_stats_parts(int dtype, int N, int H, int W, int CO) {
-  return (N * H + kStatsRows - 1) / kStatsRows * fwd_wtiles(dtype, CO, W);
+  if (dtype == 1) return fwd_blocks_bf16();
+  return (N * H + kStatsRows - 1) / kStatsRows * fwd_wtiles_f32(W);
 }
 
 // conv3x3_fwd plus the f32 per-channel sums of the rounded y: sums [2*CO]

@@ -5,13 +5,14 @@
 //
 // Replaces the Pallas TPU kernels of tpu_sandbox/ops/pallas_attention.py:
 //   flash_fwd      <- _fwd_kernel (:70), launched by _flash_fwd (pallas_call
-//                     at :166): out in the input dtype and lse [B*H, S] f32
+//                     at :166): out and lse [B*H, S] f32
 //   flash_bwd_dkv  <- _bwd_dkv_kernel (:199), launched by _flash_bwd
 //                     (pallas_call at :361): dk, dv, kv-major
 //   flash_bwd_dq   <- _bwd_dq_kernel (:262), launched by _flash_bwd
 //                     (pallas_call at :379): dq, q-major
-// The backward's outputs are in the input dtype or, as _flash_bwd's
-// out_dtype allows, float32 for bfloat16 inputs.
+// Every output is in the input dtype or, as _flash_fwd's and _flash_bwd's
+// out_dtype allow, float32 for bfloat16 inputs (flash_attention_lse's
+// partials are float32).
 //
 // What bounds them on the H100, at the LM's shapes (B 16, H 8, S 2048,
 // D 128, causal, bf16; P = B*H*S*(S+1)/2 visible pairs): operations. The
@@ -21,78 +22,88 @@
 // with an f32 operand as two: dk/dv 12*P*D FLOP (0.417 ms), dq 8*P*D
 // (0.278 ms), against about 0.41 GB each (0.12 ms).
 //
-// Forward (both dtypes) and the float32 backward: a block owns one 64-row
-// tile of its loop-invariant side (q rows for the forward and dq, key rows
-// for dk/dv) in shared memory and walks the other side in 64-row tiles,
-// skipping tiles wholly past kv_len and, with causal, wholly above the
-// block diagonal (the Pallas kernels' should_run predicate).
-// - Forward: s = q.k^T on the tensor cores (bf16 WMMA, f32 accumulation)
-//   into a shared f32 tile; four threads per row keep the running max and
-//   sum in registers; p is rounded to v's dtype before p.v (as :120), and
-//   the f32 output accumulator lives in shared memory, rescaled by alpha
-//   before each p.v product on the tensor cores. out = acc / max(l, 1e-30),
-//   lse = m + log(max(l, 1e-30)).
-// - float32 inputs run every product on the CUDA cores in f32, each thread
-//   owning a 4 x D/16 accumulator tile: they are the tight check against
-//   the plain version.
+// float32 inputs (flash_fwd_kernel, flash_bwd_dkv_kernel,
+// flash_bwd_dq_kernel) run every product on the CUDA cores in f32: a block
+// owns one 64-row tile of its loop-invariant side (q rows for the forward
+// and dq, key rows for dk/dv) in shared memory and walks the other side in
+// 64-row tiles, skipping tiles wholly past kv_len and, with causal, wholly
+// above the block diagonal (the Pallas kernels' should_run predicate);
+// each thread owns a 4 x D/16 accumulator tile. They are the tight check
+// against the plain version.
 //
-// bfloat16 backward (flash_bwd_dkv_tc_kernel, flash_bwd_dq_tc_kernel), on
-// warpgroup MMA (wgmma.cuh):
-// - Products. q.k^T and do.v^T have bf16 operands, whose products f32 holds
-//   exactly: bf16 wgmma, f32 accumulation. p^T.do, ds^T.q and ds.k have one
-//   f32 operand x (p or ds, as the Pallas kernels compute them) and one
-//   bf16 operand y. x is split into hi = bf16(x) and lo = bf16(x - hi), and
-//   hi.y + lo.y run as two bf16 wgmmas into one f32 accumulator, hi then lo
-//   at each 16-wide k-step. |x - hi - lo| <= 2^-18 |x| and y is exact, so
-//   each term is within about 2^-17 of its f32 value (TF32 would be 2^-11,
-//   one bf16 rounding of p or ds 2^-9).
-// - Registers hold p and ds. dk/dv computes S^T = K.Q^T and dP^T = V.dO^T
-//   with the block's keys as M, so p^T and ds^T come out in accumulator
-//   registers, whose hi/lo pairs are the A operands of dv += P^T.dO and
-//   dk += dS^T.Q; lse and delta index the columns. dq computes S = Q.K^T
-//   and dP = dO.V^T with q rows as M, and dS is the A operand of
+// bfloat16 inputs run on warpgroup MMA (wgmma.cuh):
+// - Layout. A tile is whole rows (16-byte aligned, D*2 bytes) stored as
+//   128-byte swizzled halves of 64 columns; D 32 runs on 64 with zero lanes.
+// - Blocks. Two warpgroups of 64 rows of the block's side (128 q rows for
+//   the forward and dq, 128 keys for dk/dv), one block an SM. Masks only
+//   on tiles that cross the diagonal or kv_len; a warpgroup skips the
+//   tiles it cannot see, a block those neither warpgroup sees. The longest
+//   causal blocks start first.
+// - Forward (flash_fwd_tc_kernel). k and v come in tiles of kN = 128 keys
+//   by tensor map (TMA, one thread issues them, zeros past S and past D)
+//   into a 3-stage ring, one tile ahead, with a full and an empty barrier
+//   (mbarrier) a stage instead of a block barrier a tile. S = Q.K^T is a
+//   chain of m64n128k16 wgmmas into registers (Q and K from shared
+//   memory). The online softmax runs in the accumulator registers: s *
+//   scale * log2(e) minus the running max is one fma, p = exp2 of it on the
+//   special function unit; the row max combines the four threads of a row
+//   by shuffles, while l stays a per-thread partial of the unrounded f32 p
+//   (as _fwd_kernel's l, :118), summed over the four threads once at the
+//   end. p is rounded once to bf16 (p in v's dtype, :120) and is the
+//   register A operand of O += P.V, V read MN-major; the f32 O accumulator
+//   (DP/2 registers a thread) is rescaled by alpha in registers, and not at
+//   all when no row's max moved. Step t issues S_t and then P_{t-1}.V_{t-1},
+//   so the softmax of tile t runs beside that product. out = O / max(l,
+//   1e-30) in the output type (bf16, or f32 for flash_attention_lse's
+//   partials), lse = m ln 2 + log(max(l, 1e-30)). A masked score is -2^100
+//   before scaling, whose scaled value is exact, so a row that has seen only
+//   masked keys gets p = 1 from them, as the Pallas kernel's mask filler
+//   gives. What bounds it now: the two warpgroups run their softmax at the
+//   same time, so the tensor cores idle then (ping-pong scheduling of the
+//   warpgroups by named barriers measured slower, as a warpgroup alone
+//   issues its chain of products at well under the card's rate).
+// - Backward products. q.k^T and do.v^T have bf16 operands, whose products
+//   f32 holds exactly: bf16 wgmma, f32 accumulation. p^T.do, ds^T.q and
+//   ds.k have one f32 operand x (p or ds, as the Pallas kernels compute
+//   them) and one bf16 operand y. x is split into hi = bf16(x) and lo =
+//   bf16(x - hi), and hi.y + lo.y run as two bf16 wgmmas into one f32
+//   accumulator, hi then lo at each 16-wide k-step. |x - hi - lo| <= 2^-18
+//   |x| and y is exact, so each term is within about 2^-17 of its f32 value
+//   (TF32 would be 2^-11, one bf16 rounding of p or ds 2^-9).
+// - Backward registers hold p and ds. dk/dv computes S^T = K.Q^T and dP^T =
+//   V.dO^T with the block's keys as M, so p^T and ds^T come out in
+//   accumulator registers, whose hi/lo pairs are the A operands of dv +=
+//   P^T.dO and dk += dS^T.Q; lse and delta index the columns. dq computes
+//   S = Q.K^T and dP = dO.V^T with q rows as M, and dS is the A operand of
 //   dq += dS.K. The walked side's tiles are B from shared memory, K-major
 //   for the scores and MN-major (transposed) for the gradients. No score
 //   tile goes through shared memory.
-// - Layout. A tile is whole rows (16-byte aligned, D*2 bytes) stored as
-//   128-byte swizzled halves of 64 columns; D 32 runs on 64 with zero lanes.
-// - Blocks. Two warpgroups of 64 rows of the block's side (128 keys for
-//   dk/dv, 128 q rows for dq), one block an SM (162.5 and 193 KiB of
-//   shared memory at D 128). The walked side (q, do, lse and delta for
-//   dk/dv; k and v for dq) streams through a cp.async ring, two tiles
-//   ahead of the one in use, with one barrier a tile. dq's ring has a
-//   fourth stage, so that a tile's dS.K product runs on while the next
-//   tile starts.
-// - Each warpgroup issues its two score products (S and dP), and then its
-//   two gradient products (dk/dv), as two chains of dependent k-steps in
-//   turn. Registers at D 128 (ptxas): dk/dv 254 a thread, dq 212, no
-//   spills.
-// - Masks only on tiles that cross the diagonal or kv_len; a warpgroup
-//   skips the tiles it cannot see, a block those neither warpgroup sees.
-//   The longest causal blocks start first.
+// - Each backward warpgroup issues its two score products (S and dP), and
+//   then its two gradient products (dk/dv), as two chains of dependent
+//   k-steps in turn. The backward's walked side (q, do, lse and delta for
+//   dk/dv; k and v for dq) streams through a cp.async ring, two 64-row
+//   tiles ahead of the one in use, with one block barrier a tile; dq's
+//   ring has a fourth stage, so that a tile's dS.K product runs on while
+//   the next tile starts. Registers at D 128 (ptxas): dk/dv 254 a thread,
+//   dq 212, no spills.
 // No atomics anywhere: every sum runs in a fixed order, so two runs are
 // bitwise equal.
-// Not yet done: TMA with a producer warp and setmaxnreg, overlap of one
-// warpgroup's exp and split with the other's products (the two run in
-// step, one barrier a tile), and wgmma in the forward. The S and dP
-// products read both operands from shared memory (4 KB a k-step), which
-// holds them near the shared-memory rate.
+// Not yet done: TMA and a producer warp with setmaxnreg in the backward,
+// and overlap of one warpgroup's softmax (exp, split) with the other's
+// products. The backward's score products read both operands from shared
+// memory (4 KB a k-step), which holds them near the shared-memory rate.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
-#include <type_traits>
-
-#include "dtypes.cuh"
 #include "mma.cuh"
 #include "wgmma.cuh"
 
 namespace {
 
-using namespace nvcuda;
 using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 256;   // 8 warps; thread (ty, tx) = (tid / 16, tid % 16)
@@ -101,31 +112,28 @@ constexpr int kSLd = kB + 4;    // leading dim of the f32 [64, 64] score tiles
 constexpr int kPLd = kB + 8;    // leading dim of the forward's p tile
 constexpr float kNeg = -1e30f;  // the mask filler, pallas_common.NEG
 
-// leading dim of a [64, D] tile of T in shared memory: f32 rows get an odd
-// stride, so that walks down a column (k^T on the CUDA cores) hit distinct
-// banks; bf16 rows are padded by 8 (WMMA wants multiples of 8 and 32-byte
-// aligned fragments)
-template <typename T, int D> struct Ld { static constexpr int v = D + 1; };
-template <int D> struct Ld<bf16, D> { static constexpr int v = D + 8; };
+// leading dim of a [64, D] f32 tile in shared memory: an odd stride, so
+// that walks down a column (k^T on the CUDA cores) hit distinct banks
+template <int D> struct Ld { static constexpr int v = D + 1; };
 
 __host__ __device__ constexpr size_t align128(size_t b) { return (b + 127) / 128 * 128; }
 
-template <typename T, int D>
-constexpr size_t tile_bytes() { return align128(sizeof(T) * kB * Ld<T, D>::v); }
+template <int D>
+constexpr size_t tile_bytes() { return align128(sizeof(float) * kB * Ld<D>::v); }
 constexpr size_t kScoreBytes = align128(sizeof(float) * kB * kSLd);
 constexpr size_t kRowBytes = align128(sizeof(float) * kB);
 
-template <typename T, int D>
+// the float32 forward
+template <int D>
 constexpr size_t fwd_bytes() {
-  return 3 * tile_bytes<T, D>() + kScoreBytes + align128(sizeof(T) * kB * kPLd) +
-         2 * kRowBytes +
-         (std::is_same<T, bf16>::value ? align128(sizeof(float) * kB * (D + 4)) : 0);
+  return 3 * tile_bytes<D>() + kScoreBytes + align128(sizeof(float) * kB * kPLd) +
+         2 * kRowBytes;
 }
 
 // the float32 backward
 template <int D>
 constexpr size_t bwd_bytes() {
-  return 4 * tile_bytes<float, D>() + 2 * kScoreBytes + 2 * kRowBytes;
+  return 4 * tile_bytes<D>() + 2 * kScoreBytes + 2 * kRowBytes;
 }
 
 // hands out 128-byte aligned pieces of the dynamic shared memory, in the
@@ -140,24 +148,21 @@ struct Carve {
   }
 };
 
-// rows [r0, r0 + 64) of a [S, D] matrix of T (row stride D) into a shared
-// tile with leading dim Ld<T, D>; rows at or past S are zero
-template <typename T, int D>
-__device__ __forceinline__ void load_rows(T* dst, const T* __restrict__ src, int r0, int S) {
-  constexpr int LD = Ld<T, D>::v, V = 16 / sizeof(T), VPR = D / V;
+// rows [r0, r0 + 64) of a [S, D] f32 matrix (row stride D) into a shared
+// tile with leading dim Ld<D>; rows at or past S are zero
+template <int D>
+__device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ src, int r0,
+                                          int S) {
+  constexpr int LD = Ld<D>::v, VPR = D / 4;
   for (int i = threadIdx.x; i < kB * VPR; i += kThreads) {
-    const int r = i / VPR, c = (i % VPR) * V;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < S) val = __ldg(reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * D + c));
-    if constexpr (sizeof(T) == 2) {
-      *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
-    } else {
-      T* d = dst + r * LD + c;
-      d[0] = __uint_as_float(val.x);
-      d[1] = __uint_as_float(val.y);
-      d[2] = __uint_as_float(val.z);
-      d[3] = __uint_as_float(val.w);
-    }
+    const int r = i / VPR, c = (i % VPR) * 4;
+    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r0 + r < S) val = __ldg(reinterpret_cast<const float4*>(src + (size_t)(r0 + r) * D + c));
+    float* d = dst + r * LD + c;
+    d[0] = val.x;
+    d[1] = val.y;
+    d[2] = val.z;
+    d[3] = val.w;
   }
 }
 
@@ -165,35 +170,6 @@ __device__ __forceinline__ void load_rows(T* dst, const T* __restrict__ src, int
 __device__ __forceinline__ void load_vec(float* dst, const float* __restrict__ src, int r0,
                                          int S) {
   for (int i = threadIdx.x; i < kB; i += kThreads) dst[i] = r0 + i < S ? src[r0 + i] : 0.f;
-}
-
-// C[64 x N] (f32, shared, leading dim ldc) = (ACC ? C : 0) + A[64 x K] B[K x N]
-// on the tensor cores: bf16 fragments, f32 accumulation. A is row-major
-// (a[m * lda + k]); B is b[n * ldb + k] when B_COL, else b[k * ldb + n]. The
-// 8 warps share the 4 x N/16 output fragments.
-template <int N, int K, bool B_COL, bool ACC>
-__device__ __forceinline__ void tc_tile(float* c, int ldc, const bf16* a, int lda,
-                                        const bf16* b, int ldb) {
-  using LB = typename std::conditional<B_COL, wmma::col_major, wmma::row_major>::type;
-  const int warp = threadIdx.x / 32;
-  for (int f = warp; f < 4 * (N / 16); f += kThreads / 32) {
-    const int rb = f % 4, cb = f / 4;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    if (ACC)
-      wmma::load_matrix_sync(acc, c + rb * 16 * ldc + cb * 16, ldc, wmma::mem_row_major);
-    else
-      wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-    for (int k = 0; k < K / 16; ++k) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LB> fb;
-      wmma::load_matrix_sync(fa, a + rb * 16 * lda + k * 16, lda);
-      wmma::load_matrix_sync(fb, B_COL ? b + cb * 16 * ldb + k * 16 : b + k * 16 * ldb + cb * 16,
-                             ldb);
-      wmma::mma_sync(acc, fa, fb, acc);
-    }
-    wmma::store_matrix_sync(c + rb * 16 * ldc + cb * 16, acc, ldc, wmma::mem_row_major);
-  }
 }
 
 // acc += sum_k a(m, k) b(k, n) over a 64 x N tile on the CUDA cores in f32,
@@ -215,33 +191,30 @@ __device__ __forceinline__ void fma_tile(float (&acc)[4][N / 16], FA a, FB b) {
   }
 }
 
-// the [64, 64] product x.y^T of two [64, D] tiles into the shared f32 tile
-// s: bf16 on the tensor cores, f32 on the CUDA cores
-template <typename T, int D>
-__device__ __forceinline__ void scores(float* s, const T* x, const T* y) {
-  constexpr int LD = Ld<T, D>::v;
-  if constexpr (std::is_same<T, bf16>::value) {
-    tc_tile<kB, D, true, false>(s, kSLd, x, LD, y, LD);
-  } else {
-    const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-    float acc[4][kB / 16] = {};
-    fma_tile<kB, D>(acc, [&](int m, int k) { return x[m * LD + k]; },
-                    [&](int k, int n) { return y[n * LD + k]; });
+// the [64, 64] product x.y^T of two [64, D] f32 tiles into the shared f32
+// tile s, on the CUDA cores
+template <int D>
+__device__ __forceinline__ void scores(float* s, const float* x, const float* y) {
+  constexpr int LD = Ld<D>::v;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  float acc[4][kB / 16] = {};
+  fma_tile<kB, D>(acc, [&](int m, int k) { return x[m * LD + k]; },
+                  [&](int k, int n) { return y[n * LD + k]; });
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < kB / 16; ++j) s[(ty * 4 + i) * kSLd + tx + 16 * j] = acc[i][j];
-  }
+    for (int j = 0; j < kB / 16; ++j) s[(ty * 4 + i) * kSLd + tx + 16 * j] = acc[i][j];
 }
 
-// number of 64-key tiles that q rows up to local row q_last visit: up to
+// number of TN-key tiles that q rows up to local row q_last visit: up to
 // kv_len and, with causal, up to the last tile whose first key they may see
+template <int TN = kB>
 __device__ __forceinline__ int kv_tiles(int q_last, int Sk, int causal, int kv_len, int q_off,
                                         int kv_off) {
-  int n = (min(kv_len, Sk) + kB - 1) / kB;
+  int n = (min(kv_len, Sk) + TN - 1) / TN;
   if (causal) {
     const int last = q_off + q_last - kv_off;          // last visible local key
-    n = last < 0 ? 0 : min(n, last / kB + 1);
+    n = last < 0 ? 0 : min(n, last / TN + 1);
   }
   return n;
 }
@@ -255,23 +228,21 @@ __device__ __forceinline__ int first_q_tile(int k0, int n_q, int causal, int kv_
   return causal && t > 0 ? min(n_q, (t + kB - 1) / kB - 1) : 0;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ out, float* __restrict__ lse, int Sq, int Sk, float scale,
-                 int causal, int kv_len, int q_off, int kv_off) {
-  constexpr int LD = Ld<T, D>::v, LO = D + 4;
-  constexpr bool TC = std::is_same<T, bf16>::value;
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ out, float* __restrict__ lse,
+                 int Sq, int Sk, float scale, int causal, int kv_len, int q_off, int kv_off) {
+  constexpr int LD = Ld<D>::v;
   extern __shared__ __align__(128) unsigned char smem[];
   Carve cv{smem};
-  T* qs = cv.take<T>(kB * LD);
-  T* ks = cv.take<T>(kB * LD);
-  T* vs = cv.take<T>(kB * LD);
+  float* qs = cv.take<float>(kB * LD);
+  float* ks = cv.take<float>(kB * LD);
+  float* vs = cv.take<float>(kB * LD);
   float* ss = cv.take<float>(kB * kSLd);
-  T* ps = cv.take<T>(kB * kPLd);
+  float* ps = cv.take<float>(kB * kPLd);
   float* alpha_s = cv.take<float>(kB);
   float* l_s = cv.take<float>(kB);
-  float* os = TC ? cv.take<float>(kB * LO) : nullptr;   // bf16: the output accumulator
 
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kB;     // the longest causal rows first
@@ -282,10 +253,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   out += bh * Sq * D;
   lse += bh * Sq;
 
-  load_rows<T, D>(qs, q, q0, Sq);
-  if constexpr (TC)
-    for (int i = tid; i < kB * LO; i += kThreads) os[i] = 0.f;
-  float oacc[4][D / 16] = {};                           // f32: the output accumulator
+  load_rows<D>(qs, q, q0, Sq);
+  float oacc[4][D / 16] = {};
 
   // softmax rows: thread (row, part) owns the row's columns part + 4*c
   const int row = tid / 4, part = tid % 4;
@@ -294,10 +263,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int n_kv = kv_tiles(q0 + kB - 1, Sk, causal, kv_len, q_off, kv_off);
   for (int j = 0; j < n_kv; ++j) {
     __syncthreads();                                    // k, v, p free again
-    load_rows<T, D>(ks, k, j * kB, Sk);
-    load_rows<T, D>(vs, v, j * kB, Sk);
+    load_rows<D>(ks, k, j * kB, Sk);
+    load_rows<D>(vs, v, j * kB, Sk);
     __syncthreads();
-    scores<T, D>(ss, qs, ks);
+    scores<D>(ss, qs, ks);
     __syncthreads();
     float sv[kB / 4];
     float mx = kNeg;
@@ -317,7 +286,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     for (int c = 0; c < kB / 4; ++c) {
       const float p = expf(sv[c] - m_new);
       psum += p;
-      ps[row * kPLd + part + 4 * c] = from_f<T>(p);     // p in v's dtype
+      ps[row * kPLd + part + 4 * c] = p;
     }
     psum += __shfl_xor_sync(0xffffffffu, psum, 1);
     psum += __shfl_xor_sync(0xffffffffu, psum, 2);
@@ -326,20 +295,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     m_run = m_new;
     if (part == 0) alpha_s[row] = alpha;
     __syncthreads();
-    if constexpr (TC) {
-      for (int i = tid; i < kB * D; i += kThreads) os[(i / D) * LO + i % D] *= alpha_s[i / D];
-      __syncthreads();
-      tc_tile<D, kB, false, true>(os, LO, ps, kPLd, vs, LD);
-    } else {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float a = alpha_s[ty * 4 + i];
+    for (int i = 0; i < 4; ++i) {
+      const float a = alpha_s[ty * 4 + i];
 #pragma unroll
-        for (int jj = 0; jj < D / 16; ++jj) oacc[i][jj] *= a;
-      }
-      fma_tile<D, kB>(oacc, [&](int m, int kk) { return to_f(ps[m * kPLd + kk]); },
-                      [&](int kk, int n) { return to_f(vs[kk * LD + n]); });
+      for (int jj = 0; jj < D / 16; ++jj) oacc[i][jj] *= a;
     }
+    fma_tile<D, kB>(oacc, [&](int m, int kk) { return ps[m * kPLd + kk]; },
+                    [&](int kk, int n) { return vs[kk * LD + n]; });
   }
 
   const float l = fmaxf(l_run, 1e-30f);
@@ -348,20 +311,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     if (q0 + row < Sq) lse[q0 + row] = m_run + logf(l);
   }
   __syncthreads();
-  if constexpr (TC) {
-    for (int i = tid; i < kB * D; i += kThreads) {
-      const int r = i / D, c = i % D;
-      if (q0 + r < Sq) out[(size_t)(q0 + r) * D + c] = from_f<T>(os[r * LO + c] / l_s[r]);
-    }
-  } else {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i;
-      if (q0 + r < Sq)
+  for (int i = 0; i < 4; ++i) {
+    const int r = ty * 4 + i;
+    if (q0 + r < Sq)
 #pragma unroll
-        for (int jj = 0; jj < D / 16; ++jj)
-          out[(size_t)(q0 + r) * D + tx + 16 * jj] = from_f<T>(oacc[i][jj] / l_s[r]);
-    }
+      for (int jj = 0; jj < D / 16; ++jj)
+        out[(size_t)(q0 + r) * D + tx + 16 * jj] = oacc[i][jj] / l_s[r];
   }
 }
 
@@ -389,7 +345,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      float* __restrict__ dk, float* __restrict__ dv, int Sq, int Sk, float scale,
                      int causal, int kv_len, int q_off, int kv_off) {
   using T = float;
-  constexpr int LD = Ld<T, D>::v;
+  constexpr int LD = Ld<D>::v;
   extern __shared__ __align__(128) unsigned char smem[];
   Carve cv{smem};
   T* ks = cv.take<T>(kB * LD);
@@ -413,21 +369,21 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   lse += bh * Sq;
   delta += bh * Sq;
 
-  load_rows<T, D>(ks, k, k0, Sk);
-  load_rows<T, D>(vs, v, k0, Sk);
+  load_rows<D>(ks, k, k0, Sk);
+  load_rows<D>(vs, v, k0, Sk);
   float dk_acc[4][D / 16] = {}, dv_acc[4][D / 16] = {};
 
   const int n_q = (Sq + kB - 1) / kB;
   for (int i = first_q_tile(k0, n_q, causal, kv_len, q_off, kv_off); i < n_q; ++i) {
     const int q0 = i * kB;
     __syncthreads();
-    load_rows<T, D>(qs, q, q0, Sq);
-    load_rows<T, D>(gs, g, q0, Sq);
+    load_rows<D>(qs, q, q0, Sq);
+    load_rows<D>(gs, g, q0, Sq);
     load_vec(lse_s, lse, q0, Sq);
     load_vec(delta_s, delta, q0, Sq);
     __syncthreads();
-    scores<T, D>(ss, qs, ks);                           // q.k^T
-    scores<T, D>(dps, gs, vs);                          // do.v^T
+    scores<D>(ss, qs, ks);                           // q.k^T
+    scores<D>(dps, gs, vs);                          // do.v^T
     __syncthreads();
     p_and_ds<true>(ss, dps, lse_s, delta_s, q0, k0, scale, causal, kv_len, q_off, kv_off);
     __syncthreads();
@@ -456,7 +412,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     float* __restrict__ dq, int Sq, int Sk, float scale, int causal, int kv_len,
                     int q_off, int kv_off) {
   using T = float;
-  constexpr int LD = Ld<T, D>::v;
+  constexpr int LD = Ld<D>::v;
   extern __shared__ __align__(128) unsigned char smem[];
   Carve cv{smem};
   T* qs = cv.take<T>(kB * LD);
@@ -479,19 +435,19 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   lse += bh * Sq;
   delta += bh * Sq;
 
-  load_rows<T, D>(qs, q, q0, Sq);
-  load_rows<T, D>(gs, g, q0, Sq);
+  load_rows<D>(qs, q, q0, Sq);
+  load_rows<D>(gs, g, q0, Sq);
   load_vec(lse_s, lse, q0, Sq);
   load_vec(delta_s, delta, q0, Sq);
   float dq_acc[4][D / 16] = {};
   const int n_kv = kv_tiles(q0 + kB - 1, Sk, causal, kv_len, q_off, kv_off);
   for (int j = 0; j < n_kv; ++j) {
     __syncthreads();
-    load_rows<T, D>(ks, k, j * kB, Sk);
-    load_rows<T, D>(vs, v, j * kB, Sk);
+    load_rows<D>(ks, k, j * kB, Sk);
+    load_rows<D>(vs, v, j * kB, Sk);
     __syncthreads();
-    scores<T, D>(ss, qs, ks);
-    scores<T, D>(dps, gs, vs);
+    scores<D>(ss, qs, ks);
+    scores<D>(dps, gs, vs);
     __syncthreads();
     p_and_ds<false>(ss, dps, lse_s, delta_s, q0, j * kB, scale, causal, kv_len, q_off, kv_off);
     __syncthreads();
@@ -507,16 +463,26 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// ---- the bfloat16 backward on wgmma --------------------------------------
+// ---- bfloat16 on wgmma ---------------------------------------------------
 
 constexpr int kWG = 2;                   // warpgroups a block, 64 rows each
 constexpr int kTcThreads = 128 * kWG;
 constexpr int kAhead = 2;                // walked-side tiles in flight ahead of the one in use
 constexpr int kDkvStages = kAhead + 1;   // ring stages; dq's has one more, as a tile's last
 constexpr int kDqStages = kAhead + 2;    // product still reads it while the next tile starts
+// the forward's kv tiles: 128 keys, three stages (the tile of the scores,
+// the tile of the P.V product, the tile in flight)
+constexpr int kN = 128;
+constexpr int kFwdStages = 3;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+// the forward's masked score, before scaling: a power of two, so that its
+// product with scale * log2(e) is exact and a row that has seen only masked
+// keys gets p = exp2(0) = 1 from them (the mask filler's effect in the
+// Pallas kernel) rather than the rounding error of a huge product
+constexpr float kMaskRaw = -0x1p100f;
 
-// the bf16 backward's head width: D 32 runs on 64 with zero lanes
+// the bf16 kernels' head width: D 32 runs on 64 with zero lanes
 template <int D> struct Dp { static constexpr int v = D < 64 ? 64 : D; };
 
 template <int D>
@@ -529,6 +495,12 @@ template <int D>
 constexpr size_t dkv_tc_bytes() {
   return 1024 + 2 * tile_sw_bytes<D>(64 * kWG) +
          kDkvStages * (2 * tile_sw_bytes<D>(kB) + 2 * kB * 4);
+}
+
+template <int D>
+constexpr size_t fwd_tc_bytes() {
+  return 1024 + tile_sw_bytes<D>(64 * kWG) + kFwdStages * 2 * tile_sw_bytes<D>(kN) +
+         2 * kFwdStages * 8;                          // and each stage's two barriers
 }
 
 template <int D>
@@ -854,6 +826,177 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   store_acc<D>(dq, dq_acc, qw0, Sq);
 }
 
+// 2^x on the special function unit (relative error about 2^-22; results
+// below 2^-126 flush to zero)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// the forward for 128 q rows a block: warpgroup wg owns rows q0 + 64 wg ..
+// and walks the kN-key tiles that its rows see. k and v tiles arrive by
+// tensor map into a ring of kFwdStages stages, one tile ahead, issued by
+// thread 0: a stage's full barrier completes when its bytes have landed,
+// its empty barrier when all 256 threads are done with it. No block barrier
+// in the loop. Step t issues S_t = Q.K_t^T and then O += P_{t-1}.V_{t-1},
+// so the softmax of tile t runs beside the warpgroup's own P.V product.
+template <int D, typename OutT>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tmk, const __grid_constant__ CUtensorMap tmv,
+                    const bf16* __restrict__ q, OutT* __restrict__ out, float* __restrict__ lse,
+                    int Sq, int Sk, float scale, int causal, int kv_len, int q_off, int kv_off) {
+  constexpr int DP = Dp<D>::v, QR = 64 * kWG;
+  constexpr int TILE = (int)tile_sw_bytes<D>(kN), STAGE = 2 * TILE;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* qs = align1024(smem_raw);
+  unsigned char* ring = qs + tile_sw_bytes<D>(QR);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kFwdStages * STAGE);
+  uint64_t* empty = full + kFwdStages;
+
+  const int tid = threadIdx.x, wg = tid / 128, w = (tid / 32) % 4, lane = tid % 32;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * QR;     // the longest causal rows first
+  const int bh = blockIdx.y;
+  q += (size_t)bh * Sq * D;
+  out += (size_t)bh * Sq * D;
+  lse += (size_t)bh * Sq;
+
+  const int qw0 = q0 + 64 * wg;                         // this warpgroup's first row
+  const int n_kv = kv_tiles<kN>(q0 + QR - 1, Sk, causal, kv_len, q_off, kv_off);
+  const int n_wg = kv_tiles<kN>(qw0 + 63, Sk, causal, kv_len, q_off, kv_off);
+  auto load_stage = [&](int j) {                        // thread 0: tile j's k and v
+    unsigned char* st = ring + (j % kFwdStages) * STAGE;
+    uint64_t* bar = full + j % kFwdStages;
+    mbar_expect_tx(bar, STAGE);
+#pragma unroll
+    for (int h = 0; h < DP / 64; ++h) {                 // 64-column halves
+      tma_load_3d(st + h * kN * 128, &tmk, 64 * h, j * kN, bh, bar);
+      tma_load_3d(st + TILE + h * kN * 128, &tmv, 64 * h, j * kN, bh, bar);
+    }
+  };
+  if (tid == 0) {
+    for (int i = 0; i < kFwdStages; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, kTcThreads);
+    }
+    mbar_fence_init();
+  }
+  load_sw<QR, D>(qs, q, q0, Sq);
+  cp_async_commit();
+  cp_async_wait<0>();
+  fence_proxy_async();                                  // cp.async writes -> wgmma reads
+  __syncthreads();                                      // Q landed; the barriers set up
+  if (tid == 0 && n_kv > 0) load_stage(0);
+
+  const float sl = scale * kLog2e;
+  // rows qw0 + 16 w + lane / 4 + 8 h: the running max in the exp2 domain,
+  // and this thread's part of the running sum (its 32 columns of a tile)
+  float m2[2] = {kMaskRaw * sl, kMaskRaw * sl}, l[2] = {0.f, 0.f};
+  float o[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+  float s[kN / 2];                                      // S_t, then P_t in f32
+  uint32_t pa[kN / 16][4];                              // P_{t-1}, rounded to bf16
+  const uint32_t qs_a = smem_u32(qs);
+  for (int t = 0; t <= n_kv; ++t) {
+    // thread 0 refills the stage of tile t-2 (every thread was done with it
+    // by the end of step t-1) with tile t+1
+    if (tid == 0 && t + 1 < n_kv) {
+      const int j = t + 1;
+      if (j >= kFwdStages) mbar_wait(empty + j % kFwdStages, (j / kFwdStages - 1) & 1);
+      load_stage(j);
+    }
+    const bool has_s = t < n_wg, has_pv = t >= 1 && t - 1 < n_wg;
+    if (has_s) mbar_wait(full + t % kFwdStages, (t / kFwdStages) & 1);
+    const uint32_t ks_a = smem_u32(ring + (t % kFwdStages) * STAGE);
+    const uint32_t vs_a = smem_u32(ring + ((t + kFwdStages - 1) % kFwdStages) * STAGE) + TILE;
+    wg_fence();
+    if (has_s) {
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)              // S_t = Q.K_t^T
+        wgmma_ss_n128(s, desc_k<QR>(qs_a, 64 * wg, kk), desc_k<kN>(ks_a, 0, kk), kk > 0);
+      wg_commit();
+    }
+    if (has_pv) {
+#pragma unroll
+      for (int kk = 0; kk < kN / 16; ++kk) {            // O += P_{t-1}.V_{t-1}
+        const uint64_t dv = gmma_desc(vs_a + kk * 16 * 128, kN * 128, 1024);
+        if constexpr (DP == 128)
+          wgmma_rs_n128(o, pa[kk], dv);
+        else
+          wgmma_rs_n64(o, pa[kk], dv);
+      }
+      wg_commit();
+    }
+    float alpha[2] = {1.f, 1.f};
+    if (has_s) {
+      if (has_pv)
+        wg_wait<1>();                                   // S_t; the O product runs on
+      else
+        wg_wait<0>();
+      fence_regs(s);
+      const int c0 = t * kN;                            // the tile's first key
+      const bool full_tile = c0 + kN <= kv_len && (!causal || q_off + qw0 >= kv_off + c0 + kN - 1);
+      if (!full_tile) {                                 // the tiles on the diagonal or kv_len
+        const int key0 = c0 + 2 * (lane % 4), row0 = q_off + qw0 + 16 * w + lane / 4 - kv_off;
+#pragma unroll
+        for (int e = 0; e < kN / 2; ++e) {
+          const int key = key0 + 8 * (e / 4) + (e & 1);
+          if (key >= kv_len || (causal && row0 + 8 * ((e >> 1) & 1) < key)) s[e] = kMaskRaw;
+        }
+      }
+      // x = s * scale * log2(e) is taken by one fma with the max subtracted;
+      // sl > 0, so the max of x is the max of s times sl
+      float mx[2] = {kMaskRaw, kMaskRaw};
+#pragma unroll
+      for (int e = 0; e < kN / 2; ++e) mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], s[e]);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        const float m_new = fmaxf(m2[h], mx[h] * sl);
+        alpha[h] = ex2(m2[h] - m_new);
+        m2[h] = m_new;
+        l[h] *= alpha[h];
+      }
+#pragma unroll
+      for (int e = 0; e < kN / 2; ++e) {
+        const float p = ex2(fmaf(s[e], sl, -m2[(e >> 1) & 1]));
+        l[(e >> 1) & 1] += p;                           // l sums the unrounded p
+        s[e] = p;
+      }
+    }
+    wg_wait<0>();                                       // P_{t-1}.V_{t-1}
+    fence_regs(o);
+    if (t >= 1 && t - 1 < n_kv) mbar_arrive(empty + (t - 1) % kFwdStages);   // tile t-1 done
+    if (has_s) {
+      if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f))
+#pragma unroll
+        for (int i = 0; i < DP / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+#pragma unroll
+      for (int kk = 0; kk < kN / 16; ++kk)              // p in v's dtype, rounded once
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          pa[kk][r] = bf16x2_bits(__floats2bfloat162_rn(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]));
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    l[h] = fmaxf(l[h], 1e-30f);
+  }
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) o[i] /= l[(i >> 1) & 1];
+  store_acc<D>(out, o, qw0, Sq);
+  if (lane % 4 == 0)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = qw0 + 16 * w + lane / 4 + 8 * h;
+      if (r < Sq) lse[r] = m2[h] * kLn2 + logf(l[h]);
+    }
+}
+
 struct Args {
   const void *q, *k, *v, *g, *lse_in, *delta;
   void *o0, *o1;
@@ -868,45 +1011,80 @@ cudaError_t launch_setup(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-// which: 0 the forward (float32 or bfloat16), 1 dk/dv, 2 dq (float32)
-template <typename T, int D>
+// the float32 kernels: which 0 the forward, 1 dk/dv, 2 dq
+template <int D>
 cudaError_t run(int which, const Args& a, cudaStream_t st) {
-  const size_t bytes = which == 0 ? fwd_bytes<T, D>() : bwd_bytes<D>();
+  const size_t bytes = which == 0 ? fwd_bytes<D>() : bwd_bytes<D>();
   cudaError_t e;
   if (which == 0) {
-    e = launch_setup(flash_fwd_kernel<T, D>, bytes);
+    e = launch_setup(flash_fwd_kernel<D>, bytes);
     if (e != cudaSuccess) return e;
-    flash_fwd_kernel<T, D><<<dim3((a.Sq + kB - 1) / kB, a.BH), kThreads, bytes, st>>>(
-        (const T*)a.q, (const T*)a.k, (const T*)a.v, (T*)a.o0, a.lse_out, a.Sq, a.Sk,
+    flash_fwd_kernel<D><<<dim3((a.Sq + kB - 1) / kB, a.BH), kThreads, bytes, st>>>(
+        (const float*)a.q, (const float*)a.k, (const float*)a.v, (float*)a.o0, a.lse_out, a.Sq,
+        a.Sk, a.scale, a.causal, a.kv_len, a.q_off, a.kv_off);
+  } else if (which == 1) {
+    e = launch_setup(flash_bwd_dkv_kernel<D>, bytes);
+    if (e != cudaSuccess) return e;
+    flash_bwd_dkv_kernel<D><<<dim3((a.Sk + kB - 1) / kB, a.BH), kThreads, bytes, st>>>(
+        (const float*)a.q, (const float*)a.k, (const float*)a.v, (const float*)a.g,
+        (const float*)a.lse_in, (const float*)a.delta, (float*)a.o0, (float*)a.o1, a.Sq, a.Sk,
         a.scale, a.causal, a.kv_len, a.q_off, a.kv_off);
-  } else if constexpr (std::is_same<T, float>::value) {
-    if (which == 1) {
-      e = launch_setup(flash_bwd_dkv_kernel<D>, bytes);
-      if (e != cudaSuccess) return e;
-      flash_bwd_dkv_kernel<D><<<dim3((a.Sk + kB - 1) / kB, a.BH), kThreads, bytes, st>>>(
-          (const float*)a.q, (const float*)a.k, (const float*)a.v, (const float*)a.g,
-          (const float*)a.lse_in, (const float*)a.delta, (float*)a.o0, (float*)a.o1, a.Sq,
-          a.Sk, a.scale, a.causal, a.kv_len, a.q_off, a.kv_off);
-    } else {
-      e = launch_setup(flash_bwd_dq_kernel<D>, bytes);
-      if (e != cudaSuccess) return e;
-      flash_bwd_dq_kernel<D><<<dim3((a.Sq + kB - 1) / kB, a.BH), kThreads, bytes, st>>>(
-          (const float*)a.q, (const float*)a.k, (const float*)a.v, (const float*)a.g,
-          (const float*)a.lse_in, (const float*)a.delta, (float*)a.o0, a.Sq, a.Sk, a.scale,
-          a.causal, a.kv_len, a.q_off, a.kv_off);
-    }
   } else {
-    return cudaErrorInvalidValue;
+    e = launch_setup(flash_bwd_dq_kernel<D>, bytes);
+    if (e != cudaSuccess) return e;
+    flash_bwd_dq_kernel<D><<<dim3((a.Sq + kB - 1) / kB, a.BH), kThreads, bytes, st>>>(
+        (const float*)a.q, (const float*)a.k, (const float*)a.v, (const float*)a.g,
+        (const float*)a.lse_in, (const float*)a.delta, (float*)a.o0, a.Sq, a.Sk, a.scale,
+        a.causal, a.kv_len, a.q_off, a.kv_off);
   }
   return cudaGetLastError();
 }
 
-// the bfloat16 backward, outputs in OutT: which 1 dk/dv, 2 dq
+// A tensor map of a [BH, S, d] bf16 tensor (d 32, 64 or 128) in boxes of
+// 64 columns x kN rows of one (batch, head), 128-byte swizzled as wgmma
+// reads them; columns past d and rows past S load as zeros.
+cudaError_t kv_tensor_map(CUtensorMap* map, const void* base, int d, int S, int BH) {
+  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                              const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                              const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                              CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+  static Encode encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult res;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &res) !=
+            cudaSuccess ||
+        res != cudaDriverEntryPointSuccess || fn == nullptr)
+      return cudaErrorNotSupported;
+    encode = reinterpret_cast<Encode>(fn);
+  }
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)S, (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)S * d * 2};
+  const cuuint32_t box[3] = {64, kN, 1}, elem[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+                            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// the bfloat16 kernels, outputs in OutT: which 0 the forward, 1 dk/dv, 2 dq
 template <int D, typename OutT>
 cudaError_t run_tc(int which, const Args& a, cudaStream_t st) {
   constexpr int rows = 64 * kWG;
   cudaError_t e;
-  if (which == 1) {
+  if (which == 0) {
+    constexpr size_t bytes = fwd_tc_bytes<D>();
+    CUtensorMap tmk, tmv;
+    e = kv_tensor_map(&tmk, a.k, D, a.Sk, a.BH);
+    if (e == cudaSuccess) e = kv_tensor_map(&tmv, a.v, D, a.Sk, a.BH);
+    if (e == cudaSuccess) e = launch_setup(flash_fwd_tc_kernel<D, OutT>, bytes);
+    if (e != cudaSuccess) return e;
+    flash_fwd_tc_kernel<D, OutT><<<dim3((a.Sq + rows - 1) / rows, a.BH), kTcThreads, bytes,
+                                   st>>>(tmk, tmv, (const bf16*)a.q, (OutT*)a.o0, a.lse_out,
+                                         a.Sq, a.Sk, a.scale, a.causal, a.kv_len, a.q_off,
+                                         a.kv_off);
+  } else if (which == 1) {
     constexpr size_t bytes = dkv_tc_bytes<D>();
     e = launch_setup(flash_bwd_dkv_tc_kernel<D, OutT>, bytes);
     if (e != cudaSuccess) return e;
@@ -928,46 +1106,41 @@ cudaError_t run_tc(int which, const Args& a, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-// dtype, out_dtype: 0 float32, 1 bfloat16; the backward of bfloat16 inputs
-// runs on wgmma and writes either, every other pass writes its input dtype
+// dtype, out_dtype: 0 float32, 1 bfloat16; bfloat16 inputs run on wgmma
+// and write either, float32 inputs write float32
 int dispatch(int which, int dtype, int out_dtype, int d, const Args& a, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (a.BH < 1 || a.BH > 65535 || a.Sq < 1 || a.Sk < 1 || (d != 32 && d != 64 && d != 128))
     return (int)cudaErrorInvalidValue;
-  if (dtype == 1 && which != 0 && (out_dtype == 0 || out_dtype == 1)) {
-    if (out_dtype == 1)
-      return (int)(d == 32 ? run_tc<32, bf16>(which, a, st)
-                   : d == 64 ? run_tc<64, bf16>(which, a, st)
-                             : run_tc<128, bf16>(which, a, st));
+  if (dtype == 1 && out_dtype == 1)
+    return (int)(d == 32 ? run_tc<32, bf16>(which, a, st)
+                 : d == 64 ? run_tc<64, bf16>(which, a, st)
+                           : run_tc<128, bf16>(which, a, st));
+  if (dtype == 1 && out_dtype == 0)
     return (int)(d == 32 ? run_tc<32, float>(which, a, st)
                  : d == 64 ? run_tc<64, float>(which, a, st)
                            : run_tc<128, float>(which, a, st));
-  }
-  if (out_dtype != dtype) return (int)cudaErrorInvalidValue;
-  if (dtype == 0)
-    return (int)(d == 32 ? run<float, 32>(which, a, st)
-                 : d == 64 ? run<float, 64>(which, a, st)
-                           : run<float, 128>(which, a, st));
-  if (dtype == 1 && which == 0)
-    return (int)(d == 32 ? run<bf16, 32>(which, a, st)
-                 : d == 64 ? run<bf16, 64>(which, a, st)
-                           : run<bf16, 128>(which, a, st));
+  if (dtype == 0 && out_dtype == 0)
+    return (int)(d == 32 ? run<32>(which, a, st)
+                 : d == 64 ? run<64>(which, a, st)
+                           : run<128>(which, a, st));
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16, of q, k, v and do and of the forward's
-// out; out_dtype: that of the backward's outputs, dtype or (for bfloat16
-// inputs) 0; d: the head width, 32, 64 or 128; q, do, out, dq [BH, Sq, d];
-// k, v, dk, dv [BH, Sk, d]; lse, delta [BH, Sq] float32. Every pointer
-// 16-byte aligned (the wrapper checks).
-extern "C" int flash_fwd(int dtype, int d, const void* q, const void* k, const void* v,
-                         void* out, float* lse, int BH, int Sq, int Sk, float scale,
-                         int causal, int kv_len, int q_off, int kv_off, void* stream) {
+// dtype: 0 = float32, 1 = bfloat16, of q, k, v and do; out_dtype: that of
+// the outputs (out, dk, dv, dq), dtype or (for bfloat16 inputs) 0; d: the
+// head width, 32, 64 or 128; q, do, out, dq [BH, Sq, d]; k, v, dk, dv [BH,
+// Sk, d]; lse, delta [BH, Sq] float32. Every pointer 16-byte aligned (the
+// wrapper checks).
+extern "C" int flash_fwd(int dtype, int out_dtype, int d, const void* q, const void* k,
+                         const void* v, void* out, float* lse, int BH, int Sq, int Sk,
+                         float scale, int causal, int kv_len, int q_off, int kv_off,
+                         void* stream) {
   Args a{q, k, v, nullptr, nullptr, nullptr, out, nullptr, lse, BH, Sq, Sk,
          scale, causal, kv_len, q_off, kv_off};
-  return dispatch(0, dtype, dtype, d, a, stream);
+  return dispatch(0, dtype, out_dtype, d, a, stream);
 }
 
 extern "C" int flash_bwd_dkv(int dtype, int out_dtype, int d, const void* q, const void* k,
@@ -989,19 +1162,23 @@ extern "C" int flash_bwd_dq(int dtype, int out_dtype, int d, const void* q, cons
 }
 
 // registers a thread and local memory bytes a thread (spills included) of
-// the loaded bfloat16 backward kernel at D 128: which 1 dk/dv, 2 dq;
-// out_dtype 0 float32, 1 bfloat16
-extern "C" int flash_bwd_tc_attrs(int which, int out_dtype, int* regs, int* local_bytes) {
+// the loaded bfloat16-input wgmma kernel at D 128: which 0 the forward, 1
+// dk/dv, 2 dq; out_dtype 0 float32, 1 bfloat16
+extern "C" int flash_tc_attrs(int which, int out_dtype, int* regs, int* local_bytes) {
   cudaFuncAttributes fa;
   cudaError_t e = cudaErrorInvalidValue;
-  if (which == 1 && out_dtype == 1)
-    e = cudaFuncGetAttributes(&fa, flash_bwd_dkv_tc_kernel<128, bf16>);
-  else if (which == 1 && out_dtype == 0)
-    e = cudaFuncGetAttributes(&fa, flash_bwd_dkv_tc_kernel<128, float>);
-  else if (which == 2 && out_dtype == 1)
-    e = cudaFuncGetAttributes(&fa, flash_bwd_dq_tc_kernel<128, bf16>);
-  else if (which == 2 && out_dtype == 0)
-    e = cudaFuncGetAttributes(&fa, flash_bwd_dq_tc_kernel<128, float>);
+  const bool bo = out_dtype == 1;
+  if (out_dtype != 0 && out_dtype != 1)
+    e = cudaErrorInvalidValue;
+  else if (which == 0)
+    e = bo ? cudaFuncGetAttributes(&fa, flash_fwd_tc_kernel<128, bf16>)
+           : cudaFuncGetAttributes(&fa, flash_fwd_tc_kernel<128, float>);
+  else if (which == 1)
+    e = bo ? cudaFuncGetAttributes(&fa, flash_bwd_dkv_tc_kernel<128, bf16>)
+           : cudaFuncGetAttributes(&fa, flash_bwd_dkv_tc_kernel<128, float>);
+  else if (which == 2)
+    e = bo ? cudaFuncGetAttributes(&fa, flash_bwd_dq_tc_kernel<128, bf16>)
+           : cudaFuncGetAttributes(&fa, flash_bwd_dq_tc_kernel<128, float>);
   if (e != cudaSuccess) return (int)e;
   *regs = fa.numRegs;
   *local_bytes = (int)fa.localSizeBytes;

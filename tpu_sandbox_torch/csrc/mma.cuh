@@ -1,8 +1,9 @@
 // Inline-PTX building blocks of the tensor-core kernels: cp.async copies
-// into shared memory, bulk copies out of it, ldmatrix and the m16n8k16
-// bf16 mma.sync, and the staging of windows of rows of a bf16 tensor
-// whose rows may be only 2- or 4-byte aligned; and the resident-block
-// count that sizes the persistent kernels' grids.
+// into shared memory, bulk copies out of it, shared-memory barriers and
+// tensor-map (TMA) loads, ldmatrix and the m16n8k16 bf16 mma.sync, and the
+// staging of windows of rows of a bf16 tensor whose rows may be only 2- or
+// 4-byte aligned; and the resident-block count that sizes the persistent
+// kernels' grids.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -69,6 +70,55 @@ __device__ __forceinline__ void bulk_wait_read() {
 template <int N>
 __device__ __forceinline__ void bulk_wait() {
   asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Shared-memory barriers (mbarrier) and tensor-map (TMA) loads. A full
+// barrier counts one arrival that announces the bytes to come, which the
+// tensor copies then deliver; a thread waits for a phase by its parity.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+// makes the initialised barriers visible to the copy engine (then a block
+// barrier makes them visible to the threads)
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile(
+      "{\n.reg .b64 st;\nmbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// until the phase of parity ``parity`` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT_%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT_%=;\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// the box at coordinates (x, y, z) of a 3-D tensor map into shared memory
+// (aligned as the map's swizzle needs), completing on ``bar``
+__device__ __forceinline__ void tma_load_3d(void* dst, const void* tmap, int x, int y, int z,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(tmap)), "r"(x), "r"(y), "r"(z), "r"(smem_u32(bar))
+      : "memory");
 }
 
 // four 8x8 b16 matrices; lane l gives the address of row l % 8 of matrix

@@ -36,6 +36,9 @@ from tpu_sandbox_torch.ops.conv_t import _check_cuda, flip_transpose, wgrad_slab
 LAUNCHES: Counter = Counter()
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the most input channels of the bf16 forward (its weight tile and input
+#: ring live in one block's shared memory)
+MAX_BF16_FWD_C = 128
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -127,9 +130,10 @@ def _fwd_operands(what: str, x: torch.Tensor, w: torch.Tensor,
     if x.dtype not in _DTYPES:
         raise ValueError(f"{what} kernel takes float32 or bfloat16, got "
                          f"{x.dtype}")
-    if x.dtype == torch.bfloat16 and (c % 16 or co % 16):
+    if x.dtype == torch.bfloat16 and (c % 16 or co % 16
+                                      or c > MAX_BF16_FWD_C):
         raise ValueError(f"{what} bf16 kernel takes C and CO multiples of "
-                         f"16, got {c} and {co}")
+                         f"16, C up to {MAX_BF16_FWD_C}, got {c} and {co}")
     if n * h > 65535:
         raise ValueError(f"{what} kernel takes N*H <= 65535 rows, got "
                          f"{n * h}")

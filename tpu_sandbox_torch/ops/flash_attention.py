@@ -1,8 +1,8 @@
 """Flash attention whose forward and two backward passes are CUDA kernels.
 
 Counterpart of ``tpu_sandbox/ops/pallas_attention.py``: ``_to_bhsd`` /
-``_from_bhsd`` (:52-67), ``_flash_fwd`` (:139), ``_flash_bwd`` (:314, with
-its ``out_dtype``: float32 gradients for bfloat16 inputs), the
+``_from_bhsd`` (:52-67), ``_flash_fwd`` (:139) and ``_flash_bwd`` (:314),
+each with its ``out_dtype`` (float32 outputs for bfloat16 inputs), the
 custom VJP ``_flash_core`` (:440-460), ``flash_attention`` (:463) and
 ``flash_attention_fn`` (:572). On a CUDA tensor each pass is a kernel of
 ``csrc/flash_attention.cu``; on a CPU tensor it is the plain version
@@ -44,15 +44,15 @@ _ROW = [_I, _I, _I, ctypes.c_float, _I, _I, _I, _I, _P]
 def _lib() -> ctypes.CDLL:
     lib = build.load("flash_attention")
     if not getattr(lib, "_bound", False):
-        lib.flash_fwd.argtypes = [_I, _I, _P, _P, _P, _P, _P] + _ROW
+        lib.flash_fwd.argtypes = [_I, _I, _I, _P, _P, _P, _P, _P] + _ROW
         lib.flash_bwd_dkv.argtypes = [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                                       _P] + _ROW
         lib.flash_bwd_dq.argtypes = [_I, _I, _I, _P, _P, _P, _P, _P, _P,
                                      _P] + _ROW
-        lib.flash_bwd_tc_attrs.argtypes = [_I, _I, ctypes.POINTER(_I),
-                                           ctypes.POINTER(_I)]
+        lib.flash_tc_attrs.argtypes = [_I, _I, ctypes.POINTER(_I),
+                                       ctypes.POINTER(_I)]
         for fn in (lib.flash_fwd, lib.flash_bwd_dkv, lib.flash_bwd_dq,
-                   lib.flash_bwd_tc_attrs):
+                   lib.flash_tc_attrs):
             fn.restype = _I
         lib._bound = True
     return lib
@@ -77,12 +77,14 @@ def _valid(sq, sk, causal, kv_len, q_offset, kv_offset, device):
 
 
 def flash_fwd_plain(q, k, v, *, scale, causal, kv_len, q_offset=0,
-                    kv_offset=0):
-    """q [B,H,Sq,D], k, v [B,H,Sk,D] -> (out [B,H,Sq,D] in q's dtype, lse
-    [B,H,Sq] f32): f32 scores, p rounded to v's dtype before p.v, out =
-    acc / max(l, 1e-30), lse = m + log(max(l, 1e-30)). A row with no
-    visible key spreads p = 1 over every key here and over the visited
-    tiles in the kernel: its output is defined by neither."""
+                    kv_offset=0, out_dtype=None):
+    """q [B,H,Sq,D], k, v [B,H,Sk,D] -> (out [B,H,Sq,D] in ``out_dtype``,
+    by default q's dtype, lse [B,H,Sq] f32): f32 scores, p rounded to v's
+    dtype before p.v, out = acc / max(l, 1e-30) in f32 and cast once, lse
+    = m + log(max(l, 1e-30)). A row with no visible key spreads p = 1 over
+    every key here and over the visited tiles in the kernel: its output is
+    defined by neither."""
+    out_dtype = _out_dtype("flash_fwd", q, out_dtype)
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     valid = _valid(q.shape[2], k.shape[2], causal, kv_len, q_offset,
                    kv_offset, q.device)
@@ -92,7 +94,7 @@ def flash_fwd_plain(q, k, v, *, scale, causal, kv_len, q_offset=0,
     del s
     l = p.sum(-1, keepdim=True).clamp_min(1e-30)
     out = torch.matmul(p.to(v.dtype).float(), v.float()) / l
-    return out.to(q.dtype), (m + torch.log(l))[..., 0]
+    return out.to(out_dtype), (m + torch.log(l))[..., 0]
 
 
 def _p_ds(q, k, v, g, lse, delta, scale, causal, kv_len, q_offset,
@@ -166,36 +168,47 @@ def _row_args(q, k, scale, causal, kv_len, q_offset, kv_offset):
             int(kv_offset), stream]
 
 
-def flash_fwd(q, k, v, *, scale, causal, kv_len, q_offset=0, kv_offset=0):
-    """q [B,H,Sq,D], k, v [B,H,Sk,D] -> (out in q's dtype, lse [B,H,Sq]
-    f32): the kernel on CUDA tensors, the plain version on CPU tensors."""
+def flash_fwd(q, k, v, *, scale, causal, kv_len, q_offset=0, kv_offset=0,
+              out_dtype=None):
+    """q [B,H,Sq,D], k, v [B,H,Sk,D] -> (out in ``out_dtype``, by default
+    q's dtype (float32 for bfloat16 inputs is the other choice), lse
+    [B,H,Sq] f32): the kernel on CUDA tensors, the plain version on CPU
+    tensors."""
     kw = dict(scale=scale, causal=causal, kv_len=kv_len, q_offset=q_offset,
               kv_offset=kv_offset)
     if q.device.type == "cpu":
-        return flash_fwd_plain(q, k, v, **kw)
+        return flash_fwd_plain(q, k, v, out_dtype=out_dtype, **kw)
     dt, d = _check("flash_fwd", (q, k, v), q.shape[2])
+    out_dtype, ot = _out_code("flash_fwd", q, out_dtype)
     if k.shape != v.shape or k.shape[:2] != q.shape[:2] or k.shape[3] != d:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
                          f"{tuple(v.shape)} do not match")
-    out = torch.empty_like(q)
+    out = torch.empty(q.shape, dtype=out_dtype, device=q.device)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     lib = _lib()
     with torch.cuda.device(q.device):
-        err = lib.flash_fwd(dt, d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                            out.data_ptr(), lse.data_ptr(),
+        err = lib.flash_fwd(dt, ot, d, q.data_ptr(), k.data_ptr(),
+                            v.data_ptr(), out.data_ptr(), lse.data_ptr(),
                             *_row_args(q, k, **kw))
     build.check(lib, err, "flash_fwd")
     LAUNCHES["flash_fwd"] += 1
     return out, lse
 
 
-def _out_code(name, q, out_dtype):
-    """The kernels' code of the backward's output dtype: the input dtype,
-    or float32 for bfloat16 inputs (``_flash_bwd``'s ``out_dtype``)."""
+def _out_dtype(name, q, out_dtype):
+    """An output dtype: the input dtype, or float32 for bfloat16 inputs
+    (``_flash_fwd``'s and ``_flash_bwd``'s ``out_dtype``); None is the
+    input dtype."""
     out_dtype = out_dtype or q.dtype
     if out_dtype not in (q.dtype, torch.float32):
         raise ValueError(f"{name} kernel writes {q.dtype} or float32 for "
                          f"{q.dtype} inputs, not {out_dtype}")
+    return out_dtype
+
+
+def _out_code(name, q, out_dtype):
+    """(output dtype, the kernels' code of it), by ``_out_dtype``'s rule."""
+    out_dtype = _out_dtype(name, q, out_dtype)
     return out_dtype, _DTYPES[out_dtype]
 
 
@@ -248,16 +261,16 @@ def flash_bwd_dq(q, k, v, g, lse, delta, *, scale, causal, kv_len,
     return dq
 
 
-def bwd_kernel_attrs(name: str, out_dtype: torch.dtype) -> dict:
+def kernel_attrs(name: str, out_dtype: torch.dtype) -> dict:
     """Registers a thread and local memory bytes a thread (spills
-    included) of the loaded bfloat16 backward kernel ``name``
-    ("flash_bwd_dkv" or "flash_bwd_dq") at D 128 writing ``out_dtype``,
-    as the CUDA runtime reports them for the module in use."""
-    which = {"flash_bwd_dkv": 1, "flash_bwd_dq": 2}[name]
+    included) of the loaded bfloat16-input kernel ``name`` ("flash_fwd",
+    "flash_bwd_dkv" or "flash_bwd_dq") at D 128 writing ``out_dtype``, as
+    the CUDA runtime reports them for the module in use."""
+    which = {"flash_fwd": 0, "flash_bwd_dkv": 1, "flash_bwd_dq": 2}[name]
     regs, local = _I(0), _I(0)
     lib = _lib()
-    err = lib.flash_bwd_tc_attrs(which, _DTYPES[out_dtype], ctypes.byref(regs),
-                                 ctypes.byref(local))
+    err = lib.flash_tc_attrs(which, _DTYPES[out_dtype], ctypes.byref(regs),
+                             ctypes.byref(local))
     build.check(lib, err, name + " attributes")
     return {"registers": regs.value, "local_bytes": local.value}
 
@@ -314,10 +327,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def flash_attention_with_lse(q, k, v, *, causal: bool = True, q_offset=0,
                              kv_offset=0, block_q: int = 128,
                              block_k: int = 128):
-    """Forward only, with global offsets: (out [B,S,H,D] in q's dtype, lse
-    [B,S,H] f32), padding as ``flash_attention_lse`` (:493) does: q to
+    """Forward only, with global offsets: (out [B,S,H,D] f32, lse [B,S,H]
+    f32), padding as ``flash_attention_lse`` (:493) does: q to
     ``block_q``, k and v to ``block_k``, keys past their true length
-    masked. Unlike it, out comes back in q's dtype."""
+    masked. out is float32 whatever q's dtype, as there: a caller's
+    logsumexp merge of partials never sees a rounded partial."""
     b, s, h, d = q.shape
     sk = k.shape[1]
     scale = 1.0 / float(d) ** 0.5
@@ -326,7 +340,8 @@ def flash_attention_with_lse(q, k, v, *, causal: bool = True, q_offset=0,
     dp = head_width(d)
     out, lse = flash_fwd(_to_bhsd(q, sp, dp), _to_bhsd(k, skp, dp),
                          _to_bhsd(v, skp, dp), scale=scale, causal=causal,
-                         kv_len=sk, q_offset=q_offset, kv_offset=kv_offset)
+                         kv_len=sk, q_offset=q_offset, kv_offset=kv_offset,
+                         out_dtype=torch.float32)
     return _from_bhsd(out, s, d), lse[:, :, :s].movedim(1, 2)
 
 
