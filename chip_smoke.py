@@ -57,7 +57,11 @@ card or when the port is not beside it. Phases, one JSON line each:
    runs of rows at W 65 and 130, N*H 134 (more rows than the card's
    blocks, the last run short) and 140 one-row images, for the forward,
    the stats (bitwise repeatable, y the forward's) and the dgrad
-   (NHWC_RAGGED_RUNS).
+   (NHWC_RAGGED_RUNS). The NHWC wgrad's runs and tiles (NHWC_WGRAD_RAGGED:
+   W 65 and 1, one-row images, more units than the card's blocks, CO 48
+   and 80, C 32 and 128) and the transposed tail reduce at the odd W 75
+   with N*H 21 and at W 70 for four (co, blk) kinds (TAIL_REDUCE_RAGGED),
+   each two runs bitwise equal.
 4. main_path: tpu_sandbox_torch.mnist_onegpu's own train function at
    3000x3000, batch 5, bf16, synthetic MNIST, 5 steps, on the card's
    default plan (the sparse conv1, the fused BN tails and the fused
@@ -202,6 +206,23 @@ NHWC_RAGGED = ((16, 48), (16, 80), (32, 48))
 #: and 16 -> 256 channels and the dgrad's 128 -> 64 (64-pixel tiles)
 NHWC_RAGGED_RUNS = ((1, 3, 65), (2, 67, 130), (140, 1, 65))
 NHWC_RAGGED_RUNS_CH = ((64, 128, "fwd"), (16, 256, "fwd"), (128, 64, "dgrad"))
+#: the NHWC bf16 wgrad's run and tile edges (N, H, W, C, CO): W 65 and 1
+#: (a partial 128-pixel unit) and 130 (two pixels past one), one-row
+#: images (both halo rows outside), 140 x 1 x 65 and 2 x 67 x 130 (more
+#: units than the card's blocks, runs crossing columns), CO 48 and 80 (a
+#: partial co tile), C 32 (two M tiles a warpgroup, one of them empty) and
+#: C 128 (two channel chunks); each in bf16 and fp32, two runs bitwise
+#: equal
+NHWC_WGRAD_RAGGED = ((1, 3, 65, 16, 256), (140, 1, 65, 64, 128),
+                     (2, 67, 130, 64, 128), (2, 5, 70, 16, 48),
+                     (2, 5, 70, 16, 80), (2, 5, 70, 32, 48),
+                     (1, 3, 65, 128, 64), (1, 4, 1, 16, 32))
+#: the transposed tail reduce's edges (N, H, W): the odd W 75 (rows 2-byte
+#: aligned: scalar loads) with N*H 21 (not a multiple of a slab) and W 70;
+#: each at the four (co, blk) kinds TAIL_REDUCE_KINDS (bn1's and bn2's and
+#: the ragged co 8 blk 2 and co 4 blk 4), two runs bitwise equal
+TAIL_REDUCE_RAGGED = ((3, 7, 75), (2, 5, 70))
+TAIL_REDUCE_KINDS = ((16, 4), (32, 2), (8, 2), (4, 4))
 #: the transposed conv's ragged (N, H, W): W 70 and the odd W 75 (rows of
 #: 150 bytes, 2-byte aligned), N*H 10, 21 and 3 (off every slab and unit
 #: count); each at (C, CO) 64->128 and 16->24 (fwd, stats, wgrad) and the
@@ -927,6 +948,11 @@ def phase_ragged(conv_t, fc_t, bn_tail_t, conv5_t, conv1_tail_t, conv,
                 db, pdb, dt_name, f"ragged {what} wgrad db")
         for n, h, w in NHWC_RAGGED_RUNS:
             out.update(_nhwc_runs(conv, gen, n, h, w, dt_name, dt))
+        for shape in NHWC_WGRAD_RAGGED:
+            out.update(_nhwc_wgrad_ragged(conv, gen, shape, dt_name, dt))
+        for n, h, w in TAIL_REDUCE_RAGGED:
+            out.update(_tail_reduce_ragged(bn_tail_t, gen, n, h, w, dt_name,
+                                           dt))
         for co, blk in ((8, 2), (4, 4)):
             case = _tail_case(bn_tail, gen, 2, 5, blk * blk * co, co, blk, 70,
                               dt, nhwc=True)
@@ -1004,6 +1030,43 @@ def _nhwc_runs(conv, gen, n, h, w, dt_name, dt) -> dict:
                 f"ragged {what} stats {dt_name}: y differs from the forward's")
         require_repeatable(got, lambda: conv.conv3x3_stats_forward(x, wt, b),
                            f"ragged {what} stats {dt_name}")
+    return out
+
+
+def _nhwc_wgrad_ragged(conv, gen, shape, dt_name, dt) -> dict:
+    """The NHWC wgrad at one NHWC_WGRAD_RAGGED shape against its plain
+    version, two runs bitwise equal."""
+    n, h, w, c, co = shape
+    what = f"nhwc wgrad n{n} h{h} w{w} C{c} CO{co}"
+    x = torch.randn((n, h, w, c), generator=gen, device="cuda").to(dt)
+    g = torch.randn((n, h, w, co), generator=gen, device="cuda").to(dt)
+    dw, db = conv.conv3x3_wgrad(x, g)
+    pdw, pdb = conv.conv3x3_wgrad_plain(x, g)
+    out = {f"{what} {dt_name}": compare(dw, pdw, dt_name, f"ragged {what}"),
+           f"{what} db {dt_name}": compare(db, pdb, dt_name,
+                                           f"ragged {what} db")}
+    require_repeatable((dw, db), lambda: conv.conv3x3_wgrad(x, g),
+                       f"ragged {what} {dt_name}")
+    return out
+
+
+def _tail_reduce_ragged(bn_tail_t, gen, n, h, w, dt_name, dt) -> dict:
+    """The transposed tail reduce at one TAIL_REDUCE_RAGGED shape, for each
+    TAIL_REDUCE_KINDS, against its plain version, two runs bitwise equal."""
+    out = {}
+    for co, blk in TAIL_REDUCE_KINDS:
+        what = f"tail reduce n{n} h{h} w{w} co{co} blk{blk}"
+        y, g, _, _, vecs, _ = _tail_case(bn_tail_t, gen, n, h, blk * blk * co,
+                                         co, blk, w, dt)
+        args = (y, g, co, blk, *vecs)
+        got = bn_tail_t.bwd_reduce(*args)
+        want = bn_tail_t.bwd_reduce_plain(*args)
+        out[f"{what} s1 {dt_name}"] = compare(got[0], want[0], dt_name,
+                                              f"ragged {what} s1")
+        out[f"{what} s2 {dt_name}"] = compare(got[1], want[1], dt_name,
+                                              f"ragged {what} s2")
+        require_repeatable(got, lambda: bn_tail_t.bwd_reduce(*args),
+                           f"ragged {what} {dt_name}")
     return out
 
 

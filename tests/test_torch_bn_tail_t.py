@@ -15,6 +15,7 @@ import torch
 from tpu_sandbox.ops import pallas_bn_tail_t as jax_tail
 from tpu_sandbox.ops.pallas_bn_tail import selection_matrix
 from tpu_sandbox_torch.ops import bn_tail_t
+from tpu_sandbox_torch.ops.conv_t import wgrad_slabs
 
 GEOMS = [(4, 4, 12), (2, 16, 8), (4, 16, 8)]      # (blk, co, hw)
 DTYPES = {"fp32": (jnp.float32, torch.float32),
@@ -248,3 +249,21 @@ def test_bad_geometry_raises():
     with pytest.raises(ValueError, match="blocks"):
         bn_tail_t.tail_fwd(torch.zeros((1, 1, 12, 4)), torch.zeros(12),
                            torch.zeros(12), 4, 2)
+
+
+@pytest.mark.parametrize("rows,windows,slots", [
+    (3750, 64, 1056), (3750, 32, 1056), (21, 64, 1056), (21, 1, 1056),
+    (10, 4, 1056), (1, 4, 1056), (3750, 64, 40), (7, 3, 5)])
+def test_reduce_slabs_cover_every_row_once_in_order(rows, windows, slots):
+    """The reduce kernel's slabs of whole rows (``bwd_reduce`` splits the
+    N*H rows with ``wgrad_slabs``, the C/4 windows as its tiles): slab s
+    takes rows [s*per, (s+1)*per); every row once, in order, every slab
+    non-empty, and the slabs times the windows (one block and one partial
+    row each) within the blocks the library asks for, or one slab a
+    window where the windows alone exceed them."""
+    slabs, per = wgrad_slabs(rows, windows, slots)
+    seen = [r for s in range(slabs) for r in range(s * per,
+                                                   min(rows, (s + 1) * per))]
+    assert seen == list(range(rows))
+    assert all(s * per < rows for s in range(slabs))
+    assert slabs * windows <= max(slots, windows)

@@ -217,3 +217,26 @@ def test_bf16_forward_refuses_what_its_kernel_cannot_take(c, co):
     for fwd in (conv.conv3x3_forward, conv.conv3x3_stats_forward):
         with pytest.raises(ValueError, match="multiples of 16"):
             fwd(x, w, b)
+
+
+@pytest.mark.parametrize("n,h,w,tiles", [
+    (5, 750, 750, 2), (1, 3, 65, 2), (140, 1, 65, 2), (2, 67, 130, 2),
+    (2, 5, 70, 1), (3, 7, 75, 3), (1, 4, 1, 1)])
+def test_bf16_wgrad_runs_cover_every_unit_once_in_order(n, h, w, tiles):
+    """The bf16 wgrad's persistent blocks: run b of each (channel chunk, co)
+    tile takes units [b*per, (b+1)*per), which the kernel walks as column
+    f // H (image, W tile of WGRAD_UNIT_W pixels) and row f % H. Over the
+    runs every (n, W tile, h) unit comes once, in order, every run is
+    non-empty, and the runs times the tiles fill at most the card's 132
+    blocks where there are units enough."""
+    slots = 132
+    runs, per = conv.wgrad_units(n * h, w, tiles, slots)
+    wtiles = -(-w // conv.WGRAD_UNIT_W)
+    total = n * wtiles * h
+    seen = [(f // h // wtiles, f // h % wtiles, f % h)
+            for b in range(runs) for f in range(b * per, min(total,
+                                                             (b + 1) * per))]
+    assert seen == [(i, t, r) for i in range(n) for t in range(wtiles)
+                    for r in range(h)]
+    assert all(b * per < total for b in range(runs))
+    assert runs <= max(1, slots // tiles)

@@ -62,20 +62,25 @@
 //
 // Design (wgrad). dw[k=(dy,dx,c), co] = sum_{n,h,w} x[n,h+dy-1,w+dx-1,c] *
 // g[n,h,w,co] and db[co] = sum g. The TPU carries the sum across its
-// sequential grid in VMEM; here a block owns a 16-channel chunk (all nine
-// taps) and a 128-channel co tile over a slab of (n, h) rows and writes a
-// partial; reduce_partials adds the partials in a fixed order. bf16: per
-// row and 64-pixel chunk the block stages the halo strip and g's [64 pixel,
-// 128 co] tile; each warp owns 16 co and all nine taps (nine accumulators)
-// and contracts over the pixels with the strip read as a column-major A.
-// fp32: 64x64 (k, co) tiles on the CUDA cores.
-//
-// The wgrad is the simple, right version: no cp.async or TMA pipeline, no
-// wgmma, one barrier pair per 16-channel chunk. Those are later work.
+// sequential grid in VMEM; here persistent blocks each sum a contiguous run
+// of the pixels and write a partial; reduce_partials adds the partials in
+// a fixed order. bf16 (conv3x3_wgrad_tc_kernel) runs on warpgroup MMA: a
+// block owns every (tap, c) row of a channel chunk (all of C up to 64) and
+// a co tile (128 at conv1, 64 at conv2), its f32 accumulators held for the
+// whole run, so each operand is read from device memory once per co tile
+// (conv2: x twice and g once, 1.44 GB; conv1: x twice and g once, 1.62
+// GB). x rows and g tiles stream through cp.async rings two units ahead;
+// the tap (dy, dx) is the staged row dy shifted by dx whole pixels, read
+// transposed by ldmatrix into wgmma's register A, and g's tile is the
+// shared-memory B. The host plans the runs (ops/conv.py::wgrad_units).
+// What bounds it now (conv2 at about 2.8x its operations bound, conv1 at
+// 1.8x its bytes bound): one block barrier a unit, copies issued by the
+// threads rather than TMA, and m64n64 products whose A (ldmatrix) and B
+// reads come near shared memory's rate.
+// fp32: 64x64 (k, co) tiles on the CUDA cores over slabs of rows.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "mma.cuh"
@@ -303,27 +308,6 @@ conv3x3_wgrad_kernel(const float* __restrict__ x, const float* __restrict__ g,
 
 // ---- bf16 on the tensor cores ---------------------------------------------
 
-// The halo strip of one 16-channel chunk (the wgrad's): rows h-1..h+1 of
-// image n, pixels w0-1 .. w0+BW, 32 bytes a pixel (two 16-byte loads),
-// zero outside the image. s[dy][j][c] holds pixel w0-1+j; a row of 16 bf16
-// is 32 bytes, so every pixel of the strip starts on a WMMA-aligned
-// (256-bit) address.
-template <int BW>
-__device__ __forceinline__ void stage_strip(const bf16* __restrict__ x, bf16 (*s)[BW + 2][kKC],
-                                            int n, int h, int H, int W, int C, int w0,
-                                            int c0) {
-  for (int i = threadIdx.x; i < 3 * (BW + 2) * 2; i += kThreads) {
-    const int dy = i / ((BW + 2) * 2), r = i % ((BW + 2) * 2);
-    const int j = r / 2, half = r % 2;
-    const int hh = h + dy - 1, ww = w0 - 1 + j;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (hh >= 0 && hh < H && ww >= 0 && ww < W)
-      v = *reinterpret_cast<const uint4*>(x + ((size_t)(n * H + hh) * W + ww) * C + c0 +
-                                          half * 8);
-    *reinterpret_cast<uint4*>(&s[dy][j][half * 8]) = v;
-  }
-}
-
 // Forward on warpgroup MMA. A block of NWG warpgroups owns a BCO-channel
 // tile of the output and a contiguous run of output rows of the flattened
 // (column, h) space, a column being (image n, W tile of BW = 64 NWG
@@ -525,86 +509,224 @@ conv3x3_fwd_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wm,
   }
 }
 
-// Wgrad on the tensor cores. A block owns one 16-channel chunk c0 (all
-// nine taps: 144 rows of dw) and kWgCO output channels over a slab of
-// rows; warp w owns channels co0 + 16w and holds the nine taps' 16x16
-// accumulators. Per row and kWgBW-pixel chunk the block stages the halo
-// strip and g's [pixel][co] tile; per 16-pixel step each warp loads its g
-// fragment once and multiplies the nine tap fragments (the strip read as
-// a column-major [channel][pixel] A) into it. Block x == 0 also sums db.
-constexpr int kWgBW = 64;        // pixels per chunk
-constexpr int kWgCO = 128;       // output channels per block (16 a warp)
-constexpr int kWgGLd = kWgCO + 8;
+// Wgrad on warpgroup MMA. dw[(tap, c), co] is a GEMM over the pixels with
+// M = (tap, c), N = co and K = the pixels: A is x's staged row shifted by
+// the tap, B is g's tile. A block of three warpgroups owns a CB-channel
+// chunk of x (all nine taps: 9 CB/16 slots of 16 rows of dw) and a
+// BN-channel tile of co, over a contiguous run of the (image, W tile, h)
+// units of kWgBW pixels, walking h down each column as the forward does:
+// each unit loads one new input row (the 3-row halo window slides) and
+// one [kWgBW pixel, BN co] tile of g. Loads run kWgD units ahead through
+// cp.async rings (x rows kWgXR slots at the forward's odd-chunk pixel
+// pitch, g tiles kWgGR slots in wgmma's 128-byte swizzled MN-major
+// layout), one block barrier a unit. The 64-row M tiles are groups of
+// four slots, one a warp (conv2: one tap's 64 channels; conv1: four taps
+// of 16); warpgroup j holds tiles j, j + 3, j + 6 (MT of them) and their
+// f32 accumulators for the whole run. Per 16-pixel k-step each warp loads
+// its slot's A fragment with ldmatrix.trans from the staged row dy at a
+// shift of dx pixels (a pixel's channels are contiguous in NHWC: the tap
+// is a whole-pixel offset, never a swizzle phase), and the warpgroup
+// issues wgmma.m64nBNk16 with A from registers and B = g's tile from
+// shared memory. A slot past the last (conv1's tile 2 has one tap) gives
+// zeros. db: the first 256 threads add the g tile's columns in a fixed
+// order. The block writes one partial row of [9C*CO + CO] (its rows and
+// columns), and reduce_partials adds the runs in a fixed order.
+constexpr int kWgBW = 128;            // pixels a unit (eight k-steps)
+constexpr int kWgD = 2;               // units loaded ahead of the one used
+constexpr int kWgXR = kWgD + 3;       // x row slots: rows dy 0..2 read, kWgD in flight
+constexpr int kWgGR = kWgD + 2;       // g slots: one read, one by wgmmas still running
+constexpr int kWgThr = 384;           // three warpgroups
+constexpr int kWgMaxCB = 64;          // channels a block owns (36 slots)
 
-struct WgTcSmem {
-  bf16 strip[3][kWgBW + 2][kKC];
-  bf16 g[kWgBW][kWgGLd];
+template <int MT, int BN>
+struct WgTc {
+  static constexpr int BJ = kWgBW + 2;                       // staged pixels
+  static constexpr int GT = kWgBW * BN * 2;                  // bytes a g tile
+  __host__ __device__ static constexpr int pitch(int CB) { return 2 * CB + 16; }
+  static size_t bytes(int CB) {
+    return 1024 + (size_t)kWgGR * GT + (size_t)kWgXR * BJ * pitch(CB);
+  }
 };
 
-__global__ void __launch_bounds__(kThreads)
+template <int MT, int BN>
+__global__ void __launch_bounds__(kWgThr, 1)
 conv3x3_wgrad_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
-                        float* __restrict__ part, int NH, int H, int W, int C, int CO,
-                        int rows_per_slab) {
-  using namespace nvcuda;
-  __shared__ __align__(128) WgTcSmem s;
+                        float* __restrict__ part, int N, int H, int W, int C, int CO,
+                        int CB, int per) {
+  using P = WgTc<MT, BN>;
+  constexpr int BJ = P::BJ, GT = P::GT;
+  constexpr int CPG = BN / 8;                      // 16-byte chunks of a g pixel
+  constexpr int DBP = BN / 2, DBQ = 256 / DBP;     // db: co pairs, pixel phases
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* gring = align1024(smem_raw);
+  unsigned char* xring = gring + kWgGR * GT;
+  const int pitch = P::pitch(CB), CPR = CB / 8, NC16 = CB / 16, slots = 9 * NC16;
 
-  const int tid = threadIdx.x, warp = tid / 32;
-  const int c0 = blockIdx.x * kKC;
-  const int co0 = blockIdx.y * kWgCO;
-  const int cw = co0 + warp * 16;                // this warp's channels
-  const bool warp_ok = cw < CO;                  // CO is a multiple of 16
-  const int slab = blockIdx.z;
+  const int tid = threadIdx.x, wg = tid / 128, w = (tid / 32) % 4, lane = tid % 32;
+  const int cotiles = (CO + BN - 1) / BN;
+  const int cch = blockIdx.y / cotiles, c0 = cch * CB, co0 = (blockIdx.y % cotiles) * BN;
+  const int wtiles = (W + kWgBW - 1) / kWgBW;
+  const int total = N * wtiles * H;
+  const int fb = min(total, (int)blockIdx.x * per), fe = min(total, fb + per);
+
+  // this warp's slot in each of its warpgroup's tiles: the staged row dy
+  // and the byte offset of this lane's ldmatrix row at k-step 0
+  int dy_of[MT], off[MT];
+  bool slot_ok[MT];
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi) {
+    const int s = 4 * (wg + 3 * mi) + w;
+    slot_ok[mi] = s < slots;
+    const int tap = slot_ok[mi] ? s / NC16 : 0, c16 = slot_ok[mi] ? s % NC16 : 0;
+    dy_of[mi] = tap / 3;
+    off[mi] = (tap % 3 + (lane & 7) + 8 * (lane >> 4)) * pitch +
+              (2 * c16 + ((lane >> 3) & 1)) * 16;
+  }
+
+  auto seg_at = [&](int f) -> Seg {
+    if (f >= fe) return Seg{-1, 0, 0, 0};
+    const int col = f / H, h0 = f - col * H;
+    return Seg{col, h0, min(H - h0, fe - f), 0};
+  };
+  auto advance = [&](Seg s) -> Seg {
+    if (s.k <= s.len) {
+      ++s.k;
+      return s;
+    }
+    return seg_at(s.col * H + s.h0 + s.len);
+  };
+  // load s.k of segment s, as load i: input row h0 - 1 + k and, from k 2
+  // on, g's tile of output row h0 + k - 2
+  auto issue = [&](const Seg& s, int i) {
+    const int n = s.col / wtiles, w0 = (s.col - n * wtiles) * kWgBW, hh = s.h0 - 1 + s.k;
+    const bool row_ok = hh >= 0 && hh < H;
+    const bf16* src = x + (size_t)(n * H + (row_ok ? hh : 0)) * W * C + c0;
+    unsigned char* dst = xring + (i % kWgXR) * BJ * pitch;
+    for (int e = tid; e < BJ * CPR; e += kWgThr) {
+      const int j = e / CPR, c = e - j * CPR, ww = w0 - 1 + j;
+      const bool ok = row_ok && ww >= 0 && ww < W;
+      cp_async16(dst + j * pitch + c * 16, ok ? src + (size_t)ww * C + c * 8 : x, ok ? 16 : 0);
+    }
+    if (s.k < 2) return;
+    const bf16* gsrc = g + (size_t)(n * H + hh - 1) * W * CO + co0;
+    unsigned char* gdst = gring + (i % kWgGR) * GT;
+    for (int e = tid; e < kWgBW * CPG; e += kWgThr) {
+      const int p = e / CPG, c = e % CPG;
+      const bool ok = w0 + p < W && co0 + 8 * c < CO;
+      cp_async16(gdst + (c / 8) * (kWgBW * 128) + p * 128 + (((c % 8) ^ (p % 8)) << 4),
+                 ok ? gsrc + (size_t)(w0 + p) * CO + 8 * c : g, ok ? 16 : 0);
+    }
+  };
+
+  float acc[MT][BN / 2];
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[mi][i] = 0.f;
+  // db: thread tid < 256 adds co pair dp over pixels dq, dq + DBQ, ...
+  const bool db_thr = cch == 0 && tid < 256;
+  const int dp = tid % DBP, dq = tid / DBP;
+  float db0 = 0.f, db1 = 0.f;
+
+  uint32_t a[2][MT][4];
+  Seg ld = seg_at(fb), cur = ld;
+#pragma unroll
+  for (int d = 0; d < kWgD; ++d) {                 // loads 0 .. kWgD-1
+    if (ld.col >= 0) {
+      issue(ld, d);
+      ld = advance(ld);
+    }
+    cp_async_commit();
+  }
+  for (int i = 0; cur.col >= 0; ++i) {
+    cp_async_wait<kWgD - 1>();                     // load i landed (this thread's part)
+    fence_proxy_async();                           // cp.async writes -> wgmma reads
+    __syncthreads();                               // all of load i; the slots below free
+    if (ld.col >= 0) {
+      issue(ld, i + kWgD);
+      ld = advance(ld);
+    }
+    cp_async_commit();
+    if (cur.k < 2) {                               // a halo row: nothing to multiply
+      wg_wait<0>();                                // (g slot i+kWgD-kWgGR's readers done)
+      cur = advance(cur);
+      continue;
+    }
+    const unsigned char* gt = gring + (i % kWgGR) * GT;
+    if (db_thr) {
+      const int gi = dp / 32, c = (dp % 32) / 4;
+#pragma unroll
+      for (int r = 0; r < kWgBW / DBQ; ++r) {
+        const int p = dq + r * DBQ;
+        const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+            gt + gi * (kWgBW * 128) + p * 128 + ((c ^ (p % 8)) << 4) + (dp % 4) * 4));
+        db0 += v.x;
+        db1 += v.y;
+      }
+    }
+    const uint32_t gdesc = smem_u32(gt);
+#pragma unroll
+    for (int kk = 0; kk < kWgBW / 16; ++kk) {
+      const int b = kk & 1;
+      wg_wait<1>();                                // the group that read a[b] is done
+      // every warp loads and every warpgroup multiplies all its tiles (a
+      // slot past the last, and a tile past the last, multiply zeros):
+      // no branch around the wgmma operands, which would serialise them
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi) {
+        ldsm_x4_trans(a[b][mi], xring + ((i - 2 + dy_of[mi]) % kWgXR) * BJ * pitch +
+                                    off[mi] + kk * 16 * pitch);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) a[b][mi][r] = slot_ok[mi] ? a[b][mi][r] : 0u;
+      }
+      wg_fence();
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi) {
+        const uint64_t db = gmma_desc(gdesc + kk * 16 * 128, kWgBW * 128, 1024);
+        if constexpr (BN == 128)
+          wgmma_rs_n128(acc[mi], a[b][mi], db);
+        else
+          wgmma_rs_n64(acc[mi], a[b][mi], db);
+      }
+      wg_commit();
+    }
+    cur = advance(cur);
+  }
+  wg_wait<0>();
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi) fence_regs(acc[mi]);
+
   const size_t M = (size_t)9 * C * CO + CO;
-  const bool db_block = blockIdx.x == 0;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[9];
+  float* out = part + (size_t)blockIdx.x * M;
+  cp_async_wait<0>();
+  __syncthreads();                                 // the x ring is free: [DBQ][BN] db sums
+  float* red = reinterpret_cast<float*>(xring);
+  if (db_thr) {
+    red[dq * BN + 2 * dp] = db0;
+    red[dq * BN + 2 * dp + 1] = db1;
+  }
+  __syncthreads();
+  if (cch == 0 && tid < BN && co0 + tid < CO) {
+    float s = 0.f;
+    for (int q = 0; q < DBQ; ++q) s += red[q * BN + tid];
+    out[(size_t)9 * C * CO + co0 + tid] = s;
+  }
+  const int gr = lane / 4, t = lane % 4;
 #pragma unroll
-  for (int t = 0; t < 9; ++t) wmma::fill_fragment(acc[t], 0.f);
-  float dbacc = 0.f;
-
-  const int r_begin = slab * rows_per_slab;
-  const int r_end = min(NH, r_begin + rows_per_slab);
-  for (int r = r_begin; r < r_end; ++r) {
-    const int n = r / H, h = r % H;
-    for (int w0 = 0; w0 < W; w0 += kWgBW) {
-      stage_strip<kWgBW>(x, s.strip, n, h, H, W, C, w0, c0);
-      for (int i = tid; i < kWgBW * kWgCO / 8; i += kThreads) {
-        const int p = i / (kWgCO / 8), cg = (i % (kWgCO / 8)) * 8;
-        const int w = w0 + p, co = co0 + cg;
-        uint4 v = make_uint4(0, 0, 0, 0);
-        if (w < W && co < CO)
-          v = *reinterpret_cast<const uint4*>(g + ((size_t)r * W + w) * CO + co);
-        *reinterpret_cast<uint4*>(&s.g[p][cg]) = v;
-      }
-      __syncthreads();
-      if (db_block && tid < kWgCO) {
-        for (int p = 0; p < kWgBW; ++p) dbacc += __bfloat162float(s.g[p][tid]);
-      }
-      if (warp_ok) {
+  for (int mi = 0; mi < MT; ++mi) {
+    if (!slot_ok[mi]) continue;
+    const int s = 4 * (wg + 3 * mi) + w, tap = s / NC16;
+    const int k = tap * C + c0 + 16 * (s % NC16) + gr;
 #pragma unroll
-        for (int ks = 0; ks < kWgBW / 16; ++ks) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-          wmma::load_matrix_sync(fb, &s.g[ks * 16][warp * 16], kWgGLd);
-#pragma unroll
-          for (int t = 0; t < 9; ++t) {
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> fa;
-            wmma::load_matrix_sync(fa, &s.strip[t / 3][ks * 16 + t % 3][0], kKC);
-            wmma::mma_sync(acc[t], fa, fb, acc[t]);
-          }
-        }
-      }
-      __syncthreads();
+    for (int j = 0; j < BN / 8; ++j) {
+      const int co = co0 + 8 * j + 2 * t;
+      if (co >= CO) continue;
+      *reinterpret_cast<float2*>(out + (size_t)k * CO + co) =
+          make_float2(acc[mi][4 * j], acc[mi][4 * j + 1]);
+      *reinterpret_cast<float2*>(out + (size_t)(k + 8) * CO + co) =
+          make_float2(acc[mi][4 * j + 2], acc[mi][4 * j + 3]);
     }
   }
-
-  float* out = part + (size_t)slab * M;
-  if (warp_ok) {
-#pragma unroll
-    for (int t = 0; t < 9; ++t)
-      wmma::store_matrix_sync(out + ((size_t)t * C + c0) * CO + cw, acc[t], CO,
-                              wmma::mem_row_major);
-  }
-  if (db_block && tid < kWgCO && co0 + tid < CO) out[(size_t)9 * C * CO + co0 + tid] = dbacc;
 }
 
 // ---- launches ------------------------------------------------------------
@@ -679,6 +801,33 @@ cudaError_t launch_fwd_bf16(const bf16* x, const bf16* wm, const bf16* b, bf16* 
                  : launch_fwd_tc<64, 2, 4, STATS>(x, wm, b, y, part, N, H, W, C, CO, st);
 }
 
+// The bf16 wgrad's channel chunk: the largest multiple of 16 up to
+// kWgMaxCB that divides C (C a multiple of 16), so every chunk is whole.
+int wgrad_cb(int C) {
+  int d = kWgMaxCB / 16;
+  while ((C / 16) % d) --d;
+  return 16 * d;
+}
+
+// M tiles a warpgroup holds for chunk CB (9 CB/16 slots, four a tile,
+// three warpgroups): 1 at CB 16, 2 at 32, 3 at 48 and 64; the co tile is
+// 128 with one tile (64 f32 accumulators a thread), else 64 (up to 96).
+int wgrad_mt(int CB) { return ((9 * CB / 16 + 3) / 4 + 2) / 3; }
+int wgrad_bn(int CB) { return wgrad_mt(CB) == 1 ? 128 : 64; }
+
+template <int MT, int BN>
+cudaError_t launch_wgrad_tc(const bf16* x, const bf16* g, float* part, int N, int H, int W,
+                            int C, int CO, int CB, int runs, int per, cudaStream_t st) {
+  auto kernel = conv3x3_wgrad_tc_kernel<MT, BN>;
+  const size_t bytes = WgTc<MT, BN>::bytes(CB);
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e != cudaSuccess) return e;
+  const int tiles = C / CB * ((CO + BN - 1) / BN);
+  kernel<<<dim3(runs, tiles), kWgThr, bytes, st>>>(x, g, part, N, H, W, C, CO, CB, per);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (C and CO multiples of 16, C at most
@@ -726,9 +875,24 @@ extern "C" int conv3x3_fwd_stats(int dtype, const void* x, const void* wm,
                               conv3x3_stats_parts(dtype, N, H, W, CO), 2 * CO, st);
 }
 
+// The bf16 wgrad's plan for C -> CO (multiples of 16): i 0 its unit width
+// in pixels, 1 its (channel chunk, co tile) tiles, 2 its blocks resident
+// on the card at once (one an SM); 0 if it cannot be asked. The wrapper
+// splits the N * H * ceil(W / unit) units into contiguous runs, one a
+// block and tile (ops/conv.py::wgrad_units).
+extern "C" int conv3x3_wgrad_plan(int C, int CO, int i) {
+  if (C < 16 || C % 16 || CO < 16 || CO % 16) return 0;
+  const int cb = wgrad_cb(C);
+  if (i == 0) return kWgBW;
+  if (i == 1) return C / cb * ((CO + wgrad_bn(cb) - 1) / wgrad_bn(cb));
+  return i == 2 ? fwd_blocks_bf16() : 0;
+}
+
 // x [N,H,W,C], g [N,H,W,CO] of dtype (bf16: C and CO multiples of 16,
 // 32-byte aligned); part f32 [slabs, 9C*CO + CO] (scratch); out f32
 // [9C*CO + CO] = dw [9C, CO] in (dy, dx, C) row order, then db [CO].
+// fp32: slabs of rows_per_slab (n, h) rows; bf16: ``slabs`` runs of
+// ``rows_per_slab`` units each (conv3x3_wgrad_plan).
 extern "C" int conv3x3_wgrad(int dtype, const void* x, const void* g, void* part,
                              void* out, int N, int H, int W, int C, int CO, int slabs,
                              int rows_per_slab, void* stream) {
@@ -739,11 +903,20 @@ extern "C" int conv3x3_wgrad(int dtype, const void* x, const void* g, void* part
                                                     (float*)part, N * H, H, W, C, CO,
                                                     rows_per_slab);
   } else if (dtype == 1) {
-    if (C % kKC || CO % 16) return (int)cudaErrorInvalidValue;
-    const dim3 grid(C / kKC, (CO + kWgCO - 1) / kWgCO, slabs);
-    conv3x3_wgrad_tc_kernel<<<grid, kThreads, 0, st>>>((const bf16*)x, (const bf16*)g,
-                                                       (float*)part, N * H, H, W, C, CO,
-                                                       rows_per_slab);
+    if (C < 16 || C % 16 || CO % 16) return (int)cudaErrorInvalidValue;
+    const int cb = wgrad_cb(C), mt = wgrad_mt(cb);
+    const bf16 *bx = (const bf16*)x, *bg = (const bf16*)g;
+    cudaError_t e;
+    if (mt == 1)
+      e = launch_wgrad_tc<1, 128>(bx, bg, (float*)part, N, H, W, C, CO, cb, slabs,
+                                  rows_per_slab, st);
+    else if (mt == 2)
+      e = launch_wgrad_tc<2, 64>(bx, bg, (float*)part, N, H, W, C, CO, cb, slabs,
+                                 rows_per_slab, st);
+    else
+      e = launch_wgrad_tc<3, 64>(bx, bg, (float*)part, N, H, W, C, CO, cb, slabs,
+                                 rows_per_slab, st);
+    if (e != cudaSuccess) return (int)e;
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -130,6 +130,15 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
                : "memory");
 }
 
+// the same four matrices transposed: lane (g, t) gets row 2t, 2t+1 of
+// column g of each (the A fragment of a matrix stored column-major)
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
 // d += a b for a 16x16 row-major bf16 A, a 16x8 column-major bf16 B and an
 // f32 16x8 D. Lane l (g = l / 4, t = l % 4) holds A rows g, g+8 at columns
 // 2t, 2t+1 and 2t+8, 2t+9 (a0: row g cols 2t.., a1: row g+8, a2: row g

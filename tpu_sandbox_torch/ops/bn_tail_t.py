@@ -27,6 +27,7 @@ from collections import Counter
 import torch
 
 from tpu_sandbox_torch.ops import build
+from tpu_sandbox_torch.ops.conv_t import wgrad_slabs
 
 #: launches of the CUDA kernels, by pass and shape ("bn_tail_t fwd C256
 #: CO16", "bn_tail_t bwd_reduce C128 CO32", "bn_tail_t bwd_apply C256
@@ -44,10 +45,11 @@ def _lib() -> ctypes.CDLL:
         lib.bn_tail_t_fwd.argtypes = [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                       _P]
         lib.bn_tail_t_fwd.restype = _I
-        lib.bn_tail_t_reduce_rows.argtypes = []
-        lib.bn_tail_t_reduce_rows.restype = _I
+        lib.bn_tail_t_reduce_slots.argtypes = []
+        lib.bn_tail_t_reduce_slots.restype = _I
         lib.bn_tail_t_bwd_reduce.argtypes = [
-            _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+            _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+            _P]
         lib.bn_tail_t_bwd_reduce.restype = _I
         lib.bn_tail_t_bwd_apply.argtypes = [
             _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
@@ -176,14 +178,15 @@ def _cuda_operands(what: str, y: torch.Tensor, g: torch.Tensor | None,
                              f"[{c}] on {y.device}")
 
 
-def _launch(fn_name: str, y: torch.Tensor, *ptrs, co: int, blk: int) -> None:
+def _launch(fn_name: str, y: torch.Tensor, *ptrs, co: int, blk: int,
+            plan: tuple[int, ...] = ()) -> None:
     lib = _lib()
     n, h, c, w = y.shape
     with torch.cuda.device(y.device):
         stream = torch.cuda.current_stream(y.device).cuda_stream
         err = getattr(lib, fn_name)(_DTYPES[y.dtype], y.data_ptr(),
                                     *[p.data_ptr() for p in ptrs], n * h, c,
-                                    co, blk, w, stream)
+                                    co, blk, w, *plan, stream)
     build.check(lib, err, fn_name)
 
 
@@ -217,12 +220,17 @@ def bwd_reduce(y: torch.Tensor, g: torch.Tensor, co: int, blk: int,
     _cuda_operands("bn_tail_t bwd_reduce", y, g,
                    (a_col, b_col, mu_col, inv_col))
     n, h, c, w = y.shape
-    lib = _lib()
-    slabs = -(-(n * h) // lib.bn_tail_t_reduce_rows())
+    with torch.cuda.device(y.device):
+        slots = _lib().bn_tail_t_reduce_slots()
+    if slots <= 0:
+        raise RuntimeError("bn_tail_t bwd_reduce: the card's block count "
+                           "could not be asked")
+    # one block and partial a (slab of whole rows, window)
+    slabs, per = wgrad_slabs(n * h, c // 4, slots)
     part = torch.empty((slabs, 2 * c), dtype=torch.float32, device=y.device)
     sums = torch.empty((2 * c,), dtype=torch.float32, device=y.device)
     _launch("bn_tail_t_bwd_reduce", y, g, a_col, b_col, mu_col, inv_col, part,
-            sums, co=co, blk=blk)
+            sums, co=co, blk=blk, plan=(slabs, per))
     LAUNCHES[f"bn_tail_t bwd_reduce C{c} CO{co}"] += 1
     # the fold over the groups stays outside the kernel, as in JAX
     return _fold(sums[:c], co), _fold(sums[c:], co)

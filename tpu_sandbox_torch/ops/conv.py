@@ -27,7 +27,8 @@ import torch
 import torch.nn.functional as F
 
 from tpu_sandbox_torch.ops import build
-from tpu_sandbox_torch.ops.conv_t import _check_cuda, flip_transpose, wgrad_slabs
+from tpu_sandbox_torch.ops.conv_t import (_check_cuda, flip_transpose,
+                                          fwd_units, wgrad_slabs)
 
 #: launches of the CUDA kernels, by kernel, kind and channel counts
 #: ("conv3x3 fwd C16 CO256", "conv3x3 dgrad C128 CO64",
@@ -56,6 +57,8 @@ def _lib() -> ctypes.CDLL:
         lib.conv3x3_wgrad.argtypes = [
             _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
         lib.conv3x3_wgrad.restype = _I
+        lib.conv3x3_wgrad_plan.argtypes = [_I, _I, _I]
+        lib.conv3x3_wgrad_plan.restype = _I
         lib._bound = True
     return lib
 
@@ -196,6 +199,36 @@ def conv3x3_stats_forward(x: torch.Tensor, w: torch.Tensor,
     return y, sums[None, :co], sums[None, co:]
 
 
+#: pixels of a bf16 wgrad unit: one (image, W tile, h) row piece
+WGRAD_UNIT_W = 128
+
+
+def wgrad_units(rows: int, w: int, tiles: int,
+                slots: int) -> tuple[int, int]:
+    """(runs, units_per_run) of the bf16 wgrad: its ``rows`` (= N*H) *
+    ceil(w / WGRAD_UNIT_W) units in contiguous runs, about ``slots //
+    tiles`` a (channel chunk, co) tile, so the runs times the tiles fill
+    the card once; every run non-empty. The kernel walks unit f of a run
+    as column f // H (image, W tile) and row f % H."""
+    return fwd_units(rows, -(-w // WGRAD_UNIT_W), tiles, slots)
+
+
+def _wgrad_plan(lib, x: torch.Tensor, co: int) -> tuple[int, int]:
+    """(slabs or runs, rows or units each) of a wgrad launch over x."""
+    n, h, wd, c = x.shape
+    if x.dtype == torch.float32:
+        return wgrad_slabs(n * h)
+    with torch.cuda.device(x.device):
+        unit_w, tiles, slots = (lib.conv3x3_wgrad_plan(c, co, i)
+                                for i in range(3))
+    if unit_w != WGRAD_UNIT_W or min(tiles, slots) <= 0:
+        raise RuntimeError(f"conv3x3_wgrad bf16: no plan for C {c}, CO {co}")
+    if n * h * -(-wd // unit_w) >= 2 ** 31:
+        raise ValueError(f"conv3x3_wgrad bf16 kernel takes fewer than 2^31 "
+                         f"units, got {n * h} rows of {wd} pixels")
+    return wgrad_units(n * h, wd, tiles, slots)
+
+
 def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor):
     """Fused weight+bias gradient: x [N,H,W,C], g [N,H,W,CO] ->
     (dw [9C, CO] f32, db [1, CO] f32)."""
@@ -214,11 +247,11 @@ def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor):
     for name, t in (("x", x), ("g", g)):
         if t.data_ptr() % 32:
             raise ValueError(f"{name} must be 32-byte aligned")
-    slabs, per = wgrad_slabs(n * h)
+    lib = _lib()
+    slabs, per = _wgrad_plan(lib, x, co)
     m = 9 * c * co + co
     part = torch.empty((slabs, m), dtype=torch.float32, device=x.device)
     out = torch.empty((m,), dtype=torch.float32, device=x.device)
-    lib = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.conv3x3_wgrad(_DTYPES[x.dtype], x.data_ptr(), g.data_ptr(),

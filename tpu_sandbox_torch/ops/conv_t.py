@@ -234,7 +234,9 @@ def wgrad_slabs(rows: int, tiles: int = 1,
     ``slots // tiles`` slabs, so that the (co, k) tiles times the slabs
     fill the ``slots`` blocks the card holds at once (one wave), every
     slab non-empty. The other wgrads (ops/conv5_t.py, conv1_tail_t.py,
-    conv.py) take the defaults: at most 128 slabs."""
+    conv.py's fp32 body) take the defaults: at most 128 slabs; the
+    transposed tail's reduce (ops/bn_tail_t.py) takes its windows as the
+    tiles."""
     per = -(-rows // min(rows, max(1, slots // tiles)))
     return -(-rows // per), per
 
