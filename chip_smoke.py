@@ -19,9 +19,10 @@ card or when the port is not beside it. Phases, one JSON line each:
    single call computes) and the least time the H100 could take (bytes
    over 3.35 TB/s or operations over the peak rate of their type, 989
    TFLOP/s bf16 or 67 TFLOP/s f32, whichever is larger). Every reducing
-   kernel runs twice and must be bitwise equal. The fused conv1+tail
-   wgrad is also held against the two kernels it replaces (the tail's
-   apply pass, then the sparse conv1 wgrad). Then the LM's four kinds the
+   kernel, and every BN tail pass, runs twice and must be bitwise equal.
+   The fused conv1+tail wgrad is also held against the two kernels it
+   replaces (the tail's apply pass, then the sparse conv1 wgrad). Then
+   the LM's four kinds the
    same way at its shapes (flash attention B16 H8 S2048 D128 causal, the
    CE over [32768, 32768] logits; library calls SDPA, its backward and
    F.cross_entropy); dk/dv and dq run twice, bitwise equal, and with bf16
@@ -59,9 +60,10 @@ card or when the port is not beside it. Phases, one JSON line each:
    the stats (bitwise repeatable, y the forward's) and the dgrad
    (NHWC_RAGGED_RUNS). The NHWC wgrad's runs and tiles (NHWC_WGRAD_RAGGED:
    W 65 and 1, one-row images, more units than the card's blocks, CO 48
-   and 80, C 32 and 128) and the transposed tail reduce at the odd W 75
-   with N*H 21 and at W 70 for four (co, blk) kinds (TAIL_REDUCE_RAGGED),
-   each two runs bitwise equal.
+   and 80, C 32 and 128) and the transposed tail's forward, reduce and
+   apply at the odd W 75 with N*H 21, at W 70, and at W 70 with y and g
+   starting at an odd element, for four (co, blk) kinds
+   (TAIL_REDUCE_RAGGED), each two runs bitwise equal.
 4. main_path: tpu_sandbox_torch.mnist_onegpu's own train function at
    3000x3000, batch 5, bf16, synthetic MNIST, 5 steps, on the card's
    default plan (the sparse conv1, the fused BN tails and the fused
@@ -217,10 +219,13 @@ NHWC_WGRAD_RAGGED = ((1, 3, 65, 16, 256), (140, 1, 65, 64, 128),
                      (2, 67, 130, 64, 128), (2, 5, 70, 16, 48),
                      (2, 5, 70, 16, 80), (2, 5, 70, 32, 48),
                      (1, 3, 65, 128, 64), (1, 4, 1, 16, 32))
-#: the transposed tail reduce's edges (N, H, W): the odd W 75 (rows 2-byte
-#: aligned: scalar loads) with N*H 21 (not a multiple of a slab) and W 70;
-#: each at the four (co, blk) kinds TAIL_REDUCE_KINDS (bn1's and bn2's and
-#: the ragged co 8 blk 2 and co 4 blk 4), two runs bitwise equal
+#: the transposed tail passes' edges (N, H, W): the odd W 75 (rows 2-byte
+#: aligned: scalar loads) with N*H 21 (not a multiple of a slab) and W 70,
+#: and W 70 again with y and g starting at an odd element of a larger
+#: buffer (scalar loads at even W); each at the four (co, blk) kinds
+#: TAIL_REDUCE_KINDS (bn1's and bn2's and the ragged co 8 blk 2 and co 4
+#: blk 4), for the forward, the reduce and the apply, two runs bitwise
+#: equal
 TAIL_REDUCE_RAGGED = ((3, 7, 75), (2, 5, 70))
 TAIL_REDUCE_KINDS = ((16, 4), (32, 2), (8, 2), (4, 4))
 #: the transposed conv's ragged (N, H, W): W 70 and the odd W 75 (rows of
@@ -317,7 +322,7 @@ def compare(got, want, dtype_name: str, what: str) -> dict:
 
 
 def require_repeatable(first, fn, what: str) -> None:
-    """A reducing kernel's second run must equal its first bitwise."""
+    """A kernel's second run must equal its first bitwise."""
     again = fn()
     require(all(torch.equal(a, b) for a, b in zip(again, first)),
             f"{what}: two runs differ (not deterministic)")
@@ -381,12 +386,18 @@ def _tail_case(mod, gen, n, h, c, co, blk, w, dtype, *, quantised=False,
 
 
 def _check_tail(bn_tail_t, case, co, blk, dt_name, what) -> dict:
-    """Each tail pass against its plain version; the reduce twice.
-    ``bn_tail_t`` is either tail module (ops.bn_tail_t or ops.bn_tail)."""
+    """Each tail pass against its plain version, each twice, bitwise
+    equal. ``bn_tail_t`` is either tail module (ops.bn_tail_t or
+    ops.bn_tail)."""
     y, g, _, _, (a_col, b_col, mu, inv), cols = case
-    out = {"fwd": compare(bn_tail_t.tail_fwd(y, a_col, b_col, co, blk),
-                          bn_tail_t.tail_fwd_plain(y, a_col, b_col, co, blk),
+    fwd = bn_tail_t.tail_fwd(y, a_col, b_col, co, blk)
+    out = {"fwd": compare(fwd, bn_tail_t.tail_fwd_plain(y, a_col, b_col, co,
+                                                        blk),
                           dt_name, what + " fwd")}
+    require_repeatable((fwd,), lambda: (bn_tail_t.tail_fwd(y, a_col, b_col,
+                                                           co, blk),),
+                       what + " fwd " + dt_name)
+    del fwd
     args = (y, g, co, blk, a_col, b_col, mu, inv)
     s12 = bn_tail_t.bwd_reduce(*args)
     p12 = bn_tail_t.bwd_reduce_plain(*args)
@@ -394,9 +405,11 @@ def _check_tail(bn_tail_t, case, co, blk, dt_name, what) -> dict:
     out["bwd_reduce_s2"] = compare(s12[1], p12[1], dt_name, what + " s2")
     require_repeatable(s12, lambda: bn_tail_t.bwd_reduce(*args),
                        what + " bwd_reduce " + dt_name)
-    out["bwd_apply"] = compare(bn_tail_t.bwd_apply(*args, *cols),
-                               bn_tail_t.bwd_apply_plain(*args, *cols),
+    dy = bn_tail_t.bwd_apply(*args, *cols)
+    out["bwd_apply"] = compare(dy, bn_tail_t.bwd_apply_plain(*args, *cols),
                                dt_name, what + " dy")
+    require_repeatable((dy,), lambda: (bn_tail_t.bwd_apply(*args, *cols),),
+                       what + " bwd_apply " + dt_name)
     return out
 
 
@@ -951,8 +964,10 @@ def phase_ragged(conv_t, fc_t, bn_tail_t, conv5_t, conv1_tail_t, conv,
         for shape in NHWC_WGRAD_RAGGED:
             out.update(_nhwc_wgrad_ragged(conv, gen, shape, dt_name, dt))
         for n, h, w in TAIL_REDUCE_RAGGED:
-            out.update(_tail_reduce_ragged(bn_tail_t, gen, n, h, w, dt_name,
+            out.update(_tail_passes_ragged(bn_tail_t, gen, n, h, w, dt_name,
                                            dt))
+        out.update(_tail_passes_ragged(bn_tail_t, gen, *TAIL_REDUCE_RAGGED[1],
+                                       dt_name, dt, odd=True))
         for co, blk in ((8, 2), (4, 4)):
             case = _tail_case(bn_tail, gen, 2, 5, blk * blk * co, co, blk, 70,
                               dt, nhwc=True)
@@ -1050,15 +1065,31 @@ def _nhwc_wgrad_ragged(conv, gen, shape, dt_name, dt) -> dict:
     return out
 
 
-def _tail_reduce_ragged(bn_tail_t, gen, n, h, w, dt_name, dt) -> dict:
-    """The transposed tail reduce at one TAIL_REDUCE_RAGGED shape, for each
-    TAIL_REDUCE_KINDS, against its plain version, two runs bitwise equal."""
+def _at_odd_element(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` that starts at element 1 of a larger
+    buffer: its rows hold no whole pairs, so the passes take one element
+    at a time."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def _tail_passes_ragged(bn_tail_t, gen, n, h, w, dt_name, dt, *,
+                        odd=False) -> dict:
+    """The transposed tail's three passes at one TAIL_REDUCE_RAGGED shape
+    (or, with ``odd``, with y and g starting at an odd element), for each
+    TAIL_REDUCE_KINDS, against their plain versions, two runs bitwise
+    equal."""
     out = {}
     for co, blk in TAIL_REDUCE_KINDS:
-        what = f"tail reduce n{n} h{h} w{w} co{co} blk{blk}"
-        y, g, _, _, vecs, _ = _tail_case(bn_tail_t, gen, n, h, blk * blk * co,
-                                         co, blk, w, dt)
+        at = " odd" if odd else ""
+        y, g, _, _, vecs, cols = _tail_case(bn_tail_t, gen, n, h,
+                                            blk * blk * co, co, blk, w, dt)
+        if odd:
+            y, g = _at_odd_element(y), _at_odd_element(g)
         args = (y, g, co, blk, *vecs)
+        what = f"tail reduce n{n} h{h} w{w}{at} co{co} blk{blk}"
         got = bn_tail_t.bwd_reduce(*args)
         want = bn_tail_t.bwd_reduce_plain(*args)
         out[f"{what} s1 {dt_name}"] = compare(got[0], want[0], dt_name,
@@ -1066,6 +1097,20 @@ def _tail_reduce_ragged(bn_tail_t, gen, n, h, w, dt_name, dt) -> dict:
         out[f"{what} s2 {dt_name}"] = compare(got[1], want[1], dt_name,
                                               f"ragged {what} s2")
         require_repeatable(got, lambda: bn_tail_t.bwd_reduce(*args),
+                           f"ragged {what} {dt_name}")
+        what = f"tail fwd n{n} h{h} w{w}{at} co{co} blk{blk}"
+        got = (bn_tail_t.tail_fwd(y, *vecs[:2], co, blk),)
+        out[f"{what} {dt_name}"] = compare(
+            got[0], bn_tail_t.tail_fwd_plain(y, *vecs[:2], co, blk), dt_name,
+            f"ragged {what}")
+        require_repeatable(got, lambda: (bn_tail_t.tail_fwd(
+            y, *vecs[:2], co, blk),), f"ragged {what} {dt_name}")
+        what = f"tail apply n{n} h{h} w{w}{at} co{co} blk{blk}"
+        got = (bn_tail_t.bwd_apply(*args, *cols),)
+        out[f"{what} {dt_name}"] = compare(
+            got[0], bn_tail_t.bwd_apply_plain(*args, *cols), dt_name,
+            f"ragged {what}")
+        require_repeatable(got, lambda: (bn_tail_t.bwd_apply(*args, *cols),),
                            f"ragged {what} {dt_name}")
     return out
 

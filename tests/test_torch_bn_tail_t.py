@@ -6,6 +6,10 @@ ysums path; bwd_reduce's s1/s2; and unfused_reference_t. On the CPU the
 port runs its kernels' plain PyTorch versions; the kernels are held
 against those on the card by chip_smoke.py."""
 
+import ctypes
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -253,17 +257,131 @@ def test_bad_geometry_raises():
 
 @pytest.mark.parametrize("rows,windows,slots", [
     (3750, 64, 1056), (3750, 32, 1056), (21, 64, 1056), (21, 1, 1056),
-    (10, 4, 1056), (1, 4, 1056), (3750, 64, 40), (7, 3, 5)])
+    (10, 4, 1056), (1, 4, 1056), (3750, 64, 40), (7, 3, 5),
+    # the forward's and the apply's own slots (2 waves of 2 to 8 blocks of
+    # 256 threads on 132 SMs), at both tails and the ragged shapes
+    (3750, 64, 2112), (3750, 32, 2112), (3750, 64, 792), (3750, 32, 792),
+    (3750, 64, 528), (21, 8, 792), (10, 4, 2112), (21, 16, 528)])
 def test_reduce_slabs_cover_every_row_once_in_order(rows, windows, slots):
-    """The reduce kernel's slabs of whole rows (``bwd_reduce`` splits the
-    N*H rows with ``wgrad_slabs``, the C/4 windows as its tiles): slab s
-    takes rows [s*per, (s+1)*per); every row once, in order, every slab
-    non-empty, and the slabs times the windows (one block and one partial
-    row each) within the blocks the library asks for, or one slab a
-    window where the windows alone exceed them."""
+    """The passes' slabs of whole rows (``tail_fwd``, ``bwd_reduce`` and
+    ``bwd_apply`` split the N*H rows with ``wgrad_slabs``, the C/4 windows
+    as its tiles): slab s takes rows [s*per, (s+1)*per); every row once,
+    in order, every slab non-empty, and the slabs times the windows (one
+    block each, and one partial row of the reduce) within the blocks the
+    library asks for, or one slab a window where the windows alone exceed
+    them."""
     slabs, per = wgrad_slabs(rows, windows, slots)
     seen = [r for s in range(slabs) for r in range(s * per,
                                                    min(rows, (s + 1) * per))]
     assert seen == list(range(rows))
     assert all(s * per < rows for s in range(slabs))
     assert slabs * windows <= max(slots, windows)
+
+
+_C_KINDS = {"int": ctypes.c_int, "pointer": ctypes.c_void_p}
+
+
+def _c_signatures(src: str) -> dict[str, list[str]]:
+    """{name: [parameter kinds]} of every ``extern "C"`` function of a CUDA
+    source: "pointer" for a parameter whose type holds ``*``, else its
+    type (``int`` for the sizes)."""
+    sigs = {}
+    for name, params in re.findall(
+            r'extern "C"\s+[\w\s*]*?\b(\w+)\s*\(([^)]*)\)', src):
+        kinds = []
+        for param in filter(None, (p.strip() for p in params.split(","))):
+            if param == "void":
+                continue
+            kinds.append("pointer" if "*" in param
+                         else param.rsplit(None, 1)[0].strip())
+        sigs[name] = kinds
+    return sigs
+
+
+def test_ctypes_argtypes_match_the_c_signatures():
+    """Every C entry point of csrc/bn_tail_t.cu that the wrapper binds has
+    an ARGTYPES entry of its parameter count and kinds (a pointer passed
+    as a c_int would be cut to 32 bits on the card, with nothing failing
+    on the CPU), and every ARGTYPES entry names a C entry point."""
+    src = (Path(bn_tail_t.build.CSRC) / "bn_tail_t.cu").read_text()
+    sigs = _c_signatures(src)
+    # bound by build.load for every library
+    sigs.pop("cuda_error_string")
+    assert set(sigs) == set(bn_tail_t.ARGTYPES)
+    for name, kinds in sigs.items():
+        want = [_C_KINDS[k] for k in kinds]
+        assert bn_tail_t.ARGTYPES[name] == want, name
+
+
+def _fast_div(d: int):
+    """FastDiv of csrc/bn_tail_t.cu: n // d by a multiply and a shift."""
+    l = (d - 1).bit_length() if d > 1 else 0
+    m = ((1 << 32) * ((1 << l) - d)) // d + 1
+    assert m < 1 << 32
+    return lambda n: (((m * n) >> 32) + n) >> l
+
+
+def _slot_map(rows, w, v, esize, pitch, base, words=1, align_bytes=64):
+    """The (row, first w, words) each slot of a forward or apply block's
+    walk takes, in order (None: an empty slot), as Slab<T, V, Q, true> of
+    csrc/bn_tail_t.cu lays them out: P slots of ``words`` words (v
+    elements each) a row, P*words a whole number of ``align_bytes`` runs;
+    slot j of row r starts at word j*words - lead, lead the word of the
+    stored row's first element within its run (the row starts ``base`` +
+    r*pitch*esize bytes in). Words outside the row are dropped."""
+    word = esize * v
+    run = align_bytes // word
+    per_row = w // v
+    p = (per_row + 2 * run - 2) // run * run // words
+    div = _fast_div(p)
+    lead0, step = base // word, pitch // v
+    out = []
+    for it in range(rows * p):
+        r = div(it)
+        w0 = (it - r * p) * words - (lead0 + r * step) % (1 << 32) % run
+        got = [q for q in range(w0, w0 + words) if 0 <= q < per_row]
+        out.append((r, got[0] * v, len(got)) if got else None)
+    return out
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 7, 35, 47, 375, 384, 392, 12345,
+                               2**20, 2**31 - 1])
+def test_fast_div_is_floor_division(d):
+    rng = np.random.default_rng(d)
+    ns = [0, 1, d - 1, d, d + 1, 2**31 - 2, 2**31 - 1,
+          *rng.integers(0, 2**31, 500).tolist()]
+    div = _fast_div(d)
+    assert [div(n) for n in ns if n >= 0] == [n // d for n in ns if n >= 0]
+
+
+@pytest.mark.parametrize("w,v,esize,c,words", [
+    (750, 2, 2, 256, 4), (750, 2, 2, 128, 4), (70, 2, 2, 32, 4),
+    (70, 2, 4, 64, 2), (75, 1, 2, 16, 1), (75, 1, 4, 16, 1), (1, 1, 2, 16, 1),
+    (2, 2, 2, 16, 4)])
+def test_aligned_slots_take_every_element_once_and_store_whole_sectors(
+        w, v, esize, c, words):
+    """The forward's and the apply's walk (Slab with AL in
+    csrc/bn_tail_t.cu) takes each (row, w) of its slab once, at any
+    alignment of the stored row; a slot that holds all its words starts on
+    a 16-byte boundary (its single access); and a warp's 32 slots store
+    whole 32-byte sectors of a row, but at the row's two ends."""
+    rows = 21
+    for base in (4096, 4096 + 750 * esize, 4096 + 2 * 7 * esize,
+                 4096 + 16 * 750 * esize):
+        taken = _slot_map(rows, w, v, esize, c * w, base, words)
+        elems = sorted((r, e0 + k * v) for r, e0, n in filter(None, taken)
+                       for k in range(n))
+        assert elems == [(r, e) for r in range(rows) for e in range(0, w, v)]
+        for r, e0, n in filter(None, taken):
+            if n == words:
+                at = base + (r * c * w + e0) * esize
+                assert at % (words * v * esize) == 0
+        for warp in range(0, len(taken), 32):
+            by_row = {}
+            for r, e0, n in filter(None, taken[warp:warp + 32]):
+                by_row.setdefault(r, []).append((e0, e0 + n * v))
+            for r, spans in by_row.items():
+                lo = min(a for a, _ in spans)
+                hi = max(b for _, b in spans)
+                assert (base + (r * c * w + lo) * esize) % 32 == 0 or lo == 0
+                assert (base + (r * c * w + hi) * esize) % 32 == 0 or hi == w

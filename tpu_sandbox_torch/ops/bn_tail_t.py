@@ -22,6 +22,7 @@ raises. There is no fallback between the two.
 from __future__ import annotations
 
 import ctypes
+import functools
 from collections import Counter
 
 import torch
@@ -38,22 +39,26 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
+#: the ctypes argument kinds of the library's C entry points (each returns
+#: an int), in the order of csrc/bn_tail_t.cu's signatures: the dtype, the
+#: tensors' pointers, N*H, C, co, blk, W and the slab plan, the stream
+ARGTYPES = {
+    "bn_tail_t_slots": [_I],
+    "bn_tail_t_fwd": [_I] + [_P] * 4 + [_I] * 7 + [_P],
+    "bn_tail_t_bwd_reduce": [_I] + [_P] * 8 + [_I] * 7 + [_P],
+    "bn_tail_t_bwd_apply": [_I] + [_P] * 10 + [_I] * 7 + [_P],
+}
+#: each pass's index in ``bn_tail_t_slots``
+_PASSES = {"fwd": 0, "bwd_reduce": 1, "bwd_apply": 2}
+
 
 def _lib() -> ctypes.CDLL:
     lib = build.load("bn_tail_t")
     if not getattr(lib, "_bound", False):
-        lib.bn_tail_t_fwd.argtypes = [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                      _P]
-        lib.bn_tail_t_fwd.restype = _I
-        lib.bn_tail_t_reduce_slots.argtypes = []
-        lib.bn_tail_t_reduce_slots.restype = _I
-        lib.bn_tail_t_bwd_reduce.argtypes = [
-            _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-            _P]
-        lib.bn_tail_t_bwd_reduce.restype = _I
-        lib.bn_tail_t_bwd_apply.argtypes = [
-            _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
-        lib.bn_tail_t_bwd_apply.restype = _I
+        for name, argtypes in ARGTYPES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = _I
         lib._bound = True
     return lib
 
@@ -178,9 +183,29 @@ def _cuda_operands(what: str, y: torch.Tensor, g: torch.Tensor | None,
                              f"[{c}] on {y.device}")
 
 
-def _launch(fn_name: str, y: torch.Tensor, *ptrs, co: int, blk: int,
-            plan: tuple[int, ...] = ()) -> None:
+@functools.lru_cache(maxsize=None)
+def _slots(device_index: int, what: str) -> int:
+    """The blocks the library asks for the pass on a card: a property of
+    the card and the kernel, asked once, off the launch's path."""
+    with torch.cuda.device(device_index):
+        slots = _lib().bn_tail_t_slots(_PASSES[what])
+    if slots <= 0:
+        raise RuntimeError(f"bn_tail_t {what}: the card's block count could "
+                           "not be asked")
+    return slots
+
+
+def _slab_plan(what: str, y: torch.Tensor) -> tuple[int, int]:
+    """(slabs, rows_per_slab): one block a (slab of whole rows, window),
+    about as many blocks as the library asks for the pass."""
+    n, h, c, _ = y.shape
+    return wgrad_slabs(n * h, c // 4, _slots(y.device.index, what))
+
+
+def _launch(what: str, y: torch.Tensor, *ptrs, co: int, blk: int,
+            plan: tuple[int, int]) -> None:
     lib = _lib()
+    fn_name = f"bn_tail_t_{what}"
     n, h, c, w = y.shape
     with torch.cuda.device(y.device):
         stream = torch.cuda.current_stream(y.device).cuda_stream
@@ -200,7 +225,8 @@ def tail_fwd(y: torch.Tensor, a_col: torch.Tensor, b_col: torch.Tensor,
     _cuda_operands("bn_tail_t fwd", y, None, (a_col, b_col))
     n, h, c, w = y.shape
     out = torch.empty((n, h, c // 4, w), dtype=y.dtype, device=y.device)
-    _launch("bn_tail_t_fwd", y, a_col, b_col, out, co=co, blk=blk)
+    _launch("fwd", y, a_col, b_col, out, co=co, blk=blk,
+            plan=_slab_plan("fwd", y))
     LAUNCHES[f"bn_tail_t fwd C{c} CO{co}"] += 1
     return out
 
@@ -219,18 +245,14 @@ def bwd_reduce(y: torch.Tensor, g: torch.Tensor, co: int, blk: int,
     mu_col, inv_col = col_expand(mu, reps), col_expand(inv, reps)
     _cuda_operands("bn_tail_t bwd_reduce", y, g,
                    (a_col, b_col, mu_col, inv_col))
-    n, h, c, w = y.shape
-    with torch.cuda.device(y.device):
-        slots = _lib().bn_tail_t_reduce_slots()
-    if slots <= 0:
-        raise RuntimeError("bn_tail_t bwd_reduce: the card's block count "
-                           "could not be asked")
-    # one block and partial a (slab of whole rows, window)
-    slabs, per = wgrad_slabs(n * h, c // 4, slots)
-    part = torch.empty((slabs, 2 * c), dtype=torch.float32, device=y.device)
+    c = y.shape[2]
+    # one partial a slab
+    plan = _slab_plan("bwd_reduce", y)
+    part = torch.empty((plan[0], 2 * c), dtype=torch.float32,
+                       device=y.device)
     sums = torch.empty((2 * c,), dtype=torch.float32, device=y.device)
-    _launch("bn_tail_t_bwd_reduce", y, g, a_col, b_col, mu_col, inv_col, part,
-            sums, co=co, blk=blk, plan=(slabs, per))
+    _launch("bwd_reduce", y, g, a_col, b_col, mu_col, inv_col, part, sums,
+            co=co, blk=blk, plan=plan)
     LAUNCHES[f"bn_tail_t bwd_reduce C{c} CO{co}"] += 1
     # the fold over the groups stays outside the kernel, as in JAX
     return _fold(sums[:c], co), _fold(sums[c:], co)
@@ -257,11 +279,10 @@ def bwd_apply(y, g, co: int, blk: int, a_col, b_col, mu, inv, gi_col,
     mu_col, inv_col = col_expand(mu, reps), col_expand(inv, reps)
     _cuda_operands("bn_tail_t bwd_apply", y, g,
                    (a_col, b_col, mu_col, inv_col, gi_col, c1_col, c2_col))
-    n, h, c, w = y.shape
     dy = torch.empty_like(y)
-    _launch("bn_tail_t_bwd_apply", y, g, a_col, b_col, mu_col, inv_col,
-            gi_col, c1_col, c2_col, dy, co=co, blk=blk)
-    LAUNCHES[f"bn_tail_t bwd_apply C{c} CO{co}"] += 1
+    _launch("bwd_apply", y, g, a_col, b_col, mu_col, inv_col, gi_col, c1_col,
+            c2_col, dy, co=co, blk=blk, plan=_slab_plan("bwd_apply", y))
+    LAUNCHES[f"bn_tail_t bwd_apply C{y.shape[2]} CO{co}"] += 1
     return dy
 
 

@@ -235,8 +235,8 @@ def wgrad_slabs(rows: int, tiles: int = 1,
     fill the ``slots`` blocks the card holds at once (one wave), every
     slab non-empty. The other wgrads (ops/conv5_t.py, conv1_tail_t.py,
     conv.py's fp32 body) take the defaults: at most 128 slabs; the
-    transposed tail's reduce (ops/bn_tail_t.py) takes its windows as the
-    tiles."""
+    transposed tail's three passes (ops/bn_tail_t.py) take its windows as
+    the tiles."""
     per = -(-rows // min(rows, max(1, slots // tiles)))
     return -(-rows // per), per
 
