@@ -63,7 +63,10 @@ card or when the port is not beside it. Phases, one JSON line each:
    and 80, C 32 and 128) and the transposed tail's forward, reduce and
    apply at the odd W 75 with N*H 21, at W 70, and at W 70 with y and g
    starting at an odd element, for four (co, blk) kinds
-   (TAIL_REDUCE_RAGGED), each two runs bitwise equal.
+   (TAIL_REDUCE_RAGGED), each two runs bitwise equal; the NHWC tail's
+   three passes the same way, at 1575 and 700 pixels (the last slab of
+   the forward and the apply partly empty) and at an odd element, in
+   fp32 and bf16.
 4. main_path: tpu_sandbox_torch.mnist_onegpu's own train function at
    3000x3000, batch 5, bf16, synthetic MNIST, 5 steps, on the card's
    default plan (the sparse conv1, the fused BN tails and the fused
@@ -219,13 +222,15 @@ NHWC_WGRAD_RAGGED = ((1, 3, 65, 16, 256), (140, 1, 65, 64, 128),
                      (2, 67, 130, 64, 128), (2, 5, 70, 16, 48),
                      (2, 5, 70, 16, 80), (2, 5, 70, 32, 48),
                      (1, 3, 65, 128, 64), (1, 4, 1, 16, 32))
-#: the transposed tail passes' edges (N, H, W): the odd W 75 (rows 2-byte
-#: aligned: scalar loads) with N*H 21 (not a multiple of a slab) and W 70,
-#: and W 70 again with y and g starting at an odd element of a larger
-#: buffer (scalar loads at even W); each at the four (co, blk) kinds
-#: TAIL_REDUCE_KINDS (bn1's and bn2's and the ragged co 8 blk 2 and co 4
-#: blk 4), for the forward, the reduce and the apply, two runs bitwise
-#: equal
+#: the tail passes' edges (N, H, W), in both layouts: transposed, the odd
+#: W 75 (rows 2-byte aligned: scalar loads) with N*H 21 (not a multiple of
+#: a slab) and W 70; NHWC, 1575 and 700 pixels (the last 256-pixel slab of
+#: the forward and the apply partly empty, 39 and 188 pixels); and W 70
+#: again with y and g starting at an odd element of a larger buffer (one
+#: element a word); each at the four (co, blk) kinds TAIL_REDUCE_KINDS
+#: (bn1's and bn2's and the ragged co 8 blk 2 and co 4 blk 4; in NHWC co 4
+#: takes the general path), for the forward, the reduce and the apply,
+#: two runs bitwise equal
 TAIL_REDUCE_RAGGED = ((3, 7, 75), (2, 5, 70))
 TAIL_REDUCE_KINDS = ((16, 4), (32, 2), (8, 2), (4, 4))
 #: the transposed conv's ragged (N, H, W): W 70 and the odd W 75 (rows of
@@ -891,7 +896,8 @@ def phase_ragged(conv_t, fc_t, bn_tail_t, conv5_t, conv1_tail_t, conv,
     as the bf16 kernels take it, off the 64- and 128-channel tiles; two
     16-channel chunks), its tails at co=8 blk=2 and co=4 blk=4, and its
     tie case. The transposed conv's four kinds at each CONV_T_RAGGED
-    shape (_conv_t_ragged)."""
+    shape (_conv_t_ragged), and each tail's three passes at the
+    TAIL_REDUCE_RAGGED shapes (_tail_passes_ragged)."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     out = {}
     for dt_name, dt in DTYPES:
@@ -975,6 +981,11 @@ def phase_ragged(conv_t, fc_t, bn_tail_t, conv5_t, conv1_tail_t, conv,
                     bn_tail, case, co, blk, dt_name,
                     f"ragged nhwc tail co{co} blk{blk}").items():
                 out[f"nhwc tail co{co} blk{blk} {key} {dt_name}"] = val
+        for n, h, w in TAIL_REDUCE_RAGGED:
+            out.update(_tail_passes_ragged(bn_tail, gen, n, h, w, dt_name,
+                                           dt, nhwc=True))
+        out.update(_tail_passes_ragged(bn_tail, gen, *TAIL_REDUCE_RAGGED[1],
+                                       dt_name, dt, odd=True, nhwc=True))
     out["tie"] = _tie_case(bn_tail_t, gen)
     out["nhwc tie"] = _tie_case(bn_tail, gen, nhwc=True)
     torch.cuda.synchronize()
@@ -1076,20 +1087,22 @@ def _at_odd_element(t: torch.Tensor) -> torch.Tensor:
 
 
 def _tail_passes_ragged(bn_tail_t, gen, n, h, w, dt_name, dt, *,
-                        odd=False) -> dict:
-    """The transposed tail's three passes at one TAIL_REDUCE_RAGGED shape
-    (or, with ``odd``, with y and g starting at an odd element), for each
+                        odd=False, nhwc=False) -> dict:
+    """One tail's three passes at one TAIL_REDUCE_RAGGED shape (or, with
+    ``odd``, with y and g starting at an odd element), for each
     TAIL_REDUCE_KINDS, against their plain versions, two runs bitwise
-    equal."""
+    equal. ``bn_tail_t`` is either tail module, ``nhwc`` says which."""
     out = {}
+    layout = "nhwc " if nhwc else ""
     for co, blk in TAIL_REDUCE_KINDS:
         at = " odd" if odd else ""
         y, g, _, _, vecs, cols = _tail_case(bn_tail_t, gen, n, h,
-                                            blk * blk * co, co, blk, w, dt)
+                                            blk * blk * co, co, blk, w, dt,
+                                            nhwc=nhwc)
         if odd:
             y, g = _at_odd_element(y), _at_odd_element(g)
         args = (y, g, co, blk, *vecs)
-        what = f"tail reduce n{n} h{h} w{w}{at} co{co} blk{blk}"
+        what = f"{layout}tail reduce n{n} h{h} w{w}{at} co{co} blk{blk}"
         got = bn_tail_t.bwd_reduce(*args)
         want = bn_tail_t.bwd_reduce_plain(*args)
         out[f"{what} s1 {dt_name}"] = compare(got[0], want[0], dt_name,
@@ -1098,14 +1111,14 @@ def _tail_passes_ragged(bn_tail_t, gen, n, h, w, dt_name, dt, *,
                                               f"ragged {what} s2")
         require_repeatable(got, lambda: bn_tail_t.bwd_reduce(*args),
                            f"ragged {what} {dt_name}")
-        what = f"tail fwd n{n} h{h} w{w}{at} co{co} blk{blk}"
+        what = f"{layout}tail fwd n{n} h{h} w{w}{at} co{co} blk{blk}"
         got = (bn_tail_t.tail_fwd(y, *vecs[:2], co, blk),)
         out[f"{what} {dt_name}"] = compare(
             got[0], bn_tail_t.tail_fwd_plain(y, *vecs[:2], co, blk), dt_name,
             f"ragged {what}")
         require_repeatable(got, lambda: (bn_tail_t.tail_fwd(
             y, *vecs[:2], co, blk),), f"ragged {what} {dt_name}")
-        what = f"tail apply n{n} h{h} w{w}{at} co{co} blk{blk}"
+        what = f"{layout}tail apply n{n} h{h} w{w}{at} co{co} blk{blk}"
         got = (bn_tail_t.bwd_apply(*args, *cols),)
         out[f"{what} {dt_name}"] = compare(
             got[0], bn_tail_t.bwd_apply_plain(*args, *cols), dt_name,

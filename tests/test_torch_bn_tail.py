@@ -1,11 +1,20 @@
 """The port's NHWC fused BN/ReLU/pool tail (tpu_sandbox_torch/ops/bn_tail.py)
 == the JAX Pallas fused_bn_relu_pool (interpret mode) at the geometries
 of tests/test_pallas_bn_tail.py, (blk, co) = (4, 4), (2, 16) and (4, 16),
-in fp32 and bf16: the pooled output, mu and var; dy, dgamma and dbeta
-(the reduce pass's s2 and s1); the bf16 tie case; the ysums path; and
-unfused_reference. On the CPU the port runs its kernels' plain PyTorch
-versions; the kernels are held against those on the card by
-chip_smoke.py."""
+plus the main path's bn2 (2, 32) and (2, 4), whose co the kernels' 16-byte
+path cannot take, in fp32 and bf16: the pooled output, mu and var; dy,
+dgamma and dbeta (the reduce pass's s2 and s1); the bf16 tie case; the
+ysums path; and unfused_reference. On the CPU the port runs its kernels'
+plain PyTorch versions; the kernels are held against those on the card
+by chip_smoke.py. Here too: a Python mirror of the forward's and the
+apply's walk in csrc/bn_tail.cu (which thread takes which pixel and
+channels, and where its accesses fall), the host's slab plan, and the
+ctypes signatures against the C ones."""
+
+import ctypes
+import re
+from collections import Counter
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -16,7 +25,7 @@ import torch
 from tpu_sandbox.ops import pallas_bn_tail as jax_tail
 from tpu_sandbox_torch.ops import bn_tail
 
-GEOMS = [(4, 4, 12), (2, 16, 8), (4, 16, 8)]      # (blk, co, hw)
+GEOMS = [(4, 4, 12), (2, 16, 8), (4, 16, 8), (2, 32, 6), (2, 4, 6)]  # (blk, co, hw)
 DTYPES = {"fp32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}
 # fp32: the same f32 arithmetic in other orders (means, sums over the
@@ -226,3 +235,132 @@ def test_bad_geometry_raises():
     with pytest.raises(ValueError, match="blocks"):
         bn_tail.tail_fwd(torch.zeros((1, 1, 4, 12)), torch.zeros(12),
                          torch.zeros(12), 4, 2)
+
+
+@pytest.mark.parametrize("pixels,slots", [
+    (2812500, 264), (2812500, 528), (2812500, 792), (2812500, 1056),
+    (1575, 528), (700, 528), (3000, 4), (256, 528), (257, 2), (1, 528)])
+def test_pixel_slabs_cover_every_pixel_once(pixels, slots):
+    """The forward's and the apply's slab plan (``pixel_slabs``): slab s
+    takes pixels [s*per, (s+1)*per), every pixel once, every slab
+    non-empty, whole SLAB_QUANTUM runs a slab, and no more slabs than the
+    blocks the library asks for (or one where there are fewer runs)."""
+    slabs, per = bn_tail.pixel_slabs(pixels, slots)
+    assert per % bn_tail.SLAB_QUANTUM == 0
+    assert (slabs - 1) * per < pixels <= slabs * per
+    assert slabs <= max(slots, 1)
+    # about as many slabs as asked: at least half, where there are runs
+    # enough
+    runs = -(-pixels // bn_tail.SLAB_QUANTUM)
+    assert slabs >= min(runs, slots) // 2
+
+
+def _window(o, co, blk):
+    """tail_math.cuh's window(): the four channels of pooled channel o."""
+    k, ab, half = o % co, o // co, blk // 2
+    r = (2 * (ab // half) * blk + 2 * (ab % half)) * co + k
+    return [r, r + co, r + blk * co, r + blk * co + co]
+
+
+def _vector_path(esize, co, *addrs):
+    """csrc/bn_tail.cu's choice of the 16-byte path (V 8): bf16, co a
+    multiple of 8 and every tensor 16-byte aligned (in_vectors)."""
+    return esize == 2 and co % 8 == 0 and all(a % 16 == 0 for a in addrs)
+
+
+def _walk(pixels, c, v, slabs, per):
+    """(block, round, thread, pixel, group) of every item of the forward's
+    and the apply's walk (Groups<V> of csrc/bn_tail.cu), in order: block b
+    takes pixels [b*per, b*per + n); thread t takes group t % G of the
+    pixels q = t // G, q + PB, ... of them (G = C/4/V groups a pixel, PB =
+    256 // G pixels a round); threads from PB*G on take none."""
+    groups = c // 4 // v
+    pb = 256 // groups
+    for b in range(slabs):
+        p0 = b * per
+        n = min(per, pixels - p0)
+        for t in range(pb * groups):
+            grp, q = t % groups, t // groups
+            for j in range(q, n, pb):
+                yield b, (j - q) // pb, t, p0 + j, grp
+
+
+@pytest.mark.parametrize("pixels,co,blk,esize,odd,slots", [
+    # the main path's geometries (bn1, bn2) at a cut pixel count, with
+    # several runs a slab and with one
+    (3000, 16, 4, 2, False, 4), (3000, 32, 2, 2, False, 4),
+    (1575, 16, 4, 2, False, 528), (1575, 32, 2, 2, False, 528),
+    # chip_smoke.py's ragged shapes: co 8 (16 bytes, half a sector a
+    # member), co 4 (the general path), fp32 (the general path), y and g
+    # at an odd element (the general path)
+    (700, 8, 2, 2, False, 528), (1575, 8, 4, 2, False, 528),
+    (700, 4, 4, 2, False, 528), (1575, 4, 4, 4, False, 528),
+    (700, 16, 4, 4, False, 528), (1575, 32, 2, 2, True, 528),
+    (700, 16, 4, 2, True, 528)])
+def test_walk_takes_every_window_once_in_aligned_accesses(
+        pixels, co, blk, esize, odd, slots):
+    """The forward's and the apply's walk takes each (pixel, pooled
+    channel) once, on the 16-byte path where the C source takes it and on
+    the general path otherwise. On the 16-byte path every y, g, out and dy
+    access is 16 bytes on a 16-byte boundary, and where co is a multiple of
+    16 each of a warp's stores (the pooled out, each member's dy) fills
+    whole 32-byte sectors."""
+    c = blk * blk * co
+    cout = c // 4
+    y0 = 4096 + (esize if odd else 0)       # y and g at an odd element
+    g0 = (1 << 30) + (esize if odd else 0)
+    out0 = 1 << 31                            # fresh outputs: aligned
+    vec = _vector_path(esize, co, y0, g0, out0)
+    assert vec == (esize == 2 and co % 8 == 0 and not odd)
+    v = 8 if vec else 1
+    slabs, per = bn_tail.pixel_slabs(pixels, slots)
+    taken = Counter()
+    stores = {}
+    for b, rnd, t, p, grp in _walk(pixels, c, v, slabs, per):
+        taken.update((p, o) for o in range(grp * v, grp * v + v))
+        if not vec:
+            continue
+        starts = _window(grp * v, co, blk)
+        # each member's run of 8 channels lies in one (a, b) block
+        assert all(_window(grp * v + e, co, blk) == [s + e for s in starts]
+                   for e in range(v))
+        accesses = [y0 + (p * c + s) * esize for s in starts]
+        accesses += [g0 + (p * cout + grp * v) * esize,
+                     out0 + (p * cout + grp * v) * esize]
+        assert all(at % 16 == 0 for at in accesses)
+        warp = (b, rnd, t // 32)
+        stores.setdefault((warp, "out"), []).append(accesses[-1])
+        for i, s in enumerate(starts):
+            stores.setdefault((warp, i), []).append(
+                out0 + (p * c + s) * esize)
+    assert taken == Counter((p, o) for p in range(pixels) for o in range(cout))
+    if not vec or co % 16:
+        return
+    for spans in stores.values():
+        covered = set()
+        for at in spans:
+            covered.update(range(at, at + 16))
+        for sector in {at // 32 for at in covered}:
+            assert set(range(32 * sector, 32 * sector + 32)) <= covered
+
+
+_C_KINDS = {"int": ctypes.c_int, "long long": ctypes.c_longlong,
+            "pointer": ctypes.c_void_p}
+
+
+def test_ctypes_argtypes_match_the_c_signatures():
+    """Every C entry point of csrc/bn_tail.cu has an ARGTYPES entry of its
+    parameter count and kinds (a pointer or N*H*W passed as a c_int would
+    be cut to 32 bits on the card, with nothing failing on the CPU), and
+    every ARGTYPES entry names a C entry point."""
+    src = (Path(bn_tail.build.CSRC) / "bn_tail.cu").read_text()
+    sigs = {}
+    for name, params in re.findall(
+            r'extern "C"\s+[\w\s*]*?\b(\w+)\s*\(([^)]*)\)', src):
+        sigs[name] = ["pointer" if "*" in p else p.rsplit(None, 1)[0]
+                      for p in (q.strip() for q in params.split(",")) if p]
+    # bound by build.load for every library
+    sigs.pop("cuda_error_string")
+    assert set(sigs) == set(bn_tail.ARGTYPES)
+    for name, kinds in sigs.items():
+        assert bn_tail.ARGTYPES[name] == [_C_KINDS[k] for k in kinds], name

@@ -6,11 +6,12 @@
 //   bn_tail_bwd_reduce  <- _bwd_reduce_kernel (:136), launched by _vjp_bwd (:294)
 //   bn_tail_bwd_apply   <- _bwd_apply_kernel (:162), launched by _vjp_bwd (:327)
 //
-// The per-window arithmetic is tail_math.cuh's, unchanged and shared with
-// the transposed tail (bn_tail_t.cu): window, rounded_relu, tie_weight,
-// route and window_dy. In NHWC a pool window's four partners are channels
-// of ONE pixel, so the loaders below address y at pixel*C + channel (the
-// header's row stride is 1): the TPU's rolls along the lane dim and its
+// The per-window arithmetic is tail_math.cuh's (window, rounded_relu,
+// route, window_dy_of) and, on bf16 pairs, tail_pair.cuh's, both shared
+// with the transposed tail (bn_tail_t.cu). In NHWC a pool window's four
+// members are channels of ONE pixel, r, r+co, r+blk*co and r+blk*co+co,
+// and its output is pooled channel o of that pixel, so the loaders address
+// y at pixel*C + channel: the TPU's rolls along the lane dim and its
 // selection matmul have no counterpart.
 //
 // What bounds them on the H100: all three are bytes-bound passes (a few
@@ -20,43 +21,175 @@
 //   fwd    y + out       1.80 / 0.90 GB -> 0.537 / 0.269 ms
 //   reduce y + g         1.80 / 0.90 GB -> 0.537 / 0.269 ms
 //   apply  y + g + dy    3.24 / 1.62 GB -> 0.967 / 0.484 ms
-// Design: a thread owns one window (output channel o) of one pixel, and
-// the C/4 threads of a pixel are neighbours, so a warp reads a pixel's
-// C-vector (512 B at C 256 bf16) as contiguous runs, and writes the pooled
-// out and dy the same way. The reduce keeps each thread's sums in
-// registers over a slab of pixels, combines the threads of a window in a
-// fixed order in shared memory and writes one partial per slab;
-// reduce_partials (reduce.cuh) adds the partials in a fixed order. No
-// float atomics: two runs are bitwise equal. Vector loads and fusing the
-// reduce with the apply are later work.
+// So the forward and the apply have to keep enough loads in flight, spend
+// few instructions a byte, and fill whole 32-byte sectors with each warp's
+// accesses.
+//
+// The forward's and the apply's walk: a block takes a slab of whole
+// pixels, sized on the host (ops/bn_tail.py::pixel_slabs) to about kWaves
+// waves of the blocks the card holds (bn_tail_slots). Thread t owns group
+// g = t % G of the pixels t / G, t / G + PB, ... of its slab: a group is V
+// consecutive pooled channels o = g*V .. g*V + V-1 of one (a1, b1) block,
+// whose window members are four runs of V consecutive channels of y; G =
+// C/(4V) groups a pixel, PB = 256/G pixels a round. A thread's channels
+// and columns stay fixed for the whole walk; it loads a pixel and uses it,
+// and the other warps' loads (two blocks an SM) hide the latency: loading
+// the next pixel before using one measured no faster, and with two use
+// sites a loop it spilled (the apply far slower). Where co
+// is a multiple of 8, the tensors are bf16 and every pointer is 16-byte
+// aligned (the main path), V is 8: each member's run is one 16-byte load,
+// the pooled cotangent one more, and each output run one 16-byte store;
+// the G threads of a pixel read its row of y in whole sectors and a warp's
+// stores fill whole sectors. The pool and the routing run in packed bf16x2
+// (tail_pair.cuh, exact), t and dy in f32 in window_dy_of's order, so out
+// and dy are those of tail_math.cuh's f32 functions bit for bit. The
+// forward holds a and b of its 32 channels in registers; the apply's seven
+// columns of them do not fit and sit in shared memory, a group's in the
+// order its thread reads them (float4; groups kColPitch apart, so a
+// quarter-warp's reads hit distinct banks). Everything else (fp32, co not
+// a multiple of 8, a tensor that starts off 16 bytes) takes V 1: one
+// window a thread, one element a word through tail_math.cuh's functions,
+// columns in registers. Pixels that do not fill a slab's last round are
+// masked. No division per element: a pixel's offset is a multiply.
+//
+// The reduce: a thread owns one window (output channel o) of every
+// (256/Cout)-th pixel of a slab of kSlabPixels, keeps its sums in
+// registers, combines the threads of a window in a fixed order in shared
+// memory and writes one partial per slab; reduce_partials (reduce.cuh)
+// adds the partials in a fixed order. No float atomics: two runs of any
+// pass are bitwise equal. Left for later: the reduce's own walk (scalar
+// loads, one window a thread), and fusing it with the apply (y and g read
+// once for both).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <stdint.h>
+#include <string.h>
+
+#include <type_traits>
+
+#include "mma.cuh"
 #include "reduce.cuh"
 #include "tail_math.cuh"
+#include "tail_pair.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kSlabPixels = 2048;   // pixels per block of the reduce
+constexpr int kWaves = 2;           // the forward's and the apply's blocks: twice those resident
+constexpr int kVec = 8;             // bf16 channels in one 16-byte access
+// blocks an SM the forward and the apply are built for (65536 / (256 n)
+// registers a thread)
+constexpr int kFwdMinBlocks = 2, kApplyMinBlocks = 2;
+// the apply's columns a group in shared memory: seven columns at its four
+// runs of 8 channels as float4 (slot (h*4 + i)*7 + k: column k at channels
+// ch[i] + 4h .. + 3), one pad so that the groups start in other banks
+constexpr int kColSlots = 7 * 8, kColPitch = kColSlots + 1;
 
-// one thread per (pixel, o); grid over NHW * Cout threads
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-tail_fwd_kernel(const T* __restrict__ y, const float* __restrict__ a,
-                const float* __restrict__ b, T* __restrict__ out, long long total, int C,
-                int co, int blk) {
-  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= total) return;
-  const int Cout = C / 4;
-  const long long p = i / Cout;
-  const int o = (int)(i % Cout);
+// A block's share of the forward or the apply: pixels [p0, p0 + n) of y
+// [NHW, C] and of the pooled [NHW, C/4]. Thread t takes group g = t % G
+// (pooled channels g*V .. g*V + V-1; ch the first channel of each window
+// member's run) of the pixels q = t / G, q + PB, ... (walk); threads from
+// PB*G on take none.
+template <int V>
+struct Groups {
+  int C, Cout, G, PB, g, q, n;
+  long long p0;
   int ch[4];
-  window(o, co, blk, ch);
-  float yf[4], z[4];
-  load_window<T>(y, (size_t)p * C, 1, 0, ch, a, b, yf, z);
-  out[i] = from_f<T>(fmaxf(fmaxf(z[0], z[1]), fmaxf(z[2], z[3])));
+
+  __device__ __forceinline__ Groups(long long NHW, int C_, int co, int blk, int per)
+      : C(C_), Cout(C_ / 4), G(C_ / 4 / V), PB(kThreads / G), g(threadIdx.x % G),
+        q(threadIdx.x / G) {
+    p0 = (long long)blockIdx.x * per;
+    n = q < PB ? (int)min((long long)per, NHW - p0) : 0;
+    window(g * V, co, blk, ch);
+  }
+  // pixel j of the slab: its first element of y, and the group's first of
+  // the pooled row
+  __device__ __forceinline__ size_t y_at(int j) const { return (size_t)(p0 + j) * C; }
+  __device__ __forceinline__ size_t p_at(int j) const {
+    return (size_t)(p0 + j) * Cout + g * V;
+  }
+  // the thread's pixels in order, each loaded and then used
+  template <class Use>
+  __device__ __forceinline__ void walk(const Use& use) const {
+    for (int j = q; j < n; j += PB) use(j);
+  }
+};
+
+__device__ __forceinline__ uint4 load16(const void* p) {
+  return __ldg(static_cast<const uint4*>(p));
+}
+__device__ __forceinline__ void store16(void* p, uint4 v) { *static_cast<uint4*>(p) = v; }
+// word w (channels 2w, 2w + 1) of a 16-byte run of 8 bf16
+__device__ __forceinline__ __nv_bfloat162 word(const uint4& u, int w) {
+  const unsigned b = w == 0 ? u.x : w == 1 ? u.y : w == 2 ? u.z : u.w;
+  __nv_bfloat162 v;
+  memcpy(&v, &b, sizeof b);
+  return v;
+}
+__device__ __forceinline__ unsigned bits(__nv_bfloat162 v) {
+  unsigned b;
+  memcpy(&b, &v, sizeof b);
+  return b;
+}
+// the pair of a float4 that word w of a run uses (its channels 2w, 2w + 1
+// are elements 2(w % 2), 2(w % 2) + 1 of the float4 of channels 4(w / 2) ..)
+__device__ __forceinline__ float2 pair(const float4& c, int w) {
+  return w % 2 ? make_float2(c.z, c.w) : make_float2(c.x, c.y);
+}
+
+// y [NHW, C] -> out [NHW, C/4]; grid (slabs), per pixels a slab.
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads, kFwdMinBlocks)
+tail_fwd_kernel(const T* __restrict__ y, const float* __restrict__ a,
+                const float* __restrict__ b, T* __restrict__ out, long long NHW, int C,
+                int co, int blk, int per) {
+  const Groups<V> s(NHW, C, co, blk, per);
+  if constexpr (V == kVec) {
+    // a and b at channels 2w, 2w + 1 of member i's run
+    float2 ca[4][4], cb[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+        const int c = s.ch[i] + 2 * w;
+        ca[i][w] = make_float2(a[c], a[c + 1]);
+        cb[i][w] = make_float2(b[c], b[c + 1]);
+      }
+    s.walk([&](int j) {
+      const T* yp = y + s.y_at(j);
+      uint4 yv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) yv[i] = load16(yp + s.ch[i]);
+      unsigned o[4];
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+        __nv_bfloat162 z[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          z[i] = relu_pair(__bfloat1622float2(word(yv[i], w)), ca[i][w], cb[i][w]);
+        o[w] = bits(__hmax2(__hmax2(z[0], z[1]), __hmax2(z[2], z[3])));
+      }
+      store16(out + s.p_at(j), make_uint4(o[0], o[1], o[2], o[3]));
+    });
+  } else {
+    float ca[4], cb[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      ca[i] = a[s.ch[i]];
+      cb[i] = b[s.ch[i]];
+    }
+    s.walk([&](int j) {
+      const size_t yo = s.y_at(j);
+      float z[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) z[i] = rounded_relu<T>(to_f(y[yo + s.ch[i]]), ca[i], cb[i]);
+      out[s.p_at(j)] = from_f<T>(fmaxf(fmaxf(z[0], z[1]), fmaxf(z[2], z[3])));
+    });
+  }
 }
 
 // grid (slabs); thread t owns window o = t % Cout of every (256/Cout)-th
@@ -105,39 +238,124 @@ tail_bwd_reduce_kernel(const T* __restrict__ y, const T* __restrict__ g,
   }
 }
 
-// one thread per (pixel, o), as the forward
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+// dy [NHW, C]; grid (slabs), per pixels a slab. With V 8 the columns sit
+// in dynamic shared memory: G * kColPitch float4.
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads, kApplyMinBlocks)
 tail_bwd_apply_kernel(const T* __restrict__ y, const T* __restrict__ g,
                       const float* __restrict__ a, const float* __restrict__ b,
                       const float* __restrict__ mu, const float* __restrict__ inv,
                       const float* __restrict__ gi, const float* __restrict__ c1,
-                      const float* __restrict__ c2, T* __restrict__ dy, long long total,
-                      int C, int co, int blk) {
-  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= total) return;
-  const int Cout = C / 4;
-  const size_t row_off = (size_t)(i / Cout) * C;
-  int ch[4];
-  window((int)(i % Cout), co, blk, ch);
-  T d[4];
-  window_dy<T>(y, row_off, 1, 0, ch, to_f(g[i]), a, b, mu, inv, gi, c1, c2, d);
+                      const float* __restrict__ c2, T* __restrict__ dy, long long NHW, int C,
+                      int co, int blk, int per) {
+  const Groups<V> s(NHW, C, co, blk, per);
+  // column k (0 a, 1 b, 2 mu, 3 inv, 4 gi, 5 c1, 6 c2), as window_dy_of numbers them
+  auto column = [&](int k) {
+    return k == 0 ? a : k == 1 ? b : k == 2 ? mu : k == 3 ? inv : k == 4 ? gi : k == 5 ? c1 : c2;
+  };
+  if constexpr (V == kVec) {
+    extern __shared__ float4 sc[];
+    for (int e = threadIdx.x; e < s.G * kColSlots; e += kThreads) {
+      const int grp = e / kColSlots, slot = e % kColSlots;
+      const int k = slot % 7, i = slot / 7 % 4, h = slot / 28;
+      int ch[4];
+      window(grp * V, co, blk, ch);
+      const float* c = column(k) + ch[i] + 4 * h;
+      sc[grp * kColPitch + slot] = make_float4(c[0], c[1], c[2], c[3]);
+    }
+    __syncthreads();
+    const float4* col = sc + s.g * kColPitch;
+    s.walk([&](int j) {
+      const T* yp = y + s.y_at(j);
+      uint4 yv[4];
 #pragma unroll
-  for (int k = 0; k < 4; ++k) dy[row_off + ch[k]] = d[k];
+      for (int i = 0; i < 4; ++i) yv[i] = load16(yp + s.ch[i]);
+      const uint4 gv = load16(g + s.p_at(j));
+      // each word's dz, routed in packed bf16x2
+      __nv_bfloat162 dz[4][4];
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+        __nv_bfloat162 z[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float4* ci = col + (w / 2 * 4 + i) * 7;
+          z[i] = relu_pair(__bfloat1622float2(word(yv[i], w)), pair(ci[0], w), pair(ci[1], w));
+        }
+        route_z_packed(z, word(gv, w), dz[w]);
+      }
+      // then each member's dy, t and dy in f32
+      T* dp = dy + s.y_at(j);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        unsigned d[4];
+#pragma unroll
+        for (int w = 0; w < 4; ++w) {
+          const float4* ci = col + (w / 2 * 4 + i) * 7;
+          const float2 yf = __bfloat1622float2(word(yv[i], w));
+          const float2 df = __bfloat1622float2(dz[w][i]);
+          const float2 m = pair(ci[2], w), iv = pair(ci[3], w), gs = pair(ci[4], w);
+          const float2 k1 = pair(ci[5], w), k2 = pair(ci[6], w);
+          d[w] = bits(__floats2bfloat162_rn(dy_of(yf.x, df.x, m.x, iv.x, gs.x, k1.x, k2.x),
+                                            dy_of(yf.y, df.y, m.y, iv.y, gs.y, k1.y, k2.y)));
+        }
+        store16(dp + s.ch[i], make_uint4(d[0], d[1], d[2], d[3]));
+      }
+    });
+  } else {
+    float col[7][4];
+#pragma unroll
+    for (int k = 0; k < 7; ++k)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) col[k][i] = column(k)[s.ch[i]];
+    s.walk([&](int j) {
+      const size_t yo = s.y_at(j);
+      float yf[4];
+      T d[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) yf[i] = to_f(y[yo + s.ch[i]]);
+      window_dy_of<T>(yf, to_f(g[s.p_at(j)]), RegCols{col}, d);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) dy[yo + s.ch[i]] = d[i];
+    });
+  }
 }
 
 bool bad_geometry(int C, int co, int blk) {
   return bad_tail_geometry(0, C, co, blk) || C / 4 > kThreads;
 }
 
-unsigned blocks(long long total) { return (unsigned)((total + kThreads - 1) / kThreads); }
+// The forward's and the apply's slab plan must cover the pixels with no
+// slab empty, and keep a slab's walk in ints.
+bool bad_plan(long long NHW, int slabs, int per) {
+  return slabs < 1 || per < 1 || per > (1 << 30) || (long long)slabs * per < NHW ||
+         (long long)(slabs - 1) * per >= NHW;
+}
+
+// The 16-byte path (V 8) of bf16 tensors: co a multiple of 8 and every
+// pointer 16-byte aligned (rows of C and C/4 bf16 then are too).
+template <typename... P>
+bool in_vectors(int co, const P*... p) {
+  return co % kVec == 0 && (((uintptr_t)p % 16 == 0) && ...);
+}
+
+template <typename T>
+constexpr bool kBf16 = std::is_same_v<T, __nv_bfloat16>;
+
+// The apply's columns in shared memory at C channels (the 16-byte path).
+int col_bytes(int C) { return C / 4 / kVec * kColPitch * (int)sizeof(float4); }
 
 template <typename T>
 cudaError_t fwd(const void* y, const float* a, const float* b, void* out, long long NHW,
-                int C, int co, int blk, cudaStream_t st) {
-  const long long total = NHW * (C / 4);
-  tail_fwd_kernel<T><<<blocks(total), kThreads, 0, st>>>((const T*)y, a, b, (T*)out, total,
-                                                         C, co, blk);
+                int C, int co, int blk, int slabs, int per, cudaStream_t st) {
+  if constexpr (kBf16<T>) {
+    if (in_vectors(co, y, out)) {
+      tail_fwd_kernel<T, kVec><<<slabs, kThreads, 0, st>>>((const T*)y, a, b, (T*)out, NHW,
+                                                           C, co, blk, per);
+      return cudaGetLastError();
+    }
+  }
+  tail_fwd_kernel<T, 1><<<slabs, kThreads, 0, st>>>((const T*)y, a, b, (T*)out, NHW, C, co,
+                                                    blk, per);
   return cudaGetLastError();
 }
 
@@ -157,24 +375,47 @@ template <typename T>
 cudaError_t bwd_apply(const void* y, const void* g, const float* a, const float* b,
                       const float* mu, const float* inv, const float* gi, const float* c1,
                       const float* c2, void* dy, long long NHW, int C, int co, int blk,
-                      cudaStream_t st) {
-  const long long total = NHW * (C / 4);
-  tail_bwd_apply_kernel<T><<<blocks(total), kThreads, 0, st>>>(
-      (const T*)y, (const T*)g, a, b, mu, inv, gi, c1, c2, (T*)dy, total, C, co, blk);
+                      int slabs, int per, cudaStream_t st) {
+  if constexpr (kBf16<T>) {
+    if (in_vectors(co, y, g, dy)) {
+      tail_bwd_apply_kernel<T, kVec><<<slabs, kThreads, col_bytes(C), st>>>(
+          (const T*)y, (const T*)g, a, b, mu, inv, gi, c1, c2, (T*)dy, NHW, C, co, blk, per);
+      return cudaGetLastError();
+    }
+  }
+  tail_bwd_apply_kernel<T, 1><<<slabs, kThreads, 0, st>>>(
+      (const T*)y, (const T*)g, a, b, mu, inv, gi, c1, c2, (T*)dy, NHW, C, co, blk, per);
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// Blocks the forward (pass 0) or the apply (pass 1) should run at C
+// channels: kWaves times those of its bf16 16-byte kernel the card holds at
+// once (0 if the device cannot be asked). The wrapper splits the pixels
+// into about this many slabs (ops/bn_tail.py::pixel_slabs).
+extern "C" int bn_tail_slots(int pass, int C) {
+  using B = __nv_bfloat16;
+  if (C < 4 || C / 4 > kThreads) return 0;
+  if (pass == 0) return kWaves * device_slots(tail_fwd_kernel<B, kVec>, 0);
+  if (pass == 1) return kWaves * device_slots(tail_bwd_apply_kernel<B, kVec>, col_bytes(C));
+  return 0;
+}
+
 // dtype: 0 = float32, 1 = bfloat16. y [N*H*W, C] of dtype, C =
-// blk*blk*co <= 1024; a, b f32 [C]; out [N*H*W, C/4] of dtype.
+// blk*blk*co <= 1024; a, b f32 [C]; out [N*H*W, C/4] of dtype; the pixels
+// in slabs of pixels_per_slab.
 extern "C" int bn_tail_fwd(int dtype, const void* y, const float* a, const float* b,
-                           void* out, long long NHW, int C, int co, int blk,
-                           void* stream) {
+                           void* out, long long NHW, int C, int co, int blk, int slabs,
+                           int pixels_per_slab, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (bad_geometry(C, co, blk)) return (int)cudaErrorInvalidValue;
-  if (dtype == 0) return (int)fwd<float>(y, a, b, out, NHW, C, co, blk, st);
-  if (dtype == 1) return (int)fwd<__nv_bfloat16>(y, a, b, out, NHW, C, co, blk, st);
+  if (bad_geometry(C, co, blk) || bad_plan(NHW, slabs, pixels_per_slab))
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return (int)fwd<float>(y, a, b, out, NHW, C, co, blk, slabs, pixels_per_slab, st);
+  if (dtype == 1)
+    return (int)fwd<__nv_bfloat16>(y, a, b, out, NHW, C, co, blk, slabs, pixels_per_slab,
+                                   st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -198,19 +439,22 @@ extern "C" int bn_tail_bwd_reduce(int dtype, const void* y, const void* g, const
   return (int)cudaErrorInvalidValue;
 }
 
-// As the reduce, plus gi, c1, c2 f32 [C]; dy [N*H*W, C] of dtype.
+// As the reduce, plus gi, c1, c2 f32 [C]; dy [N*H*W, C] of dtype; the
+// pixels in slabs as the forward's.
 extern "C" int bn_tail_bwd_apply(int dtype, const void* y, const void* g, const float* a,
                                  const float* b, const float* mu, const float* inv,
                                  const float* gi, const float* c1, const float* c2,
-                                 void* dy, long long NHW, int C, int co, int blk,
-                                 void* stream) {
+                                 void* dy, long long NHW, int C, int co, int blk, int slabs,
+                                 int pixels_per_slab, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (bad_geometry(C, co, blk)) return (int)cudaErrorInvalidValue;
+  if (bad_geometry(C, co, blk) || bad_plan(NHW, slabs, pixels_per_slab))
+    return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return (int)bwd_apply<float>(y, g, a, b, mu, inv, gi, c1, c2, dy, NHW, C, co, blk, st);
+    return (int)bwd_apply<float>(y, g, a, b, mu, inv, gi, c1, c2, dy, NHW, C, co, blk, slabs,
+                                 pixels_per_slab, st);
   if (dtype == 1)
     return (int)bwd_apply<__nv_bfloat16>(y, g, a, b, mu, inv, gi, c1, c2, dy, NHW, C, co,
-                                         blk, st);
+                                         blk, slabs, pixels_per_slab, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -42,7 +42,8 @@
 // one element a word.
 //
 // bf16 pairs take z, the max, the routing and dz in packed bf16x2
-// arithmetic (route_pair, shared by the reduce and the apply): z and g
+// arithmetic (route_pair, shared by the reduce and the apply; its parts are
+// tail_pair.cuh's, shared with the NHWC tail): z and g
 // are bf16 values and every routing weight is 0, 0.5 or 1, so each packed
 // max, comparison, sum and product is exact and equals tail_math.cuh's
 // f32 value. The apply's t and dy stay in f32 in window_dy_of's order
@@ -66,6 +67,7 @@
 #include "mma.cuh"
 #include "reduce.cuh"
 #include "tail_math.cuh"
+#include "tail_pair.cuh"
 
 namespace {
 
@@ -298,42 +300,24 @@ __device__ __forceinline__ void walk(int items, const Load& load, const Use& use
   }
 }
 
-// z of a bf16 pair: y*a + b rounded to bf16 (the mul and the add rounded
-// separately, no FMA), then the ReLU.
+// z of a bf16 pair of one channel (tail_pair.cuh's relu_pair, one a and b).
 __device__ __forceinline__ __nv_bfloat162 relu_pair(float2 yf, float a, float b) {
-  return __hmax2(__floats2bfloat162_rn(__fadd_rn(__fmul_rn(yf.x, a), b),
-                                       __fadd_rn(__fmul_rn(yf.y, a), b)),
-                 __float2bfloat162_rn(0.f));
+  return relu_pair(yf, make_float2(a, a), make_float2(b, b));
 }
 
 // The pool routing of a bf16 pair of windows in packed bf16x2: the
-// window's four y pairs yf in f32 and their dz = route(z, g) masked by
-// the ReLU, as tail_math.cuh's route computes them in f32, value for
-// value. The ReLU's mask is taken once for the window: a member whose z
-// is 0 gets a nonzero weight only where the window's max is 0, and then
-// every member is masked.
+// window's four y pairs yf in f32 and their dz (tail_pair.cuh's
+// route_z_pair).
 __device__ __forceinline__ void route_pair(const __nv_bfloat162 (&yv)[4], __nv_bfloat162 gv,
                                            const float (&ca)[4], const float (&cb)[4],
                                            float2 (&yf)[4], float2 (&dz)[4]) {
-  const __nv_bfloat162 zero = __float2bfloat162_rn(0.f), one = __float2bfloat162_rn(1.f);
-  const __nv_bfloat162 half = __float2bfloat162_rn(0.5f);
-  auto tie = [&](__nv_bfloat162 x, __nv_bfloat162 xb) {
-    return __hmul2(__hadd2(__hgt2(x, xb), __hge2(x, xb)), half);
-  };
   __nv_bfloat162 z[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     yf[i] = __bfloat1622float2(yv[i]);
     z[i] = relu_pair(yf[i], ca[i], cb[i]);
   }
-  const __nv_bfloat162 m01 = __hmax2(z[0], z[1]), m23 = __hmax2(z[2], z[3]);
-  const __nv_bfloat162 gm = __hmul2(gv, __hgt2(__hmax2(m01, m23), zero));
-  const __nv_bfloat162 w2 = tie(m01, m23), w1a = tie(z[0], z[1]), w1b = tie(z[2], z[3]);
-  const __nv_bfloat162 da = __hmul2(gm, w2), db = __hmul2(gm, __hsub2(one, w2));
-  dz[0] = __bfloat1622float2(__hmul2(da, w1a));
-  dz[1] = __bfloat1622float2(__hmul2(da, __hsub2(one, w1a)));
-  dz[2] = __bfloat1622float2(__hmul2(db, w1b));
-  dz[3] = __bfloat1622float2(__hmul2(db, __hsub2(one, w1b)));
+  route_z_pair(z, gv, dz);
 }
 
 // The forward of one item: out = the max of the window's four z, V
@@ -410,13 +394,6 @@ __device__ __forceinline__ void add_item<__nv_bfloat16, 2, __nv_bfloat162>(
   }
 }
 
-// The window's seven columns (a, b, mu, inv, gi, c1, c2 at its four
-// channels) held in registers, read as window_dy_of reads them.
-struct RegCols {
-  const float (&col)[7][4];
-  __device__ __forceinline__ float operator()(int k, int i) const { return col[k][i]; }
-};
-
 // The apply pass of one item: dy of the window's four channels, V
 // elements each, by tail_math.cuh's window_dy_of.
 template <typename T, int V, typename VT>
@@ -445,9 +422,7 @@ __device__ __forceinline__ void dy_item<__nv_bfloat16, 2, __nv_bfloat162>(
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     auto dy1 = [&](float y, float z) {
-      const float t = __fmul_rn(__fsub_rn(y, col[2][i]), col[3][i]);
-      const float v = __fsub_rn(__fsub_rn(z, col[5][i]), __fmul_rn(t, col[6][i]));
-      return __fmul_rn(col[4][i], v);
+      return dy_of(y, z, col[2][i], col[3][i], col[4][i], col[5][i], col[6][i]);
     };
     d[i] = __floats2bfloat162_rn(dy1(yf[i].x, dz[i].x), dy1(yf[i].y, dz[i].y));
   }

@@ -24,6 +24,7 @@ There is no fallback between the two.
 from __future__ import annotations
 
 import ctypes
+import functools
 from collections import Counter
 
 import torch
@@ -35,6 +36,7 @@ from tpu_sandbox_torch.ops.bn_tail_t import (
     bwd_scales,
     col_expand,
 )
+from tpu_sandbox_torch.ops.conv_t import wgrad_slabs
 
 #: launches of the CUDA kernels, by pass and shape ("bn_tail fwd C256
 #: CO16", "bn_tail bwd_reduce C128 CO32", "bn_tail bwd_apply C256 CO16");
@@ -46,20 +48,33 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 
+#: the ctypes argument kinds of the library's C entry points (each returns
+#: an int), in the order of csrc/bn_tail.cu's signatures: the dtype, the
+#: tensors' pointers, N*H*W, C, co, blk, the forward's and the apply's slab
+#: plan, the stream
+ARGTYPES = {
+    "bn_tail_slots": [_I, _I],
+    "bn_tail_fwd": [_I] + [_P] * 4 + [_L] + [_I] * 5 + [_P],
+    "bn_tail_reduce_slabs": [_L],
+    "bn_tail_bwd_reduce": [_I] + [_P] * 8 + [_L] + [_I] * 3 + [_P],
+    "bn_tail_bwd_apply": [_I] + [_P] * 10 + [_L] + [_I] * 5 + [_P],
+}
+#: each planned pass's index in ``bn_tail_slots``
+_PASSES = {"fwd": 0, "bwd_apply": 1}
+#: a forward or apply slab is a whole number of runs of this many pixels:
+#: a block's rounds of 256 // G pixels (G groups of channels a pixel) then
+#: all fill but the slab's last wherever G is a power of two (8 and 4 on
+#: the main path)
+SLAB_QUANTUM = 256
+
 
 def _lib() -> ctypes.CDLL:
     lib = build.load("bn_tail")
     if not getattr(lib, "_bound", False):
-        lib.bn_tail_fwd.argtypes = [_I, _P, _P, _P, _P, _L, _I, _I, _I, _P]
-        lib.bn_tail_fwd.restype = _I
-        lib.bn_tail_reduce_slabs.argtypes = [_L]
-        lib.bn_tail_reduce_slabs.restype = _I
-        lib.bn_tail_bwd_reduce.argtypes = [
-            _I, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P]
-        lib.bn_tail_bwd_reduce.restype = _I
-        lib.bn_tail_bwd_apply.argtypes = [
-            _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P]
-        lib.bn_tail_bwd_apply.restype = _I
+        for name, argtypes in ARGTYPES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = _I
         lib._bound = True
     return lib
 
@@ -167,14 +182,44 @@ def _cuda_operands(what: str, y: torch.Tensor, g: torch.Tensor | None,
                              f"[{c}] on {y.device}")
 
 
-def _launch(fn_name: str, y: torch.Tensor, *ptrs, co: int, blk: int) -> None:
+def pixel_slabs(pixels: int, slots: int) -> tuple[int, int]:
+    """(slabs, pixels_per_slab) of the forward and the apply: one block a
+    slab of whole SLAB_QUANTUM-pixel runs, about ``slots`` slabs (the
+    blocks the library asks for), every pixel in one slab and every slab
+    non-empty."""
+    runs = max(1, -(-pixels // SLAB_QUANTUM))
+    _, per = wgrad_slabs(runs, 1, slots)
+    per *= SLAB_QUANTUM
+    return max(1, -(-pixels // per)), per
+
+
+@functools.lru_cache(maxsize=None)
+def _slots(device_index: int, what: str, c: int) -> int:
+    """The blocks the library asks for the pass at C channels on a card: a
+    property of the card and the kernel, asked once, off the launch's
+    path."""
+    with torch.cuda.device(device_index):
+        slots = _lib().bn_tail_slots(_PASSES[what], c)
+    if slots <= 0:
+        raise RuntimeError(f"bn_tail {what}: the card's block count could "
+                           "not be asked")
+    return slots
+
+
+def _slab_plan(what: str, y: torch.Tensor) -> tuple[int, int]:
+    n, h, w, c = y.shape
+    return pixel_slabs(n * h * w, _slots(y.device.index, what, c))
+
+
+def _launch(fn_name: str, y: torch.Tensor, *ptrs, co: int, blk: int,
+            plan: tuple[int, ...] = ()) -> None:
     lib = _lib()
     n, h, w, c = y.shape
     with torch.cuda.device(y.device):
         stream = torch.cuda.current_stream(y.device).cuda_stream
         err = getattr(lib, fn_name)(_DTYPES[y.dtype], y.data_ptr(),
                                     *[p.data_ptr() for p in ptrs], n * h * w,
-                                    c, co, blk, stream)
+                                    c, co, blk, *plan, stream)
     build.check(lib, err, fn_name)
 
 
@@ -188,7 +233,8 @@ def tail_fwd(y: torch.Tensor, a: torch.Tensor, b: torch.Tensor, co: int,
     _cuda_operands("bn_tail fwd", y, None, (a, b))
     n, h, w, c = y.shape
     out = torch.empty((n, h, w, c // 4), dtype=y.dtype, device=y.device)
-    _launch("bn_tail_fwd", y, a, b, out, co=co, blk=blk)
+    _launch("bn_tail_fwd", y, a, b, out, co=co, blk=blk,
+            plan=_slab_plan("fwd", y))
     LAUNCHES[f"bn_tail fwd C{c} CO{co}"] += 1
     return out
 
@@ -227,7 +273,7 @@ def bwd_apply(y, g, co: int, blk: int, a, b, mu, inv, gi, c1,
     c = y.shape[3]
     dy = torch.empty_like(y)
     _launch("bn_tail_bwd_apply", y, g, a, b, mu_v, inv_v, gi, c1, c2, dy,
-            co=co, blk=blk)
+            co=co, blk=blk, plan=_slab_plan("bwd_apply", y))
     LAUNCHES[f"bn_tail bwd_apply C{c} CO{co}"] += 1
     return dy
 
