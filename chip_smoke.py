@@ -18,7 +18,10 @@ card or when the port is not beside it. Phases, one JSON line each:
    the fused BN tail passes and the fused conv1+tail wgrad, which no
    single call computes) and the least time the H100 could take (bytes
    over 3.35 TB/s or operations over the peak rate of their type, 989
-   TFLOP/s bf16 or 67 TFLOP/s f32, whichever is larger). Every reducing
+   TFLOP/s bf16 or 67 TFLOP/s f32, whichever is larger). The BN tail
+   passes and the fc input gradient also give their time a call over 20
+   calls launched back to back (ms_back_to_back: the wrapper's host work
+   hidden behind the device's). Every reducing
    kernel, and every BN tail pass, runs twice and must be bitwise equal.
    The fused conv1+tail wgrad is also held against the two kernels it
    replaces (the tail's apply pass, then the sparse conv1 wgrad). Then
@@ -66,7 +69,10 @@ card or when the port is not beside it. Phases, one JSON line each:
    (TAIL_REDUCE_RAGGED), each two runs bitwise equal; the NHWC tail's
    three passes the same way, at 1575 and 700 pixels (the last slab of
    the forward and the apply partly empty) and at an odd element, in
-   fp32 and bf16.
+   fp32 and bf16; the NHWC reduce alone at its slab edges and at 1, 3, 4,
+   8 and 32 groups a pixel (NHWC_REDUCE_RAGGED), the fc input gradient at
+   N 1, 5, 8 and 9 and K 3 and 10, off and past a wave of blocks
+   (FC_RAGGED_NK, FC_RAGGED_SHAPES).
 4. main_path: tpu_sandbox_torch.mnist_onegpu's own train function at
    3000x3000, batch 5, bf16, synthetic MNIST, 5 steps, on the card's
    default plan (the sparse conv1, the fused BN tails and the fused
@@ -233,6 +239,24 @@ NHWC_WGRAD_RAGGED = ((1, 3, 65, 16, 256), (140, 1, 65, 64, 128),
 #: two runs bitwise equal
 TAIL_REDUCE_RAGGED = ((3, 7, 75), (2, 5, 70))
 TAIL_REDUCE_KINDS = ((16, 4), (32, 2), (8, 2), (4, 4))
+#: the NHWC reduce's slab and walk edges (N, H, W): 69169 pixels (more
+#: 256-pixel runs than the card's blocks: slabs of several runs, the last
+#: one's last round partly filled, 69169 not a multiple of any round) and
+#: 33 (one slab, one round and a pixel); at the main path's kinds (co 16
+#: blk 4, co 32 blk 2: 8 and 4 groups a pixel), co 8 blk 2 (1 group: the
+#: butterfly over all five lane bits), co 64 blk 4 (C 1024, 32 groups: no
+#: butterfly) and co 24 blk 2 (3 groups: the general path); each in bf16
+#: and fp32 and with y and g at an odd element (the general path, against
+#: the 16-byte path on the same values), two runs bitwise equal
+NHWC_REDUCE_RAGGED = ((1, 263, 263), (1, 3, 11))
+NHWC_REDUCE_KINDS = ((16, 4), (32, 2), (8, 2), (64, 4), (24, 2))
+#: the fc input gradient's ragged cases: batch N and classes K on both
+#: sides of its specialised body (K 10, N <= 8), wT [K, H, C, W] of one
+#: partial block and of more blocks than the card holds at once (720,000
+#: features: 352 blocks of 256 bf16 vectors, the last one part full)
+FC_RAGGED_NK = ((1, 3), (1, 10), (5, 3), (5, 10), (8, 3), (8, 10), (9, 3),
+                (9, 10))
+FC_RAGGED_SHAPES = ((3, 8, 7), (150, 32, 150))
 #: the transposed conv's ragged (N, H, W): W 70 and the odd W 75 (rows of
 #: 150 bytes, 2-byte aligned), N*H 10, 21 and 3 (off every slab and unit
 #: count); each at (C, CO) 64->128 and 16->24 (fwd, stats, wgrad) and the
@@ -297,6 +321,16 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def back_to_back_ms(fn, calls: int = 20) -> float:
+    """Per call, the median of 5 CUDA-event timings of ``calls`` calls of
+    ``fn`` launched back to back: the device's time with the wrapper's host
+    work hidden behind the device's, which cuda_ms's single calls expose."""
+    def run():
+        for _ in range(calls):
+            fn()
+    return cuda_ms(run, reps=5) / calls
 
 
 def nbytes(*ts) -> int:
@@ -609,6 +643,7 @@ def phase_kernels(conv_t, fc_t, bn_tail_t, conv5_t, conv1_tail_t, conv,
             rec[dt_name] = compare(got, want, dt_name, name)
             del got, want
         ms = cuda_ms(lambda: fc_t.fc_dgrad_t(g, wt, wt.dtype))
+        ms_b2b = back_to_back_ms(lambda: fc_t.fc_dgrad_t(g, wt, wt.dtype))
         plain_ms = cuda_ms(lambda: fc_t.fc_dgrad_t_plain(g, wt, wt.dtype),
                            reps=5)
         gb = g.to(wt.dtype)
@@ -618,7 +653,7 @@ def phase_kernels(conv_t, fc_t, bn_tail_t, conv5_t, conv1_tail_t, conv,
         record(name, FC_SRC, "tpu_sandbox/ops/pallas_fc_t.py:63", rec,
                ms, plain_ms, library_ms,
                flops=2.0 * n * 10 * wt[0].numel(),
-               bytes_=nbytes(g, wt) + dy_bytes)
+               bytes_=nbytes(g, wt) + dy_bytes, ms_back_to_back=ms_b2b)
 
     def tail(c, co, blk, nhwc=False):
         """One tail's three passes in the transposed layout (ops.bn_tail_t)
@@ -673,7 +708,8 @@ def phase_kernels(conv_t, fc_t, bn_tail_t, conv5_t, conv1_tail_t, conv,
                    flops=TAIL_OPS[p] * y.numel(), bytes_=bytes_,
                    peak=PEAK_F32_FLOPS,
                    library_note="no single PyTorch call computes this "
-                                "fused pass")
+                                "fused pass",
+                   ms_back_to_back=back_to_back_ms(kernel))
         del y, g, args, runs
         torch.cuda.empty_cache()
 
@@ -931,6 +967,15 @@ def phase_ragged(conv_t, fc_t, bn_tail_t, conv5_t, conv1_tail_t, conv,
         out[f"fc dgrad {dt_name}"] = compare(
             fc_t.fc_dgrad_t(gf, w4, dt),
             fc_t.fc_dgrad_t_plain(gf, w4, dt), dt_name, "ragged fc dgrad")
+        for (fn_, fk), shape in ((nk, sh) for nk in FC_RAGGED_NK
+                                 for sh in FC_RAGGED_SHAPES):
+            what = f"fc dgrad n{fn_} k{fk} {'x'.join(map(str, shape))}"
+            gf = torch.randn((fn_, fk), generator=gen, device="cuda")
+            w4 = torch.randn((fk, *shape), generator=gen,
+                             device="cuda").to(dt)
+            out[f"{what} {dt_name}"] = compare(
+                fc_t.fc_dgrad_t(gf, w4, dt),
+                fc_t.fc_dgrad_t_plain(gf, w4, dt), dt_name, f"ragged {what}")
         for co in (24, 80):
             x, wt, b = _conv_case(gen, 2, 5, 16, 70, co, dt)
             got = conv_t.conv3x3_t_stats_forward(x, wt, b)
@@ -986,6 +1031,9 @@ def phase_ragged(conv_t, fc_t, bn_tail_t, conv5_t, conv1_tail_t, conv,
                                            dt, nhwc=True))
         out.update(_tail_passes_ragged(bn_tail, gen, *TAIL_REDUCE_RAGGED[1],
                                        dt_name, dt, odd=True, nhwc=True))
+        for n, h, w in NHWC_REDUCE_RAGGED:
+            out.update(_nhwc_reduce_ragged(bn_tail, gen, n, h, w, dt_name,
+                                           dt))
     out["tie"] = _tie_case(bn_tail_t, gen)
     out["nhwc tie"] = _tie_case(bn_tail, gen, nhwc=True)
     torch.cuda.synchronize()
@@ -1125,6 +1173,29 @@ def _tail_passes_ragged(bn_tail_t, gen, n, h, w, dt_name, dt, *,
             f"ragged {what}")
         require_repeatable(got, lambda: (bn_tail_t.bwd_apply(*args, *cols),),
                            f"ragged {what} {dt_name}")
+    return out
+
+
+def _nhwc_reduce_ragged(bn_tail, gen, n, h, w, dt_name, dt) -> dict:
+    """The NHWC reduce at one NHWC_REDUCE_RAGGED shape, for each
+    NHWC_REDUCE_KINDS, as laid out and at an odd element, against its
+    plain version, two runs bitwise equal."""
+    out = {}
+    for co, blk in NHWC_REDUCE_KINDS:
+        y, g, _, _, vecs, _ = _tail_case(bn_tail, gen, n, h, blk * blk * co,
+                                         co, blk, w, dt, nhwc=True)
+        for at in ("", " odd"):
+            if at:
+                y, g = _at_odd_element(y), _at_odd_element(g)
+            args = (y, g, co, blk, *vecs)
+            what = f"nhwc reduce n{n} h{h} w{w}{at} co{co} blk{blk}"
+            got = bn_tail.bwd_reduce(*args)
+            want = bn_tail.bwd_reduce_plain(*args)
+            for i, part in enumerate(("s1", "s2")):
+                out[f"{what} {part} {dt_name}"] = compare(
+                    got[i], want[i], dt_name, f"ragged {what} {part}")
+            require_repeatable(got, lambda: bn_tail.bwd_reduce(*args),
+                               f"ragged {what} {dt_name}")
     return out
 
 

@@ -6,10 +6,10 @@ path cannot take, in fp32 and bf16: the pooled output, mu and var; dy,
 dgamma and dbeta (the reduce pass's s2 and s1); the bf16 tie case; the
 ysums path; and unfused_reference. On the CPU the port runs its kernels'
 plain PyTorch versions; the kernels are held against those on the card
-by chip_smoke.py. Here too: a Python mirror of the forward's and the
-apply's walk in csrc/bn_tail.cu (which thread takes which pixel and
-channels, and where its accesses fall), the host's slab plan, and the
-ctypes signatures against the C ones."""
+by chip_smoke.py. Here too: a Python mirror of the passes' walk in
+csrc/bn_tail.cu (which thread takes which pixel and channels, and where
+its accesses fall) and of the reduce's fixed-order combine of its sums,
+the host's slab plan, and the ctypes signatures against the C ones."""
 
 import ctypes
 import re
@@ -241,7 +241,7 @@ def test_bad_geometry_raises():
     (2812500, 264), (2812500, 528), (2812500, 792), (2812500, 1056),
     (1575, 528), (700, 528), (3000, 4), (256, 528), (257, 2), (1, 528)])
 def test_pixel_slabs_cover_every_pixel_once(pixels, slots):
-    """The forward's and the apply's slab plan (``pixel_slabs``): slab s
+    """Every pass's slab plan (``pixel_slabs``): slab s
     takes pixels [s*per, (s+1)*per), every pixel once, every slab
     non-empty, whole SLAB_QUANTUM runs a slab, and no more slabs than the
     blocks the library asks for (or one where there are fewer runs)."""
@@ -269,8 +269,8 @@ def _vector_path(esize, co, *addrs):
 
 
 def _walk(pixels, c, v, slabs, per):
-    """(block, round, thread, pixel, group) of every item of the forward's
-    and the apply's walk (Groups<V> of csrc/bn_tail.cu), in order: block b
+    """(block, round, thread, pixel, group) of every item of a pass's walk
+    (Groups<V> of csrc/bn_tail.cu), in order: block b
     takes pixels [b*per, b*per + n); thread t takes group t % G of the
     pixels q = t // G, q + PB, ... of them (G = C/4/V groups a pixel, PB =
     256 // G pixels a round); threads from PB*G on take none."""
@@ -364,3 +364,120 @@ def test_ctypes_argtypes_match_the_c_signatures():
     assert set(sigs) == set(bn_tail.ARGTYPES)
     for name, kinds in sigs.items():
         assert bn_tail.ARGTYPES[name] == [_C_KINDS[k] for k in kinds], name
+
+
+def _reduce_vector_path(esize, co, c, *addrs):
+    """csrc/bn_tail.cu's choice of the reduce's 16-byte path (V 8): the
+    forward's and the apply's, and G = C/32 groups a pixel a power of two,
+    so that a group's threads in a warp are the lanes of a butterfly."""
+    return _vector_path(esize, co, *addrs) and 32 % (c // 32) == 0
+
+
+def _reduce_row(x, p0, n, c, co, blk, v):
+    """The partial row of the slab [p0, p0 + n) as tail_bwd_reduce_kernel
+    adds it, f32 [C, 2] from the per-(pixel, channel) terms x [pixels, C,
+    2] (dz and dz*t_hat): each thread's pixels in walk order; with V 8 the
+    lane butterfly of a group's threads, then the warps in order; with V 1
+    the PB threads of a window in order. Also asserts that the butterfly
+    leaves every lane of a group the same bits."""
+    groups = c // 4 // v
+    pb = 256 // groups
+    threads = np.arange(pb * groups)
+    chans = np.array([[s + e for s in _window(grp * v, co, blk)
+                       for e in range(v)] for grp in range(groups)])
+    assert sorted(chans.ravel()) == list(range(c))
+    ch_t = chans[threads % groups]
+    q = threads // groups
+    acc = np.zeros((len(threads), 4 * v, 2), np.float32)
+    for rnd in range(-(-n // pb)):
+        j = q + rnd * pb
+        live = j < n
+        acc[live] = acc[live] + x[p0 + j[live][:, None], ch_t[live]]
+    row = np.zeros((c, 2), np.float32)
+    if v > 1:
+        acc = acc.reshape(8, 32, 4 * v, 2)
+        lanes = np.arange(32)
+        m = groups
+        while m < 32:
+            acc = acc + acc[:, lanes ^ m]
+            m *= 2
+        assert np.array_equal(acc, acc[:, lanes % groups])
+        for w in range(8):
+            for lane in range(groups):
+                row[chans[lane]] = (acc[w, lane] if w == 0
+                                    else row[chans[lane]] + acc[w, lane])
+    else:
+        s = np.zeros((groups, 4, 2), np.float32)
+        for r in range(pb):
+            s = s + acc[r * groups:(r + 1) * groups]
+        row[chans] = s
+    return row
+
+
+def _reduce_partials(part):
+    """reduce.cuh's reduce_partials: 32 runs of rows, each added in order,
+    then the 32 run sums in order."""
+    rows = part.shape[0]
+    per = -(-rows // 32)
+    runs = []
+    for r in range(32):
+        s = np.zeros(part.shape[1:], np.float32)
+        for k in range(r * per, min(rows, r * per + per)):
+            s = s + part[k]
+        runs.append(s)
+    out = np.zeros(part.shape[1:], np.float32)
+    for s in runs:
+        out = out + s
+    return out
+
+
+@pytest.mark.parametrize("pixels,co,blk,esize,odd,slots", [
+    # the main path's kinds (bn1 G 8, bn2 G 4) with several 256-pixel runs
+    # a slab and a last round partly filled, and at chip_smoke.py's ragged
+    # pixel counts
+    (3000, 16, 4, 2, False, 4), (3000, 32, 2, 2, False, 4),
+    (1575, 16, 4, 2, False, 264), (700, 32, 2, 2, False, 264),
+    # G 1 (the butterfly over all five lane bits), G 32 (none: C 1024),
+    # G 3 (not a power of two: the general path), co 4, fp32 and y and g at
+    # an odd element (the general path)
+    (700, 8, 2, 2, False, 264), (300, 64, 4, 2, False, 264),
+    (700, 24, 2, 2, False, 264), (700, 4, 4, 2, False, 264),
+    (700, 16, 4, 4, False, 264), (1575, 32, 2, 2, True, 264)])
+def test_reduce_walk_takes_every_window_once_and_combines_in_a_fixed_order(
+        pixels, co, blk, esize, odd, slots):
+    """The reduce's slab plan and walk (Groups<V>, the same as the
+    forward's) take each (pixel, pooled channel) once; on the 16-byte path
+    every y and g load is 16 bytes on a 16-byte boundary. Its sums: a
+    block's partial row depends on its own slab's pixels only, and the
+    order of every addition is fixed by the lane, warp and slab indices,
+    so two runs with the blocks in other orders give the same bits, within
+    1e-5 of the exact sums."""
+    c = blk * blk * co
+    cout = c // 4
+    y0 = 4096 + (esize if odd else 0)
+    g0 = (1 << 30) + (esize if odd else 0)
+    vec = _reduce_vector_path(esize, co, c, y0, g0)
+    assert vec == (esize == 2 and co % 8 == 0 and not odd and co != 24)
+    v = 8 if vec else 1
+    slabs, per = bn_tail.pixel_slabs(pixels, slots)
+    taken = Counter()
+    for _, _, _, p, grp in _walk(pixels, c, v, slabs, per):
+        taken.update((p, o) for o in range(grp * v, grp * v + v))
+        if vec:
+            starts = _window(grp * v, co, blk)
+            assert all((y0 + (p * c + s) * esize) % 16 == 0 for s in starts)
+            assert (g0 + (p * cout + grp * v) * esize) % 16 == 0
+    assert taken == Counter((p, o) for p in range(pixels) for o in range(cout))
+    x = np.random.default_rng(11).standard_normal(
+        (pixels, c, 2)).astype(np.float32)
+    sums = []
+    for order in (range(slabs), reversed(range(slabs))):
+        part = np.full((slabs, c, 2), np.nan, np.float32)
+        for s in order:
+            part[s] = _reduce_row(x, s * per, min(per, pixels - s * per), c,
+                                  co, blk, v)
+        sums.append(_reduce_partials(part))
+    assert np.array_equal(sums[0], sums[1])
+    want = x.astype(np.float64).sum(axis=0)
+    np.testing.assert_allclose(sums[0], want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())

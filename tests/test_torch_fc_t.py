@@ -1,8 +1,9 @@
 """The port's fc head (tpu_sandbox_torch/ops/fc_t.py) == the JAX fc_t
 with its Pallas input-grad kernel (interpret mode): the forward and all
 three cotangents (dy, dkernel, db), in fp32 and bf16, and fc_dgrad_t
-alone. On the CPU the port runs the plain version of its kernel; the
-kernel is held against it on the card by chip_smoke.py."""
+alone at N 1, 5 and 9 and K 3 and 10. On the CPU the port runs the plain
+version of its kernel; the kernel is held against it on the card by
+chip_smoke.py."""
 
 import jax
 import jax.numpy as jnp
@@ -63,12 +64,17 @@ def test_forward_and_grads_match_jax(dt):
     _close(tb.grad, jdb, 1e-5, "db")
 
 
+@pytest.mark.parametrize("n,k", [(1, 3), (1, 10), (5, 3), (5, 10), (9, 3),
+                                 (9, 10)])
 @pytest.mark.parametrize("dt", ["fp32", "bf16"])
-def test_dgrad_alone_matches_jax(dt):
+def test_dgrad_alone_matches_jax(dt, n, k):
+    """The input gradient alone at batch sizes and class counts on both
+    sides of the kernel's specialised body (K 10, N <= 8: the main path's
+    5 x 10) and its general one."""
     rng = np.random.default_rng(2)
     jd, td = DTYPES[dt]
-    g = rng.standard_normal((5, 10)).astype(np.float32)
-    wt = rng.standard_normal((10, 6, 8, 16)).astype(np.float32)
+    g = rng.standard_normal((n, k)).astype(np.float32)
+    wt = rng.standard_normal((k, 6, 8, 16)).astype(np.float32)
     want = jax.jit(jax_fc_dgrad_t, static_argnums=2)(
         jnp.asarray(g), jnp.asarray(wt, jd), jd)
     got = fc_t.fc_dgrad_t(torch.from_numpy(g), torch.from_numpy(wt).to(td), td)

@@ -21,13 +21,13 @@
 //   fwd    y + out       1.80 / 0.90 GB -> 0.537 / 0.269 ms
 //   reduce y + g         1.80 / 0.90 GB -> 0.537 / 0.269 ms
 //   apply  y + g + dy    3.24 / 1.62 GB -> 0.967 / 0.484 ms
-// So the forward and the apply have to keep enough loads in flight, spend
-// few instructions a byte, and fill whole 32-byte sectors with each warp's
-// accesses.
+// So all three have to keep enough loads in flight, spend few instructions
+// a byte, and fill whole 32-byte sectors with each warp's accesses.
 //
-// The forward's and the apply's walk: a block takes a slab of whole
+// The walk, shared by the three passes: a block takes a slab of whole
 // pixels, sized on the host (ops/bn_tail.py::pixel_slabs) to about kWaves
-// waves of the blocks the card holds (bn_tail_slots). Thread t owns group
+// (the reduce: kRedWaves) waves of the blocks the card holds
+// (bn_tail_slots). Thread t owns group
 // g = t % G of the pixels t / G, t / G + PB, ... of its slab: a group is V
 // consecutive pooled channels o = g*V .. g*V + V-1 of one (a1, b1) block,
 // whose window members are four runs of V consecutive channels of y; G =
@@ -41,25 +41,28 @@
 // the pooled cotangent one more, and each output run one 16-byte store;
 // the G threads of a pixel read its row of y in whole sectors and a warp's
 // stores fill whole sectors. The pool and the routing run in packed bf16x2
-// (tail_pair.cuh, exact), t and dy in f32 in window_dy_of's order, so out
-// and dy are those of tail_math.cuh's f32 functions bit for bit. The
+// (tail_pair.cuh, exact), t and dy in f32 in window_dy_of's order, so out,
+// dz and dy are those of tail_math.cuh's f32 functions bit for bit. The
 // forward holds a and b of its 32 channels in registers; the apply's seven
-// columns of them do not fit and sit in shared memory, a group's in the
-// order its thread reads them (float4; groups kColPitch apart, so a
-// quarter-warp's reads hit distinct banks). Everything else (fp32, co not
-// a multiple of 8, a tensor that starts off 16 bytes) takes V 1: one
-// window a thread, one element a word through tail_math.cuh's functions,
-// columns in registers. Pixels that do not fill a slab's last round are
-// masked. No division per element: a pixel's offset is a multiply.
+// columns and the reduce's four do not fit beside their work (the reduce
+// keeps s1 and s2 of its 32 channels, 64 f32 registers) and sit in shared
+// memory, a group's in the order its thread reads them (float4; groups
+// kColPitch or kRedPitch apart, so a quarter-warp's reads hit distinct
+// banks). Everything else (fp32, co not a multiple of 8, a tensor that
+// starts off 16 bytes) takes V 1: one window a thread, one element a word
+// through tail_math.cuh's functions, columns in registers. Pixels that do
+// not fill a slab's last round are masked. No division per element: a
+// pixel's offset is a multiply.
 //
-// The reduce: a thread owns one window (output channel o) of every
-// (256/Cout)-th pixel of a slab of kSlabPixels, keeps its sums in
-// registers, combines the threads of a window in a fixed order in shared
-// memory and writes one partial per slab; reduce_partials (reduce.cuh)
-// adds the partials in a fixed order. No float atomics: two runs of any
-// pass are bitwise equal. Left for later: the reduce's own walk (scalar
-// loads, one window a thread), and fusing it with the apply (y and g read
-// once for both).
+// The reduce's sums: a thread adds its pixels in walk order; on the
+// 16-byte path (G also a power of two, so a warp holds 32/G whole pixels)
+// a group's threads in a warp, lanes l ^ G, l ^ 2G, ..., combine by a
+// shuffle butterfly, then the warps in warp order in shared memory; with
+// V 1 a window's PB threads combine in order in shared memory. Each block
+// writes one partial row; reduce_partials (reduce.cuh) adds the rows in a
+// fixed order. No float atomics: two runs of any pass are bitwise equal.
+// Left for later: fusing the reduce with the apply (y and g read once for
+// both).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -77,18 +80,23 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kSlabPixels = 2048;   // pixels per block of the reduce
-constexpr int kWaves = 2;           // the forward's and the apply's blocks: twice those resident
+// the forward's and the apply's blocks: twice those resident; the
+// reduce's: those resident (each block ends in a combine of its sums)
+constexpr int kWaves = 2, kRedWaves = 1;
 constexpr int kVec = 8;             // bf16 channels in one 16-byte access
-// blocks an SM the forward and the apply are built for (65536 / (256 n)
-// registers a thread)
-constexpr int kFwdMinBlocks = 2, kApplyMinBlocks = 2;
+// blocks an SM the passes are built for (65536 / (256 n) registers a
+// thread)
+constexpr int kFwdMinBlocks = 2, kApplyMinBlocks = 2, kReduceMinBlocks = 2;
 // the apply's columns a group in shared memory: seven columns at its four
 // runs of 8 channels as float4 (slot (h*4 + i)*7 + k: column k at channels
 // ch[i] + 4h .. + 3), one pad so that the groups start in other banks
 constexpr int kColSlots = 7 * 8, kColPitch = kColSlots + 1;
+// the reduce's columns a group in shared memory: four columns at its four
+// runs of 8 channels as float4 pairs (slot (w*4 + i)*2 + h: (a, b) at h 0,
+// (mu, inv) at h 1, each of channels ch[i] + 2w, + 2w + 1), one pad
+constexpr int kRedSlots = 4 * 8, kRedPitch = kRedSlots + 1;
 
-// A block's share of the forward or the apply: pixels [p0, p0 + n) of y
+// A block's share of a pass: pixels [p0, p0 + n) of y
 // [NHW, C] and of the pooled [NHW, C/4]. Thread t takes group g = t % G
 // (pooled channels g*V .. g*V + V-1; ch the first channel of each window
 // member's run) of the pixels q = t / G, q + PB, ... (walk); threads from
@@ -192,48 +200,127 @@ tail_fwd_kernel(const T* __restrict__ y, const float* __restrict__ a,
   }
 }
 
-// grid (slabs); thread t owns window o = t % Cout of every (256/Cout)-th
-// pixel of the slab; part f32 [slabs, 2*C] (s1 then s2 per channel).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+// grid (slabs), per pixels a slab; a and b are columns of C, mu and inv of
+// co (channel c reads element c % co); part f32 [slabs, 2*C] (s1 then s2
+// per channel), one row a block. Dynamic shared memory: reduce_bytes(V, C).
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads, kReduceMinBlocks)
 tail_bwd_reduce_kernel(const T* __restrict__ y, const T* __restrict__ g,
                        const float* __restrict__ a, const float* __restrict__ b,
                        const float* __restrict__ mu, const float* __restrict__ inv,
-                       float* __restrict__ part, long long NHW, int C, int co, int blk) {
-  __shared__ float red[8][kThreads];
-  const int tid = threadIdx.x;
-  const int Cout = C / 4, lanes = kThreads / Cout;    // pixels in flight
-  const int o = tid % Cout, q = tid / Cout;
-  int ch[4];
-  window(o, co, blk, ch);
-  float s1[4] = {0.f, 0.f, 0.f, 0.f}, s2[4] = {0.f, 0.f, 0.f, 0.f};
-  if (q < lanes) {
-    const long long p_end = min(NHW, (long long)(blockIdx.x + 1) * kSlabPixels);
-    for (long long p = (long long)blockIdx.x * kSlabPixels + q; p < p_end; p += lanes) {
+                       float* __restrict__ part, long long NHW, int C, int co, int blk,
+                       int per) {
+  const Groups<V> s(NHW, C, co, blk, per);
+  extern __shared__ float4 sm[];
+  float* out = part + (size_t)blockIdx.x * 2 * C;
+  if constexpr (V == kVec) {
+    // the columns a group: at word w and member i, (a, a', b, b') then
+    // (mu, mu', inv, inv') of channels ch[i] + 2w, + 2w + 1
+    for (int e = threadIdx.x; e < s.G * kRedSlots; e += kThreads) {
+      const int grp = e / kRedSlots, slot = e % kRedSlots;
+      int ch[4];
+      window(grp * V, co, blk, ch);
+      // channel c's mu and inv at k = c % co (k + 1 < co: co a multiple of 8)
+      const int c = ch[slot / 2 % 4] + 2 * (slot / 8), k = c % co;
+      sm[grp * kRedPitch + slot] = slot % 2
+                                       ? make_float4(mu[k], mu[k + 1], inv[k], inv[k + 1])
+                                       : make_float4(a[c], a[c + 1], b[c], b[c + 1]);
+    }
+    __syncthreads();
+    const float4* col = sm + s.g * kRedPitch;
+    // the sums of member i's channel ch[i] + e
+    float s1[4][V] = {}, s2[4][V] = {};
+    s.walk([&](int j) {
+      const T* yp = y + s.y_at(j);
+      uint4 yv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) yv[i] = load16(yp + s.ch[i]);
+      const uint4 gv = load16(g + s.p_at(j));
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+        __nv_bfloat162 z[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float4 ab = col[(w * 4 + i) * 2];
+          z[i] = relu_pair(__bfloat1622float2(word(yv[i], w)), make_float2(ab.x, ab.y),
+                           make_float2(ab.z, ab.w));
+        }
+        float2 dz[4];
+        route_z_pair(z, word(gv, w), dz);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float4 m = col[(w * 4 + i) * 2 + 1];
+          const float2 yf = __bfloat1622float2(word(yv[i], w));
+          const float tx = __fmul_rn(__fsub_rn(yf.x, m.x), m.z);
+          const float ty = __fmul_rn(__fsub_rn(yf.y, m.y), m.w);
+          s1[i][2 * w] += dz[i].x;
+          s2[i][2 * w] += dz[i].x * tx;
+          s1[i][2 * w + 1] += dz[i].y;
+          s2[i][2 * w + 1] += dz[i].y * ty;
+        }
+      }
+    });
+    // a group's partners in the warp are lanes l ^ G, l ^ 2G, ...: a
+    // butterfly over those lane bits, then the warps in order
+    for (int m = s.G; m < 32; m *= 2)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          s1[i][e] += __shfl_xor_sync(0xffffffffu, s1[i][e], m);
+          s2[i][e] += __shfl_xor_sync(0xffffffffu, s2[i][e], m);
+        }
+    float* red = reinterpret_cast<float*>(sm + s.G * kRedPitch);
+    const int warp = threadIdx.x / 32;
+    for (int w = 0; w < kThreads / 32; ++w) {
+      if (warp == w && threadIdx.x % 32 < s.G) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int e = 0; e < V; ++e) {
+            const int c = s.ch[i] + e;
+            red[c] = w ? red[c] + s1[i][e] : s1[i][e];
+            red[C + c] = w ? red[C + c] + s2[i][e] : s2[i][e];
+          }
+      }
+      __syncthreads();
+    }
+    for (int c = threadIdx.x; c < 2 * C; c += kThreads) out[c] = red[c];
+  } else {
+    // one window a thread (PB threads a window), columns in registers,
+    // then the PB threads of a window in order
+    float* red = reinterpret_cast<float*>(sm);     // [8][kThreads]
+    float s1[4] = {0.f, 0.f, 0.f, 0.f}, s2[4] = {0.f, 0.f, 0.f, 0.f};
+    float cm[4], ci[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      cm[i] = mu[s.ch[i] % co];
+      ci[i] = inv[s.ch[i] % co];
+    }
+    s.walk([&](int j) {
       float yf[4], z[4], dz[4];
-      load_window<T>(y, (size_t)p * C, 1, 0, ch, a, b, yf, z);
-      route(z, to_f(g[p * Cout + o]), dz);
+      load_window<T>(y, s.y_at(j), 1, 0, s.ch, a, b, yf, z);
+      route(z, to_f(g[s.p_at(j)]), dz);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const float t = __fmul_rn(__fsub_rn(yf[i], mu[ch[i]]), inv[ch[i]]);
+        const float t = __fmul_rn(__fsub_rn(yf[i], cm[i]), ci[i]);
         s1[i] += dz[i];
         s2[i] += dz[i] * t;
       }
+    });
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      red[i * kThreads + threadIdx.x] = s1[i];
+      red[(4 + i) * kThreads + threadIdx.x] = s2[i];
     }
-  }
+    __syncthreads();
+    if (threadIdx.x < s.Cout) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    red[i][tid] = s1[i];
-    red[4 + i][tid] = s2[i];
-  }
-  __syncthreads();
-  if (tid < Cout) {
-    float* out = part + (size_t)blockIdx.x * 2 * C;
-#pragma unroll
-    for (int v = 0; v < 8; ++v) {
-      float s = 0.f;
-      for (int r = 0; r < lanes; ++r) s += red[v][r * Cout + tid];
-      out[(v / 4) * C + ch[v % 4]] = s;
+      for (int v = 0; v < 8; ++v) {
+        float sum = 0.f;
+        for (int r = 0; r < s.PB; ++r) sum += red[v * kThreads + r * s.Cout + threadIdx.x];
+        out[(v / 4) * C + s.ch[v % 4]] = sum;
+      }
     }
   }
 }
@@ -324,8 +411,8 @@ bool bad_geometry(int C, int co, int blk) {
   return bad_tail_geometry(0, C, co, blk) || C / 4 > kThreads;
 }
 
-// The forward's and the apply's slab plan must cover the pixels with no
-// slab empty, and keep a slab's walk in ints.
+// A pass's slab plan must cover the pixels with no slab empty, and keep a
+// slab's walk in ints.
 bool bad_plan(long long NHW, int slabs, int per) {
   return slabs < 1 || per < 1 || per > (1 << 30) || (long long)slabs * per < NHW ||
          (long long)(slabs - 1) * per >= NHW;
@@ -344,6 +431,13 @@ constexpr bool kBf16 = std::is_same_v<T, __nv_bfloat16>;
 // The apply's columns in shared memory at C channels (the 16-byte path).
 int col_bytes(int C) { return C / 4 / kVec * kColPitch * (int)sizeof(float4); }
 
+// The reduce's shared memory at C channels: with V 8 its columns and the
+// warps' sums (2C floats), with V 1 its threads' eight sums.
+int reduce_bytes(int V, int C) {
+  return V == kVec ? C / 4 / kVec * kRedPitch * (int)sizeof(float4) + 2 * C * (int)sizeof(float)
+                   : 8 * kThreads * (int)sizeof(float);
+}
+
 template <typename T>
 cudaError_t fwd(const void* y, const float* a, const float* b, void* out, long long NHW,
                 int C, int co, int blk, int slabs, int per, cudaStream_t st) {
@@ -359,15 +453,24 @@ cudaError_t fwd(const void* y, const float* a, const float* b, void* out, long l
   return cudaGetLastError();
 }
 
-int reduce_slabs(long long NHW) { return (int)((NHW + kSlabPixels - 1) / kSlabPixels); }
-
+// The reduce's 16-byte path also needs the G = C/32 groups of a pixel to
+// split a warp evenly (G a power of two), for its lane butterfly; co a
+// multiple of 8 makes G at least 1.
 template <typename T>
 cudaError_t bwd_reduce(const void* y, const void* g, const float* a, const float* b,
                        const float* mu, const float* inv, float* part, float* sums,
-                       long long NHW, int C, int co, int blk, cudaStream_t st) {
-  const int slabs = reduce_slabs(NHW);
-  tail_bwd_reduce_kernel<T><<<slabs, kThreads, 0, st>>>(
-      (const T*)y, (const T*)g, a, b, mu, inv, part, NHW, C, co, blk);
+                       long long NHW, int C, int co, int blk, int slabs, int per,
+                       cudaStream_t st) {
+  const int G = C / 4 / kVec;
+  if constexpr (kBf16<T>) {
+    if (in_vectors(co, y, g) && 32 % G == 0) {
+      tail_bwd_reduce_kernel<T, kVec><<<slabs, kThreads, reduce_bytes(kVec, C), st>>>(
+          (const T*)y, (const T*)g, a, b, mu, inv, part, NHW, C, co, blk, per);
+      return reduce_partials(part, sums, slabs, 2 * C, st);
+    }
+  }
+  tail_bwd_reduce_kernel<T, 1><<<slabs, kThreads, reduce_bytes(1, C), st>>>(
+      (const T*)y, (const T*)g, a, b, mu, inv, part, NHW, C, co, blk, per);
   return reduce_partials(part, sums, slabs, 2 * C, st);
 }
 
@@ -390,15 +493,18 @@ cudaError_t bwd_apply(const void* y, const void* g, const float* a, const float*
 
 }  // namespace
 
-// Blocks the forward (pass 0) or the apply (pass 1) should run at C
-// channels: kWaves times those of its bf16 16-byte kernel the card holds at
-// once (0 if the device cannot be asked). The wrapper splits the pixels
-// into about this many slabs (ops/bn_tail.py::pixel_slabs).
+// Blocks the forward (pass 0), the apply (pass 1) or the reduce (pass 2)
+// should run at C channels: kWaves (kRedWaves) times those of its bf16
+// 16-byte kernel the card holds at once (0 if the device cannot be asked).
+// The wrapper splits the pixels into about this many slabs
+// (ops/bn_tail.py::pixel_slabs).
 extern "C" int bn_tail_slots(int pass, int C) {
   using B = __nv_bfloat16;
   if (C < 4 || C / 4 > kThreads) return 0;
   if (pass == 0) return kWaves * device_slots(tail_fwd_kernel<B, kVec>, 0);
   if (pass == 1) return kWaves * device_slots(tail_bwd_apply_kernel<B, kVec>, col_bytes(C));
+  if (pass == 2)
+    return kRedWaves * device_slots(tail_bwd_reduce_kernel<B, kVec>, reduce_bytes(kVec, C));
   return 0;
 }
 
@@ -419,23 +525,22 @@ extern "C" int bn_tail_fwd(int dtype, const void* y, const float* a, const float
   return (int)cudaErrorInvalidValue;
 }
 
-// Slabs of bn_tail_bwd_reduce for N*H*W pixels: the wrapper sizes
-// ``part`` as slabs * 2 * C floats.
-extern "C" int bn_tail_reduce_slabs(long long NHW) { return reduce_slabs(NHW); }
-
-// y [N*H*W, C], g [N*H*W, C/4] of dtype; a, b, mu, inv f32 [C]; sums f32
-// [2*C] = s1 then s2 per channel.
+// y [N*H*W, C], g [N*H*W, C/4] of dtype; a, b f32 [C]; mu, inv f32 [co];
+// part f32 [slabs, 2*C], one row a slab; sums f32 [2*C] = s1 then s2 per
+// channel; the pixels in slabs as the forward's.
 extern "C" int bn_tail_bwd_reduce(int dtype, const void* y, const void* g, const float* a,
                                   const float* b, const float* mu, const float* inv,
                                   float* part, float* sums, long long NHW, int C, int co,
-                                  int blk, void* stream) {
+                                  int blk, int slabs, int pixels_per_slab, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (bad_geometry(C, co, blk)) return (int)cudaErrorInvalidValue;
+  if (bad_geometry(C, co, blk) || bad_plan(NHW, slabs, pixels_per_slab))
+    return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return (int)bwd_reduce<float>(y, g, a, b, mu, inv, part, sums, NHW, C, co, blk, st);
+    return (int)bwd_reduce<float>(y, g, a, b, mu, inv, part, sums, NHW, C, co, blk, slabs,
+                                  pixels_per_slab, st);
   if (dtype == 1)
     return (int)bwd_reduce<__nv_bfloat16>(y, g, a, b, mu, inv, part, sums, NHW, C, co, blk,
-                                          st);
+                                          slabs, pixels_per_slab, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -50,18 +50,16 @@ _L = ctypes.c_longlong
 
 #: the ctypes argument kinds of the library's C entry points (each returns
 #: an int), in the order of csrc/bn_tail.cu's signatures: the dtype, the
-#: tensors' pointers, N*H*W, C, co, blk, the forward's and the apply's slab
-#: plan, the stream
+#: tensors' pointers, N*H*W, C, co, blk, the pass's slab plan, the stream
 ARGTYPES = {
     "bn_tail_slots": [_I, _I],
     "bn_tail_fwd": [_I] + [_P] * 4 + [_L] + [_I] * 5 + [_P],
-    "bn_tail_reduce_slabs": [_L],
-    "bn_tail_bwd_reduce": [_I] + [_P] * 8 + [_L] + [_I] * 3 + [_P],
+    "bn_tail_bwd_reduce": [_I] + [_P] * 8 + [_L] + [_I] * 5 + [_P],
     "bn_tail_bwd_apply": [_I] + [_P] * 10 + [_L] + [_I] * 5 + [_P],
 }
-#: each planned pass's index in ``bn_tail_slots``
-_PASSES = {"fwd": 0, "bwd_apply": 1}
-#: a forward or apply slab is a whole number of runs of this many pixels:
+#: each pass's index in ``bn_tail_slots``
+_PASSES = {"fwd": 0, "bwd_apply": 1, "bwd_reduce": 2}
+#: a slab of any pass is a whole number of runs of this many pixels:
 #: a block's rounds of 256 // G pixels (G groups of channels a pixel) then
 #: all fill but the slab's last wherever G is a power of two (8 and 4 on
 #: the main path)
@@ -158,7 +156,7 @@ def bwd_apply_plain(y, g, co: int, blk: int, a, b, mu, inv, gi, c1,
 
 
 def _cuda_operands(what: str, y: torch.Tensor, g: torch.Tensor | None,
-                   vecs) -> None:
+                   vecs, co_vecs=(), co: int = 0) -> None:
     if y.device.type != "cuda":
         raise ValueError(f"{what} kernel takes CUDA tensors, got {y.device}")
     if y.dtype not in _DTYPES:
@@ -175,18 +173,18 @@ def _cuda_operands(what: str, y: torch.Tensor, g: torch.Tensor | None,
         raise ValueError(f"g must be a contiguous {y.dtype} tensor of shape "
                          f"{(n, h, w, c // 4)} on {y.device}, got {g.dtype} "
                          f"{tuple(g.shape)} on {g.device}")
-    for v in vecs:
-        if (v.device != y.device or v.dtype != torch.float32
-                or tuple(v.shape) != (c,) or not v.is_contiguous()):
-            raise ValueError(f"per-channel vectors must be contiguous f32 "
-                             f"[{c}] on {y.device}")
+    for vs, n in ((vecs, c), (co_vecs, co)):
+        for v in vs:
+            if (v.device != y.device or v.dtype != torch.float32
+                    or tuple(v.shape) != (n,) or not v.is_contiguous()):
+                raise ValueError(f"per-channel vectors must be contiguous "
+                                 f"f32 [{n}] on {y.device}")
 
 
 def pixel_slabs(pixels: int, slots: int) -> tuple[int, int]:
-    """(slabs, pixels_per_slab) of the forward and the apply: one block a
-    slab of whole SLAB_QUANTUM-pixel runs, about ``slots`` slabs (the
-    blocks the library asks for), every pixel in one slab and every slab
-    non-empty."""
+    """(slabs, pixels_per_slab) of a pass: one block a slab of whole
+    SLAB_QUANTUM-pixel runs, about ``slots`` slabs (the blocks the library
+    asks for), every pixel in one slab and every slab non-empty."""
     runs = max(1, -(-pixels // SLAB_QUANTUM))
     _, per = wgrad_slabs(runs, 1, slots)
     per *= SLAB_QUANTUM
@@ -247,15 +245,18 @@ def bwd_reduce(y: torch.Tensor, g: torch.Tensor, co: int, blk: int,
     _check_geometry(y, co, blk)
     if y.device.type == "cpu":
         return bwd_reduce_plain(y, g, co, blk, a, b, mu, inv)
-    reps = blk * blk
-    mu_v, inv_v = col_expand(mu, reps), col_expand(inv, reps)
-    _cuda_operands("bn_tail bwd_reduce", y, g, (a, b, mu_v, inv_v))
-    n, h, w, c = y.shape
-    slabs = _lib().bn_tail_reduce_slabs(n * h * w)
-    part = torch.empty((slabs, 2 * c), dtype=torch.float32, device=y.device)
-    sums = torch.empty((2 * c,), dtype=torch.float32, device=y.device)
-    _launch("bn_tail_bwd_reduce", y, g, a, b, mu_v, inv_v, part, sums, co=co,
-            blk=blk)
+    # mu and inv go in per co: the kernel reads channel c's at c % co
+    mu, inv = mu.float(), inv.float()
+    _cuda_operands("bn_tail bwd_reduce", y, g, (a, b), (mu, inv), co)
+    c = y.shape[3]
+    plan = _slab_plan("bwd_reduce", y)
+    # one partial row a slab, then their sum, which the library adds in a
+    # fixed order
+    part = torch.empty((plan[0] + 1, 2 * c), dtype=torch.float32,
+                       device=y.device)
+    sums = part[plan[0]]
+    _launch("bn_tail_bwd_reduce", y, g, a, b, mu, inv, part, sums, co=co,
+            blk=blk, plan=plan)
     LAUNCHES[f"bn_tail bwd_reduce C{c} CO{co}"] += 1
     # the fold over the groups stays outside the kernel, as in JAX
     return _fold(sums[:c], co), _fold(sums[c:], co)

@@ -65,7 +65,7 @@ def fc_dgrad_t(g: torch.Tensor, wt: torch.Tensor,
                          f"both bfloat16, got {wt.dtype} -> {out_dtype}")
     if not (g.is_contiguous() and wt.is_contiguous()):
         raise ValueError("g and wT must be contiguous")
-    f = wt[0].numel()
+    f = wt.numel() // k
     if (f * wt.element_size()) % 16 or wt.data_ptr() % 16:
         raise ValueError(f"wT rows must be 16-byte aligned multiples of 16 "
                          f"bytes, got {f} x {wt.element_size()} bytes")
