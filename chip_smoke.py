@@ -85,7 +85,14 @@ card or when the port is not beside it. Phases, one JSON line each:
    tails (2), the scattered-3x3 conv1 with fused tails (3) and with
    unfused tails (3); --plan s2d, the NHWC ConvNetS2D, with fused convs
    and tails (3, 11 kinds a step) and with unfused tails (2, the 5 conv
-   kinds); their step times beside the main path's.
+   kinds); --plan plain, the plain NHWC ConvNet (3, no kernel of the port
+   launched: cuDNN convs and F.max_pool2d); use_bn=False on the card's
+   default plan (2, the sparse conv1's forward without statistics and the
+   five other kinds of the unfused tails' path) and on --plan s2d with
+   fused convs (2, the 5 conv kinds); --accum-steps 5 --native-loader on
+   the default plan (2, the main path's kinds at N = 1, five times a
+   step: the reference's out-of-memory workaround, its peak beside the
+   main path's); their step times beside the main path's.
 6. profile: two more steps of the main path under torch.profiler, device
    time per op or kernel, busy time and idle share of the step;
    profile_s2d: the same for the NHWC path (path_s2d).
@@ -98,13 +105,27 @@ card or when the port is not beside it. Phases, one JSON line each:
    more steps under torch.profiler.
 8. card_vs_cpu: the port on the card against the port on the CPU, 64x64,
    fp32, 3 SGD steps from the same bridged weights on the same batches,
-   on each of the five transposed plans and ConvNetS2D's four (fused_conv,
-   fused_tail) plans: losses within rtol 1e-4. lm_card_vs_cpu:
+   on each transposed plan of the paths (path_accum's with 2 microbatches
+   a step, path_no_bn's without BN), ConvNetS2D's four (fused_conv,
+   fused_tail) plans, the plain ConvNet with and without BN and
+   ConvNetS2D(fused_conv=True) without BN: losses within rtol 1e-4.
+   pool_tie_card_vs_cpu: the plain ConvNet's pool on inputs quantised so
+   that windows tie two, three and four ways, fp32 and bf16, output and
+   input gradient bitwise the CPU's (the first-maximum rule).
+   lm_card_vs_cpu:
    the same for a small LM (vocab 4100, so the CE kernel runs; d 64, 2
    heads, 2 layers, S 256, flash, fp32, 3 Adam steps), after checking
    that the LM built on the card from seed 0 holds the CPU-built weights
    bitwise.
-9. the {"kernels": [...]} summary, the nvidia-smi line, and last
+9. profile_flag: mnist_onegpu --profile DIR, 2 steps of the default plan
+   at 3000x3000; the trace must name one of the port's kernels.
+   curve_card_vs_cpu: parity_run.py's protocol (128x128, batch 5, fp32,
+   SGD at 1e-4) for 50 steps from one bridged tree on the plain ConvNet,
+   ConvNetS2D (fused) and the default ConvNetS2DT, each card curve
+   against its CPU curve within the committed record
+   (parity_curves.jsonl:401: max abs 1.173e-3, max rel 0.143 %, mean abs
+   4.7e-5).
+10. the {"kernels": [...]} summary, the nvidia-smi line, and last
    {"ok": true, "device": {...}}.
 
 fp32 matmuls and convolutions run without TF32 throughout (the plain
@@ -205,8 +226,30 @@ PATHS = (
     ("path_s2d_unfused_tails", "s2d", {"fused_conv": True,
                                        "fused_tail": False}, 2,
      S2D_UNFUSED_TAIL_KINDS),
+    # the plain NHWC ConvNet: cuDNN convs and F.max_pool2d, no kernel of
+    # the port
+    ("path_plain", "plain", {}, 3, []),
+    # without BN the tails are plain and the convs run without statistics
+    ("path_no_bn", "auto", {"use_bn": False}, 2, SPARSE_UNFUSED_KINDS),
+    ("path_s2d_no_bn", "s2d", {"fused_conv": True, "use_bn": False}, 2,
+     S2D_UNFUSED_TAIL_KINDS),
+    # the main path's kernels at N = 1, ACCUM_STEPS times a step
+    ("path_accum", "auto", {}, 2, MAIN_KINDS),
 )
 ALL_KINDS = sorted({k for *_, kinds in PATHS for k in kinds})
+#: mnist_onegpu flags of a path beyond --plan and the common ones
+ACCUM_STEPS = 5
+PATH_FLAGS = {"path_accum": ["--accum-steps", str(ACCUM_STEPS),
+                             "--native-loader"]}
+#: the loss-curve phase: parity_run.py's protocol (128x128, batch 5,
+#: fp32, SGD at 1e-4) for CURVE_STEPS steps, card against CPU, held to
+#: the committed record (parity_curves.jsonl:401)
+CURVE_STEPS, CURVE_IMAGE, CURVE_N = 50, 128, 2000
+CURVE_BAR = {"max_abs_dev": 1.173e-3, "max_rel_dev": 1.43e-3,
+             "mean_abs_dev": 4.7e-5}
+#: the pool tie case's NHWC shapes: one inside the 2x2 grid, one with an
+#: odd row and column floored away
+TIE_SHAPES = ((5, 300, 300, 16), (2, 301, 299, 32))
 #: the NHWC conv's ragged (C, CO)
 NHWC_RAGGED = ((16, 48), (16, 80), (32, 48))
 #: the NHWC bf16 forward's run edges (N, H, W): W 65 and 130 (one and two
@@ -1492,16 +1535,20 @@ def phase_lm_path(ops, lm_train):
 
 
 def phase_main_path(ops, mnist_onegpu, expected: list[str], *, phase: str,
-                    plan: str, steps: int, model_options: dict | None = None):
+                    plan: str, steps: int, model_options: dict | None = None,
+                    flags: list[str] | None = None):
     """mnist_onegpu's train function at 3000x3000 with ``--plan plan``
-    and the launch counters zeroed just before and read just after: every
-    expected launch once per step, and no other."""
+    (and ``flags``) and the launch counters zeroed just before and read
+    just after: every expected launch once per step (``--accum-steps k``:
+    k times), and no other."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     args = mnist_onegpu.build_parser().parse_args([
         "--plan", plan, "--image-size", str(IMAGE), "--batch-size", str(BATCH),
         "--dtype", "bf16", "--synthetic-n", str(steps * BATCH),
-        "--limit-steps", str(steps), "--epochs", "1", "--log-every", "1"])
+        "--limit-steps", str(steps), "--epochs", "1", "--log-every", "1",
+        *(flags or [])])
+    per_step = args.accum_steps
     ops.reset_launch_counts()
     t0 = time.monotonic()
     trainer, state = mnist_onegpu.train(args, model_options=model_options)
@@ -1514,17 +1561,18 @@ def phase_main_path(ops, mnist_onegpu, expected: list[str], *, phase: str,
             f"{phase} non-finite loss: {trainer.losses}")
     require(state.step == steps, f"{phase} took {state.step} steps")
     for key in expected:
-        require(counts.get(key, 0) == steps,
+        require(counts.get(key, 0) == steps * per_step,
                 f"{phase} launched {key} {counts.get(key, 0)} times in "
-                f"{steps} steps, expected one per step")
+                f"{steps} steps, expected {per_step} per step")
     require(set(counts) == set(expected),
             f"unexpected launches on {phase}: {counts}")
     step_ms = statistics.median(trainer.step_seconds[1:]) * 1e3
     model = state.model
     res = dict(image=IMAGE, batch=BATCH, dtype="bf16", steps=steps,
                plan=plan, model=type(model).__name__,
-               plan_options=model_options or {},
-               fused_tail=model.fused_tail,
+               plan_options=model_options or {}, flags=flags or [],
+               accum_steps=per_step, use_bn=model.use_bn,
+               fused_tail=getattr(model, "fused_tail", None),
                fused_conv=getattr(model, "fused_conv", None),
                sparse_conv1=getattr(model, "sparse_conv1", None),
                fused_conv1_bwd=getattr(model, "fused_conv1_bwd", None),
@@ -1593,19 +1641,23 @@ def phase_lm_profile(lm_train, run) -> None:
 
 def phase_card_vs_cpu() -> None:
     """The port on the card against the port on the CPU on every
-    transposed plan of the paths and on ConvNetS2D's four (fused_conv,
-    fused_tail) plans: the same bridged weights, batches and 3 SGD
-    steps."""
+    transposed plan of the paths (``path_accum``'s with 2 microbatches a
+    step), on ConvNetS2D's four (fused_conv, fused_tail) plans, on the
+    plain ConvNet with and without BN and on ConvNetS2D(fused_conv=True)
+    without BN: the same bridged weights, batches and 3 SGD steps."""
     import numpy as np
 
     from tpu_sandbox_torch.data import BatchLoader, normalize, synthetic_mnist
-    from tpu_sandbox_torch.models import ConvNetS2D, ConvNetS2DT
+    from tpu_sandbox_torch.models import ConvNet, ConvNetS2D, ConvNetS2DT
     from tpu_sandbox_torch.train import TrainState, make_train_step
     from tpu_sandbox_torch.train.trainer import to_device
     from tpu_sandbox_torch.utils import params_from_flax, params_to_flax
 
     hw, steps, bs = (64, 64), 3, 2
-    tree = params_to_flax(ConvNetS2DT(hw, seed=0, device="cpu"))
+    # one seed draws the same conv and fc weights with or without BN
+    trees = {use_bn: params_to_flax(ConvNetS2DT(hw, seed=0, use_bn=use_bn,
+                                                device="cpu"))
+             for use_bn in (True, False)}
     images, labels = synthetic_mnist(n=steps * bs, seed=0)
     res = {}
     plans = [(phase, ConvNetS2DT, {"fused_tail": True, **options})
@@ -1613,24 +1665,166 @@ def phase_card_vs_cpu() -> None:
     plans += [(f"s2d_fused_conv{int(fc)}_fused_tail{int(ft)}", ConvNetS2D,
                {"fused_conv": fc, "fused_tail": ft})
               for fc in (False, True) for ft in (False, True)]
+    plans += [("plain", ConvNet, {}), ("plain_no_bn", ConvNet,
+                                       {"use_bn": False}),
+              ("s2d_fused_conv1_no_bn", ConvNetS2D,
+               {"fused_conv": True, "use_bn": False})]
     for phase, cls, plan in plans:
         losses = {}
+        accum = 2 if phase == "path_accum" else 1
         for dev in ("cpu", "cuda"):
             model = cls(hw, dtype=torch.float32, seed=1, device=dev, **plan)
-            model.load_state_dict(params_from_flax(tree))
-            step = make_train_step(TrainState(model, lr=1e-4), image_size=hw)
+            model.load_state_dict(params_from_flax(trees[plan.get("use_bn",
+                                                                  True)]))
+            step = make_train_step(TrainState(model, lr=1e-4), image_size=hw,
+                                   accum_steps=accum)
             loader = BatchLoader(normalize(images), labels.astype("int32"),
                                  bs, shuffle=True, seed=0)
             losses[dev] = [float(step(*to_device(im, lb, torch.device(dev))))
                            for im, lb in loader]
         ok = np.allclose(losses["cuda"], losses["cpu"], rtol=1e-4, atol=0)
-        res[phase] = dict(model=cls.__name__, plan=plan,
+        res[phase] = dict(model=cls.__name__, plan=plan, accum_steps=accum,
                           losses_cpu=losses["cpu"],
                           losses_cuda=losses["cuda"], agree=bool(ok))
     emit("card_vs_cpu", image=64, dtype="fp32", steps=steps, rtol=1e-4,
          **res)
     for phase, r in res.items():
         require(r["agree"], f"card and CPU losses differ ({phase}): {r}")
+
+
+def phase_pool_tie_card_vs_cpu() -> None:
+    """The plain ConvNet's pool (``models/convnet.py::max_pool``, the
+    F.max_pool2d call ConvNet makes) on the card against the CPU, on
+    inputs quantised to {0, 0.5, 1} so that windows tie two, three and
+    four ways, with a random upstream gradient, in fp32 and bf16: the
+    output and the input gradient bitwise equal (routing only, no
+    arithmetic), which holds the CUDA backward to the first-maximum rule
+    the CPU and JAX's nn.max_pool follow. TIE_SHAPES: the second has an
+    odd row and column that the floored pool drops."""
+    from tpu_sandbox_torch.models.convnet import max_pool
+
+    gen = torch.Generator().manual_seed(5)
+    res = {}
+    for shape in TIE_SHAPES:
+        n, h, w, c = shape
+        for dt_name, dt in DTYPES:
+            x = (torch.randint(0, 3, shape, generator=gen).float() / 2).to(dt)
+            g = torch.randn((n, h // 2, w // 2, c), generator=gen).to(dt)
+            out = {}
+            for dev in ("cpu", "cuda"):
+                t = x.to(dev).detach().requires_grad_()
+                y = max_pool(t)
+                y.backward(g.to(dev))
+                out[dev] = (y.detach().cpu(), t.grad.cpu())
+            win = x[:, :h // 2 * 2, :w // 2 * 2].float().reshape(
+                n, h // 2, 2, w // 2, 2, c)
+            maxima = (win == win.amax(dim=(2, 4), keepdim=True)).sum(dim=(2, 4))
+            res[f"{n}x{h}x{w}x{c} {dt_name}"] = dict(
+                out_equal=torch.equal(out["cpu"][0], out["cuda"][0]),
+                grad_equal=torch.equal(out["cpu"][1], out["cuda"][1]),
+                windows_by_maxima={k: int((maxima == k).sum())
+                                   for k in (1, 2, 3, 4)})
+    emit("pool_tie_card_vs_cpu", **res)
+    for case, r in res.items():
+        require(r["out_equal"] and r["grad_equal"],
+                f"the pool on the card and the CPU differ ({case}): {r}")
+        require(all(r["windows_by_maxima"][k] for k in (2, 3, 4)),
+                f"the tie case has no two-, three- or four-way tie: {r}")
+
+
+def phase_curve_card_vs_cpu() -> None:
+    """parity_run.py's protocol on the port, card against CPU: synthetic
+    MNIST (2000 images, seed 0) resized once on the host to 128x128 with
+    jax.image.resize's bilinear weights, the batch order of
+    ``default_rng(0).permutation(2000)[:5]`` a step, fp32, SGD at 1e-4 for
+    CURVE_STEPS steps from one bridged tree, on the plain ConvNet,
+    ConvNetS2D (fused convs and tails) and the card's default
+    ConvNetS2DT; each card curve against its CPU curve within the
+    committed record (CURVE_BAR: parity_curves.jsonl:401)."""
+    import numpy as np
+
+    from tpu_sandbox_torch.data import normalize, synthetic_mnist
+    from tpu_sandbox_torch.models import ConvNet, ConvNetS2D, ConvNetS2DT
+    from tpu_sandbox_torch.train import TrainState, make_train_step
+    from tpu_sandbox_torch.train.trainer import resize_on_device
+    from tpu_sandbox_torch.utils import params_from_flax, params_to_flax
+
+    hw = (CURVE_IMAGE, CURVE_IMAGE)
+    images, labels = synthetic_mnist(n=CURVE_N, seed=0)
+    resized = resize_on_device(torch.from_numpy(normalize(images)), hw)
+    labels = torch.from_numpy(labels.astype(np.int64))
+    rng = np.random.default_rng(0)
+    order = [torch.from_numpy(rng.permutation(CURVE_N)[:BATCH])
+             for _ in range(CURVE_STEPS)]
+    tree = params_from_flax(params_to_flax(ConvNet(hw, seed=0,
+                                                   device="cpu")))
+    plans = (("plain", ConvNet, {}),
+             ("s2d", ConvNetS2D, {"fused_conv": True, "fused_tail": True}),
+             ("s2dt", ConvNetS2DT, {"fused_tail": True, "sparse_conv1": True,
+                                    "fused_conv1_bwd": True}))
+    res = {}
+    for name, cls, options in plans:
+        curves = {}
+        for dev in ("cpu", "cuda"):
+            model = cls(hw, seed=1, device=dev, **options)
+            model.load_state_dict(tree)
+            step = make_train_step(TrainState(model, lr=1e-4))
+            curves[dev] = np.asarray([
+                float(step(resized[sel].to(dev), labels[sel].to(dev)))
+                for sel in order])
+        dev_abs = np.abs(curves["cuda"] - curves["cpu"])
+        rel = dev_abs / np.maximum(np.abs(curves["cpu"]), 1e-8)
+        res[name] = dict(model=cls.__name__, options=options,
+                         max_abs_dev=float(dev_abs.max()),
+                         max_rel_dev=float(rel.max()),
+                         mean_abs_dev=float(dev_abs.mean()),
+                         worst_step=int(dev_abs.argmax()) + 1,
+                         final_loss_cpu=float(curves["cpu"][-1]),
+                         final_loss_cuda=float(curves["cuda"][-1]),
+                         losses_cuda=curves["cuda"].tolist())
+    emit("curve_card_vs_cpu", image=CURVE_IMAGE, batch=BATCH, dtype="fp32",
+         steps=CURVE_STEPS, bar=CURVE_BAR, **res)
+    for name, r in res.items():
+        for key, limit in CURVE_BAR.items():
+            require(r[key] <= limit, f"curve_card_vs_cpu {name}: {key} "
+                    f"{r[key]} over the record's {limit}")
+
+
+def _kernel_names() -> set[str]:
+    """The ``__global__`` functions of the port's CUDA sources."""
+    import re
+    from pathlib import Path
+
+    names = set()
+    for src in (Path(CONV_SRC).parent).glob("*.cu"):
+        names.update(re.findall(
+            r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(",
+            src.read_text()))
+    return names
+
+
+def phase_profile_flag(mnist_onegpu) -> None:
+    """``mnist_onegpu --profile DIR`` on the card: 2 steps of the default
+    plan at 3000x3000; the trace file must exist and name at least one of
+    the port's kernels."""
+    import tempfile
+    from pathlib import Path
+
+    kernels = _kernel_names()
+    require(len(kernels) > 10, f"found only {sorted(kernels)} in csrc")
+    with tempfile.TemporaryDirectory() as logdir:
+        args = mnist_onegpu.build_parser().parse_args([
+            "--image-size", str(IMAGE), "--batch-size", str(BATCH),
+            "--synthetic-n", str(2 * BATCH), "--limit-steps", "2",
+            "--epochs", "1", "--log-every", "1", "--profile", logdir])
+        trainer, _ = mnist_onegpu.train(args)
+        files = sorted(Path(logdir).glob("*.json"))
+        require(len(files) == 1, f"profile_flag wrote {files}")
+        text = files[0].read_text()
+        named = sorted(k for k in kernels if k in text)
+        emit("profile_flag", steps=2, trace_bytes=len(text),
+             losses=trainer.losses, port_kernels_named=named)
+    require(named, "the --profile trace names none of the port's kernels")
 
 
 def phase_lm_card_vs_cpu(lm_train) -> None:
@@ -1715,7 +1909,7 @@ def main() -> int:
     for phase, plan, options, steps, kinds in PATHS:
         res, counts[phase], trainer = phase_main_path(
             ops, mnist_onegpu, kinds, phase=phase, plan=plan, steps=steps,
-            model_options=options)
+            model_options=options, flags=PATH_FLAGS.get(phase))
         if main_ms is None:
             require(res["fused_tail"] and res["sparse_conv1"]
                     and res["fused_conv1_bwd"],
@@ -1734,7 +1928,10 @@ def main() -> int:
     del run
     torch.cuda.empty_cache()
     phase_card_vs_cpu()
+    phase_pool_tie_card_vs_cpu()
     phase_lm_card_vs_cpu(lm_train)
+    phase_profile_flag(mnist_onegpu)
+    phase_curve_card_vs_cpu()
     steps_of = {phase: steps for phase, _, _, steps, _ in PATHS}
     steps_of["lm_path"] = STEPS
     for name, e in entries.items():

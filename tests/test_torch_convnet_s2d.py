@@ -213,8 +213,8 @@ _OPTIONS = ("fused_tail", "fused_conv", "sparse_conv1", "fused_conv1_bwd")
 def _jax_pick(device, size, plan, options, monkeypatch):
     """JAX's (plan, options) for this request, "compiled" read as "the
     device is CUDA" (TPU_SANDBOX_FORCE_COMPILED_KERNELS makes JAX's rule
-    take the compiled branch); None where JAX gives the plain ConvNet or
-    a ConvNet that cannot take the size."""
+    take the compiled branch); None where JAX gives a space-to-depth
+    ConvNet that cannot take the size."""
     if device == "cuda":
         monkeypatch.setenv("TPU_SANDBOX_FORCE_COMPILED_KERNELS", "1")
     else:
@@ -222,7 +222,7 @@ def _jax_pick(device, size, plan, options, monkeypatch):
     resolved = jax_models.resolve_plan(size, plan)
     m = jax_models.pick_convnet(size, plan=plan, **options)
     name = type(m).__name__
-    if name == "ConvNet" or size % 4:
+    if name != "ConvNet" and size % 4:
         return resolved, None
     return resolved, (name, {k: getattr(m, k) for k in _OPTIONS
                              if hasattr(m, k)})
@@ -245,14 +245,11 @@ def _port_pick(device, size, plan, options, monkeypatch):
         # models are stubbed, so the rule itself is what runs
         monkeypatch.setattr(models, "resolve_device",
                             lambda d: torch.device("cuda"))
-        for cls in ("ConvNetS2D", "ConvNetS2DT"):
+        for cls in ("ConvNet", "ConvNetS2D", "ConvNetS2DT"):
             monkeypatch.setattr(models, cls, _cpu_checked(cls))
     resolved = models.resolve_plan(size, plan, device)
     try:
         m = models.pick_convnet(size, plan=plan, device=device, **options)
-    except NotImplementedError as e:
-        assert "ROADMAP" in str(e)
-        return resolved, None
     except ValueError as e:
         # an explicit s2d plan at a size not divisible by 4: the model's
         # own shape check, as JAX's model fails on its shape assertion
@@ -272,9 +269,9 @@ def _port_pick(device, size, plan, options, monkeypatch):
 def test_resolve_plan_and_pick_convnet_follow_jax(device, size, plan,
                                                   options, monkeypatch):
     """The same concrete plan, model and options as JAX's rule on each
-    device; where JAX gives the plain ConvNet the port raises naming
-    ROADMAP, and where JAX gives a model that cannot take an image not
-    divisible by 4, the port's model raises its shape error."""
+    device (the plain ConvNet with the space-to-depth options dropped);
+    where JAX gives a model that cannot take an image not divisible by 4,
+    the port's model raises its shape error."""
     want = _jax_pick(device, size, plan, options, monkeypatch)
     got = _port_pick(device, size, plan, options, monkeypatch)
     assert got == want
@@ -285,7 +282,7 @@ def test_explicit_s2d_plan_off_the_4_grid_fails_like_jax(plan, monkeypatch):
     """pick_convnet((30, 30), plan=...) with an explicit space-to-depth
     plan: JAX resolves it to that plan and its model fails on its shape
     assertion; the port resolves it the same way and its model raises its
-    shape error (not the plain ConvNet's NotImplementedError)."""
+    shape error (it does not fall back to the plain ConvNet)."""
     monkeypatch.delenv("TPU_SANDBOX_FORCE_COMPILED_KERNELS", raising=False)
     jm = jax_models.pick_convnet((30, 30), plan=plan)
     assert jax_models.resolve_plan((30, 30), plan) == plan
@@ -348,3 +345,58 @@ def test_three_sgd_steps_of_plan_s2d_match_jax(fused):
                     got[coll][mod][leaf], w, rtol=0,
                     atol=1e-8 if zero_grad else 1e-5 * scale,
                     err_msg=f"{coll}/{mod}/{leaf}")
+
+
+# -- use_bn=False ------------------------------------------------------------
+
+#: without BN fused_tail changes nothing: the tails are plain and the
+#: convs run without statistics, so the fused and the unfused conv
+NO_BN_PLANS = [(False, True), (True, True)]
+
+
+@pytest.fixture(scope="module", params=NO_BN_PLANS, ids=_plan_id)
+def no_bn_case(request):
+    fused_conv, fused_tail = request.param
+    plan = dict(fused_conv=fused_conv, fused_tail=fused_tail)
+    rng = np.random.default_rng(0)
+    images = rng.random((2, 28, 28, 1), dtype=np.float32)
+    labels = rng.integers(0, 10, size=2).astype(np.int32)
+    jm = JaxConvNetS2D(dtype=jnp.float32, use_bn=False, **plan)
+    variables = jm.init(jax.random.key(0), jnp.zeros((1, *HW, 1)), train=False)
+
+    def loss_fn(params, images, labels):
+        logits = jm.apply({"params": params},
+                          jax_prepare_inputs(jm, images, HW), train=True)
+        return jax_ce(logits, labels), logits
+
+    (loss, logits), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
+        variables["params"], images, labels)
+    to_np = lambda t: jax.tree.map(np.asarray, t)  # noqa: E731
+    return dict(images=images, labels=labels, variables=to_np(variables),
+                loss=float(loss), logits=np.asarray(logits),
+                grads=to_np(grads), plan=plan)
+
+
+def test_use_bn_false_logits_loss_and_grads_match_jax(no_bn_case):
+    """use_bn=False on each (fused_conv, fused_tail) plan: ReLU and the
+    block pool as each tail, the convs without statistics; no bn* in the
+    tree (JAX has none), every gradient against JAX's same plan (fp32,
+    sums in other orders: 1e-5 of the logits' scale, 1e-4 of each
+    gradient's)."""
+    case = no_bn_case
+    model = ConvNetS2D(HW, device="cpu", use_bn=False, **case["plan"])
+    assert not any(k.startswith("bn") for k in model.state_dict())
+    assert sorted(case["variables"]) == ["params"]
+    model.load_state_dict(params_from_flax(case["variables"]))
+    logits = model(prepare_inputs(model, torch.from_numpy(case["images"]), HW))
+    loss = cross_entropy_loss(logits, torch.from_numpy(case["labels"]))
+    loss.backward()
+    _close(logits.detach().numpy(), case["logits"], 1e-5, "logits")
+    np.testing.assert_allclose(loss.item(), case["loss"], rtol=1e-5)
+    grads = {name: p.grad.numpy() for name, p in model.named_parameters()}
+    assert sorted(grads) == sorted(
+        f"{m}.{k}" for m, ls in case["grads"].items() for k in ls)
+    for mod, leaves in case["grads"].items():
+        for leaf, want in leaves.items():
+            _close(grads[f"{mod}.{leaf}"], want, 1e-4, f"d{mod}.{leaf}")
+    assert dict(model.named_buffers()) == {}

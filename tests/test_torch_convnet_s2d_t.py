@@ -22,7 +22,12 @@ from tpu_sandbox.models.convnet_s2d_t import resize_weights as jax_resize_weight
 from tpu_sandbox.ops.losses import cross_entropy_loss as jax_ce
 from tpu_sandbox.train.trainer import prepare_inputs as jax_prepare_inputs
 from tpu_sandbox_torch import mnist_onegpu
-from tpu_sandbox_torch.models import ConvNetS2D, pick_convnet, resolve_fused_tail
+from tpu_sandbox_torch.models import (
+    ConvNet,
+    ConvNetS2D,
+    pick_convnet,
+    resolve_fused_tail,
+)
 from tpu_sandbox_torch.models.convnet_s2d_t import (
     ConvNetS2DT,
     block_max_pool_t,
@@ -238,13 +243,10 @@ def test_same_seed_same_weights():
 
 @pytest.mark.parametrize("kwargs", [dict(plan="s2d"), dict(plan="plain")])
 def test_unported_plans_raise(kwargs):
-    """Only the plain ConvNet is still unported and raises; the NHWC plan
-    's2d' is ported and gives ConvNetS2D."""
-    if kwargs["plan"] == "s2d":
-        assert isinstance(pick_convnet(HW, device="cpu", **kwargs), ConvNetS2D)
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pick_convnet(HW, device="cpu", **kwargs)
+    """Every plan is ported now and none raises: 's2d' gives ConvNetS2D
+    and 'plain' the plain ConvNet."""
+    want = {"s2d": ConvNetS2D, "plain": ConvNet}[kwargs["plan"]]
+    assert type(pick_convnet(HW, device="cpu", **kwargs)) is want
 
 
 @pytest.mark.parametrize("option", ["sparse_conv1", "fused_conv1_bwd"])
@@ -265,8 +267,7 @@ def test_pick_convnet_gives_the_ported_plan():
     assert model.sparse_conv1 is True and model.fused_conv1_bwd is True
     assert model.conv1.sparse and not model.conv2.sparse
     assert isinstance(pick_convnet(32, device="cpu"), ConvNetS2D)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pick_convnet(30, device="cpu")
+    assert isinstance(pick_convnet(30, device="cpu"), ConvNet)
 
 
 def test_pick_convnet_on_the_card_runs_the_whole_chip_plan(monkeypatch):
@@ -303,19 +304,18 @@ def test_pick_convnet_fuses_the_tail_on_request_only_on_the_cpu():
 
 @pytest.mark.parametrize("plan", ["s2d", "plain"])
 def test_entry_plan_flag_raises_for_unported_plans(plan):
-    """--plan plain raises naming ROADMAP; --plan s2d is ported and
-    trains ConvNetS2D (unfused on the CPU)."""
+    """No plan raises now: --plan s2d trains ConvNetS2D (unfused on the
+    CPU) and --plan plain the plain ConvNet."""
     argv = ["--force-cpu", "--plan", plan, "--image-size", "32",
             "--limit-steps", "1", "--epochs", "1", "--synthetic-n", "5",
             "--log-every", "1"]
-    if plan == "s2d":
-        trainer, state = mnist_onegpu.main(argv)
-        assert isinstance(state.model, ConvNetS2D)
-        assert not state.model.fused_conv and not state.model.fused_tail
-        assert state.step == 1 and np.isfinite(trainer.losses).all()
+    trainer, state = mnist_onegpu.main(argv)
+    assert state.step == 1 and np.isfinite(trainer.losses).all()
+    if plan == "plain":
+        assert type(state.model) is ConvNet
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mnist_onegpu.main(argv)
+    assert isinstance(state.model, ConvNetS2D)
+    assert not state.model.fused_conv and not state.model.fused_tail
 
 
 def test_eval_mode_runs_the_unfused_tail_with_running_stats(case):
@@ -351,3 +351,61 @@ def test_model_needs_the_card_unless_the_cpu_is_asked_for():
         pytest.skip("a CUDA card is present here")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ConvNetS2DT(HW)
+
+
+# -- use_bn=False ------------------------------------------------------------
+
+#: (fused_tail, sparse_conv1, fused_conv1_bwd): the card's default plan
+#: and the scattered conv1; without BN the tail options change nothing
+#: (the tails are plain and the convs run without statistics)
+NO_BN_PLANS = [(True, True, True), (True, False, True)]
+
+
+@pytest.fixture(scope="module", params=NO_BN_PLANS,
+                ids=lambda p: "fused_tail{}-sparse{}-fused_bwd{}".format(
+                    *map(int, p)))
+def no_bn_case(request):
+    fused_tail, sparse_conv1, fused_conv1_bwd = request.param
+    plan = _plan(fused_tail, sparse_conv1, fused_conv1_bwd)
+    rng = np.random.default_rng(0)
+    images = rng.random((2, 28, 28, 1), dtype=np.float32)
+    labels = rng.integers(0, 10, size=2).astype(np.int32)
+    jm = JaxConvNetS2DT(dtype=jnp.float32, use_bn=False, **plan)
+    variables = jm.init(jax.random.key(0), jnp.zeros((1, *HW, 1)), train=False)
+
+    def loss_fn(params, images, labels):
+        logits = jm.apply({"params": params},
+                          jax_prepare_inputs(jm, images, HW), train=True)
+        return jax_ce(logits, labels), logits
+
+    (loss, logits), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
+        variables["params"], images, labels)
+    to_np = lambda t: jax.tree.map(np.asarray, t)  # noqa: E731
+    return dict(images=images, labels=labels, variables=to_np(variables),
+                loss=float(loss), logits=np.asarray(logits),
+                grads=to_np(grads), plan=plan)
+
+
+def test_use_bn_false_logits_loss_and_grads_match_jax(no_bn_case):
+    """use_bn=False: ReLU and the block pool as each tail, the convs
+    without statistics; no bn* in the tree (JAX has none), every gradient
+    against JAX's same plan (fp32, sums in other orders: 1e-5 of the
+    logits' scale, 1e-4 of each gradient's)."""
+    case = no_bn_case
+    model = ConvNetS2DT(HW, device="cpu", use_bn=False, **case["plan"])
+    assert not any(k.startswith("bn") for k in model.state_dict())
+    assert sorted(case["variables"]) == ["params"]
+    model.load_state_dict(params_from_flax(case["variables"]))
+    x = model.fused_input_stage(torch.from_numpy(case["images"]), HW)
+    logits = model(x)
+    loss = cross_entropy_loss(logits, torch.from_numpy(case["labels"]))
+    loss.backward()
+    _close(logits.detach().numpy(), case["logits"], 1e-5, "logits")
+    np.testing.assert_allclose(loss.item(), case["loss"], rtol=1e-5)
+    grads = {name: p.grad.numpy() for name, p in model.named_parameters()}
+    assert sorted(grads) == sorted(
+        f"{m}.{k}" for m, ls in case["grads"].items() for k in ls)
+    for mod, leaves in case["grads"].items():
+        for leaf, want in leaves.items():
+            _close(grads[f"{mod}.{leaf}"], want, 1e-4, f"d{mod}.{leaf}")
+    assert dict(model.named_buffers()) == {}

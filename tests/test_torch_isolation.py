@@ -35,6 +35,10 @@ def test_import_loads_no_jax_and_no_jax_package():
         "import tpu_sandbox_torch.models.transformer\n"
         "import tpu_sandbox_torch.train.optim, tpu_sandbox_torch.lm_train\n"
         "import tpu_sandbox_torch.train, tpu_sandbox_torch.utils\n"
+        "import tpu_sandbox_torch.models.convnet\n"
+        "import tpu_sandbox_torch.data.native_loader\n"
+        "import tpu_sandbox_torch.native.build\n"
+        "import tpu_sandbox_torch.utils.profiling\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "print(','.join(sorted(bad)))\n"
@@ -68,3 +72,20 @@ def test_no_file_of_the_port_imports_jax(path):
             continue
         bad = [n for n in names if _forbidden(n)]
         assert not bad, f"{path.name}:{node.lineno} imports {bad}"
+
+
+def test_native_build_reads_the_ports_own_source():
+    """The port's C++ loader builds from its own copy of the source under
+    tpu_sandbox_torch/native/src/ into the port's _build/, and its build
+    script names no path of the JAX package."""
+    from tpu_sandbox_torch.native import build
+
+    assert build.SRC == ROOT / "tpu_sandbox_torch" / "native" / "src"
+    assert build.BUILD == ROOT / "tpu_sandbox_torch" / "_build"
+    assert (build.SRC / "dataloader.cpp").is_file()
+    assert build.target("dataloader").parent == build.BUILD
+    for path in (ROOT / "tpu_sandbox_torch" / "native").rglob("*"):
+        if path.is_file() and path.suffix in (".py", ".cpp"):
+            text = path.read_text()
+            assert "tpu_sandbox/" not in text, path
+            assert "tpu_sandbox." not in text, path

@@ -5,6 +5,7 @@ unfused and fused; the sparse-tap conv1 with the fused conv1+tail
 backward, with the unfused conv1 backward, and with unfused tails), and
 the port's entry script prints the reference's log lines."""
 
+import importlib.util
 import os
 import re
 import subprocess
@@ -21,11 +22,15 @@ import torch
 from tpu_sandbox.data import BatchLoader as JaxBatchLoader
 from tpu_sandbox.data import normalize as jax_normalize
 from tpu_sandbox.data import synthetic_mnist as jax_synthetic_mnist
+from tpu_sandbox.models.convnet import ConvNet as JaxConvNet
+from tpu_sandbox.models.convnet_s2d import ConvNetS2D as JaxConvNetS2D
 from tpu_sandbox.models.convnet_s2d_t import ConvNetS2DT as JaxConvNetS2DT
 from tpu_sandbox.train import TrainState as JaxTrainState
 from tpu_sandbox.train import make_train_step as jax_make_train_step
 from tpu_sandbox.train.trainer import resize_on_device as jax_resize
+from tpu_sandbox_torch import mnist_onegpu
 from tpu_sandbox_torch.data import BatchLoader, normalize, synthetic_mnist
+from tpu_sandbox_torch.models import ConvNet, ConvNetS2D
 from tpu_sandbox_torch.models.convnet_s2d_t import ConvNetS2DT
 from tpu_sandbox_torch.train import TrainState, make_eval_step, make_train_step
 from tpu_sandbox_torch.train.trainer import resize_on_device, to_device
@@ -152,6 +157,132 @@ def test_entry_script_needs_the_card_or_force_cpu():
 
 
 def test_entry_script_refuses_unported_flags():
-    proc = _run_entry("--force-cpu", "--accum-steps", "2")
+    """The checkpoint flags are not ported yet: argparse refuses all
+    three."""
+    proc = _run_entry("--force-cpu", "--resume", "--ckpt-dir", "ck",
+                      "--ckpt-every", "5")
     assert proc.returncode == 2
-    assert "unrecognized arguments" in proc.stderr
+    assert ("unrecognized arguments: --resume --ckpt-dir ck --ckpt-every 5"
+            in proc.stderr)
+
+
+# -- gradient accumulation ---------------------------------------------------
+
+def _accum_batch(n=8, hw=32, seed=0):
+    rng = np.random.default_rng(seed)
+    images = rng.standard_normal((n, hw, hw, 1), dtype=np.float32)
+    labels = rng.integers(0, 10, size=n).astype(np.int32)
+    return images, labels
+
+
+def test_grad_accumulation_matches_full_batch():
+    """Without BN, k = 4 accumulated microbatches == one full-batch step
+    (the mean CE is the mean of equal-size microbatch means; SGD is
+    linear), at JAX's own test's tolerances (tests/test_trainer.py)."""
+    images, labels = _accum_batch()
+    models_ = [ConvNet((32, 32), use_bn=False, device="cpu") for _ in "ab"]
+    full = make_train_step(TrainState(models_[0], lr=1e-2))
+    acc = make_train_step(TrainState(models_[1], lr=1e-2), accum_steps=4)
+    batch = to_device(images, labels, torch.device("cpu"))
+    np.testing.assert_allclose(float(full(*batch)), float(acc(*batch)),
+                               rtol=1e-5)
+    for (name, a), (_, b) in zip(models_[0].named_parameters(),
+                                 models_[1].named_parameters()):
+        np.testing.assert_allclose(a.detach().numpy(), b.detach().numpy(),
+                                   rtol=2e-5, atol=2e-6, err_msg=name)
+
+
+def test_grad_accumulation_with_bn_trains():
+    """With BN the two differ by design (statistics per microbatch); the
+    accumulated step still trains and counts one step per call."""
+    images, labels = synthetic_mnist(n=16, seed=0)
+    state = TrainState(ConvNet((28, 28), device="cpu"), lr=1e-2)
+    step = make_train_step(state, accum_steps=2)
+    batch = to_device(normalize(images), labels, torch.device("cpu"))
+    losses = [float(step(*batch)) for _ in range(8)]
+    assert losses[-1] < losses[0], losses
+    assert state.step == 8
+
+
+@pytest.mark.parametrize("plan", ["plain", "s2d"])
+def test_accumulated_step_matches_jax(plan):
+    """Two steps of k = 2 accumulation, resized per microbatch, from
+    bridged weights on equal batches: the port's losses, parameters and BN
+    running stats against JAX's accumulated step (fp32, sums in other
+    orders: losses rtol 1e-5, parameters 1e-5 of each leaf's scale)."""
+    jm = JaxConvNet() if plan == "plain" else JaxConvNetS2D()
+    tx = optax.sgd(1e-2)
+    jstate = JaxTrainState.create(jm, jax.random.key(0),
+                                  jnp.zeros((1, *HW, 1)), tx)
+    variables = jax.tree.map(np.asarray, jstate.variables())
+    jstep = jax_make_train_step(jm, tx, image_size=HW, accum_steps=2,
+                                donate=False)
+    cls = ConvNet if plan == "plain" else ConvNetS2D
+    model = cls(HW, device="cpu")
+    model.load_state_dict(params_from_flax(variables))
+    state = TrainState(model, lr=1e-2)
+    step = make_train_step(state, image_size=HW, accum_steps=2)
+    images, labels = synthetic_mnist(n=8, seed=2)
+    jlosses, losses = [], []
+    for i in (0, 4):
+        im, lb = normalize(images[i:i + 4]), labels[i:i + 4].astype("int32")
+        jstate, loss = jstep(jstate, im, lb)
+        jlosses.append(float(loss))
+        losses.append(float(step(*to_device(im, lb, torch.device("cpu")))))
+    np.testing.assert_allclose(losses, jlosses, rtol=1e-5)
+    assert state.step == 2 and int(jstate.step) == 2
+    got = params_to_flax(model)
+    for coll in ("params", "batch_stats"):
+        want = jax.tree.map(np.asarray, getattr(jstate, coll))
+        for mod, leaves in want.items():
+            for leaf, w in leaves.items():
+                zero_grad = mod.startswith("conv") and leaf == "bias"
+                scale = float(np.max(np.abs(w))) or 1.0
+                np.testing.assert_allclose(
+                    got[coll][mod][leaf], w, rtol=0,
+                    atol=1e-7 if zero_grad else 1e-5 * scale,
+                    err_msg=f"{coll}/{mod}/{leaf}")
+
+
+def test_accum_steps_below_one_or_not_dividing_the_batch_fail():
+    state = TrainState(ConvNet((28, 28), use_bn=False, device="cpu"))
+    with pytest.raises(ValueError, match="accum_steps must be >= 1"):
+        make_train_step(state, accum_steps=0)
+    step = make_train_step(state, accum_steps=3)
+    images, labels = _accum_batch(n=5, hw=28)
+    with pytest.raises(ValueError, match="not divisible by accum_steps 3"):
+        step(*to_device(images, labels, torch.device("cpu")))
+
+
+def _jax_script():
+    spec = importlib.util.spec_from_file_location("jax_mnist_onegpu",
+                                                  ROOT / "mnist_onegpu.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("flags", [["--accum-steps", "0"],
+                                   ["--accum-steps", "3"]])
+def test_entry_script_accum_steps_fail_like_the_jax_script(flags):
+    """--accum-steps 0, and 3 into batch 5, stop both scripts with the
+    same SystemExit message before anything is built."""
+    args = mnist_onegpu.build_parser().parse_args(["--force-cpu", *flags])
+    with pytest.raises(SystemExit) as want:
+        _jax_script().train(0, args)
+    with pytest.raises(SystemExit) as got:
+        mnist_onegpu.train(args)
+    assert str(got.value) == str(want.value)
+    assert "--accum-steps" in str(got.value)
+
+
+def test_entry_script_accum_steps_trains_on_microbatches(capsys):
+    """--accum-steps 5 at batch 5: one update a batch on five microbatches
+    of one image; the ragged tail (2 of 12 images) is dropped."""
+    trainer, state = mnist_onegpu.main([
+        "--force-cpu", "--image-size", "32", "--synthetic-n", "12",
+        "--epochs", "1", "--accum-steps", "5", "--log-every", "1",
+        "--data-dir", str(ROOT / "no-such-mnist-dir")])
+    assert state.step == 2 and len(trainer.losses) == 2
+    assert np.isfinite(trainer.losses).all()
+    assert "Step [2/2]" in capsys.readouterr().out

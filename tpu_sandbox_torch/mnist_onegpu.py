@@ -11,17 +11,23 @@ no card and no ``--force-cpu`` it fails. ``--plan s2dt`` runs the
 transposed space-to-depth plan with the sparse conv1 and the fused
 conv1+tail backward, its BN tails fused on the card; ``--plan s2d`` runs
 the NHWC space-to-depth plan, its convs and BN tails fused on the card;
+``--plan plain`` runs the plain NHWC ConvNet (no kernel of the port);
 ``--plan auto`` picks ``s2dt`` on the card and ``s2d`` on the CPU, as
-the JAX script picks by whether its kernels compile; ``plain`` is not
-ported yet and raises. Without MNIST
-IDX files a deterministic synthetic MNIST stands in. The JAX script's
-other flags (--accum-steps, --native-loader, --ckpt-every, --ckpt-dir,
---profile, --resume) are not ported yet and argparse refuses them.
+the JAX script picks by whether its kernels compile, and ``plain`` at an
+image size not divisible by 4. ``--accum-steps K`` splits each batch
+into K microbatches with one SGD update (the single-device out-of-memory
+workaround; the ragged last batch is dropped), ``--native-loader`` feeds
+batches from the C++ prefetching loader, and ``--profile DIR`` writes a
+torch.profiler trace of training into DIR. Without MNIST IDX files a
+deterministic synthetic MNIST stands in. The JAX script's checkpoint
+flags (--ckpt-every, --ckpt-dir, --resume) are not ported yet and
+argparse refuses them.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 
 import torch
 
@@ -40,6 +46,7 @@ from tpu_sandbox_torch.train import (
 )
 from tpu_sandbox_torch.train.trainer import to_device
 from tpu_sandbox_torch.utils import exact_fp32, resolve_device
+from tpu_sandbox_torch.utils.profiling import trace
 
 IMAGE_SHAPE = [3000, 3000]
 
@@ -49,6 +56,12 @@ def train(args, *, model_options: dict | None = None):
     ``(trainer, state)`` so a caller can read losses and step times.
     ``model_options`` go to ``pick_convnet`` (e.g. ``fused_tail=False``
     for the unfused tails on the card)."""
+    if args.accum_steps < 1:
+        raise SystemExit(f"--accum-steps must be >= 1, got {args.accum_steps}")
+    if args.batch_size % args.accum_steps:
+        raise SystemExit(
+            f"--batch-size {args.batch_size} must be divisible by "
+            f"--accum-steps {args.accum_steps}")
     device = resolve_device("cpu" if args.force_cpu else "cuda")
     if device.type == "cuda":
         exact_fp32()
@@ -67,12 +80,29 @@ def train(args, *, model_options: dict | None = None):
     if args.limit_steps:
         images = images[: args.limit_steps * args.batch_size]
         labels = labels[: args.limit_steps * args.batch_size]
-    loader = BatchLoader(normalize(images), labels.astype("int32"),
-                         args.batch_size, shuffle=True, seed=0)
+    # accumulation needs every batch divisible into microbatches: drop the
+    # ragged tail instead of failing on it at the end of an epoch
+    drop_last = args.accum_steps > 1
+    if args.native_loader:
+        from tpu_sandbox_torch.data.native_loader import NativeBatchLoader
 
-    step = make_train_step(state, image_size=image_shape)
+        loader = NativeBatchLoader(images, labels, args.batch_size,
+                                   shuffle=True, seed=0, threads=2,
+                                   drop_last=drop_last)
+    else:
+        loader = BatchLoader(normalize(images), labels.astype("int32"),
+                             args.batch_size, shuffle=True, seed=0,
+                             drop_last=drop_last)
+
+    step = make_train_step(state, image_size=image_shape,
+                           accum_steps=args.accum_steps)
     trainer = Trainer(step, device, log_every=args.log_every)
-    state = trainer.fit(state, loader, args.epochs)
+    profile_ctx = (trace(args.profile, cuda=device.type == "cuda")
+                   if args.profile else contextlib.nullcontext())
+    with profile_ctx:
+        state = trainer.fit(state, loader, args.epochs)
+    if args.profile:
+        print(f"profiler trace written to {args.profile}")
 
     if args.eval:
         try:
@@ -115,16 +145,26 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--limit-steps", type=int, default=None,
                         help="cap steps per epoch (quick runs)")
     parser.add_argument("--log-every", type=int, default=100)
+    parser.add_argument("--accum-steps", type=int, default=1,
+                        help="gradient accumulation: split each batch into k "
+                             "sequential microbatches (the out-of-memory "
+                             "workaround on one device)")
     parser.add_argument("--plan", choices=["auto", "s2dt", "s2d", "plain"],
                         default="auto",
                         help="ConvNet execution plan: s2dt = transposed "
                              "space-to-depth (models/convnet_s2d_t.py), s2d "
                              "= NHWC space-to-depth (models/convnet_s2d.py), "
-                             "their kernels fused on the GPU; auto picks "
+                             "their kernels fused on the GPU; plain = the "
+                             "NHWC ConvNet (models/convnet.py); auto picks "
                              "s2dt on the GPU and s2d on the CPU when the "
-                             "image size allows. plain is not ported yet")
+                             "image size allows, else plain")
     parser.add_argument("--dtype", choices=["bf16", "fp32"], default="bf16",
                         help="compute dtype; params and loss stay fp32")
+    parser.add_argument("--native-loader", action="store_true",
+                        help="use the C++ prefetching data loader")
+    parser.add_argument("--profile", type=str, default=None, metavar="DIR",
+                        help="write a torch.profiler trace of training into "
+                             "DIR (view in Perfetto or chrome://tracing)")
     parser.add_argument("--eval", action="store_true",
                         help="report test-set accuracy after training")
     parser.add_argument("--force-cpu", action="store_true",

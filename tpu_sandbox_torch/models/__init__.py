@@ -1,26 +1,27 @@
 """The port's model plans. Counterpart of ``tpu_sandbox/models/__init__.py``
 (``resolves_to_s2d`` :6, ``resolve_plan`` :19, ``pick_convnet`` :36).
 
-Both space-to-depth plans are ported with all of their options: the
-transposed plan (``ConvNetS2DT``: the sparse-tap or the scattered-3x3
-conv1, the tails fused or unfused, the fused conv1+tail backward) and the
-NHWC plan (``ConvNetS2D``: the convs and the tails each fused or not).
-JAX's "the Pallas kernels compile" reads here as "the model lives on a
-CUDA device". The 'plain' ConvNet, which an image size not divisible by
-4 also resolves to, raises ``NotImplementedError`` rather than running
-something else in its place; ROADMAP.md lists it.
+All three plans are ported with all of their options: the transposed
+space-to-depth plan (``ConvNetS2DT``: the sparse-tap or the
+scattered-3x3 conv1, the tails fused or unfused, the fused conv1+tail
+backward), the NHWC space-to-depth plan (``ConvNetS2D``: the convs and
+the tails each fused or not) and the plain NHWC ``ConvNet``, which an
+image size not divisible by 4 also resolves to. ``use_bn`` reaches every
+plan. JAX's "the Pallas kernels compile" reads here as "the model lives
+on a CUDA device".
 """
 
 from __future__ import annotations
 
 import torch
 
+from tpu_sandbox_torch.models.convnet import ConvNet
 from tpu_sandbox_torch.models.convnet_s2d import ConvNetS2D
 from tpu_sandbox_torch.models.convnet_s2d_t import ConvNetS2DT
 from tpu_sandbox_torch.utils.device import resolve_device
 
-__all__ = ["ConvNetS2D", "ConvNetS2DT", "pick_convnet", "resolve_fused_tail",
-           "resolve_plan", "resolves_to_s2d"]
+__all__ = ["ConvNet", "ConvNetS2D", "ConvNetS2DT", "pick_convnet",
+           "resolve_fused_tail", "resolve_plan", "resolves_to_s2d"]
 
 
 def resolve_fused_tail(fused_tail: bool | None, device: torch.device) -> bool:
@@ -66,21 +67,20 @@ def pick_convnet(image_size, *, plan: str = "auto", fused_tail=None,
       ``sparse_conv1`` and ``fused_conv1_bwd`` are dropped;
     - ``fused_conv=False`` under 's2dt' drops to 's2d', since the
       transposed plan has no unfused conv;
-    - 'plain', and 'auto' at image sizes not divisible by 4, raise: the
-      plain ConvNet is not ported yet. An explicit 's2d' or 's2dt' at such
-      a size resolves to that plan, and its model raises its shape error,
-      as JAX's does.
+    - 'plain', and 'auto' at image sizes not divisible by 4: the plain
+      ``ConvNet``, with the space-to-depth options (``fused_tail``,
+      ``fused_conv``, ``sparse_conv1``, ``fused_conv1_bwd``) dropped. An
+      explicit 's2d' or 's2dt' at such a size resolves to that plan, and
+      its model raises its shape error, as JAX's does.
 
     ``fused_tail`` and ``fused_conv`` left ``None`` resolve by the model's
-    device (``resolve_fused_tail``)."""
+    device (``resolve_fused_tail``); the other keywords (``use_bn``,
+    ``dtype``, ``seed``, ...) reach every plan."""
     h, w = (image_size, image_size) if isinstance(image_size, int) else image_size
     device = resolve_device(kwargs.pop("device", None))
     resolved = resolve_plan((h, w), plan, device)
     if resolved == "plain":
-        raise NotImplementedError(
-            f"plan {plan!r} at image size {(h, w)} resolves to the plain "
-            "ConvNet, which is not ported to PyTorch yet (ROADMAP.md, queue "
-            "1 item 4)")
+        return ConvNet((h, w), device=device, **kwargs)
     if resolved == "s2dt" and fused_conv is False:
         resolved = "s2d"
     tail = resolve_fused_tail(fused_tail, device)

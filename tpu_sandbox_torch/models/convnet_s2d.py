@@ -229,7 +229,9 @@ class ConvNetS2D(nn.Module):
     init-by-tracing does. ``fused_conv`` runs the scattered convs as the
     conv kernels; ``fused_tail`` runs each training-mode tail as the fused
     kernels, on the conv's fused statistics when ``fused_conv`` is on too.
-    Weights are drawn on the CPU from
+    ``use_bn=False`` registers no BN (the JAX module then has no ``bn*``
+    variables): each tail is ReLU and the block pool, and the convs run
+    without statistics. Weights are drawn on the CPU from
     ``torch.Generator().manual_seed(seed)`` in ConvNetS2DT's order (so one
     seed gives both plans the same weights) and then moved to ``device``
     (default ``cuda``, which must exist; pass ``device="cpu"`` for the
@@ -240,6 +242,7 @@ class ConvNetS2D(nn.Module):
                  features: tuple[int, int] = (16, 32),
                  dtype: torch.dtype = torch.float32, seed: int = 0,
                  fused_tail: bool = False, fused_conv: bool = False,
+                 use_bn: bool = True,
                  device: torch.device | str | None = None):
         super().__init__()
         h, w = image_size
@@ -251,12 +254,14 @@ class ConvNetS2D(nn.Module):
         self.image_size = (h, w)
         self.dtype = dtype
         self.fused_tail, self.fused_conv = fused_tail, fused_conv
+        self.use_bn = use_bn
         f1, f2 = features
+        self.f1, self.f2 = f1, f2
         gen = torch.Generator().manual_seed(seed)
         self.conv1 = Conv((5, 5, 1, f1), 4, dtype, gen, fused_conv)
-        self.bn1 = GroupedBN(f1, dtype)
+        self.bn1 = GroupedBN(f1, dtype) if use_bn else None
         self.conv2 = Conv((5, 5, f1, f2), 2, dtype, gen, fused_conv)
-        self.bn2 = GroupedBN(f2, dtype)
+        self.bn2 = GroupedBN(f2, dtype) if use_bn else None
         self.fc = Dense((h // 4) * f2 * (w // 4), num_classes, dtype, gen)
         self.to(resolve_device(device))
 
@@ -269,20 +274,25 @@ class ConvNetS2D(nn.Module):
             raise ValueError(f"image size must be divisible by 4: {(h, w)}")
         # the statistics ride in the conv kernels when the whole fused
         # chain runs (eval BN uses the running stats)
-        fuse_stats = self.fused_conv and self.fused_tail and self.training
+        fuse_stats = (self.fused_conv and self.fused_tail and self.use_bn
+                      and self.training)
         x = space_to_depth(x, 4).to(self.dtype)            # [N,H/4,W/4,16]
-        y = self._tail(self.conv1(x, fuse_stats), fuse_stats, self.bn1, 4)
-        y = self._tail(self.conv2(y, fuse_stats), fuse_stats, self.bn2, 2)
+        y = self._tail(self.conv1(x, fuse_stats), fuse_stats, self.bn1,
+                       self.f1, 4)
+        y = self._tail(self.conv2(y, fuse_stats), fuse_stats, self.bn2,
+                       self.f2, 2)
         # canonical (h, c, w) fc row order
         y = y.permute(0, 1, 3, 2).reshape(n, -1)
         return self.fc(y).float()
 
-    def _tail(self, y, fuse_stats: bool, bn: GroupedBN,
+    def _tail(self, y, fuse_stats: bool, bn: GroupedBN | None, co: int,
               blk: int) -> torch.Tensor:
         """BN + ReLU + 2x2 block pool: the fused kernels in training mode
         when ``fused_tail`` (on the conv's sums when it gave them), else
-        the plain chain."""
+        the plain chain; ReLU + pool without BN."""
         y, ysums = y if fuse_stats else (y, None)
+        if bn is None:
+            return block_max_pool(F.relu(y), blk, co)
         if self.fused_tail and self.training:
             return bn.fused(y, blk, ysums)
-        return block_max_pool(F.relu(bn(y)), blk, bn.features)
+        return block_max_pool(F.relu(bn(y)), blk, co)

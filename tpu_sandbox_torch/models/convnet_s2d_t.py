@@ -182,7 +182,10 @@ class ConvNetS2DT(nn.Module):
     the fused kernels on the conv's fused statistics; ``sparse_conv1``
     runs conv1 as the sparse-tap kernel, and with both it and
     ``fused_conv1_bwd`` a training step runs conv1 and its tail as one
-    unit with the fused backward. Weights are drawn on
+    unit with the fused backward. ``use_bn=False`` registers no BN (the
+    JAX module then has no ``bn*`` variables): each tail is ReLU and the
+    block pool, the convs run without statistics and the fused conv1+tail
+    unit is off. Weights are drawn on
     the CPU from ``torch.Generator().manual_seed(seed)`` and then moved to
     ``device`` (default ``cuda``, which must exist; pass ``device="cpu"``
     for the CPU), so one seed gives the same weights on every device.
@@ -193,7 +196,7 @@ class ConvNetS2DT(nn.Module):
                  features: tuple[int, int] = (16, 32),
                  dtype: torch.dtype = torch.float32, seed: int = 0,
                  fused_tail: bool = False, sparse_conv1: bool = True,
-                 fused_conv1_bwd: bool = True,
+                 fused_conv1_bwd: bool = True, use_bn: bool = True,
                  device: torch.device | str | None = None):
         super().__init__()
         h, w = image_size
@@ -204,15 +207,15 @@ class ConvNetS2DT(nn.Module):
             raise ValueError("the s2d plan is the 2-block CNN")
         self.image_size = (h, w)
         self.dtype = dtype
-        self.fused_tail = fused_tail
+        self.fused_tail, self.use_bn = fused_tail, use_bn
         self.sparse_conv1, self.fused_conv1_bwd = sparse_conv1, fused_conv1_bwd
         f1, f2 = features
         self.f1, self.f2 = f1, f2
         gen = torch.Generator().manual_seed(seed)
         self.conv1 = ConvT((5, 5, 1, f1), 4, dtype, gen, sparse=sparse_conv1)
-        self.bn1 = GroupedBNT(f1, dtype)
+        self.bn1 = GroupedBNT(f1, dtype) if use_bn else None
         self.conv2 = ConvT((5, 5, f1, f2), 2, dtype, gen)
-        self.bn2 = GroupedBNT(f2, dtype)
+        self.bn2 = GroupedBNT(f2, dtype) if use_bn else None
         self.fc = DenseT((h // 4) * f2 * (w // 4), num_classes, dtype, gen)
         self.to(resolve_device(device))
 
@@ -246,20 +249,25 @@ class ConvNetS2DT(nn.Module):
             x = x.to(self.dtype)
         else:
             x = space_to_depth_t(as_nhw(x), 4).to(self.dtype)
-        fuse = self.fused_tail and self.training
+        fuse = self.fused_tail and self.use_bn and self.training
         if fuse and self.conv1.sparse and self.fused_conv1_bwd:
             y = self.bn1.fused_conv1(x, *self.conv1.params(), 4)
         else:
-            y = self._tail(self.conv1(x, fuse), self.bn1, 4, fuse)
+            y = self._tail(self.conv1(x, fuse), self.bn1, self.f1, 4, fuse)
         # y: [N,H/4,4f1,W/4]
-        y = self._tail(self.conv2(y, fuse), self.bn2, 2, fuse)  # [N,H/4,f2,W/4]
+        y = self._tail(self.conv2(y, fuse), self.bn2, self.f2, 2,
+                       fuse)                                # [N,H/4,f2,W/4]
         return self.fc(y).float()
 
     @staticmethod
-    def _tail(y, bn: GroupedBNT, blk: int, fuse: bool) -> torch.Tensor:
+    def _tail(y, bn: GroupedBNT | None, co: int, blk: int,
+              fuse: bool) -> torch.Tensor:
         """BN + ReLU + 2x2 block pool: the fused kernels on the conv's
-        (y, sums) when ``fuse``, else the plain chain."""
+        (y, sums) when ``fuse``, else the plain chain; ReLU + pool without
+        BN."""
         if fuse:
             y, ysums = y
             return bn.fused(y, blk, ysums)
-        return block_max_pool_t(torch.relu(bn(y)), blk, bn.features)
+        if bn is None:
+            return block_max_pool_t(torch.relu(y), blk, co)
+        return block_max_pool_t(torch.relu(bn(y)), blk, co)

@@ -1,8 +1,8 @@
 """Training engine: the train step and the epoch loop with the reference's
 log lines. Counterpart of ``tpu_sandbox/train/trainer.py``:
 ``resize_on_device`` (:84), ``prepare_inputs`` (:99), ``make_train_step``
-(:113, with one microbatch), ``make_eval_step`` (:209) and ``Trainer.fit``
-(:273-352).
+(:113-193, gradient accumulation included), ``make_eval_step`` (:209) and
+``Trainer.fit`` (:273-352).
 
 The step runs eagerly: the 28x28 batch goes to the device, the model's
 fused input stage resizes it to the training size and folds it into
@@ -51,20 +51,46 @@ def to_device(images: np.ndarray, labels: np.ndarray, device: torch.device):
 
 
 def make_train_step(state: TrainState, *,
-                    image_size: tuple[int, int] | None = None) -> Callable:
-    """(images, labels) -> loss: one forward, backward and SGD update of
-    ``state`` in place. ``images`` [N,h,w,1] and ``labels`` [N] lie on the
-    model's device; with ``image_size`` they are resized there first."""
+                    image_size: tuple[int, int] | None = None,
+                    accum_steps: int = 1) -> Callable:
+    """(images, labels) -> loss: one SGD update of ``state`` in place.
+    ``images`` [N,h,w,1] and ``labels`` [N] lie on the model's device;
+    with ``image_size`` they are resized there first.
+
+    ``accum_steps`` k splits the batch into k microbatches run one after
+    another (each resized on its own, so the full-size batch never exists
+    at once; BN running stats update microbatch by microbatch). Their
+    gradients are summed, then divided by k before the one update, JAX's
+    order; the loss returned is the mean of the k losses. The
+    single-device counterpart of the reference's out-of-memory
+    workaround."""
+    if accum_steps < 1:
+        raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     model = state.model
 
     def train_step(images: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
         model.train()
-        x = images if image_size is None else prepare_inputs(
-            model, images, image_size)
-        loss = cross_entropy_loss(model(x), labels)
-        loss.backward()
+        n = images.shape[0]
+        if n % accum_steps:
+            raise ValueError(
+                f"batch {n} not divisible by accum_steps {accum_steps}")
+        micro = n // accum_steps
+        total = None
+        for i in range(0, n, micro):
+            x = images[i:i + micro]
+            if image_size is not None:
+                x = prepare_inputs(model, x, image_size)
+            loss = cross_entropy_loss(model(x), labels[i:i + micro])
+            loss.backward()                 # sums into each parameter's grad
+            total = loss.detach() if total is None else total + loss.detach()
+        if accum_steps > 1:
+            with torch.no_grad():
+                for p in model.parameters():
+                    if p.grad is not None:
+                        p.grad.div_(accum_steps)
+            total = total / accum_steps
         state.apply_sgd()
-        return loss.detach()
+        return total
 
     return train_step
 
