@@ -125,7 +125,21 @@ card or when the port is not beside it. Phases, one JSON line each:
    against its CPU curve within the committed record
    (parity_curves.jsonl:401: max abs 1.173e-3, max rel 0.143 %, mean abs
    4.7e-5).
-10. the {"kernels": [...]} summary, the nvidia-smi line, and last
+10. dist_bootstrap: tpu_sandbox_torch.runtime.bootstrap.init at world
+   size 1 on the card (NCCL): every CollectiveGroup collective on CUDA
+   tensors with its values checked, the all-reduce bandwidth at 64 MiB,
+   cleanup. path_dp: tpu_sandbox_torch.mnist_distributed's own train
+   function, -g 1 (one NCCL rank in this process), at 3000x3000, batch 5,
+   bf16, the card's default plan, 3 steps, counters zeroed before and
+   read after: the main path's kinds once a step and no other; step time,
+   images/s, peak memory and the rank-0 log line; then DataParallel at one
+   rank against the single-device trainer from the same seed on the same
+   batches, 2 steps: losses, parameters and BN statistics bitwise equal.
+   dist_scripts (after the curve phase): python -m
+   tpu_sandbox_torch.test_init and .allreduce_toy at world size 1 on the
+   card and as 4 gloo ranks with --force-cpu, at once, each with a time
+   limit: exit 0, the reference's lines, the toy's sums.
+11. the {"kernels": [...]} summary, the nvidia-smi line, and last
    {"ok": true, "device": {...}}.
 
 fp32 matmuls and convolutions run without TF32 throughout (the plain
@@ -134,12 +148,16 @@ versions are references).
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import torch
 import torch.nn.functional as F
@@ -241,6 +259,20 @@ ALL_KINDS = sorted({k for *_, kinds in PATHS for k in kinds})
 ACCUM_STEPS = 5
 PATH_FLAGS = {"path_accum": ["--accum-steps", str(ACCUM_STEPS),
                              "--native-loader"]}
+#: path_dp: mnist_distributed -g 1 (NCCL, one rank) on the card's default
+#: plan, and the steps held bitwise against the single-device trainer
+DP_STEPS, DP_BITWISE_STEPS = 3, 2
+#: dist_scripts: (name, argv after python -m, time limit in seconds)
+DIST_SCRIPTS = (
+    ("test_init_nccl", ["tpu_sandbox_torch.test_init", "--world-size", "1"],
+     300),
+    ("test_init_gloo4", ["tpu_sandbox_torch.test_init", "--world-size", "4",
+                         "--force-cpu"], 300),
+    ("allreduce_toy_nccl", ["tpu_sandbox_torch.allreduce_toy", "-s", "1",
+                            "--steps", "3"], 300),
+    ("allreduce_toy_gloo4", ["tpu_sandbox_torch.allreduce_toy", "-s", "4",
+                             "--steps", "3", "--force-cpu"], 300),
+)
 #: the loss-curve phase: parity_run.py's protocol (128x128, batch 5,
 #: fp32, SGD at 1e-4) for CURVE_STEPS steps, card against CPU, held to
 #: the committed record (parity_curves.jsonl:401)
@@ -1585,6 +1617,215 @@ def phase_main_path(ops, mnist_onegpu, expected: list[str], *, phase: str,
     return res, counts, trainer
 
 
+def phase_dist_bootstrap() -> None:
+    """bootstrap.init at world size 1 on the card: the NCCL backend, every
+    collective of CollectiveGroup on CUDA tensors with its values checked
+    (at one rank each returns its input), the all-reduce bandwidth bench
+    at 64 MiB (busbw is 0 at one rank by NCCL-tests' formula), cleanup."""
+    from tpu_sandbox_torch.parallel.collectives import world_group
+    from tpu_sandbox_torch.runtime import bootstrap
+
+    topo = bootstrap.init(device="cuda")
+    try:
+        require(bootstrap.backend_name() == "nccl",
+                f"dist_bootstrap backend {bootstrap.backend_name()}")
+        g = world_group()
+        x = torch.tensor([[3.0, -1.5, 2.0, 0.25]], device="cuda")
+        n = torch.tensor([[7, -2]], dtype=torch.int32, device="cuda")
+        checks = {}
+        for op in ("sum", "mean", "max", "min"):
+            for name, t in (("f32", x), ("i32", n)):
+                y = g.all_reduce(t, op)
+                want = t / 1 if op == "mean" else t
+                checks[f"all_reduce_{op}_{name}"] = (
+                    y.is_cuda and y.dtype == want.dtype
+                    and torch.equal(y, want))
+        checks["all_gather"] = torch.equal(g.all_gather(x), x)
+        checks["broadcast"] = torch.equal(g.broadcast(x, 0), x)
+        checks["reduce_scatter"] = torch.equal(g.reduce_scatter(x), x)
+        checks["shift"] = torch.equal(g.shift(x, 1), x)
+        checks["all_to_all"] = torch.equal(g.all_to_all(x), x)
+        g.barrier()
+        checks["barrier"] = True
+        require(all(checks.values()), f"dist_bootstrap checks {checks}")
+        bw = g.allreduce_bandwidth(1 << 26)
+        emit("dist_bootstrap", topology=topo.summary(),
+             backend=bootstrap.backend_name(), checks=checks, bandwidth=bw)
+    finally:
+        bootstrap.cleanup()
+    require(not bootstrap.is_initialized(), "dist_bootstrap: no cleanup")
+
+
+def phase_dist_scripts() -> None:
+    """The three-script surface beside mnist_distributed: test_init and
+    allreduce_toy on the card (NCCL, world size 1) and as four gloo ranks
+    on the CPU, all four commands at once, each with a time limit; each
+    must exit 0 and print the reference's lines, and the toy's printed
+    sums must agree between ranks 0 and 1 (each rank also checks its sum
+    against an all-gather of every value)."""
+    root = Path(__file__).resolve().parent
+    procs = {name: (subprocess.Popen(
+        [sys.executable, "-m", *argv], cwd=root, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE), limit)
+        for name, argv, limit in DIST_SCRIPTS}
+    out, seconds = {}, {}
+    t0 = time.monotonic()
+    try:
+        for name, (p, limit) in procs.items():
+            try:
+                stdout, stderr = p.communicate(
+                    timeout=max(1.0, limit - (time.monotonic() - t0)))
+            except subprocess.TimeoutExpired:
+                require(False, f"dist_scripts: {name} ran past {limit} s")
+            require(p.returncode == 0,
+                    f"dist_scripts: {name} exit {p.returncode}: "
+                    f"{stderr[-2000:]}")
+            out[name] = stdout.splitlines()
+            seconds[name] = time.monotonic() - t0
+    finally:
+        for p, _ in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for name, world, backend in (("test_init_nccl", 1, "nccl"),
+                                 ("test_init_gloo4", 4, "gloo")):
+        lines = out[name]
+        total = world * (world + 1) / 2
+        require(lines[-1] == "successful test_setup!"
+                and lines.count(f"backend='{backend}'") == world
+                and all(f"rank {r}: all_reduce check {total} == {total}"
+                        in lines for r in range(world)),
+                f"dist_scripts: {name} printed {lines}")
+    pat = re.compile(r"^rank: (\d), step: (\d+), value: (\d), "
+                     r"reduced sum: (\d+)\.$")
+    sums = {}
+    for name, world in (("allreduce_toy_nccl", 1), ("allreduce_toy_gloo4", 4)):
+        rows = [pat.match(line) for line in out[name]
+                if line.startswith("rank: ")]
+        require(all(rows) and len(rows) == 3 * min(2, world),
+                f"dist_scripts: {name} printed {out[name]}")
+        by_step: dict = {}
+        for m in rows:
+            by_step.setdefault(int(m[2]), {})[int(m[1])] = (int(m[3]),
+                                                            int(m[4]))
+        for step, seen in by_step.items():
+            values = [v for v, _ in seen.values()]
+            totals = {t for _, t in seen.values()}
+            require(len(totals) == 1, f"{name} step {step}: {seen}")
+            total = totals.pop()
+            # rank 0 and 1's values are printed; the other ranks' add 0-9
+            require(sum(values) <= total <= sum(values) + 9 * (world - 2)
+                    if world > 2 else total == sum(values),
+                    f"{name} step {step}: {seen}")
+        sums[name] = by_step
+    emit("dist_scripts", seconds=seconds,
+         lines={k: v for k, v in out.items()}, toy_steps=sums)
+
+
+def phase_path_dp(ops, mnist_distributed, expected: list[str]):
+    """mnist_distributed -g 1 at 3000x3000, batch 5, bf16, the card's
+    default plan, DP_STEPS steps, in this process (NCCL, one rank), the
+    launch counters zeroed just before and read just after: the main
+    path's kinds once a step and no other; step time, images/s, peak
+    memory and the rank-0 log line. Then the same model from the same seed
+    through DataParallel and, beside it, through the single-device trainer
+    (make_train_step) on the same batches for DP_BITWISE_STEPS steps:
+    losses and every parameter and BN statistic bitwise equal."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    argv = ["-g", "1", "--plan", "auto", "--image-size", str(IMAGE),
+            "--batch-size", str(BATCH), "--dtype", "bf16",
+            "--synthetic-n", str(DP_STEPS * BATCH), "--limit-steps",
+            str(DP_STEPS), "--epochs", "1", "--log-every", "1"]
+    args = mnist_distributed.build_parser().parse_args(argv)
+    log = io.StringIO()
+    ops.reset_launch_counts()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(log):
+        trainer, state = mnist_distributed.train(args)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    wall = time.monotonic() - t0
+    peak = torch.cuda.max_memory_allocated()
+    lines = log.getvalue().splitlines()
+    print(log.getvalue(), end="", flush=True)
+    for key in expected:
+        require(counts.get(key, 0) == DP_STEPS,
+                f"path_dp launched {key} {counts.get(key, 0)} times in "
+                f"{DP_STEPS} steps")
+    require(set(counts) == set(expected),
+            f"unexpected launches on path_dp: {counts}")
+    want_lines = [f"Rank [0], Epoch [1/1], Step [{s}/{DP_STEPS}], Loss: "
+                  f"{loss:.4f}" for s, loss in zip(range(1, DP_STEPS + 1),
+                                                   trainer.losses)]
+    require([ln for ln in lines if ln.startswith("Rank [")] == want_lines
+            and lines[-1].startswith("Training complete in: "),
+            f"path_dp log lines {lines}")
+    require(all(math.isfinite(v) for v in trainer.losses),
+            f"path_dp non-finite loss {trainer.losses}")
+    step_ms = statistics.median(trainer.step_seconds[1:]) * 1e3
+    model = state.model
+    res = dict(image=IMAGE, batch=BATCH, dtype="bf16", steps=DP_STEPS,
+               world_size=1, backend="nccl", model=type(model).__name__,
+               fused_tail=getattr(model, "fused_tail", None),
+               sparse_conv1=getattr(model, "sparse_conv1", None),
+               fused_conv1_bwd=getattr(model, "fused_conv1_bwd", None),
+               losses=trainer.losses,
+               step_ms_each=[t * 1e3 for t in trainer.step_seconds],
+               step_ms_median_after_first=step_ms,
+               images_per_s=BATCH / (step_ms / 1e3),
+               peak_memory_bytes=peak, wall_s_with_init=wall,
+               launches=counts, log_lines=want_lines)
+    del trainer, state, model
+    torch.cuda.empty_cache()
+    res["bitwise_vs_single_device"] = _dp_bitwise(mnist_distributed, args)
+    return res, counts
+
+
+def _dp_bitwise(mnist_distributed, args) -> dict:
+    """DataParallel at one rank against make_train_step: the same seed,
+    the same batches, DP_BITWISE_STEPS steps; everything bitwise."""
+    from tpu_sandbox_torch.data import ShardedBatchLoader
+    from tpu_sandbox_torch.models import pick_convnet
+    from tpu_sandbox_torch.parallel.data_parallel import DataParallel
+    from tpu_sandbox_torch.runtime import bootstrap
+    from tpu_sandbox_torch.train import TrainState, make_train_step
+    from tpu_sandbox_torch.train.trainer import to_device
+
+    shape = (IMAGE, IMAGE)
+    images, labels = mnist_distributed.load_training_arrays(args, 1,
+                                                            verbose=False)
+    batches = list(ShardedBatchLoader(images, labels, BATCH, 1, rank=0))
+    batches = batches[:DP_BITWISE_STEPS]
+    models = [pick_convnet(shape, plan="auto", num_classes=10,
+                           dtype=torch.bfloat16, seed=0, device="cuda")
+              for _ in "ab"]
+    single = make_train_step(TrainState(models[0], lr=1e-4),
+                             image_size=shape)
+    losses_single = [single(*to_device(x, y, torch.device("cuda")))
+                     for x, y in batches]
+    bootstrap.init(device="cuda")
+    try:
+        state = TrainState(models[1], lr=1e-4)
+        dp = DataParallel(models[1], image_size=shape)
+        dp.shard_state(state)
+        losses_dp = [dp.train_step(state, *to_device(x, y,
+                                                     torch.device("cuda")))
+                     for x, y in batches]
+    finally:
+        bootstrap.cleanup()
+    sd = [m.state_dict() for m in models]
+    differ = [k for k in sd[0] if not torch.equal(sd[0][k], sd[1][k])]
+    same_loss = all(torch.equal(a, b)
+                    for a, b in zip(losses_single, losses_dp))
+    require(same_loss and not differ,
+            f"path_dp: DataParallel at one rank is not the single-device "
+            f"step bit for bit: losses {losses_single} vs {losses_dp}, "
+            f"state entries differing {differ}")
+    return {"steps": len(batches), "losses": [float(v) for v in losses_dp],
+            "state_entries": len(sd[0]), "bitwise": True}
+
+
 def _profile(step, batch, *, phase: str, plan: str, steps: int = 2) -> None:
     """Where a step's device time goes: ``steps`` more steps under
     ``torch.profiler``, after the timed run (the profiler's own cost stays
@@ -1876,7 +2117,12 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     try:
-        from tpu_sandbox_torch import lm_train, mnist_onegpu, ops
+        from tpu_sandbox_torch import (
+            lm_train,
+            mnist_distributed,
+            mnist_onegpu,
+            ops,
+        )
         from tpu_sandbox_torch.ops import (
             bn_tail,
             bn_tail_t,
@@ -1923,6 +2169,9 @@ def main() -> int:
         if phase == "path_s2d":
             phase_profile(trainer, phase="profile_s2d", plan=phase)
         del trainer
+    phase_dist_bootstrap()
+    res, counts["path_dp"] = phase_path_dp(ops, mnist_distributed, MAIN_KINDS)
+    emit("path_dp", **res, main_path_step_ms_median_after_first=main_ms)
     run, counts["lm_path"] = phase_lm_path(ops, lm_train)
     phase_lm_profile(lm_train, run)
     del run
@@ -1932,8 +2181,10 @@ def main() -> int:
     phase_lm_card_vs_cpu(lm_train)
     phase_profile_flag(mnist_onegpu)
     phase_curve_card_vs_cpu()
+    phase_dist_scripts()
     steps_of = {phase: steps for phase, _, _, steps, _ in PATHS}
     steps_of["lm_path"] = STEPS
+    steps_of["path_dp"] = DP_STEPS
     for name, e in entries.items():
         e["launches_by_path"] = {p: c.get(name, 0) for p, c in counts.items()}
         # the count from the run of the first path this launch belongs to

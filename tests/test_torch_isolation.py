@@ -39,6 +39,14 @@ def test_import_loads_no_jax_and_no_jax_package():
         "import tpu_sandbox_torch.data.native_loader\n"
         "import tpu_sandbox_torch.native.build\n"
         "import tpu_sandbox_torch.utils.profiling\n"
+        "import tpu_sandbox_torch.runtime.bootstrap\n"
+        "import tpu_sandbox_torch.runtime.mesh\n"
+        "import tpu_sandbox_torch.parallel.collectives\n"
+        "import tpu_sandbox_torch.parallel.launch\n"
+        "import tpu_sandbox_torch.parallel.data_parallel\n"
+        "import tpu_sandbox_torch.test_init\n"
+        "import tpu_sandbox_torch.allreduce_toy\n"
+        "import tpu_sandbox_torch.mnist_distributed\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "print(','.join(sorted(bad)))\n"
@@ -52,7 +60,8 @@ def test_import_loads_no_jax_and_no_jax_package():
 
 def _port_files():
     files = sorted((ROOT / "tpu_sandbox_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py"]
+    return files + [ROOT / "chip_smoke.py",
+                    ROOT / "tests" / "torch_dist_workers.py"]
 
 
 @pytest.mark.parametrize("path", _port_files(),

@@ -1,0 +1,170 @@
+"""Rank bodies for the port's multi-process CPU tests (gloo).
+
+Spawned ranks import this module anew, so it imports no ``jax`` and
+nothing of the JAX package: only the port, torch and numpy. The tests that
+spawn these ranks (``tests/test_torch_{bootstrap,collectives,
+data_parallel}.py``) compute the JAX package's results in their own
+process and compare. Each rank joins through the ``INIT_METHOD`` that
+``tpu_sandbox_torch.parallel.launch.spawn`` sets (a ``FileStore`` under
+the test's temporary directory) and saves what it computed to
+``out_dir/rank{r}.pt``.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+
+import numpy as np
+import torch
+
+from tpu_sandbox_torch.models import ConvNet
+from tpu_sandbox_torch.parallel.collectives import (
+    CollectiveGroup,
+    sub_groups,
+    world_group,
+)
+from tpu_sandbox_torch.parallel.data_parallel import DataParallel
+from tpu_sandbox_torch.runtime import bootstrap
+from tpu_sandbox_torch.runtime.mesh import make_mesh, submesh
+from tpu_sandbox_torch.train import TrainState
+
+#: per-rank values, leading dim = 4 ranks (row r is rank r's), all exact in
+#: f32 so every summation order gives the same bits
+COLLECTIVE_INPUTS = {
+    "f32": np.array([3.0, 1.0, 4.0, 1.5], np.float32),
+    "f32_2d": np.arange(8.0, dtype=np.float32).reshape(4, 2) * 0.25,
+    "i32": np.array([[3, -7], [12, 5], [-1, 0], [8, 9]], np.int32),
+    "scatter": np.stack([np.arange(16.0, dtype=np.float32) * (r + 1)
+                         for r in range(4)]),
+    "a2a": np.arange(32.0, dtype=np.float32).reshape(4, 4, 2),
+    "sub": np.array([2.0, 5.0], np.float32),
+}
+#: (result name, op, input, argument) of every per-rank result
+COLLECTIVE_CASES = (
+    [(f"all_reduce_{op}_{x}", "all_reduce", x, op)
+     for op in ("sum", "mean", "max", "min")
+     for x in ("f32", "f32_2d", "i32")]
+    + [(f"all_gather_{x}", "all_gather", x, None) for x in ("f32", "i32")]
+    + [("reduce_scatter", "reduce_scatter", "scatter", None)]
+    + [(f"broadcast_root{r}", "broadcast", "f32_2d", r) for r in (0, 3)]
+    + [(f"shift_{o}", "shift", "f32_2d", o) for o in (1, -1, 2)]
+    + [("all_to_all", "all_to_all", "a2a", None)]
+)
+#: what each validation must raise, ``match`` of the JAX test
+VALIDATIONS = {
+    "op": "op", "put": "divisible", "reduce_scatter": "reduce_scatter",
+    "all_to_all": "all_to_all wants", "no_axis": "pass axis",
+    "bad_axis": "not in mesh",
+}
+
+
+def _save(out_dir: str, rank: int, out: dict) -> None:
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def _error(fn) -> str:
+    try:
+        fn()
+    except ValueError as e:
+        return str(e)
+    return ""
+
+
+def collectives_worker(rank: int, world_size: int, out_dir: str) -> None:
+    """Every collective on ``COLLECTIVE_INPUTS``, sub-groups on a 2x2 mesh,
+    the validations, the bandwidth bench and the topology."""
+    torch.set_num_threads(1)
+    topo = bootstrap.init(device="cpu")
+    try:
+        group = world_group()
+        out = {"topology": vars(topo), "backend": bootstrap.backend_name(),
+               "group": (group.size, group.rank)}
+        for name, op, x, arg in COLLECTIVE_CASES:
+            block = group.put(COLLECTIVE_INPUTS[x])
+            if op == "all_reduce":
+                out[name] = group.all_reduce(block, arg)
+            elif op in ("broadcast", "shift"):
+                out[name] = getattr(group, op)(block, arg)
+            elif op == "all_to_all":
+                out[name] = group.all_to_all(block[0])
+            else:
+                out[name] = getattr(group, op)(block)
+        group.barrier()
+        mesh = make_mesh({"data": 2, "model": 2})
+        sub = sub_groups(mesh, "model")
+        out["sub_size"] = sub.size
+        out["sub"] = sub.all_reduce(sub.put(COLLECTIVE_INPUTS["sub"]))
+        # each data row its own group: rank (d, m) adds 10 d + m
+        out["sub_rows"] = sub.all_reduce(torch.tensor([10.0 * (rank // 2)
+                                                      + rank % 2]))
+        out["submesh"] = (submesh(mesh, ["data"]).size(),
+                          CollectiveGroup(submesh(mesh, ["model"])).rank)
+        out["errors"] = {
+            "op": _error(lambda: group.all_reduce(block, "xor")),
+            "put": _error(lambda: group.put(np.ones(3))),
+            "reduce_scatter": _error(
+                lambda: group.reduce_scatter(torch.ones(1, 3))),
+            "all_to_all": _error(lambda: group.all_to_all(torch.zeros(3))),
+            "no_axis": _error(lambda: CollectiveGroup(mesh)),
+            "bad_axis": _error(lambda: CollectiveGroup(mesh, "expert")),
+            "mesh_size": _error(lambda: make_mesh({"data": 3})),
+        }
+        out["bandwidth"] = group.allreduce_bandwidth(nbytes=1 << 16, iters=8)
+        _save(out_dir, rank, out)
+    finally:
+        bootstrap.cleanup()
+
+
+DP_STEPS, DP_LR, DP_IMAGE = 3, 0.05, 32
+
+
+def _dp_run(inputs: dict, use_bn: bool, mesh, batches, **dp_options):
+    model = ConvNet((DP_IMAGE, DP_IMAGE), device="cpu", use_bn=use_bn)
+    model.load_state_dict(inputs["bn" if use_bn else "no_bn"])
+    state = TrainState(model, lr=DP_LR)
+    dp = DataParallel(model, mesh, **dp_options)
+    dp.shard_state(state)
+    losses = []
+    for images, labels in batches:
+        x, y = dp.shard_batch(images, labels)
+        losses.append(dp.train_step(state, torch.from_numpy(x),
+                                    torch.from_numpy(y).long()))
+    return dp, state, torch.stack(losses)
+
+
+def dp_worker(rank: int, world_size: int, out_dir: str, in_path: str) -> None:
+    """``DataParallel`` from the bridged trees of ``in_path`` on its global
+    batches: with and without BN, the biased-BN and average-loss cases and
+    the first parameter sync."""
+    torch.set_num_threads(1)
+    bootstrap.init(device="cpu")
+    try:
+        inputs = torch.load(in_path, weights_only=False)
+        mesh = make_mesh({"data": world_size})
+        out = {}
+        for use_bn in (False, True):
+            _, state, losses = _dp_run(inputs, use_bn, mesh,
+                                       inputs["batches"])
+            out[f"losses_{use_bn}"] = losses
+            out[f"state_{use_bn}"] = state.model.state_dict()
+        _, _, out["avg_losses"] = _dp_run(inputs, False, mesh,
+                                          inputs["batches"][:1],
+                                          average_loss=True)
+        dp, state, _ = _dp_run(inputs, True, mesh, [inputs["biased"]])
+        out["biased_state"] = state.model.state_dict()
+        out["unshard_rank1"] = dp.unshard_state(state, rank=1)
+        # the first sync: rank 0's parameters win over a perturbed rank's
+        model = ConvNet((DP_IMAGE, DP_IMAGE), device="cpu", seed=rank)
+        DataParallel(model, mesh).shard_state(TrainState(model))
+        out["synced"] = model.state_dict()
+        _save(out_dir, rank, out)
+    finally:
+        bootstrap.cleanup()
+
+
+def failing_worker(rank: int, world_size: int, seconds: float) -> None:
+    """Rank 1 fails at once; the others wait ``seconds`` (to be killed)."""
+    if rank == 1:
+        raise RuntimeError("rank 1 fails on purpose")
+    time.sleep(seconds)

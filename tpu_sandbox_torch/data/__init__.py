@@ -1,4 +1,8 @@
-from tpu_sandbox_torch.data.loader import BatchLoader  # noqa: F401
+from tpu_sandbox_torch.data.loader import (  # noqa: F401
+    BatchLoader,
+    PrefetchLoader,
+    ShardedBatchLoader,
+)
 from tpu_sandbox_torch.data.mnist import (  # noqa: F401
     load_mnist,
     normalize,

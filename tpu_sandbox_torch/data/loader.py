@@ -1,6 +1,7 @@
 """Host-side batch iteration over in-memory numpy arrays.
 
-Counterpart of ``tpu_sandbox/data/loader.py::BatchLoader``: same index
+Counterpart of ``tpu_sandbox/data/loader.py``: ``BatchLoader``,
+``ShardedBatchLoader`` and ``PrefetchLoader``, with the same index
 streams, so the port and the JAX package train on identical batches in
 identical order. Batches stay numpy; the trainer moves them to the device.
 """
@@ -8,6 +9,8 @@ identical order. Batches stay numpy; the trainer moves them to the device.
 from __future__ import annotations
 
 import math
+import queue
+import threading
 
 import numpy as np
 
@@ -74,3 +77,118 @@ class BatchLoader:
         for start in range(0, len(idx), self.batch_size):
             sel = idx[start : start + self.batch_size]
             yield self.images[sel], self.labels[sel]
+
+
+class ShardedBatchLoader:
+    """The data-parallel batches: ``tpu_sandbox/data/loader.py``'s
+    ``ShardedBatchLoader`` (:86-140).
+
+    Each step yields ``num_replicas * batch_size`` rows; rows
+    ``[r*bs, (r+1)*bs)`` are rank r's ``DistributedSampler`` shard in
+    order, each rank's index list wrap-padded to a whole number of batches
+    so every shard is full at the tail. ``rank=r`` yields only rank r's
+    rows, so a rank's process reads only its own shard.
+    """
+
+    def __init__(self, images: np.ndarray, labels: np.ndarray,
+                 batch_size: int, num_replicas: int, *, shuffle: bool = True,
+                 seed: int = 0, rank: int | None = None):
+        if rank is not None and not 0 <= rank < num_replicas:
+            raise ValueError(
+                f"rank {rank} out of range for num_replicas={num_replicas}")
+        self.images = images
+        self.labels = labels
+        self.batch_size = batch_size
+        self.num_replicas = num_replicas
+        self.rank = rank
+        self.samplers = [
+            DistributedSampler(len(images), num_replicas, r,
+                               shuffle=shuffle, seed=seed)
+            for r in range(num_replicas)
+        ]
+        self.epoch = 0
+
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch = epoch
+
+    def __len__(self) -> int:
+        return math.ceil(self.samplers[0].per_replica / self.batch_size)
+
+    def _rank_indices(self, sampler: DistributedSampler) -> np.ndarray:
+        padded = len(self) * self.batch_size
+        idx = sampler.indices(self.epoch)
+        if len(idx) < padded:
+            idx = np.tile(idx, math.ceil(padded / len(idx)))[:padded]
+        return idx
+
+    def __iter__(self):
+        ranks = (range(self.num_replicas) if self.rank is None
+                 else [self.rank])
+        per_rank = [self._rank_indices(self.samplers[r]) for r in ranks]
+        bs = self.batch_size
+        for step in range(len(self)):
+            sel = np.concatenate([idx[step * bs:(step + 1) * bs]
+                                  for idx in per_rank])
+            yield self.images[sel], self.labels[sel]
+
+
+class PrefetchLoader:
+    """Background prefetch over any loader: ``tpu_sandbox/data/loader.py``'s
+    ``PrefetchLoader`` (:143-219).
+
+    A daemon thread assembles the next ``depth`` batches into a FIFO queue
+    while the caller runs the current step. One producer and
+    a FIFO: exactly the wrapped loader's batches in its order;
+    ``set_epoch`` and ``len`` delegate. The producer is stopped and joined
+    when iteration ends for any reason (exhausted, the consumer raised or
+    broke off), and an error it raised is raised in the consumer.
+    """
+
+    def __init__(self, loader, *, depth: int = 2):
+        if depth < 1:
+            raise ValueError(f"depth must be >= 1, got {depth}")
+        self.loader = loader
+        self.depth = depth
+
+    def set_epoch(self, epoch: int) -> None:
+        self.loader.set_epoch(epoch)
+
+    def __len__(self) -> int:
+        return len(self.loader)
+
+    def __iter__(self):
+        q: queue.Queue = queue.Queue(self.depth)
+        stop = threading.Event()
+
+        def put(item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def produce():
+            try:
+                for batch in self.loader:
+                    if not put(("batch", batch)):
+                        return
+                put(("done", None))
+            except BaseException as e:      # raised again by the consumer
+                put(("error", e))
+
+        t = threading.Thread(target=produce, name="prefetch-loader",
+                             daemon=True)
+        t.start()
+        try:
+            while True:
+                kind, payload = q.get()
+                if kind == "done":
+                    return
+                if kind == "error":
+                    raise payload
+                yield payload
+        finally:
+            stop.set()
+            t.join(timeout=5.0)

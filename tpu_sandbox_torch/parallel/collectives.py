@@ -1,0 +1,237 @@
+"""Raw collectives over a process group or a mesh axis: the port of
+``tpu_sandbox/parallel/collectives.py`` (``CollectiveGroup`` :33-312,
+``world_group`` / ``sub_groups`` :508-521).
+
+The JAX package is single-controller: a "per-rank value" there is an array
+whose leading dimension is the group, rank i's block is row block i. Here
+each rank is an OS process and passes its own block: the tensor that JAX's
+rank i holds (``put`` cuts it from a host array of every rank's values).
+Results are this rank's block of JAX's result. The group is bound once
+(the reference built a new group every step, allreduce_toy.py:26-27).
+
+gloo on the CPU, NCCL on CUDA tensors. gloo lacks ``reduce_scatter`` in
+some PyTorch releases, so on gloo it is composed: a sum all-reduce of the
+whole payload, then this rank's slice. NCCL data never goes through the
+host. The compressed all-reduce (:211, :314-506) is not ported yet
+(ROADMAP queue 1 item 4).
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+
+from tpu_sandbox_torch.runtime import bootstrap
+
+_REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "mean": dist.ReduceOp.SUM,
+               "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}
+
+
+class CollectiveGroup:
+    """The ranks of one process group or of one mesh axis, bound once.
+
+    ``CollectiveGroup(mesh, axis)`` takes the mesh axis's sub-group that
+    holds this rank; ``CollectiveGroup(None)`` (or a ``ProcessGroup``) the
+    whole world (or that group). Every rank of the group must make the same
+    calls in the same order.
+    """
+
+    def __init__(self, mesh: DeviceMesh | dist.ProcessGroup | None = None,
+                 axis: str | None = None):
+        if isinstance(mesh, DeviceMesh):
+            names = tuple(mesh.mesh_dim_names or ())
+            if axis is None:
+                if len(names) != 1:
+                    raise ValueError(
+                        f"mesh has axes {names}; pass axis= explicitly")
+                axis = names[0]
+            if axis not in names:
+                raise ValueError(f"axis {axis!r} not in mesh axes {names}")
+            self.group = mesh.get_group(axis)
+        else:
+            self.group = mesh if mesh is not None else dist.group.WORLD
+        self.mesh = mesh
+        self.axis = axis
+        self.size = dist.get_world_size(self.group)
+        self.rank = dist.get_rank(self.group)
+        self.nccl = dist.get_backend(self.group) == "nccl"
+        self.device = bootstrap.device() if self.nccl else torch.device("cpu")
+
+    # -- placement ----------------------------------------------------------
+
+    def put(self, values) -> torch.Tensor:
+        """This rank's block of a host array of every rank's values
+        (leading dim a multiple of the group size), on the group's
+        device."""
+        values = np.asarray(values)
+        if values.ndim == 0 or values.shape[0] % self.size:
+            raise ValueError(
+                f"leading dim {values.shape[:1]} not divisible by group "
+                f"size {self.size}")
+        k = values.shape[0] // self.size
+        block = values[self.rank * k:(self.rank + 1) * k]
+        return torch.from_numpy(np.ascontiguousarray(block)).to(self.device)
+
+    def _local(self, x) -> torch.Tensor:
+        t = x if isinstance(x, torch.Tensor) else torch.as_tensor(
+            np.asarray(x))
+        return t.to(self.device).clone()
+
+    def _global_rank(self, group_rank: int) -> int:
+        if self.group is dist.group.WORLD or self.group is None:
+            return group_rank
+        return dist.get_global_rank(self.group, group_rank)
+
+    # -- collectives --------------------------------------------------------
+
+    def all_reduce(self, x, op: str = "sum") -> torch.Tensor:
+        """Elementwise reduce over the group; every rank gets the result.
+        ``mean`` is the sum divided by the group size (true division, as
+        ``lax.pmean``; gloo has no ``ReduceOp.AVG``)."""
+        if op not in _REDUCE_OPS:
+            raise ValueError(f"op {op!r} not in {sorted(_REDUCE_OPS)}")
+        t = self._local(x)
+        dist.all_reduce(t, _REDUCE_OPS[op], group=self.group)
+        return t / self.size if op == "mean" else t
+
+    def all_gather(self, x) -> torch.Tensor:
+        """Every rank receives every rank's block, concatenated along
+        dim 0 in rank order."""
+        t = self._local(x)
+        out = [torch.empty_like(t) for _ in range(self.size)]
+        dist.all_gather(out, t, group=self.group)
+        return torch.cat(out) if t.dim() else torch.stack(out)
+
+    def reduce_scatter(self, x) -> torch.Tensor:
+        """Each rank contributes a full payload ``[rows, m]`` with ``m`` a
+        multiple of the group size; the payloads are summed and rank i
+        keeps the i-th 1/size of the sum along dim 1, ``[rows, m/size]``.
+        NCCL: ``reduce_scatter_tensor``; gloo: a sum all-reduce, then the
+        slice."""
+        t = self._local(x)
+        if t.dim() != 2 or t.shape[1] % self.size:
+            raise ValueError(
+                f"reduce_scatter wants shape (rows, m) with m % {self.size} "
+                f"== 0, got {tuple(t.shape)}")
+        rows, m = t.shape
+        part = m // self.size
+        if not self.nccl:
+            dist.all_reduce(t, group=self.group)
+            return t[:, self.rank * part:(self.rank + 1) * part].contiguous()
+        chunks = t.reshape(rows, self.size, part).transpose(0, 1).contiguous()
+        out = torch.empty(rows, part, dtype=t.dtype, device=t.device)
+        dist.reduce_scatter_tensor(out, chunks.reshape(-1, part),
+                                   group=self.group)
+        return out
+
+    def broadcast(self, x, root: int = 0) -> torch.Tensor:
+        """Every rank receives group rank ``root``'s tensor (DDP's first
+        parameter sync, reference mnist_distributed.py:67)."""
+        t = self._local(x)
+        dist.broadcast(t, self._global_rank(root), group=self.group)
+        return t
+
+    def shift(self, x, offset: int = 1) -> torch.Tensor:
+        """Ring permute: rank i's tensor moves to rank (i + offset) % size
+        (paired sends and receives)."""
+        t = self._local(x)
+        if offset % self.size == 0:
+            return t
+        out = torch.empty_like(t)
+        dst = self._global_rank((self.rank + offset) % self.size)
+        src = self._global_rank((self.rank - offset) % self.size)
+        ops = [dist.P2POp(dist.isend, t, dst, group=self.group),
+               dist.P2POp(dist.irecv, out, src, group=self.group)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return out
+
+    def all_to_all(self, x) -> torch.Tensor:
+        """Rank i holds ``[size, ...]`` whose j-th row goes to rank j;
+        returns ``[size, ...]`` whose row i came from rank i (JAX's
+        ``out[j, i] = values[i, j]`` seen from rank j)."""
+        t = self._local(x)
+        if t.dim() < 1 or t.shape[0] != self.size:
+            raise ValueError(
+                f"all_to_all wants shape (size, ...) with size "
+                f"{self.size}, got {tuple(t.shape)}")
+        out = torch.empty_like(t)
+        dist.all_to_all_single(out, t.contiguous(), group=self.group)
+        return out
+
+    def barrier(self) -> None:
+        """Block the host until every rank of the group has arrived: a sum
+        all-reduce of a unit token, read on the host (reference
+        ``dist.barrier()``, allreduce_toy.py:33)."""
+        token = torch.ones(1, dtype=torch.int32, device=self.device)
+        dist.all_reduce(token, group=self.group)
+        if int(token.item()) != self.size:
+            raise RuntimeError(f"barrier counted {int(token.item())} of "
+                               f"{self.size} ranks")
+
+    # -- microbenchmark -----------------------------------------------------
+
+    def _sync(self) -> None:
+        if self.nccl:
+            torch.cuda.synchronize(self.device)
+
+    def allreduce_bandwidth(self, nbytes: int = 1 << 26,
+                            iters: int = 10) -> dict:
+        """All-reduce bandwidth with NCCL-tests' accounting: ``algbw`` is
+        the payload over the time of one all-reduce, ``busbw`` is
+        ``algbw * 2(n-1)/n`` (0 at one rank). The payload is f32, rounded
+        down to a multiple of the group size; each timed run chains
+        ``iters`` in-place all-reduces (each output the next input) after
+        two warm-up calls, timed with CUDA events on NCCL and on the host
+        clock after the last call on gloo. Every rank must call it."""
+        n = self.size
+        elems = max(nbytes // 4, n)
+        elems -= elems % n
+        x = torch.ones(elems, dtype=torch.float32, device=self.device)
+        for _ in range(2):
+            dist.all_reduce(x, group=self.group)
+        self._sync()
+        if self.nccl:
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(iters):
+                dist.all_reduce(x, group=self.group)
+            stop.record()
+            stop.synchronize()
+            dt = start.elapsed_time(stop) / 1e3 / iters
+            method = "cuda_events"
+        else:
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                dist.all_reduce(x, group=self.group)
+            dt = (time.perf_counter() - t0) / iters
+            method = "host_wall"
+        result = {"bytes": elems * 4, "seconds": dt, "timing_method": method,
+                  "algbw_GBps": 0.0, "busbw_GBps": 0.0}
+        if dt > 0:
+            algbw = elems * 4 / dt
+            result["algbw_GBps"] = algbw / 1e9
+            result["busbw_GBps"] = algbw * (2 * (n - 1) / n) / 1e9
+        else:
+            result["degraded"] = f"non-positive time ({dt:.3e}s)"
+        return result
+
+
+def world_group(mesh: DeviceMesh | None = None,
+                axis: str = "data") -> CollectiveGroup:
+    """The all-ranks group (the reference's implicit WORLD), or a 1-D
+    mesh's axis."""
+    return CollectiveGroup(mesh, axis if mesh is not None else None)
+
+
+def sub_groups(mesh: DeviceMesh, axis: str) -> CollectiveGroup:
+    """Collectives over one axis of a multi-axis mesh: this rank's slice
+    along the other axes, a group created once with the mesh (the
+    counterpart of ``dist.new_group(range(args.gpus))``,
+    mnist_distributed.py:100)."""
+    return CollectiveGroup(mesh, axis)

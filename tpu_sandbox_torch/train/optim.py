@@ -1,5 +1,6 @@
-"""Adam, the LM's learning-rate schedules and global-norm clipping, written
-out here: the counterparts of ``optax.adam``, the schedules of
+"""Adam, AdamW, SGD with momentum, the LM's learning-rate schedules and
+global-norm clipping, written out here: the counterparts of ``optax.adam``,
+``optax.adamw``, ``optax.sgd(momentum=...)``, the schedules of
 ``lm_train.py:98-111`` and ``optax.clip_by_global_norm``, which the JAX
 package takes from optax.
 
@@ -8,7 +9,10 @@ package takes from optax.
 update = mu_hat / (sqrt(nu_hat) + eps), p += -lr(count) * update, where the
 schedule sees the count of updates before this one (0 for the first), so a
 warmup's first update runs at lr 0. The moments are f32 and updated in
-place.
+place. ``AdamW`` is ``optax.adamw``: ``add_decayed_weights`` between the
+two, update + wd * p, so the decay is applied as lr * wd * p. ``SGD`` is
+``optax.sgd`` with momentum: optax's ``trace`` (not Nesterov), t = g +
+momentum * t, p - lr * t.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ from __future__ import annotations
 import math
 from typing import Callable, Iterable
 
+import numpy as np
 import torch
 
 
@@ -90,12 +95,20 @@ def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float
     return norm
 
 
+def _bias_correction(decay: float, count: int) -> float:
+    """``1 - decay**count`` in f32, as ``optax.scale_by_adam`` computes it
+    (in f64, 1 - 0.999 differs from optax's 0.0009999871 by 1.3e-5
+    relative)."""
+    return float(np.float32(1) - np.float32(decay) ** np.float32(count))
+
+
 class Adam:
     """``optax.adam(lr)`` (b1 0.9, b2 0.999, eps 1e-8) over the model's
     parameters, in place; ``lr`` maps the count of earlier updates to the
     rate."""
 
     b1, b2, eps = 0.9, 0.999, 1e-8
+    weight_decay = 0.0
 
     def __init__(self, params: Iterable[torch.nn.Parameter],
                  lr: Callable[[int], float]):
@@ -113,12 +126,48 @@ class Adam:
         clears."""
         lr = self.lr(self.count)
         self.count += 1
-        c1 = 1 - self.b1 ** self.count
-        c2 = 1 - self.b2 ** self.count
+        c1 = _bias_correction(self.b1, self.count)
+        c2 = _bias_correction(self.b2, self.count)
         for p, mu, nu in zip(self.params, self.mu, self.nu):
             g = p.grad.float()
             mu.mul_(self.b1).add_(g, alpha=1 - self.b1)
             nu.mul_(self.b2).addcmul_(g, g, value=1 - self.b2)
             update = (mu / c1) / (torch.sqrt(nu / c2) + self.eps)
+            if self.weight_decay:
+                update = update + self.weight_decay * p.float()
             p.add_(update.to(p.dtype), alpha=-lr)
+            p.grad = None
+
+
+class AdamW(Adam):
+    """``optax.adamw(lr)`` with optax's defaults: Adam's b1, b2 and eps,
+    weight decay 1e-4 on every parameter."""
+
+    def __init__(self, params: Iterable[torch.nn.Parameter],
+                 lr: Callable[[int], float], weight_decay: float = 1e-4):
+        super().__init__(params, lr)
+        self.weight_decay = weight_decay
+
+
+class SGD:
+    """``optax.sgd(lr, momentum)`` over the model's parameters, in place, in
+    f32: optax's ``trace`` (not Nesterov), t = g + momentum * t from zeros,
+    then p - lr * t. (Plain SGD is ``TrainState.apply_sgd``.)"""
+
+    def __init__(self, params: Iterable[torch.nn.Parameter], lr: float,
+                 momentum: float):
+        self.params = list(params)
+        self.lr = lr
+        self.momentum = momentum
+        self.trace = [torch.zeros_like(p) for p in self.params]
+
+    @torch.no_grad()
+    def step(self) -> None:
+        """One update from each parameter's ``.grad``, which it then
+        clears."""
+        for p, t in zip(self.params, self.trace):
+            if p.grad is None:
+                continue
+            t.mul_(self.momentum).add_(p.grad)
+            p.sub_(self.lr * t)
             p.grad = None

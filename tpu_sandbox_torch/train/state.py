@@ -2,8 +2,10 @@
 optimizer and the step count. Counterpart of ``tpu_sandbox/train/state.py``.
 
 The JAX package keeps these in one immutable pytree; here the model is an
-``nn.Module`` updated in place, and SGD without momentum (optax.sgd)
-needs no optimizer state beyond the learning rate.
+``nn.Module`` updated in place. SGD without momentum (optax.sgd), the
+default, needs no optimizer state beyond the learning rate; any other
+optimizer (``train/optim.py``: ``SGD`` with momentum, ``AdamW``) rides in
+``optimizer`` and keeps its own state.
 """
 
 from __future__ import annotations
@@ -18,6 +20,16 @@ class TrainState:
     model: torch.nn.Module
     lr: float = 1e-4
     step: int = 0
+    optimizer: object | None = None
+
+    def apply_update(self) -> None:
+        """The optimizer's update from the gradients (plain SGD at ``lr``
+        without one), which clears them; counts the step."""
+        if self.optimizer is None:
+            self.apply_sgd()
+            return
+        self.optimizer.step()
+        self.step += 1
 
     @torch.no_grad()
     def apply_sgd(self) -> None:

@@ -2,7 +2,7 @@
 log lines. Counterpart of ``tpu_sandbox/train/trainer.py``:
 ``resize_on_device`` (:84), ``prepare_inputs`` (:99), ``make_train_step``
 (:113-193, gradient accumulation included), ``make_eval_step`` (:209) and
-``Trainer.fit`` (:273-352).
+``Trainer.fit`` (:227-365).
 
 The step runs eagerly: the 28x28 batch goes to the device, the model's
 fused input stage resizes it to the training size and folds it into
@@ -19,6 +19,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from tpu_sandbox_torch.data.loader import PrefetchLoader
 from tpu_sandbox_torch.models.convnet_s2d_t import resize_weights
 from tpu_sandbox_torch.ops.losses import cross_entropy_loss
 from tpu_sandbox_torch.train.state import TrainState
@@ -89,7 +90,7 @@ def make_train_step(state: TrainState, *,
                     if p.grad is not None:
                         p.grad.div_(accum_steps)
             total = total / accum_steps
-        state.apply_sgd()
+        state.apply_update()
         return total
 
     return train_step
@@ -123,29 +124,53 @@ class Trainer:
     is the device's step time only when every step is logged."""
 
     def __init__(self, train_step: Callable, device: torch.device, *,
-                 log_every: int = 100):
+                 log_every: int = 100, log_rank: int | None = None,
+                 verbose: bool = True):
+        """``log_rank`` r gives the data-parallel line ``Rank [r], Epoch
+        [e/E], Step [s/S], Loss: L`` (reference mnist_distributed.py:104-
+        106); ``verbose=False`` prints nothing (every rank but the one
+        that logs)."""
         self.train_step = train_step
         self.device = device
         self.log_every = log_every
+        self.log_rank = log_rank
+        self.verbose = verbose
         self.losses: list[float] = []
         self.step_seconds: list[float] = []
         self.elapsed: timedelta | None = None
 
-    def fit(self, state: TrainState, loader, epochs: int) -> TrainState:
+    def fit(self, state: TrainState, loader, epochs: int, *,
+            set_epoch: bool = False, prefetch: bool = False) -> TrainState:
+        """Run ``epochs`` epochs. ``set_epoch=False`` keeps the reference's
+        quirk of never reshuffling across epochs (no ``sampler.set_epoch``);
+        ``prefetch`` wraps the loader in a ``PrefetchLoader`` (same batches,
+        same order, assembled while the previous step runs)."""
+        if prefetch and not isinstance(loader, PrefetchLoader):
+            loader = PrefetchLoader(loader)
         start = time.monotonic()
         total_step = len(loader)
         for epoch in range(epochs):
+            if set_epoch:
+                loader.set_epoch(epoch)
             for i, (images, labels) in enumerate(loader):
                 t_step = time.monotonic()
                 loss = self.train_step(*to_device(images, labels, self.device))
                 if (i + 1) % self.log_every == 0:
                     loss_val = float(loss)
                     self.losses.append(loss_val)
-                    print("Epoch [{}/{}], Step [{}/{}], Loss: {:.4f}".format(
-                        epoch + 1, epochs, i + 1, total_step, loss_val))
+                    self._log(epoch, epochs, i, total_step, loss_val)
                 self.step_seconds.append(time.monotonic() - t_step)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.elapsed = timedelta(seconds=time.monotonic() - start)
-        print("Training complete in: " + str(self.elapsed))
+        if self.verbose:
+            print("Training complete in: " + str(self.elapsed))
         return state
+
+    def _log(self, epoch, epochs, i, total_step, loss_val) -> None:
+        if not self.verbose:
+            return
+        rank = ("" if self.log_rank is None
+                else "Rank [{}], ".format(self.log_rank))
+        print(rank + "Epoch [{}/{}], Step [{}/{}], Loss: {:.4f}".format(
+            epoch + 1, epochs, i + 1, total_step, loss_val))
