@@ -55,8 +55,15 @@ card or when the port is not beside it. Phases, one JSON line each:
    the stats y bitwise the forward's and the reducing kernels repeatable.
    lm_ragged: the flash kernels at S 200 and 130, D 40 and 64, causal
    off, non-zero offsets, kv_len short of S, B*H = 1, the backward's f32
-   outputs of bf16 inputs among them; the CE at N = 1 and
-   C = 4097. The NHWC conv at CO 48 and 80 and at C 32, its tails at co 8
+   outputs of bf16 inputs among them, and ring hops wholly in the
+   queries' future (out 0, lse NEG, zero gradients) and wholly in their
+   past; the CE at N = 1 and C = 4097. ring_kernels: flash-ring attention
+   at the LM's shapes over 4 shards of 512 tokens simulated in one
+   process (flash_attention_with_lse and make_flash_bwd_lse's closure on
+   the kernels, 4 hops a rank each way) against the same ring on the
+   plain versions and the full-sequence kernels, two passes bitwise
+   equal; each hop kind's time (diagonal, past, future) beside its bound,
+   and the hops of a pass beside the full-sequence kernels. The NHWC conv at CO 48 and 80 and at C 32, its tails at co 8
    blk 2 and co 4 blk 4, and its own bf16 tie case; its bf16 forward's
    runs of rows at W 65 and 130, N*H 134 (more rows than the card's
    blocks, the last run short) and 140 one-row images, for the forward,
@@ -102,7 +109,13 @@ card or when the port is not beside it. Phases, one JSON line each:
    and read after: exactly 12 flash forward, 12 dk/dv, 12 dq and 1 CE
    launch a step and nothing else, and lm_train's own check that the
    loss fell. Step time, tokens/s, peak device memory. lm_profile: two
-   more steps under torch.profiler.
+   more steps under torch.profiler. path_sp_flash_ring and
+   path_sp_ulysses: lm_train.fit_sp, SeqParallel over a one-rank
+   {"data": 1, "sp": 1} mesh (NCCL), at the same width, 3 steps each,
+   counters zeroed before and read after: the LM's launches a step and,
+   for flash-ring, 12 forward hops and 12 calls of make_flash_bwd_lse's
+   closure a step; losses against lm_path's within 2^-8 relative; step
+   time, tokens/s and peak beside lm_path's.
 8. card_vs_cpu: the port on the card against the port on the CPU, 64x64,
    fp32, 3 SGD steps from the same bridged weights on the same batches,
    on each transposed plan of the paths (path_accum's with 2 microbatches
@@ -114,9 +127,10 @@ card or when the port is not beside it. Phases, one JSON line each:
    input gradient bitwise the CPU's (the first-maximum rule).
    lm_card_vs_cpu:
    the same for a small LM (vocab 4100, so the CE kernel runs; d 64, 2
-   heads, 2 layers, S 256, flash, fp32, 3 Adam steps), after checking
-   that the LM built on the card from seed 0 holds the CPU-built weights
-   bitwise.
+   heads, 2 layers, S 256, flash, fp32, 3 Adam steps), and SeqParallel
+   with the plain ring attention on it at one rank (NCCL against gloo),
+   after checking that the LM built on the card from seed 0 holds the
+   CPU-built weights bitwise.
 9. profile_flag: mnist_onegpu --profile DIR, 2 steps of the default plan
    at 3000x3000; the trace must name one of the port's kernels.
    curve_card_vs_cpu: parity_run.py's protocol (128x128, batch 5, fp32,
@@ -138,7 +152,11 @@ card or when the port is not beside it. Phases, one JSON line each:
    dist_scripts (after the curve phase): python -m
    tpu_sandbox_torch.test_init and .allreduce_toy at world size 1 on the
    card and as 4 gloo ranks with --force-cpu, at once, each with a time
-   limit: exit 0, the reference's lines, the toy's sums.
+   limit: exit 0, the reference's lines, the toy's sums. sp_entry:
+   python -m tpu_sandbox_torch.lm_train --parallelism sp --devices 4
+   --force-cpu at a small width once per --attn (exit 0, the [sp] lines,
+   a falling loss) and --devices 2 without --force-cpu (non-zero exit
+   naming the 2 ranks and the card count), at once.
 11. the {"kernels": [...]} summary, the nvidia-smi line, and last
    {"ok": true, "device": {...}}.
 
@@ -157,6 +175,7 @@ import statistics
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 import torch
@@ -358,7 +377,11 @@ LM_FLAGS = ["--parallelism", "dp", "--devices", "1", "--flash",
 LM_KINDS = {"flash_fwd": 12, "flash_bwd_dkv": 12, "flash_bwd_dq": 12,
             "ce_fwd": 1}
 #: the flash kernels' ragged cases (B, H, Sq, Sk, D, causal, q_offset,
-#: kv_offset, kv_len); D 40 runs zero-padded to the 64 head width
+#: kv_offset, kv_len); D 40 runs zero-padded to the 64 head width. A query
+#: that sees no key gets out 0 from the kernel and a p = 1 spread from the
+#: plain version (a ring's merge weighs it 0): its out is held to be
+#: finite, and 0 where the hop is wholly in its future, not to the plain
+#: value; its lse is the mask filler's on both sides
 FLASH_RAGGED = ((1, 1, 200, 200, 64, True, 0, 0, 200),
                 (1, 2, 200, 200, 32, True, 0, 0, 200),
                 (2, 1, 130, 200, 32, False, 70, 5, 190),
@@ -367,13 +390,48 @@ FLASH_RAGGED = ((1, 1, 200, 200, 64, True, 0, 0, 200),
                 (2, 2, 200, 200, 40, False, 0, 0, 200),
                 (1, 2, 130, 200, 64, True, 70, 5, 190),
                 (2, 1, 72, 100, 40, True, 96, 0, 100),
-                (1, 1, 64, 256, 128, False, 7, 300, 256))
+                (1, 1, 64, 256, 128, False, 7, 300, 256),
+                # ring hops: keys wholly in the queries' future (no tile
+                # visited, out 0 and zero gradients) and wholly in their
+                # past (every pair visible, no diagonal tile), at S 200
+                # and at the LM ring's 512-token blocks, one with kv_len
+                # short
+                (2, 2, 200, 200, 64, True, 0, 256, 200),
+                (2, 2, 200, 200, 64, True, 256, 0, 200),
+                (1, 2, 512, 512, 128, True, 0, 512, 512),
+                (1, 2, 512, 512, 128, True, 1536, 0, 512),
+                (1, 1, 130, 200, 32, True, 300, 0, 190))
 #: the CE kernel's ragged cases (N, C): one row, a row width off 16 bytes
 CE_RAGGED = ((1, 4097), (3, 4097), (5, 4100), (1, 32768))
+#: ring_kernels: the LM's sequence in RING_N shards of LM_S / RING_N
+RING_N = 4
+#: path_sp: SeqParallel at one NCCL rank at the LM's bench width, steps a
+#: scheme, and its losses' bar against lm_path's (the same function, the
+#: same kernels; one bf16 ulp, 2^-8, relative)
+SP_STEPS, SP_SCHEMES, SP_LOSS_RTOL = 3, ("flash_ring", "ulysses"), 2.0 ** -8
+#: sp_entry: lm_train --parallelism sp over four gloo ranks at a small
+#: width, and the seconds all its commands may take together
+SP_ENTRY_FLAGS = ["--force-cpu", "--parallelism", "sp", "--devices", "4",
+                  "--steps", "6", "--log-every", "2", "--seq-len", "32"]
+SP_ENTRY_LIMIT = 300
 
 
 def emit(phase: str, **kw) -> None:
     print(json.dumps({"phase": phase, **kw}), flush=True)
+
+
+#: wall seconds of each phase of this run (``timed``), in run order
+SECONDS: dict[str, float] = {}
+
+
+@contextlib.contextmanager
+def timed(name: str):
+    """Add the wall seconds of the block to SECONDS[name]."""
+    t0 = time.monotonic()
+    try:
+        yield
+    finally:
+        SECONDS[name] = SECONDS.get(name, 0.0) + time.monotonic() - t0
 
 
 def require(cond: bool, msg: str) -> None:
@@ -406,6 +464,33 @@ def back_to_back_ms(fn, calls: int = 20) -> float:
         for _ in range(calls):
             fn()
     return cuda_ms(run, reps=5) / calls
+
+
+def device_times(fn, calls: int = 10) -> list[tuple[float, float, str]]:
+    """(ms a call, launches a call, name) of each kernel and copy that
+    ``fn`` launches, largest first: its self device time under
+    torch.profiler over ``calls`` calls after a warm-up."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sorted(((ev.self_device_time_total / 1e3 / calls,
+                    ev.count / calls, ev.key)
+                   for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CUDA), reverse=True)
+
+
+def device_ms(fn, calls: int = 10) -> float:
+    """Per call, the device time of everything ``fn`` launches (the summed
+    ``device_times``): the card's time with the host's excluded, which a
+    single timed call of a short pass does not show."""
+    return sum(ms for ms, _, _ in device_times(fn, calls))
 
 
 def nbytes(*ts) -> int:
@@ -1316,19 +1401,50 @@ def _flash_case(gen, b, h, sq, sk, d, dtype):
     return make(sq), make(sk), make(sk), make(sq)
 
 
+def _seen(fa, q, k, kw) -> torch.Tensor:
+    """[Sq] bool: the queries that see at least one key."""
+    sq, sk = q.shape[2], k.shape[2]
+    return fa._valid(sq, sk, kw["causal"], kw["kv_len"],
+                     kw.get("q_offset", 0), kw.get("kv_offset", 0),
+                     q.device).expand(sq, sk).any(-1)
+
+
+def _compare_out(out, pout, seen, dt_name, what) -> dict:
+    """out against the plain out on the rows that see a key; the others
+    finite, and exactly 0 when no row sees one (a hop wholly in the
+    future: the kernel visits no tile)."""
+    require(bool(torch.isfinite(out.float()).all().item()),
+            f"{what}: non-finite output")
+    if not bool(seen.any().item()):
+        require(not bool(out.any().item()),
+                f"{what}: a hop wholly in the future must write out 0")
+        return {"rows_compared": 0, "zero_out": True}
+    rec = compare(out[:, :, seen], pout[:, :, seen], dt_name, what)
+    rec["rows_compared"] = int(seen.sum().item())
+    return rec
+
+
 def _check_flash(fa, q, k, v, g, kw, dt_name, what) -> dict:
     """The three flash kernels against their plain versions on the same
     inputs (the backward ones on the kernel's own out and lse); dk/dv and
-    dq run twice and must be bitwise equal."""
+    dq run twice and must be bitwise equal. The forward's out is held on
+    the rows that see a key (``_compare_out``), its lse on every row; where
+    no row sees a key, every backward output must be exactly 0."""
+    seen = _seen(fa, q, k, kw)
     out, lse = fa.flash_fwd(q, k, v, **kw)
     pout, plse = fa.flash_fwd_plain(q, k, v, **kw)
-    rec = {"flash_fwd": compare(out, pout, dt_name, what + " out"),
+    rec = {"flash_fwd": _compare_out(out, pout, seen, dt_name, what + " out"),
            "flash_fwd_lse": compare(lse, plse, "fp32", what + " lse")}
     del pout, plse
     if dt_name == "bf16":
-        rec.update(_flash_fwd_witness(fa, q, k, v, kw, what))
+        rec.update(_flash_fwd_witness(fa, q, k, v, kw, what, seen))
     delta = (g.float() * out.float()).sum(-1)
     args = (q, k, v, g, lse, delta)
+    if not bool(seen.any().item()):
+        outs = (*fa.flash_bwd_dkv(*args, **kw), fa.flash_bwd_dq(*args, **kw))
+        require(not any(bool(t.any().item()) for t in outs),
+                f"{what}: a hop wholly in the future must give zero "
+                "gradients")
     dk, dv = fa.flash_bwd_dkv(*args, **kw)
     pdk, pdv = fa.flash_bwd_dkv_plain(*args, **kw)
     rec["flash_bwd_dkv"] = compare(dk, pdk, dt_name, what + " dk")
@@ -1365,7 +1481,7 @@ def _exact_p(x):
                        torch.zeros_like(xf)).to(x.dtype)
 
 
-def _flash_fwd_witness(fa, q, k, v, kw, what) -> dict:
+def _flash_fwd_witness(fa, q, k, v, kw, what, seen) -> dict:
     """The forward's float32 out of bfloat16 inputs against the plain
     version's. Both round p to bf16 once before p.v, but from different
     maxima (the kernel's running max over its key tiles, the plain
@@ -1375,19 +1491,20 @@ def _flash_fwd_witness(fa, q, k, v, kw, what) -> dict:
     (entries -1, 0, 1 of q and k) at scale ln 2, so every p is a power of
     two, exact in bf16 from either maximum: only the kernel's f32
     arithmetic can differ, and out must come within TOL["bf16_f32"] of
-    max|plain| (a bf16-rounded out would be 2^-9 off)."""
+    max|plain| (a bf16-rounded out would be 2^-9 off). Rows that see no
+    key as in ``_compare_out``."""
     f32 = dict(kw, out_dtype=torch.float32)
     out, _ = fa.flash_fwd(q, k, v, **f32)
     require(out.dtype == torch.float32, f"{what}: f32 out is {out.dtype}")
-    rec = {"flash_fwd_f32_random": compare(
-        out, fa.flash_fwd_plain(q, k, v, **f32)[0], "bf16",
+    rec = {"flash_fwd_f32_random": _compare_out(
+        out, fa.flash_fwd_plain(q, k, v, **f32)[0], seen, "bf16",
         what + " out f32, random inputs")}
     qi, ki = _exact_p(q), _exact_p(k)
     exact = dict(f32, scale=math.log(2.0))
     out, lse = fa.flash_fwd(qi, ki, v, **exact)
     pout, plse = fa.flash_fwd_plain(qi, ki, v, **exact)
-    rec["flash_fwd_f32out"] = compare(out, pout, "bf16_f32",
-                                      what + " out f32, exact p")
+    rec["flash_fwd_f32out"] = _compare_out(out, pout, seen, "bf16_f32",
+                                           what + " out f32, exact p")
     rec["flash_fwd_lse_exact_p"] = compare(lse, plse, "fp32",
                                            what + " lse, exact p")
     return rec
@@ -1556,14 +1673,401 @@ def phase_lm_path(ops, lm_train):
     want = {k: per_step * STEPS for k, per_step in LM_KINDS.items()}
     require(counts == want, f"lm_path launched {counts}, expected {want}")
     step_ms = statistics.median(run.step_seconds[1:]) * 1e3
+    peak = torch.cuda.max_memory_allocated()
     emit("lm_path", flags=LM_FLAGS, losses=run.losses,
          step_ms_each=[t * 1e3 for t in run.step_seconds],
          step_ms_median_after_first=step_ms,
          tokens_per_s=LM_B * LM_S / (step_ms / 1e3),
-         peak_memory_bytes=torch.cuda.max_memory_allocated(),
+         peak_memory_bytes=peak,
          parameters=sum(p.numel() for p in run.model.parameters()),
          wall_s_with_init=wall, launches=counts)
-    return run, counts
+    return run, counts, {"losses": run.losses, "step_ms": step_ms,
+                         "peak_memory_bytes": peak}
+
+
+def hop_kind(sq: int, sk: int, q_offset: int, kv_offset: int) -> str:
+    """Which pairs of a causal ring hop are visible: ``future`` (every key
+    after every query, kv_offset >= q_offset + sq), ``past`` (every key
+    before every query, kv_offset + sk <= q_offset) or ``diagonal`` (the
+    mask crosses the block)."""
+    if kv_offset >= q_offset + sq:
+        return "future"
+    if kv_offset + sk <= q_offset:
+        return "past"
+    return "diagonal"
+
+
+def _plain_hop_fwd(fa, q, k, v, q_off, kv_off):
+    """``flash_attention_with_lse``'s hop on the plain forward (blocks of
+    whole 128-row tiles at head width 128: no padding)."""
+    d = q.shape[3]
+    out, lse = fa.flash_fwd_plain(
+        *(fa._to_bhsd(x, x.shape[1], d) for x in (q, k, v)),
+        scale=1.0 / math.sqrt(d), causal=True, kv_len=k.shape[1],
+        q_offset=q_off, kv_offset=kv_off, out_dtype=torch.float32)
+    return fa._from_bhsd(out, q.shape[1], d), lse.movedim(1, 2)
+
+
+def _plain_bwd_lse(fa, q, out, g, lse, q_off):
+    """``make_flash_bwd_lse``'s closure on the plain backward (as
+    ``_plain_hop_fwd``)."""
+    s, d = q.shape[1], q.shape[3]
+    qp, gp = fa._to_bhsd(q, s, d), fa._to_bhsd(g, s, d)
+    lse_p = lse.movedim(2, 1).contiguous()
+    delta = (gp.float() * fa._to_bhsd(out, s, d).float()).sum(-1)
+
+    def hop(k, v, kv_off):
+        kp, vp = fa._to_bhsd(k, k.shape[1], d), fa._to_bhsd(v, v.shape[1], d)
+        kw = dict(scale=1.0 / math.sqrt(d), causal=True, kv_len=k.shape[1],
+                  q_offset=q_off, kv_offset=kv_off, out_dtype=torch.float32)
+        dk, dv = fa.flash_bwd_dkv_plain(qp, kp, vp, gp, lse_p, delta, **kw)
+        dq = fa.flash_bwd_dq_plain(qp, kp, vp, gp, lse_p, delta, **kw)
+        return (fa._from_bhsd(dq, s, d), fa._from_bhsd(dk, k.shape[1], d),
+                fa._from_bhsd(dv, k.shape[1], d))
+
+    return hop
+
+
+def _ring_pass(q, k, v, g, hop_fwd, make_bwd, merge, neg):
+    """Flash-ring attention's forward and backward over RING_N ranks in
+    one process on [B, S, H, D] tensors, the rotation of k and v replaced
+    by indexing: rank r's queries meet block (r - j) mod n at hop j, each
+    block's dk and dv add up in the order the ring carries them (hop j's
+    share of block b from rank b + j). Returns the merged f32 out, the
+    merged lse and the f32 dq, dk, dv of the whole sequence."""
+    n, sl = RING_N, q.shape[1] // RING_N
+
+    def blk(x, r):
+        return x[:, r * sl:(r + 1) * sl]
+
+    outs, lses, bwds = [], [], []
+    for r in range(n):
+        o = torch.zeros(blk(q, r).shape, dtype=torch.float32,
+                        device=q.device)
+        lse = torch.full(o.shape[:3], neg, dtype=torch.float32,
+                         device=q.device)
+        for j in range(n):
+            src = (r - j) % n
+            o, lse = merge(o, lse, *hop_fwd(blk(q, r), blk(k, src),
+                                            blk(v, src), r * sl, src * sl))
+        outs.append(o)
+        lses.append(lse)
+        bwds.append(make_bwd(blk(q, r), o.to(q.dtype), blk(g, r), lse,
+                             r * sl))
+    dq = [torch.zeros_like(o) for o in outs]
+    dk = [torch.zeros_like(o) for o in outs]
+    dv = [torch.zeros_like(o) for o in outs]
+    for j in range(n):
+        for r in range(n):
+            src = (r - j) % n
+            dq_c, dk_c, dv_c = bwds[r](blk(k, src), blk(v, src), src * sl)
+            dq[r] += dq_c
+            dk[src] += dk_c
+            dv[src] += dv_c
+    return tuple(torch.cat(x, 1) for x in (outs, lses, dq, dk, dv))
+
+
+def phase_ring_kernels(ops, fa) -> tuple[dict, dict]:
+    """Flash-ring attention at the LM's shapes (B16 H8 S2048 D128, bf16,
+    causal) over RING_N = 4 shards of 512 tokens, simulated in one process
+    (``_ring_pass``): the forward merges 4 hops of
+    ``flash_attention_with_lse`` a rank, the backward adds 4 calls of
+    ``make_flash_bwd_lse``'s closure a rank, on the kernels. out, dq, dk
+    and dv against the same ring on the plain versions and against the
+    single-device flash kernels on the whole sequence (f32 outputs), each
+    within 1e-2 of max|ref| (the bf16 rule); a hop wholly in the future
+    must give out 0, lse NEG and zero gradients; two passes bitwise equal.
+    Each hop kind's CUDA-event ms (rank 2's hops: diagonal, past, future;
+    and the whole sequence as one diagonal hop, path_sp's hop at one
+    rank), also back to back and as device time (torch.profiler), beside
+    its bound from that hop's visible pairs (forward 4 P D, the closure's
+    dk/dv and dq 20 P D bf16 FLOP, as rows 11-13); the hops summed over a
+    pass beside the full-sequence kernels timed here. The hops of one pass
+    are counted (fa.HOPS, by function; each hop's kind follows from the
+    offsets the ring gives it, ``hop_kind``). The phase's seconds in its
+    three parts: the checks, the hop kinds' timings, the pass and the
+    full-sequence kernels' timings."""
+    from tpu_sandbox_torch.parallel.flash_ring import merge
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    b, h, s, d = LM_B, LM_H, LM_S, LM_D
+    n, sl = RING_N, LM_S // RING_N
+    q, k, v, g = (torch.randn((b, s, h, d), generator=gen, device="cuda")
+                  .to(torch.bfloat16) for _ in range(4))
+
+    def kernels():
+        return _ring_pass(q, k, v, g, lambda *a: fa.flash_attention_with_lse(
+            a[0], a[1], a[2], causal=True, q_offset=a[3], kv_offset=a[4]),
+            lambda *a: fa.make_flash_bwd_lse(*a[:4], causal=True,
+                                             q_offset=a[4]), merge, fa.NEG)
+
+    t0 = time.monotonic()
+    ops.reset_launch_counts()
+    fa.HOPS.clear()
+    got = kernels()
+    torch.cuda.synchronize()
+    hops = dict(fa.HOPS)
+    want = {f: n * n for f in ("flash_fwd_lse", "flash_bwd_lse")}
+    require(hops == want, f"ring_kernels ran hops {hops}, expected {want}")
+    # rank r meets block (r - j) mod n at hop j, once each way
+    hop_kinds = Counter(hop_kind(sl, sl, r * sl, (r - j) % n * sl)
+                        for r in range(n) for j in range(n))
+    counts = {**ops.launch_counts(),
+              **{f"{f} {kind} S{sl}": c for f in want
+                 for kind, c in hop_kinds.items()}}
+    plain = _ring_pass(q, k, v, g, lambda *a: _plain_hop_fwd(fa, *a),
+                       lambda *a: _plain_bwd_lse(fa, *a), merge, fa.NEG)
+    names = ("out", "lse", "dq", "dk", "dv")
+    checks = {"vs_plain_ring": {
+        x: compare(a, w, "bf16" if x != "lse" else "fp32", f"ring {x} "
+                   "vs the plain ring") for x, a, w in zip(names, got, plain)}}
+    del plain
+    # the single-device kernels on the whole sequence, f32 outputs
+    full = [t.movedim(2, 1).contiguous() for t in (q, k, v, g)]
+    kw = dict(scale=1.0 / math.sqrt(d), causal=True, kv_len=s)
+    f32 = dict(kw, out_dtype=torch.float32)
+    out, lse = fa.flash_fwd(*full[:3], **f32)
+    delta = (full[3].float() * out.to(torch.bfloat16).float()).sum(-1)
+    bargs = (*full, lse, delta)
+    ref = (out, lse, fa.flash_bwd_dq(*bargs, **f32),
+           *fa.flash_bwd_dkv(*bargs, **f32))
+    checks["vs_full_sequence"] = {
+        x: compare(a, w.movedim(1, 2), "bf16" if x != "lse" else "fp32",
+                   f"ring {x} vs the full-sequence kernels")
+        for x, a, w in zip(names, got, ref)}
+    again = kernels()
+    bitwise = all(torch.equal(a, b_) for a, b_ in zip(got, again))
+    require(bitwise, "ring_kernels: two passes differ")
+    del ref, again, out, lse, delta, bargs
+    seconds = {"checks": time.monotonic() - t0}
+
+    # rank 2's hops on 512-token blocks: its own block (diagonal), block 0
+    # (past) and block 3 (future); and the one hop a layer of path_sp at
+    # one rank, the whole sequence (diagonal): (q, g, out, lse, q offset,
+    # k/v block, kv offset, visible pairs, hops of the kind in a pass)
+    def rows(x, r):
+        return x[:, r * sl:(r + 1) * sl]
+
+    mine = (rows(q, 2), rows(g, 2), rows(got[0], 2).to(torch.bfloat16),
+            rows(got[1], 2), 2 * sl)
+    whole = (q, g, got[0].to(torch.bfloat16), got[1], 0)
+    kinds = {
+        f"diagonal S{sl}": (*mine, 2, b * h * sl * (sl + 1) / 2,
+                            hop_kinds["diagonal"]),
+        f"past S{sl}": (*mine, 0, b * h * sl * sl, hop_kinds["past"]),
+        f"future S{sl}": (*mine, 3, 0.0, hop_kinds["future"]),
+        f"diagonal S{s}": (*whole, None, b * h * s * (s + 1) / 2, 0)}
+    entries, timing = {}, {}
+    for kind, (qr, gr, out_r, lse_r, q_off, src, pairs, per_pass) in (
+            kinds.items()):
+        kb, vb = (k, v) if src is None else (rows(k, src), rows(v, src))
+        kv_off = 0 if src is None else src * sl
+        args = (qr, kb, vb, q_off, kv_off)
+        bwd = fa.make_flash_bwd_lse(qr, out_r, gr, lse_r, causal=True,
+                                    q_offset=q_off)
+        pbwd = _plain_bwd_lse(fa, qr, out_r, gr, lse_r, q_off)
+        fwd = lambda: fa.flash_attention_with_lse(  # noqa: E731
+            *args[:3], causal=True, q_offset=args[3], kv_offset=args[4])
+        o_b, lse_b = fwd()
+        po, plse = _plain_hop_fwd(fa, *args)
+        grads = bwd(kb, vb, kv_off)
+        pgrads = pbwd(kb, vb, kv_off)
+        if kind.startswith("future"):
+            require(not bool(o_b.any().item()) and bool(
+                (lse_b == torch.tensor(fa.NEG, dtype=torch.float32)).all()),
+                "ring_kernels: a future hop's out is not 0 or its lse not "
+                "NEG")
+            require(not any(bool(t.any().item()) for t in grads),
+                    "ring_kernels: a future hop's gradients are not 0")
+            f_rec = {"max_abs_err": 0.0, "rel_err": 0.0, "zero_out": True}
+        else:
+            f_rec = compare(o_b, po, "bf16", f"ring {kind} hop out")
+        b_recs = [compare(a, w, "bf16", f"ring {kind} hop d{x}")
+                  for x, a, w in zip("qkv", grads, pgrads)]
+        del po, plse, pgrads
+        bwd_fn = lambda: bwd(kb, vb, kv_off)  # noqa: E731
+        # a hop with no visible pair needs none of its inputs: its bytes
+        # are its outputs alone (out 0 and lse NEG; zero dq, dk, dv)
+        fwd_in = nbytes(qr, kb, vb) if pairs else 0
+        bwd_in = fwd_in + nbytes(gr, lse_r, lse_r) if pairs else 0
+        for fn_name, fn, plain_fn, rec, flops, bytes_, replaces in (
+                ("flash_fwd_lse", fwd, lambda: _plain_hop_fwd(fa, *args),
+                 [f_rec], 4 * pairs * d, fwd_in + nbytes(o_b, lse_b),
+                 "tpu_sandbox/ops/pallas_attention.py:493"),
+                ("flash_bwd_lse", bwd_fn, lambda: pbwd(kb, vb, kv_off),
+                 b_recs, 20 * pairs * d, bwd_in + nbytes(*grads),
+                 "tpu_sandbox/ops/pallas_attention.py:533")):
+            ms = cuda_ms(fn)
+            b_ms, b_by = bound(flops, bytes_)
+            name = f"{fn_name} {kind}"
+            entries[name] = dict(
+                name=name, route="cuda", source=FLASH_SRC, replaces=replaces,
+                max_abs_err=max(x["max_abs_err"] for x in rec), ms=ms,
+                plain_ms=cuda_ms(plain_fn, reps=3), bound_ms=b_ms,
+                bound_by=b_by, library_ms=None,
+                library_note="none: no single call computes a ring hop's "
+                             "partial or its gradients against a given lse",
+                fp32_rel_err=None,
+                bf16_rel_err=max(x["rel_err"] for x in rec),
+                bf16_f32out_rel_err=None, attrs=None,
+                ms_back_to_back=back_to_back_ms(fn), device_ms=device_ms(fn))
+            timing[name] = {k: entries[name][k] for k in (
+                "ms", "ms_back_to_back", "device_ms", "bound_ms")}
+            timing[name].update(pairs=pairs, per_pass=per_pass)
+        del o_b, lse_b, grads, bwd, pbwd
+        torch.cuda.empty_cache()
+    seconds["hop_timings"] = time.monotonic() - t0 - seconds["checks"]
+    out, lse = fa.flash_fwd(*full[:3], **kw)
+    delta = (full[3].float() * out.float()).sum(-1)
+    bargs = (*full, lse, delta)
+    full_fns = {"flash_fwd": lambda: fa.flash_fwd(*full[:3], **kw),
+                "flash_bwd_dkv": lambda: fa.flash_bwd_dkv(*bargs, **kw),
+                "flash_bwd_dq": lambda: fa.flash_bwd_dq(*bargs, **kw)}
+    full_ms = {k: cuda_ms(f) for k, f in full_fns.items()}
+    full_dev = {k: device_ms(f) for k, f in full_fns.items()}
+    hops_ms = sum(t["ms"] * t["per_pass"] for t in timing.values())
+    hops_dev = sum(t["device_ms"] * t["per_pass"] for t in timing.values())
+    pass_ms = cuda_ms(kernels, reps=3, warmup=1)
+    pass_dev = device_ms(kernels, calls=2)
+    seconds["pass_and_full_sequence_timings"] = (
+        time.monotonic() - t0 - sum(seconds.values()))
+    emit("ring_kernels", shards=n, shard_len=sl, checks=checks,
+         bitwise_repeatable=bitwise, hops=timing, launches=counts,
+         ring_hops_ms_sum=hops_ms, ring_hops_device_ms_sum=hops_dev,
+         ring_pass_ms=pass_ms, ring_pass_device_ms=pass_dev,
+         full_sequence_ms=full_ms, full_sequence_device_ms=full_dev,
+         hops_over_full=hops_ms / sum(full_ms.values()),
+         hops_device_over_full_device=hops_dev / sum(full_dev.values()),
+         seconds=seconds)
+    for e in entries.values():
+        emit("kernel", **e)
+    del q, k, v, g, full, got, out, lse, delta, bargs
+    torch.cuda.empty_cache()
+    return entries, counts
+
+
+def phase_path_sp(ops, fa, lm_train, lm_ref: dict) -> dict:
+    """SeqParallel over a one-rank {"data": 1, "sp": 1} mesh (NCCL, in
+    this process) at the LM's bench width, SP_STEPS Adam steps through
+    lm_train.fit_sp, once per SP_SCHEMES, the counters zeroed just before
+    and read just after: LM_KINDS a step and nothing else, and with
+    flash_ring 12 forward hops and 12 calls of make_flash_bwd_lse's closure
+    a step (fa.HOPS), all diagonal at one rank. Losses against lm_path's first
+    SP_STEPS from the same seed and batches within SP_LOSS_RTOL (the same
+    function; bf16), step ms, tokens/s and peak memory beside lm_path's."""
+    from tpu_sandbox_torch.runtime import bootstrap
+    from tpu_sandbox_torch.runtime.mesh import make_mesh
+
+    counts = {}
+    bootstrap.init(device="cuda")
+    try:
+        mesh = make_mesh({"data": 1, "sp": 1})
+        for attn in SP_SCHEMES:
+            args = lm_train.build_parser().parse_args(
+                [*LM_FLAGS, "--parallelism", "sp", "--attn", attn,
+                 "--steps", str(SP_STEPS)])
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            fa.HOPS.clear()
+            t0 = time.monotonic()
+            run = lm_train.fit_sp(args, mesh, torch.device("cuda"))
+            torch.cuda.synchronize()
+            launches, hops = ops.launch_counts(), dict(fa.HOPS)
+            wall = time.monotonic() - t0
+            phase = f"path_sp_{attn}"
+            want = {k: per_step * SP_STEPS for k, per_step in LM_KINDS.items()}
+            require(launches == want,
+                    f"{phase} launched {launches}, expected {want}")
+            want_hops = ({f: LM_KINDS["flash_fwd"] * SP_STEPS
+                          for f in ("flash_fwd_lse", "flash_bwd_lse")}
+                         if attn == "flash_ring" else {})
+            require(hops == want_hops,
+                    f"{phase} ran hops {hops}, expected {want_hops}")
+            require(len(run.losses) == SP_STEPS
+                    and all(math.isfinite(x) for x in run.losses),
+                    f"{phase} losses {run.losses}")
+            ref = lm_ref["losses"][:SP_STEPS]
+            dev = max(abs(a - w) / abs(w) for a, w in zip(run.losses, ref))
+            require(dev <= SP_LOSS_RTOL,
+                    f"{phase} losses {run.losses} against lm_path's {ref}")
+            step_ms = statistics.median(run.step_seconds[1:]) * 1e3
+            emit(phase, attn=attn, mesh={"data": 1, "sp": 1},
+                 backend=bootstrap.backend_name(), flags=args.__dict__,
+                 losses=run.losses, lm_path_losses=ref,
+                 max_rel_dev_from_lm_path=dev, loss_rtol=SP_LOSS_RTOL,
+                 bitwise_lm_path=run.losses == ref,
+                 step_ms_each=[t * 1e3 for t in run.step_seconds],
+                 step_ms_median_after_first=step_ms,
+                 tokens_per_s=LM_B * LM_S / (step_ms / 1e3),
+                 peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                 lm_path_step_ms_median_after_first=lm_ref["step_ms"],
+                 lm_path_peak_memory_bytes=lm_ref["peak_memory_bytes"],
+                 wall_s_with_init=wall, launches=launches, hops=hops)
+            kind = hop_kind(LM_S, LM_S, 0, 0)   # the whole sequence
+            counts[phase] = {**launches, **{f"{f} {kind} S{LM_S}": c
+                                            for f, c in hops.items()}}
+            del run
+    finally:
+        bootstrap.cleanup()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_sp_entry() -> None:
+    """``python -m tpu_sandbox_torch.lm_train --parallelism sp --devices 4
+    --force-cpu`` at a small width (SP_ENTRY_FLAGS), once per --attn, and
+    ``--parallelism sp --devices 2`` without --force-cpu on this one-card
+    machine, all at once, each with a time limit: the first three exit 0,
+    print the JAX script's lines from rank 0 and their loss falls; the last
+    exits non-zero and names both counts (2 GPU ranks, the card count)."""
+    root = Path(__file__).resolve().parent
+    runs = {attn: [*SP_ENTRY_FLAGS, "--attn", attn]
+            for attn in ("ring", "ulysses", "flash_ring")}
+    runs["two_gpu_ranks"] = ["--parallelism", "sp", "--devices", "2",
+                             "--steps", "1"]
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-m", "tpu_sandbox_torch.lm_train", *argv],
+        cwd=root, text=True, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+        for name, argv in runs.items()}
+    out, t0 = {}, time.monotonic()
+    try:
+        for name, p in procs.items():
+            try:
+                stdout, stderr = p.communicate(
+                    timeout=max(1.0, SP_ENTRY_LIMIT - (time.monotonic() - t0)))
+            except subprocess.TimeoutExpired:
+                require(False, f"sp_entry: {name} ran past {SP_ENTRY_LIMIT} s")
+            out[name] = (p.returncode, stdout, stderr,
+                         time.monotonic() - t0)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    pat = re.compile(r"^\[sp\] Step \[(\d+)/6\], Loss: (\d+\.\d{4})$")
+    losses = {}
+    for attn in ("ring", "ulysses", "flash_ring"):
+        rc, stdout, stderr, _ = out[attn]
+        lines = stdout.splitlines()
+        rows = [pat.match(ln) for ln in lines[:-1]]
+        require(rc == 0 and all(rows) and [int(m[1]) for m in rows]
+                == [2, 4, 6] and lines[-1].startswith("Training complete in: "),
+                f"sp_entry {attn}: exit {rc}, lines {lines}, "
+                f"stderr {stderr[-2000:]}")
+        losses[attn] = [float(m[2]) for m in rows]
+        require(losses[attn][-1] < losses[attn][0],
+                f"sp_entry {attn}: the loss did not fall: {losses[attn]}")
+    rc, _, stderr, _ = out["two_gpu_ranks"]
+    cards = torch.cuda.device_count()
+    named = ("2 GPU ranks" in stderr
+             and f"machine with {cards} GPU(s)" in stderr)
+    require(rc != 0 and named,
+            f"sp_entry: --devices 2 on {cards} card(s) gave exit {rc}, "
+            f"stderr {stderr[-2000:]}")
+    emit("sp_entry", flags=SP_ENTRY_FLAGS, losses=losses,
+         seconds={k: v[3] for k, v in out.items()},
+         two_gpu_ranks={"exit": rc, "stderr": stderr.strip()[-300:]})
 
 
 def phase_main_path(ops, mnist_onegpu, expected: list[str], *, phase: str,
@@ -2072,8 +2576,12 @@ def phase_lm_card_vs_cpu(lm_train) -> None:
     """The LM on the card against the LM on the CPU: vocab 4100 (so the CE
     kernel runs), d 64, 2 heads (head dim 32), 2 layers, S 256, flash,
     fp32, 3 Adam steps from the same bridged weights on make_batches'
-    batches: losses within rtol 1e-4. Before that, the LM built on the
-    card from seed 0 must hold the CPU-built weights bitwise."""
+    batches: losses within rtol 1e-4. Then the same for SeqParallel with
+    the plain ring attention (attn="ring", plain PyTorch: at the bench
+    width it would hold [16, 8, 2048, 2048] f32 scores a layer) over a
+    one-rank {"data": 1, "sp": 1} mesh, NCCL on the card against gloo on
+    the CPU. Before that, the LM built on the card from seed 0 must hold
+    the CPU-built weights bitwise."""
     import numpy as np
 
     from tpu_sandbox_torch.train.trainer import to_device
@@ -2103,13 +2611,48 @@ def phase_lm_card_vs_cpu(lm_train) -> None:
                        for t, y in lm_train.make_batches(
                            args.vocab, args.batch, args.seq_len, args.steps,
                            0)]
+    t0 = time.monotonic()
+    ring = {dev: _sp_ring_losses(lm_train, args, tree, dev)
+            for dev in ("cpu", "cuda")}
+    ring_seconds = time.monotonic() - t0
     ok = bool(np.allclose(losses["cuda"], losses["cpu"], rtol=1e-4, atol=0))
+    ring_ok = bool(np.allclose(ring["cuda"], ring["cpu"], rtol=1e-4, atol=0))
     emit("lm_card_vs_cpu", dtype="fp32", steps=3, rtol=1e-4,
          losses_cpu=losses["cpu"], losses_cuda=losses["cuda"], agree=ok,
+         sp_ring_losses_cpu=ring["cpu"], sp_ring_losses_cuda=ring["cuda"],
+         sp_ring_agree=ring_ok, sp_ring_seconds=ring_seconds,
          init_bitwise_equal=init_equal)
     require(init_equal, "the LM built on the card from seed 0 does not "
             "hold the CPU-built weights bitwise")
     require(ok, f"LM card and CPU losses differ: {losses}")
+    require(ring_ok, f"SeqParallel ring card and CPU losses differ: {ring}")
+
+
+def _sp_ring_losses(lm_train, args, tree, dev: str) -> list:
+    """3 steps of SeqParallel(attn="ring") at one rank on ``dev`` (NCCL
+    on the card, gloo on the CPU) from the bridged ``tree``."""
+    from tpu_sandbox_torch.models.transformer import TransformerLM
+    from tpu_sandbox_torch.parallel import SeqParallel
+    from tpu_sandbox_torch.runtime import bootstrap
+    from tpu_sandbox_torch.runtime.mesh import make_mesh
+    from tpu_sandbox_torch.utils import params_from_flax
+
+    device = torch.device(dev)
+    bootstrap.init(device=dev)
+    try:
+        cfg = lm_train.make_config(args)
+        eng = SeqParallel(
+            lambda attn: TransformerLM(cfg, attn, seed=1, device=device),
+            lambda params: lm_train.make_adam(args, params),
+            make_mesh({"data": 1, "sp": 1}), attn="ring")
+        state = eng.init_state()
+        state.model.load_state_dict(params_from_flax(tree))
+        eng.shard_state(state)
+        return [float(eng.train_step(state, *eng.shard_batch(t, y)))
+                for t, y in lm_train.make_batches(
+                    args.vocab, args.batch, args.seq_len, args.steps, 0)]
+    finally:
+        bootstrap.cleanup()
 
 
 def main() -> int:
@@ -2142,49 +2685,72 @@ def main() -> int:
         return 1
 
     exact_fp32()
-    smi = phase_env(build)
-    entries = phase_kernels(conv_t, fc_t, bn_tail_t, conv5_t, conv1_tail_t,
-                            conv, bn_tail)
-    require(sorted(entries) == ALL_KINDS,
-            f"kernel phase covered {sorted(entries)}")
-    entries.update(phase_lm_kernels(ce, fa))
-    phase_ragged(conv_t, fc_t, bn_tail_t, conv5_t, conv1_tail_t, conv,
-                 bn_tail)
-    phase_lm_ragged(ce, fa)
+    with timed("env"):
+        smi = phase_env(build)
+    with timed("kernels"):
+        entries = phase_kernels(conv_t, fc_t, bn_tail_t, conv5_t,
+                                conv1_tail_t, conv, bn_tail)
+        require(sorted(entries) == ALL_KINDS,
+                f"kernel phase covered {sorted(entries)}")
+        entries.update(phase_lm_kernels(ce, fa))
+    with timed("ragged"):
+        phase_ragged(conv_t, fc_t, bn_tail_t, conv5_t, conv1_tail_t, conv,
+                     bn_tail)
+        phase_lm_ragged(ce, fa)
+    with timed("ring_kernels"):
+        ring_entries, ring_counts = phase_ring_kernels(ops, fa)
+    entries.update(ring_entries)
     counts, main_ms = {}, None
     for phase, plan, options, steps, kinds in PATHS:
-        res, counts[phase], trainer = phase_main_path(
-            ops, mnist_onegpu, kinds, phase=phase, plan=plan, steps=steps,
-            model_options=options, flags=PATH_FLAGS.get(phase))
-        if main_ms is None:
-            require(res["fused_tail"] and res["sparse_conv1"]
-                    and res["fused_conv1_bwd"],
-                    "the card's default plan is not the JAX package's "
-                    f"whole chip plan: {res}")
-            main_ms = res["step_ms_median_after_first"]
-            emit(phase, **res)
-            phase_profile(trainer)
-        else:
-            emit(phase, **res, main_path_step_ms_median_after_first=main_ms)
-        if phase == "path_s2d":
-            phase_profile(trainer, phase="profile_s2d", plan=phase)
-        del trainer
-    phase_dist_bootstrap()
-    res, counts["path_dp"] = phase_path_dp(ops, mnist_distributed, MAIN_KINDS)
-    emit("path_dp", **res, main_path_step_ms_median_after_first=main_ms)
-    run, counts["lm_path"] = phase_lm_path(ops, lm_train)
-    phase_lm_profile(lm_train, run)
-    del run
-    torch.cuda.empty_cache()
-    phase_card_vs_cpu()
-    phase_pool_tie_card_vs_cpu()
-    phase_lm_card_vs_cpu(lm_train)
-    phase_profile_flag(mnist_onegpu)
-    phase_curve_card_vs_cpu()
-    phase_dist_scripts()
+        with timed(phase):
+            res, counts[phase], trainer = phase_main_path(
+                ops, mnist_onegpu, kinds, phase=phase, plan=plan,
+                steps=steps, model_options=options,
+                flags=PATH_FLAGS.get(phase))
+            if main_ms is None:
+                require(res["fused_tail"] and res["sparse_conv1"]
+                        and res["fused_conv1_bwd"],
+                        "the card's default plan is not the JAX package's "
+                        f"whole chip plan: {res}")
+                main_ms = res["step_ms_median_after_first"]
+                emit(phase, **res)
+                phase_profile(trainer)
+            else:
+                emit(phase, **res,
+                     main_path_step_ms_median_after_first=main_ms)
+            if phase == "path_s2d":
+                phase_profile(trainer, phase="profile_s2d", plan=phase)
+            del trainer
+    with timed("dist_bootstrap"):
+        phase_dist_bootstrap()
+    with timed("path_dp"):
+        res, counts["path_dp"] = phase_path_dp(ops, mnist_distributed,
+                                               MAIN_KINDS)
+        emit("path_dp", **res, main_path_step_ms_median_after_first=main_ms)
+    with timed("lm_path"):
+        run, counts["lm_path"], lm_ref = phase_lm_path(ops, lm_train)
+        phase_lm_profile(lm_train, run)
+        del run
+        torch.cuda.empty_cache()
+    with timed("path_sp"):
+        counts.update(phase_path_sp(ops, fa, lm_train, lm_ref))
+    counts["ring_kernels"] = ring_counts
+    for name, phase_fn, *a in (
+            ("card_vs_cpu", phase_card_vs_cpu),
+            ("pool_tie_card_vs_cpu", phase_pool_tie_card_vs_cpu),
+            ("lm_card_vs_cpu", phase_lm_card_vs_cpu, lm_train),
+            ("profile_flag", phase_profile_flag, mnist_onegpu),
+            ("curve_card_vs_cpu", phase_curve_card_vs_cpu),
+            ("dist_scripts", phase_dist_scripts),
+            ("sp_entry", phase_sp_entry)):
+        with timed(name):
+            phase_fn(*a)
+    emit("seconds", phases=SECONDS, total=sum(SECONDS.values()))
     steps_of = {phase: steps for phase, _, _, steps, _ in PATHS}
     steps_of["lm_path"] = STEPS
     steps_of["path_dp"] = DP_STEPS
+    steps_of.update({f"path_sp_{a}": SP_STEPS for a in SP_SCHEMES},
+                    ring_kernels=1)
     for name, e in entries.items():
         e["launches_by_path"] = {p: c.get(name, 0) for p, c in counts.items()}
         # the count from the run of the first path this launch belongs to

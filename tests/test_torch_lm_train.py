@@ -177,9 +177,8 @@ def test_entry_script_needs_the_card_or_force_cpu():
     assert "CUDA is not available" in proc.stderr
 
 
-@pytest.mark.parametrize("flags,what", [
+UNPORTED = [
     (["--parallelism", "tp"], "--parallelism tp"),
-    (["--parallelism", "sp"], "--parallelism sp"),
     (["--parallelism", "pp"], "--parallelism pp"),
     (["--parallelism", "pp_sp"], "--parallelism pp_sp"),
     (["--parallelism", "ep"], "--parallelism ep"),
@@ -189,12 +188,89 @@ def test_entry_script_needs_the_card_or_force_cpu():
     (["--grad-compress", "bf16"], "--grad-compress bf16"),
     (["--overlap-grad-sync"], "--overlap-grad-sync"),
     (["--remat"], "--remat"),
-])
+]
+
+
+# the ids the cases had while --parallelism sp (index 1, now
+# test_sp_needs_an_even_device_count) was among them
+@pytest.mark.parametrize("flags,what", UNPORTED, ids=[
+    f"flags{i + (i > 0)}-{what}" for i, (_, what) in enumerate(UNPORTED)])
 def test_unported_flags_raise(flags, what):
     args = lm_train.build_parser().parse_args(["--force-cpu", *flags])
     with pytest.raises(NotImplementedError, match="ROADMAP") as err:
         lm_train.train(args)
     assert what in str(err.value)
+
+
+@pytest.mark.parametrize("devices", ["1", "3"])
+def test_sp_needs_an_even_device_count(devices):
+    """--parallelism sp at an odd device count exits with the JAX script's
+    message (data=2 x sp=n/2), before any rank starts."""
+    args = lm_train.build_parser().parse_args([
+        "--force-cpu", "--parallelism", "sp", "--devices", devices])
+    with pytest.raises(SystemExit, match="even device count"):
+        lm_train.train(args)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--parallelism", "sp", "--devices", "2", "--remat"],
+    ["--parallelism", "sp", "--devices", "2", "--grad-compress", "int8"],
+    ["--parallelism", "sp", "--devices", "2", "--overlap-grad-sync"],
+], ids=["remat", "grad-compress", "overlap"])
+def test_sp_refuses_what_is_not_ported(flags):
+    args = lm_train.build_parser().parse_args(["--force-cpu", *flags])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        lm_train.train(args)
+
+
+def _log(stdout, p, steps, every):
+    """The losses of the JAX script's log lines, which must be all the
+    lines: one each ``every`` steps, then the total time."""
+    lines = stdout.strip().splitlines()
+    pat = rf"\[{p}\] Step \[(\d+)/{steps}\], Loss: (\d+\.\d{{4}})"
+    rows = [re.fullmatch(pat, ln) for ln in lines[:-1]]
+    assert all(rows), lines
+    assert [int(m[1]) for m in rows] == list(range(every, steps + 1, every))
+    assert re.fullmatch(r"Training complete in: \d+:\d\d:\d\d(\.\d+)?",
+                        lines[-1])
+    return [float(m[2]) for m in rows]
+
+
+SP_FLAGS = ["--force-cpu", "--steps", "6", "--log-every", "2",
+            "--seq-len", "32"]
+
+
+@pytest.fixture(scope="module")
+def dp_losses():
+    """The same flags under --parallelism dp, run here."""
+    args = lm_train.build_parser().parse_args(SP_FLAGS)
+    return lm_train.train(args).losses
+
+
+@pytest.mark.parametrize("attn", ["ring", "ulysses", "flash_ring"])
+def test_entry_script_trains_sp_on_four_gloo_ranks(dp_losses, attn):
+    """``--parallelism sp --devices 4 --force-cpu``: four gloo ranks on a
+    {"data": 2, "sp": 2} mesh, rank 0 printing the JAX script's lines; the
+    loss falls, and the step is the single-device step's function (the
+    mean loss over the global batch, the mean gradient): the printed
+    losses are the dp run's within 2e-4 (the last printed digit)."""
+    proc = _run_entry(*SP_FLAGS, "--parallelism", "sp", "--devices", "4",
+                      "--attn", attn)
+    assert proc.returncode == 0, proc.stderr
+    losses = _log(proc.stdout, "sp", 6, 2)
+    assert losses[-1] < losses[0]
+    np.testing.assert_allclose(losses, dp_losses, rtol=0, atol=2e-4)
+
+
+def test_sp_entry_needs_the_cards_or_force_cpu():
+    """No card and no --force-cpu: the run fails before any rank starts
+    (no fallback to gloo ranks on the CPU)."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present here")
+    args = lm_train.build_parser().parse_args([
+        "--parallelism", "sp", "--devices", "2", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        lm_train.train(args)
 
 
 def test_negative_clip_norm_exits_as_the_jax_script_does():

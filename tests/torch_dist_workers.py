@@ -3,8 +3,8 @@
 Spawned ranks import this module anew, so it imports no ``jax`` and
 nothing of the JAX package: only the port, torch and numpy. The tests that
 spawn these ranks (``tests/test_torch_{bootstrap,collectives,
-data_parallel}.py``) compute the JAX package's results in their own
-process and compare. Each rank joins through the ``INIT_METHOD`` that
+data_parallel,ring_attention,flash_ring,seq_parallel}.py``) compute the
+JAX package's results in their own process and compare. Each rank joins through the ``INIT_METHOD`` that
 ``tpu_sandbox_torch.parallel.launch.spawn`` sets (a ``FileStore`` under
 the test's temporary directory) and saves what it computed to
 ``out_dir/rank{r}.pt``.
@@ -19,6 +19,13 @@ import numpy as np
 import torch
 
 from tpu_sandbox_torch.models import ConvNet
+from tpu_sandbox_torch.models.transformer import TransformerConfig, TransformerLM
+from tpu_sandbox_torch.parallel import (
+    SeqParallel,
+    make_flash_ring_attention,
+    make_ring_attention,
+    make_ulysses_attention,
+)
 from tpu_sandbox_torch.parallel.collectives import (
     CollectiveGroup,
     sub_groups,
@@ -27,7 +34,8 @@ from tpu_sandbox_torch.parallel.collectives import (
 from tpu_sandbox_torch.parallel.data_parallel import DataParallel
 from tpu_sandbox_torch.runtime import bootstrap
 from tpu_sandbox_torch.runtime.mesh import make_mesh, submesh
-from tpu_sandbox_torch.train import TrainState
+from tpu_sandbox_torch.train import SGD, Adam, TrainState
+from tpu_sandbox_torch.train.optim import constant_schedule
 
 #: per-rank values, leading dim = 4 ranks (row r is rank r's), all exact in
 #: f32 so every summation order gives the same bits
@@ -168,3 +176,106 @@ def failing_worker(rank: int, world_size: int, seconds: float) -> None:
     if rank == 1:
         raise RuntimeError("rank 1 fails on purpose")
     time.sleep(seconds)
+
+
+#: the sequence-parallel attentions by name (``make_*(mesh, axis, ...)``)
+SP_ATTENTION = {"ring": make_ring_attention, "ulysses": make_ulysses_attention,
+                "flash_ring": make_flash_ring_attention}
+
+
+def sp_attention_worker(rank: int, world_size: int, out_dir: str,
+                        in_path: str) -> None:
+    """Each case of ``in_path`` (scheme, options, global q, k, v [B, S, H,
+    D] and the loss weights w) on a ``{"sp": world_size}`` mesh: this
+    rank's shard of the output and of the gradients of sum(out * w) over
+    every rank; and the validations (an unknown axis, heads that do not
+    split over the ranks)."""
+    torch.set_num_threads(1)
+    bootstrap.init(device="cpu")
+    try:
+        inputs = torch.load(in_path, weights_only=False)
+        mesh = make_mesh({"sp": world_size})
+        out = {}
+        for name, (scheme, options, arrays) in inputs["cases"].items():
+            fn = SP_ATTENTION[scheme](mesh, "sp", **options)
+            q, k, v, w = (torch.from_numpy(a).chunk(world_size, 1)[rank]
+                          .contiguous().requires_grad_() for a in arrays)
+            o = fn(q, k, v)
+            grads = torch.autograd.grad((o.float() * w).sum(), (q, k, v))
+            out[name] = {"out": o.detach(), "grads": grads}
+        two_heads = torch.zeros((1, 8, 2, 4))
+        out["errors"] = {
+            scheme: _error(lambda f=f: f(mesh, "nope"))
+            for scheme, f in SP_ATTENTION.items()}
+        out["errors"]["heads"] = _error(lambda: make_ulysses_attention(
+            mesh, "sp")(two_heads, two_heads, two_heads))
+        _save(out_dir, rank, out)
+    finally:
+        bootstrap.cleanup()
+
+
+#: the SeqParallel cases: the LM, its batch and the learning rates
+SP_CFG = dict(vocab_size=64, d_model=32, n_heads=2, n_layers=2, d_ff=64,
+              max_len=64)
+SP_BATCH, SP_SEQ, SP_SGD_LR, SP_ADAM_LR = 4, 32, 0.1, 1e-2
+#: Adam's eps in the SeqParallel cases: at optax's 1e-8 the first update
+#: is lr * sign(g), which on gradients that are 0 up to rounding (the k
+#: bias's: sum_j ds_ij = 0) is noise
+SP_ADAM_EPS = 1e-3
+
+
+def sp_tx(opt: str):
+    """The optimizer of a SeqParallel case: optax.sgd(SP_SGD_LR) or
+    optax.adam(SP_ADAM_LR, eps=SP_ADAM_EPS)."""
+    if opt == "sgd":
+        return lambda params: SGD(params, SP_SGD_LR, momentum=0.0)
+
+    def adam(params):
+        opt = Adam(params, constant_schedule(SP_ADAM_LR))
+        opt.eps = SP_ADAM_EPS
+        return opt
+
+    return adam
+
+
+def seq_parallel_worker(rank: int, world_size: int, out_dir: str,
+                        in_path: str) -> None:
+    """One ``SeqParallel`` step on a ``{"data": 2, "sp": world_size //
+    2}`` mesh from the bridged parameters of ``in_path`` on its global
+    batch, for each attention scheme with SGD and with Adam: the loss and
+    the parameters after the step; the constructor's validations."""
+    torch.set_num_threads(1)
+    bootstrap.init(device="cpu")
+    try:
+        inputs = torch.load(in_path, weights_only=False)
+        mesh = make_mesh({"data": 2, "sp": world_size // 2})
+        cfg = TransformerConfig(**SP_CFG)
+
+        def ctor(attn):
+            return TransformerLM(cfg, attn, seed=rank + 1)
+
+        out = {}
+        tokens, targets = inputs["batch"]
+        for attn in ("ring", "ulysses", "flash_ring"):
+            for opt in ("sgd", "adam"):
+                sp = SeqParallel(ctor, sp_tx(opt), mesh, attn=attn)
+                state = sp.init_state()
+                if rank == 0:       # the others take rank 0's by the sync
+                    state.model.load_state_dict(inputs["params"])
+                sp.shard_state(state)
+                loss = sp.train_step(state, *sp.shard_batch(tokens, targets))
+                out[f"{attn}_{opt}"] = {
+                    "loss": loss, "params": {
+                        k: v.detach().clone()
+                        for k, v in state.model.state_dict().items()},
+                    "logits": sp.eval_logits(state,
+                                             torch.from_numpy(tokens[:1]))}
+        out["errors"] = {
+            "axis": _error(lambda: SeqParallel(ctor, sp_tx("sgd"),
+                                               make_mesh({"data": world_size}))),
+            "attn": _error(lambda: SeqParallel(ctor, sp_tx("sgd"), mesh,
+                                               attn="dense")),
+        }
+        _save(out_dir, rank, out)
+    finally:
+        bootstrap.cleanup()

@@ -20,5 +20,8 @@ bn1's tail (plain PyTorch tails on the CPU, or on request). And the
 transformer LM's
 single-device training (``python -m tpu_sandbox_torch.lm_train``), with
 flash attention (forward, dk/dv, dq) and the fused cross-entropy forward
-as kernels. ROADMAP.md lists what is still to port.
+as kernels; and its sequence-parallel training (``lm_train --parallelism
+sp``: ring, Ulysses and flash-ring attention over ranks of
+``torch.distributed``, the flash-ring's hops on the flash kernels).
+ROADMAP.md lists what is still to port.
 """

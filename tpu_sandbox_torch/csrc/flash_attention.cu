@@ -55,10 +55,12 @@
 //   all when no row's max moved. Step t issues S_t and then P_{t-1}.V_{t-1},
 //   so the softmax of tile t runs beside that product. out = O / max(l,
 //   1e-30) in the output type (bf16, or f32 for flash_attention_lse's
-//   partials), lse = m ln 2 + log(max(l, 1e-30)). A masked score is -2^100
-//   before scaling, whose scaled value is exact, so a row that has seen only
-//   masked keys gets p = 1 from them, as the Pallas kernel's mask filler
-//   gives. What bounds it now: the two warpgroups run their softmax at the
+//   partials), lse = m ln 2 + log(max(l, 1e-30)), or NEG + log(max(l,
+//   1e-30)) where the row has seen no visible key (a ring hop wholly in its
+//   future writes out 0 and lse NEG + log(1e-30), the Pallas kernel's
+//   values). A masked score is -2^100 before scaling, whose scaled value is
+//   exact, so a row that has seen only masked keys gets p = 1 from them, as
+//   the Pallas kernel's mask filler gives. What bounds it now: the two warpgroups run their softmax at the
 //   same time, so the tensor cores idle then (ping-pong scheduling of the
 //   warpgroups by named barriers measured slower, as a warpgroup alone
 //   issues its chain of products at well under the card's rate).
@@ -989,11 +991,19 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tmk, const __grid_consta
 #pragma unroll
   for (int i = 0; i < DP / 2; ++i) o[i] /= l[(i >> 1) & 1];
   store_acc<D>(out, o, qw0, Sq);
+  // a row that has seen no visible key (a causal ring hop wholly in its
+  // future, or only masked keys) keeps the initial max: its lse is the mask
+  // filler's, kNeg + log(l), as _fwd_kernel's m = NEG gives (:84-91), not
+  // the scaled kMaskRaw, so that every kernel and the plain version agree.
+  // Each branch is a whole expression, so that the other rows' lse compiles
+  // to the same arithmetic as without the branch (a select of m alone
+  // before one add rounds it otherwise)
   if (lane % 4 == 0)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int r = qw0 + 16 * w + lane / 4 + 8 * h;
-      if (r < Sq) lse[r] = m2[h] * kLn2 + logf(l[h]);
+      if (r < Sq)
+        lse[r] = m2[h] == kMaskRaw * sl ? kNeg + logf(l[h]) : m2[h] * kLn2 + logf(l[h]);
     }
 }
 

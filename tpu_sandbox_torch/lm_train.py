@@ -1,7 +1,10 @@
-"""Transformer-LM training on one NVIDIA GPU: the port of ``lm_train.py``
-(same flags, defaults and log lines), data parallelism on one device.
+"""Transformer-LM training: the port of ``lm_train.py`` (same flags,
+defaults and log lines), data parallelism on one device and sequence
+parallelism over ranks.
 
     python -m tpu_sandbox_torch.lm_train --flash --steps 60
+    python -m tpu_sandbox_torch.lm_train --parallelism sp --devices 4 \
+        --attn flash_ring
 
 The decoder-only LM of ``models/transformer.py`` on the deterministic
 synthetic stream of ``make_batches`` (targets = tokens + 1, 2 or 3 by
@@ -14,18 +17,27 @@ decrease. ``--flash`` takes the flash-attention kernels; at ``--vocab``
 compute dtype. Runs on ``cuda`` unless ``--force-cpu``; with no card and no
 ``--force-cpu`` it fails.
 
-Not ported yet (they raise NotImplementedError; ROADMAP.md, queue 1 item
-7): every ``--parallelism`` but ``dp``, ``--devices`` above 1,
-``--grad-compress`` other than ``none``, ``--overlap-grad-sync`` and
-``--remat``. The flags that only those read (``--dp``, ``--microbatches``,
-``--circular-chunks``, ``--router-top-k``, ``--attn``, ``--remat-policy``,
-``--bucket-mb``) are accepted and, as under ``dp`` in the JAX script,
-unused.
+``--parallelism sp --devices n`` (n even) starts n ranks, one OS process
+each, over a ``{"data": 2, "sp": n // 2}`` mesh (``parallel/
+seq_parallel.py``): NCCL ranks with one GPU each, or gloo ranks on the CPU
+with ``--force-cpu``. ``--attn`` picks the ring, Ulysses or flash-ring
+attention; ``--flash`` is unused there, as in the JAX script. Rank 0
+prints the ``[sp]`` lines. Fewer GPUs than ranks is an error naming both
+counts: no rank falls back to the CPU or to a smaller world.
+
+Not ported yet (they raise NotImplementedError; ROADMAP.md, queue 1 items
+7 and 8): the other ``--parallelism`` values, ``--devices`` above 1 under
+``dp``, ``--grad-compress`` other than ``none``, ``--overlap-grad-sync``
+and ``--remat``. The flags that only those read (``--dp``,
+``--microbatches``, ``--circular-chunks``, ``--router-top-k``,
+``--remat-policy``, ``--bucket-mb``) are accepted and, as in the JAX
+script where they do not apply, unused.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from dataclasses import dataclass, field
 from datetime import timedelta
@@ -37,9 +49,16 @@ import torch
 from tpu_sandbox_torch.models.transformer import TransformerConfig, TransformerLM
 from tpu_sandbox_torch.ops.flash_attention import flash_attention_fn
 from tpu_sandbox_torch.ops.losses import FUSED_CE_MIN_CLASSES, cross_entropy_loss
+from tpu_sandbox_torch.parallel.launch import spawn
+from tpu_sandbox_torch.parallel.seq_parallel import SeqParallel
+from tpu_sandbox_torch.runtime import bootstrap
+from tpu_sandbox_torch.runtime.mesh import make_mesh
 from tpu_sandbox_torch.train.optim import Adam, clip_by_global_norm_, lm_schedule
 from tpu_sandbox_torch.train.trainer import to_device
-from tpu_sandbox_torch.utils.device import exact_fp32, resolve_device
+from tpu_sandbox_torch.utils.device import exact_fp32, rank_device, resolve_device
+
+#: seconds the spawned sp ranks may take, rendezvous included
+SP_TIMEOUT = 3600.0
 
 
 def make_batches(vocab: int, batch: int, seq_len: int, steps: int, seed: int):
@@ -56,9 +75,9 @@ def make_batches(vocab: int, batch: int, seq_len: int, steps: int, seed: int):
 def check_ported(args) -> None:
     """Raise NotImplementedError for what the port does not run yet."""
     todo = []
-    if args.parallelism != "dp":
+    if args.parallelism not in ("dp", "sp"):
         todo.append(f"--parallelism {args.parallelism}")
-    if args.devices != 1:
+    if args.devices != 1 and args.parallelism != "sp":
         todo.append(f"--devices {args.devices}")
     if args.grad_compress != "none":
         todo.append(f"--grad-compress {args.grad_compress}")
@@ -69,28 +88,43 @@ def check_ported(args) -> None:
     if todo:
         raise NotImplementedError(
             f"{', '.join(todo)}: not ported to PyTorch yet (ROADMAP.md, "
-            "queue 1 item 7); the port trains --parallelism dp on one device")
+            "queue 1 items 7 and 8); the port trains --parallelism dp on "
+            "one device and --parallelism sp on an even number of ranks")
 
 
-def build_model(args, device: torch.device, *, seed: int = 0) -> TransformerLM:
-    """The script's LM: bf16 or fp32 compute over f32 parameters, flash
-    attention with ``--flash``, compute-dtype logits where the fused CE
-    takes them (vocab >= 4096)."""
-    cfg = TransformerConfig(
+def make_config(args) -> TransformerConfig:
+    """bf16 or fp32 compute over f32 parameters, compute-dtype logits
+    where the fused CE takes them (vocab >= 4096)."""
+    return TransformerConfig(
         vocab_size=args.vocab, d_model=args.d_model, n_heads=args.n_heads,
         n_layers=args.n_layers, d_ff=args.d_ff, max_len=args.seq_len,
         dtype=torch.bfloat16 if args.dtype == "bf16" else torch.float32,
         fp32_logits=args.vocab < FUSED_CE_MIN_CLASSES)
+
+
+def build_model(args, device: torch.device, *, seed: int = 0) -> TransformerLM:
+    """The script's LM (``make_config``), flash attention with
+    ``--flash``."""
     attention_fn = flash_attention_fn() if args.flash else None
-    return TransformerLM(cfg, attention_fn, seed=seed, device=device)
+    return TransformerLM(make_config(args), attention_fn, seed=seed,
+                         device=device)
 
 
-def make_optimizer(args, model: torch.nn.Module) -> Adam:
+def check_clip_norm(args) -> None:
     if args.clip_norm < 0:
         raise SystemExit(f"--clip-norm must be >= 0, got {args.clip_norm} "
                          "(negative max_norm would sign-flip every update)")
-    return Adam(model.parameters(),
+
+
+def make_adam(args, params) -> Adam:
+    """optax's ``adam`` under ``--schedule`` over ``params``."""
+    return Adam(params,
                 lm_schedule(args.schedule, args.lr, args.steps, args.warmup))
+
+
+def make_optimizer(args, model: torch.nn.Module) -> Adam:
+    check_clip_norm(args)
+    return make_adam(args, model.parameters())
 
 
 def make_train_step(model: TransformerLM, opt: Adam,
@@ -129,35 +163,96 @@ class LMRun:
     elapsed: timedelta | None = None
 
 
-def train(args) -> LMRun:
-    check_ported(args)
-    device = resolve_device("cpu" if args.force_cpu else "cuda")
-    if device.type == "cuda":
-        exact_fp32()
-    model = build_model(args, device)
-    opt = make_optimizer(args, model)
-    run = LMRun(model, opt, make_train_step(model, opt, args.clip_norm))
+def fit(run: LMRun, args, device: torch.device, batch: Callable, *,
+        verbose: bool = True) -> LMRun:
+    """``args.steps`` steps of ``run.train_step`` on ``make_batches``'
+    batches (``batch`` puts each where the step takes it), the JAX
+    script's log lines (with ``verbose``) and its check that the loss
+    fell."""
     p = args.parallelism
     start = time.monotonic()
     for step, (tokens, targets) in enumerate(
             make_batches(args.vocab, args.batch, args.seq_len, args.steps, 0),
             1):
         t0 = time.monotonic()
-        loss = run.train_step(*to_device(tokens, targets, device))
+        loss = run.train_step(*batch(tokens, targets))
         if step % args.log_every == 0 or step == args.steps:
             loss_v = float(loss)
             run.losses.append(loss_v)
-            print(f"[{p}] Step [{step}/{args.steps}], Loss: {loss_v:.4f}",
-                  flush=True)
+            if verbose:
+                print(f"[{p}] Step [{step}/{args.steps}], Loss: {loss_v:.4f}",
+                      flush=True)
         run.step_seconds.append(time.monotonic() - t0)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     run.elapsed = timedelta(seconds=time.monotonic() - start)
-    print(f"Training complete in: {run.elapsed}")
+    if verbose:
+        print(f"Training complete in: {run.elapsed}", flush=True)
     if len(run.losses) >= 2 and not run.losses[-1] < run.losses[0]:
         raise SystemExit(
             f"loss did not decrease: {run.losses[0]} -> {run.losses[-1]}")
     return run
+
+
+def train(args) -> LMRun | None:
+    """Train as the JAX script's ``train`` does. ``dp`` runs here and
+    returns the ``LMRun``; ``sp`` starts its ranks and returns None when
+    every rank exited 0."""
+    check_ported(args)
+    if args.parallelism == "sp":
+        return train_sp(args)
+    device = resolve_device("cpu" if args.force_cpu else "cuda")
+    if device.type == "cuda":
+        exact_fp32()
+    model = build_model(args, device)
+    opt = make_optimizer(args, model)
+    run = LMRun(model, opt, make_train_step(model, opt, args.clip_norm))
+    return fit(run, args, device, lambda t, y: to_device(t, y, device))
+
+
+def train_sp(args) -> None:
+    """``--parallelism sp``: the JAX script's checks, then ``--devices``
+    ranks (one process each: ``sp_rank``) over a ``{"data": 2, "sp": n //
+    2}`` mesh."""
+    check_clip_norm(args)
+    n = args.devices
+    if n < 2 or n % 2:
+        raise SystemExit("sp needs an even device count (data=2 x sp=n/2)")
+    rank_device(n - 1, args.force_cpu)          # enough cards, or exit
+    spawn(sp_rank, n, args, timeout=SP_TIMEOUT)
+
+
+def sp_rank(rank: int, world_size: int, args) -> None:
+    """One rank of ``--parallelism sp``: GPU ``LOCAL_RANK`` (NCCL) or the
+    CPU (gloo, with ``--force-cpu``)."""
+    device = rank_device(int(os.environ.get("LOCAL_RANK", 0)), args.force_cpu)
+    if device.type == "cuda":
+        exact_fp32()
+    else:
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world_size))
+    bootstrap.init(None, world_size, rank, device=device)
+    try:
+        mesh = make_mesh({"data": 2, "sp": world_size // 2})
+        fit_sp(args, mesh, device, verbose=rank == 0)
+    finally:
+        bootstrap.cleanup()
+
+
+def fit_sp(args, mesh, device: torch.device, *,
+           verbose: bool = True) -> LMRun:
+    """This rank's share of ``--parallelism sp`` over ``mesh`` (its 'data'
+    and 'sp' axes; the process group already open): ``SeqParallel`` with
+    ``--attn``, Adam under ``--schedule`` and ``--clip-norm`` on the mean
+    gradients, every rank from the same seed and rank 0's parameters."""
+    cfg = make_config(args)
+    eng = SeqParallel(
+        lambda attn: TransformerLM(cfg, attn, seed=0, device=device),
+        lambda params: make_adam(args, params), mesh, attn=args.attn,
+        clip_norm=args.clip_norm)
+    state = eng.shard_state(eng.init_state())
+    run = LMRun(state.model, state.optimizer,
+                lambda *b: eng.train_step(state, *b))
+    return fit(run, args, device, eng.shard_batch, verbose=verbose)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -196,7 +291,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--dtype", choices=["bf16", "fp32"], default="fp32")
     parser.add_argument("--attn", choices=["ring", "ulysses", "flash_ring"],
                         default="ring",
-                        help="sp only: the sequence-parallel attention")
+                        help="sp only: the plain K/V ring, the Ulysses "
+                             "all-to-all head/sequence swap, or the "
+                             "flash-ring on the flash kernels")
     parser.add_argument("--flash", action="store_true",
                         help="use the flash-attention kernels")
     parser.add_argument("--remat-policy", choices=["full", "dots"],

@@ -3,7 +3,9 @@
 Counterpart of ``tpu_sandbox/ops/pallas_attention.py``: ``_to_bhsd`` /
 ``_from_bhsd`` (:52-67), ``_flash_fwd`` (:139) and ``_flash_bwd`` (:314),
 each with its ``out_dtype`` (float32 outputs for bfloat16 inputs), the
-custom VJP ``_flash_core`` (:440-460), ``flash_attention`` (:463) and
+custom VJP ``_flash_core`` (:440-460), ``flash_attention`` (:463), the
+ring's per-hop pair ``flash_attention_lse`` (:493, here
+``flash_attention_with_lse``) and ``make_flash_bwd_lse`` (:533), and
 ``flash_attention_fn`` (:572). On a CUDA tensor each pass is a kernel of
 ``csrc/flash_attention.cu``; on a CPU tensor it is the plain version
 beside it, which materialises the [S, S] scores. ``delta = rowsum(g * out)``
@@ -31,6 +33,11 @@ from tpu_sandbox_torch.ops import build
 #: launches of the CUDA kernels ("flash_fwd", "flash_bwd_dkv",
 #: "flash_bwd_dq"); only a kernel launch adds to it
 LAUNCHES: Counter = Counter()
+#: ring hops that ran on the kernels, by function ("flash_fwd_lse",
+#: "flash_bwd_lse"): one a call of ``flash_attention_with_lse`` and of
+#: ``make_flash_bwd_lse``'s closure on CUDA tensors; the plain versions on
+#: CPU tensors add nothing
+HOPS: Counter = Counter()
 
 NEG = -1e30                  # the mask filler of the Pallas kernels
 HEAD_WIDTHS = (32, 64, 128)  # the kernels' head widths
@@ -297,6 +304,11 @@ class _FlashCore(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
 
+def _round_up(x: int, m: int) -> int:
+    """``x`` (at least ``m``) rounded up to a multiple of ``m``."""
+    return -(-max(x, m) // m) * m
+
+
 def _to_bhsd(x: torch.Tensor, s_target: int, d_target: int) -> torch.Tensor:
     """[B, S, H, D] -> [B, H, s_target, d_target], zero-padded, contiguous."""
     x = x.movedim(2, 1)
@@ -316,9 +328,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     keys masked; D is padded to the kernels' head width."""
     b, s, h, d = q.shape
     scale = 1.0 / float(d) ** 0.5
-    lcm = math.lcm(block_q, block_k)
-    sp = -(-max(s, lcm) // lcm) * lcm
-    dp = head_width(d)
+    sp, dp = _round_up(s, math.lcm(block_q, block_k)), head_width(d)
     out = _FlashCore.apply(_to_bhsd(q, sp, dp), _to_bhsd(k, sp, dp),
                            _to_bhsd(v, sp, dp), scale, causal, s)
     return _from_bhsd(out, s, d)
@@ -331,18 +341,58 @@ def flash_attention_with_lse(q, k, v, *, causal: bool = True, q_offset=0,
     f32), padding as ``flash_attention_lse`` (:493) does: q to
     ``block_q``, k and v to ``block_k``, keys past their true length
     masked. out is float32 whatever q's dtype, as there: a caller's
-    logsumexp merge of partials never sees a rounded partial."""
+    logsumexp merge of partials never sees a rounded partial. A query
+    that sees no key (a causal hop wholly in its future) gets out 0 and
+    lse NEG + log(1e-30) from the kernel, as from the Pallas kernel, and
+    a p = 1 spread over the keys from the plain version: a merge weighs
+    either by exp(lse - merged lse) = 0."""
     b, s, h, d = q.shape
     sk = k.shape[1]
     scale = 1.0 / float(d) ** 0.5
-    sp = -(-max(s, block_q) // block_q) * block_q
-    skp = -(-max(sk, block_k) // block_k) * block_k
+    sp, skp = _round_up(s, block_q), _round_up(sk, block_k)
     dp = head_width(d)
     out, lse = flash_fwd(_to_bhsd(q, sp, dp), _to_bhsd(k, skp, dp),
                          _to_bhsd(v, skp, dp), scale=scale, causal=causal,
                          kv_len=sk, q_offset=q_offset, kv_offset=kv_offset,
                          out_dtype=torch.float32)
+    if q.device.type != "cpu":
+        HOPS["flash_fwd_lse"] += 1
     return _from_bhsd(out, s, d), lse[:, :, :s].movedim(1, 2)
+
+
+def make_flash_bwd_lse(q, out, g, lse, *, causal: bool = True, q_offset=0,
+                       block_q: int = 128, block_k: int = 128):
+    """The ring backward's per-hop factory (``make_flash_bwd_lse``, :533):
+    pads the loop-invariant q-side tensors (q, out, g [B,S,H,D], all in
+    q's dtype) once, moves the FINAL merged lse [B,S,H] to [B,H,S] padded
+    with 0, and computes delta = rowsum(g * out) once in f32 from the
+    given (rounded) out. Returns ``partial_bwd(k_blk, v_blk, kv_offset)
+    -> (dq [B,S,H,D], dk, dv [B,Sk,H,D])``, all float32, so that a ring
+    adds its hops unrounded: the dk/dv and dq kernels at ``q_offset`` and
+    ``kv_offset`` with ``kv_len`` the block's true length (the plain
+    versions on CPU tensors). Padded q rows have zero q and g, so their
+    p = exp(0 - 0) = 1 meets a zero cotangent: they add nothing."""
+    b, s, h, d = q.shape
+    scale = 1.0 / float(d) ** 0.5
+    sp, dp = _round_up(s, block_q), head_width(d)
+    qp, gp = _to_bhsd(q, sp, dp), _to_bhsd(g, sp, dp)
+    lse_p = F.pad(lse.movedim(2, 1), (0, sp - s)).contiguous()
+    delta = (gp.float() * _to_bhsd(out, sp, dp).float()).sum(-1)
+
+    def partial_bwd(k_blk, v_blk, kv_offset):
+        sk = k_blk.shape[1]
+        skp = _round_up(sk, block_k)
+        kp, vp = _to_bhsd(k_blk, skp, dp), _to_bhsd(v_blk, skp, dp)
+        kw = dict(scale=scale, causal=causal, kv_len=sk, q_offset=q_offset,
+                  kv_offset=kv_offset, out_dtype=torch.float32)
+        dk, dv = flash_bwd_dkv(qp, kp, vp, gp, lse_p, delta, **kw)
+        dq = flash_bwd_dq(qp, kp, vp, gp, lse_p, delta, **kw)
+        if qp.device.type != "cpu":
+            HOPS["flash_bwd_lse"] += 1
+        return (_from_bhsd(dq, s, d), _from_bhsd(dk, sk, d),
+                _from_bhsd(dv, sk, d))
+
+    return partial_bwd
 
 
 def flash_attention_fn(*, causal: bool = True, block_q: int = 128,

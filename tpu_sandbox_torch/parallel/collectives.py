@@ -14,6 +14,13 @@ some PyTorch releases, so on gloo it is composed: a sum all-reduce of the
 whole payload, then this rank's slice. NCCL data never goes through the
 host. The compressed all-reduce (:211, :314-506) is not ported yet
 (ROADMAP queue 1 item 4).
+
+``ring_shift`` and ``all_to_all_tiled`` are the differentiable forms that
+sequence parallelism needs, where JAX differentiates ``lax.ppermute`` and
+``lax.all_to_all`` itself: autograd functions whose backward issues the
+adjoint collective (the shift by ``-offset``, the inverse all-to-all).
+Autograd runs a graph's backward nodes in one order on every rank, so
+every rank issues those collectives in the same order.
 """
 
 from __future__ import annotations
@@ -135,6 +142,26 @@ class CollectiveGroup:
         dist.broadcast(t, self._global_rank(root), group=self.group)
         return t
 
+    @torch.no_grad()
+    def broadcast_params_(self, params, root: int = 0) -> None:
+        """Every rank takes group rank ``root``'s parameters, in place."""
+        src = self._global_rank(root)
+        for p in params:
+            dist.broadcast(p.data, src, group=self.group)
+
+    @torch.no_grad()
+    def mean_grads_(self, params) -> None:
+        """The gradient mean over the group, in place, as ``lax.pmean``
+        writes it: one sum all-reduce a parameter in the given order, then
+        a true division by the group size (gloo has no ``ReduceOp.AVG``).
+        A parameter with no gradient takes zeros first, so every rank
+        issues the same collectives."""
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            dist.all_reduce(p.grad, group=self.group)
+            p.grad.div_(self.size)
+
     def shift(self, x, offset: int = 1) -> torch.Tensor:
         """Ring permute: rank i's tensor moves to rank (i + offset) % size
         (paired sends and receives)."""
@@ -220,6 +247,55 @@ class CollectiveGroup:
         else:
             result["degraded"] = f"non-positive time ({dt:.3e}s)"
         return result
+
+
+class _Shift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, offset):
+        ctx.group, ctx.offset = group, offset
+        return group.shift(x.contiguous(), offset)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.shift(g.contiguous(), -ctx.offset), None, None
+
+
+def ring_shift(x: torch.Tensor, group: CollectiveGroup,
+               offset: int = 1) -> torch.Tensor:
+    """``group.shift`` (rank i's tensor to rank (i + offset) % size) as
+    ``lax.ppermute`` differentiates: the cotangent shifts back by
+    ``-offset``."""
+    return _Shift.apply(x, group, offset)
+
+
+def _tiled(x, group, split_axis, concat_axis):
+    if x.shape[split_axis] % group.size:
+        raise ValueError(f"all_to_all: dim {split_axis} of {tuple(x.shape)} "
+                         f"not divisible by {group.size} ranks")
+    blocks = torch.stack(x.chunk(group.size, dim=split_axis))
+    return torch.cat(group.all_to_all(blocks).unbind(0), dim=concat_axis)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, split_axis, concat_axis):
+        ctx.args = group, split_axis, concat_axis
+        return _tiled(x, group, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, split_axis, concat_axis = ctx.args
+        return _tiled(g, group, concat_axis, split_axis), None, None, None
+
+
+def all_to_all_tiled(x: torch.Tensor, group: CollectiveGroup,
+                     split_axis: int, concat_axis: int) -> torch.Tensor:
+    """``lax.all_to_all(x, axis, split_axis, concat_axis, tiled=True)``:
+    ``x`` splits into ``size`` blocks along ``split_axis``, block j goes to
+    rank j, and the blocks that arrive are concatenated along
+    ``concat_axis`` in rank order. Differentiable: the backward is the
+    inverse all-to-all (split and concat axes swapped)."""
+    return _AllToAll.apply(x, group, split_axis, concat_axis)
 
 
 def world_group(mesh: DeviceMesh | None = None,

@@ -89,9 +89,7 @@ class DataParallel:
     def shard_state(self, state: TrainState) -> TrainState:
         """Every rank takes group rank 0's parameters; BN statistics stay
         this rank's own."""
-        root = self.group._global_rank(0)
-        for p in self.model.parameters():
-            dist.broadcast(p.data, root, group=self.group.group)
+        self.group.broadcast_params_(self.model.parameters())
         return state
 
     @torch.no_grad()
@@ -132,12 +130,7 @@ class DataParallel:
             x = prepare_inputs(model, x, self.image_size)
         loss = cross_entropy_loss(model(x), labels)
         loss.backward()
-        with torch.no_grad():
-            for p in model.parameters():
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
-                dist.all_reduce(p.grad, group=self.group.group)
-                p.grad.div_(self.size)
+        self.group.mean_grads_(model.parameters())
         state.apply_update()
         loss = loss.detach()
         if self.average_loss:
