@@ -115,7 +115,23 @@ card or when the port is not beside it. Phases, one JSON line each:
    counters zeroed before and read after: the LM's launches a step and,
    for flash-ring, 12 forward hops and 12 calls of make_flash_bwd_lse's
    closure a step; losses against lm_path's within 2^-8 relative; step
-   time, tokens/s and peak beside lm_path's.
+   time, tokens/s and peak beside lm_path's. The pipelines and remat
+   (LM_PATHS), 5 steps each (lm_path's, so that the median of the 4
+   after the first is not set by one stalled step), the same way: path_pp (lm_train's own train,
+   --parallelism pp --devices 1 --microbatches 2, one NCCL rank in this
+   process), path_pp_circular (the same with --circular-chunks 2),
+   path_pp_sp_flash_ring (lm_train.fit_pp with pp_sp over a one-rank
+   {"data": 1, "pipe": 1, "sp": 1} mesh: the flash-ring in every stage,
+   its hops counted) and path_3d (fit_pp with 3d over {"data": 1,
+   "model": 1, "pipe": 1}: the Megatron block on flash); every tick is
+   recomputed under the engine's remat, so a step launches the flash
+   forward 2 x 12 x M times, dk/dv and dq 12 x M and the CE 2 x M (M 2
+   microbatches). path_remat_dots and path_remat_full: lm_path's train
+   with --remat and each --remat-policy, the flash forward 24 times a
+   step (recomputed: no product), the rest as lm_path; whether the losses
+   are lm_path's bit for bit. Beside each step's time, the cudaMalloc
+   calls and allocator retries of that step and the Python collections
+   of the oldest generation (sampled after each optimizer update).
 8. card_vs_cpu: the port on the card against the port on the CPU, 64x64,
    fp32, 3 SGD steps from the same bridged weights on the same batches,
    on each transposed plan of the paths (path_accum's with 2 microbatches
@@ -156,7 +172,9 @@ card or when the port is not beside it. Phases, one JSON line each:
    python -m tpu_sandbox_torch.lm_train --parallelism sp --devices 4
    --force-cpu at a small width once per --attn (exit 0, the [sp] lines,
    a falling loss) and --devices 2 without --force-cpu (non-zero exit
-   naming the 2 ranks and the card count), at once.
+   naming the 2 ranks and the card count), at once. pp_entry: the same
+   for --parallelism pp --devices 4 --n-layers 4 and pp_sp --devices 4
+   with --force-cpu, and pp --devices 2 without it.
 11. the {"kernels": [...]} summary, the nvidia-smi line, and last
    {"ok": true, "device": {...}}.
 
@@ -411,9 +429,48 @@ RING_N = 4
 SP_STEPS, SP_SCHEMES, SP_LOSS_RTOL = 3, ("flash_ring", "ulysses"), 2.0 ** -8
 #: sp_entry: lm_train --parallelism sp over four gloo ranks at a small
 #: width, and the seconds all its commands may take together
-SP_ENTRY_FLAGS = ["--force-cpu", "--parallelism", "sp", "--devices", "4",
-                  "--steps", "6", "--log-every", "2", "--seq-len", "32"]
+ENTRY_FLAGS = ["--force-cpu", "--steps", "6", "--log-every", "2",
+               "--seq-len", "32"]
+SP_ENTRY_FLAGS = [*ENTRY_FLAGS, "--parallelism", "sp", "--devices", "4"]
 SP_ENTRY_LIMIT = 300
+#: the pipelines' microbatches on the card, and the launches of one step
+#: under the engine's tick remat: every tick's forward runs twice (the
+#: recompute stops at the tick's last saved tensor, the CE's logits,
+#: which the CE saves after its kernel ran)
+PP_M = 2
+TICK_REMAT_KINDS = {"flash_fwd": 2 * 12 * PP_M, "flash_bwd_dkv": 12 * PP_M,
+                    "flash_bwd_dq": 12 * PP_M, "ce_fwd": 2 * PP_M}
+#: --remat on the LM: the flash forward recomputed in every block (no
+#: matrix product, so dots recomputes it too), the head outside the blocks
+REMAT_KINDS = {**LM_KINDS, "flash_fwd": 2 * LM_KINDS["flash_fwd"]}
+#: (phase, lm_train flags over LM_FLAGS, the one-rank mesh of fit_pp or
+#: None for lm_train.train, launches a step, ring hops a step);
+#: LM_PATH_STEPS steps each
+LM_PATHS = (
+    ("path_pp", ["--parallelism", "pp", "--microbatches", str(PP_M)], None,
+     TICK_REMAT_KINDS, {}),
+    ("path_pp_circular", ["--parallelism", "pp", "--microbatches",
+                          str(PP_M), "--circular-chunks", "2"], None,
+     TICK_REMAT_KINDS, {}),
+    ("path_pp_sp_flash_ring", ["--parallelism", "pp_sp", "--microbatches",
+                               str(PP_M)], {"data": 1, "pipe": 1, "sp": 1},
+     TICK_REMAT_KINDS, {"flash_fwd_lse": 2 * 12 * PP_M,
+                        "flash_bwd_lse": 12 * PP_M}),
+    ("path_3d", ["--parallelism", "3d", "--microbatches", str(PP_M)],
+     {"data": 1, "model": 1, "pipe": 1}, TICK_REMAT_KINDS, {}),
+    ("path_remat_dots", ["--remat", "--remat-policy", "dots"], None,
+     REMAT_KINDS, {}),
+    ("path_remat_full", ["--remat", "--remat-policy", "full"], None,
+     REMAT_KINDS, {}),
+)
+#: LM_PATHS' steps: lm_path's, all its losses held; the step time is the
+#: median of the 4 after the first
+LM_PATH_STEPS = STEPS
+#: pp_entry: the pipelines on four gloo ranks at a small width
+PP_ENTRY_RUNS = {
+    "pp": ["--parallelism", "pp", "--devices", "4", "--n-layers", "4"],
+    "pp_sp": ["--parallelism", "pp_sp", "--devices", "4"],
+}
 
 
 def emit(phase: str, **kw) -> None:
@@ -2014,18 +2071,116 @@ def phase_path_sp(ops, fa, lm_train, lm_ref: dict) -> dict:
     return counts
 
 
-def phase_sp_entry() -> None:
-    """``python -m tpu_sandbox_torch.lm_train --parallelism sp --devices 4
-    --force-cpu`` at a small width (SP_ENTRY_FLAGS), once per --attn, and
-    ``--parallelism sp --devices 2`` without --force-cpu on this one-card
-    machine, all at once, each with a time limit: the first three exit 0,
-    print the JAX script's lines from rank 0 and their loss falls; the last
-    exits non-zero and names both counts (2 GPU ranks, the card count)."""
-    root = Path(__file__).resolve().parent
-    runs = {attn: [*SP_ENTRY_FLAGS, "--attn", attn]
-            for attn in ("ring", "ulysses", "flash_ring")}
-    runs["two_gpu_ranks"] = ["--parallelism", "sp", "--devices", "2",
-                             "--steps", "1"]
+@contextlib.contextmanager
+def per_step_allocator(optimizer_cls):
+    """Per training step (each ``optimizer_cls.step`` ends one): the
+    allocator's cudaMalloc calls and retries and the Python collections
+    of the oldest generation in it, the first step's with what ran before
+    it in the block (the model's set-up). Yields the list, filled when
+    the block ends."""
+    import gc
+
+    def sample():
+        m = torch.cuda.memory_stats()
+        return (m.get("segment.all.allocated", 0),
+                m.get("num_alloc_retries", 0),
+                gc.get_stats()[2]["collections"])
+
+    marks, per_step, step = [sample()], [], optimizer_cls.step
+
+    def sampled(self):
+        step(self)
+        marks.append(sample())
+
+    optimizer_cls.step = sampled
+    try:
+        yield per_step
+    finally:
+        optimizer_cls.step = step
+        per_step.extend([b - a for a, b in zip(prev, cur)]
+                        for prev, cur in zip(marks, marks[1:]))
+
+
+def phase_lm_paths(ops, fa, lm_train, lm_ref: dict) -> dict:
+    """Each of LM_PATHS at the LM's bench width, LM_PATH_STEPS Adam steps,
+    the counters zeroed just before and read just after: exactly its
+    launches and ring hops a step; losses against lm_path's within
+    SP_LOSS_RTOL (the same function: with microbatches, the mean of their
+    means); step ms (median, min and max after the first), tokens/s and
+    peak memory beside lm_path's, and each step's cudaMalloc calls,
+    allocator retries and oldest-generation collections."""
+    from tpu_sandbox_torch.runtime import bootstrap
+    from tpu_sandbox_torch.runtime.mesh import make_mesh
+    from tpu_sandbox_torch.train.optim import Adam
+
+    counts, n = {}, LM_PATH_STEPS
+    for phase, flags, mesh, kinds, hops_a_step in LM_PATHS:
+        with timed(phase):
+            args = lm_train.build_parser().parse_args(
+                [*LM_FLAGS, *flags, "--steps", str(n)])
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            fa.HOPS.clear()
+            t0 = time.monotonic()
+            with per_step_allocator(Adam) as per_step:
+                if mesh is None:
+                    run = lm_train.train(args)
+                else:
+                    bootstrap.init(device="cuda")
+                    try:
+                        run = lm_train.fit_pp(args, make_mesh(mesh),
+                                              torch.device("cuda"))
+                    finally:
+                        bootstrap.cleanup()
+            torch.cuda.synchronize()
+            launches, hops = ops.launch_counts(), dict(fa.HOPS)
+            wall = time.monotonic() - t0
+            want = {k: c * n for k, c in kinds.items()}
+            require(launches == want,
+                    f"{phase} launched {launches}, expected {want}")
+            want_hops = {k: c * n for k, c in hops_a_step.items()}
+            require(hops == want_hops,
+                    f"{phase} ran hops {hops}, expected {want_hops}")
+            require(len(run.losses) == n and run.optimizer.count == n
+                    and len(per_step) == n
+                    and all(math.isfinite(x) for x in run.losses),
+                    f"{phase} losses {run.losses} in "
+                    f"{run.optimizer.count} steps")
+            ref = lm_ref["losses"][:n]
+            dev = max(abs(a - w) / abs(w) for a, w in zip(run.losses, ref))
+            require(dev <= SP_LOSS_RTOL,
+                    f"{phase} losses {run.losses} against lm_path's {ref}")
+            timed_ms = [t * 1e3 for t in run.step_seconds[1:]]
+            step_ms = statistics.median(timed_ms)
+            emit(phase, flags=flags, mesh=mesh, losses=run.losses,
+                 lm_path_losses=ref, max_rel_dev_from_lm_path=dev,
+                 loss_rtol=SP_LOSS_RTOL, bitwise_lm_path=run.losses == ref,
+                 step_ms_each=[t * 1e3 for t in run.step_seconds],
+                 step_ms_median_after_first=step_ms,
+                 step_ms_min_after_first=min(timed_ms),
+                 step_ms_max_after_first=max(timed_ms),
+                 cuda_mallocs_each=[c[0] for c in per_step],
+                 alloc_retries_each=[c[1] for c in per_step],
+                 gen2_collections_each=[c[2] for c in per_step],
+                 tokens_per_s=LM_B * LM_S / (step_ms / 1e3),
+                 peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                 lm_path_step_ms_median_after_first=lm_ref["step_ms"],
+                 lm_path_peak_memory_bytes=lm_ref["peak_memory_bytes"],
+                 parameters=sum(p.numel() for p in run.model.parameters()),
+                 wall_s_with_init=wall, launches=launches, hops=hops)
+            kind = hop_kind(LM_S, LM_S, 0, 0)   # the whole sequence
+            counts[phase] = {**launches, **{f"{f} {kind} S{LM_S}": c
+                                            for f, c in hops.items()}}
+            del run
+            torch.cuda.empty_cache()
+    return counts
+
+
+def _entry_runs(runs: dict, limit: float, root: Path) -> dict:
+    """``python -m tpu_sandbox_torch.lm_train`` with each of ``runs``' argv
+    at once, under one time limit: name -> (exit code, stdout, stderr,
+    seconds)."""
     procs = {name: subprocess.Popen(
         [sys.executable, "-m", "tpu_sandbox_torch.lm_train", *argv],
         cwd=root, text=True, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
@@ -2035,9 +2190,9 @@ def phase_sp_entry() -> None:
         for name, p in procs.items():
             try:
                 stdout, stderr = p.communicate(
-                    timeout=max(1.0, SP_ENTRY_LIMIT - (time.monotonic() - t0)))
+                    timeout=max(1.0, limit - (time.monotonic() - t0)))
             except subprocess.TimeoutExpired:
-                require(False, f"sp_entry: {name} ran past {SP_ENTRY_LIMIT} s")
+                require(False, f"{name} ran past {limit} s")
             out[name] = (p.returncode, stdout, stderr,
                          time.monotonic() - t0)
     finally:
@@ -2045,29 +2200,73 @@ def phase_sp_entry() -> None:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    pat = re.compile(r"^\[sp\] Step \[(\d+)/6\], Loss: (\d+\.\d{4})$")
-    losses = {}
-    for attn in ("ring", "ulysses", "flash_ring"):
-        rc, stdout, stderr, _ = out[attn]
-        lines = stdout.splitlines()
-        rows = [pat.match(ln) for ln in lines[:-1]]
-        require(rc == 0 and all(rows) and [int(m[1]) for m in rows]
-                == [2, 4, 6] and lines[-1].startswith("Training complete in: "),
-                f"sp_entry {attn}: exit {rc}, lines {lines}, "
-                f"stderr {stderr[-2000:]}")
-        losses[attn] = [float(m[2]) for m in rows]
-        require(losses[attn][-1] < losses[attn][0],
-                f"sp_entry {attn}: the loss did not fall: {losses[attn]}")
-    rc, _, stderr, _ = out["two_gpu_ranks"]
+    return out
+
+
+def _entry_losses(what: str, p: str, res) -> list:
+    """The losses of a 6-step run logged every 2 steps, which must have
+    exited 0 with the JAX script's lines and a falling loss."""
+    rc, stdout, stderr, _ = res
+    pat = re.compile(rf"^\[{p}\] Step \[(\d+)/6\], Loss: (\d+\.\d{{4}})$")
+    lines = stdout.splitlines()
+    rows = [pat.match(ln) for ln in lines[:-1]]
+    require(rc == 0 and all(rows) and [int(m[1]) for m in rows]
+            == [2, 4, 6] and lines[-1].startswith("Training complete in: "),
+            f"{what}: exit {rc}, lines {lines}, stderr {stderr[-2000:]}")
+    losses = [float(m[2]) for m in rows]
+    require(losses[-1] < losses[0],
+            f"{what}: the loss did not fall: {losses}")
+    return losses
+
+
+def _two_gpu_ranks_refused(what: str, res) -> dict:
+    """``--devices 2`` without --force-cpu on this machine: a non-zero
+    exit naming the 2 GPU ranks and the card count."""
+    rc, _, stderr, _ = res
     cards = torch.cuda.device_count()
     named = ("2 GPU ranks" in stderr
              and f"machine with {cards} GPU(s)" in stderr)
     require(rc != 0 and named,
-            f"sp_entry: --devices 2 on {cards} card(s) gave exit {rc}, "
+            f"{what}: --devices 2 on {cards} card(s) gave exit {rc}, "
             f"stderr {stderr[-2000:]}")
+    return {"exit": rc, "stderr": stderr.strip()[-300:]}
+
+
+def phase_pp_entry() -> None:
+    """``python -m tpu_sandbox_torch.lm_train`` with PP_ENTRY_RUNS on four
+    gloo ranks (ENTRY_FLAGS: --force-cpu, a small width, 6 steps), and
+    ``--parallelism pp --devices 2`` without --force-cpu, all at once under
+    SP_ENTRY_LIMIT: the first exit 0, print the JAX script's lines from
+    rank 0 and their loss falls; the last exits non-zero naming both
+    counts."""
+    runs = {name: [*ENTRY_FLAGS, *argv] for name, argv in PP_ENTRY_RUNS.items()}
+    runs["two_gpu_ranks"] = ["--parallelism", "pp", "--devices", "2",
+                             "--steps", "1"]
+    out = _entry_runs(runs, SP_ENTRY_LIMIT, Path(__file__).resolve().parent)
+    losses = {name: _entry_losses(f"pp_entry {name}", argv[1], out[name])
+              for name, argv in PP_ENTRY_RUNS.items()}
+    refused = _two_gpu_ranks_refused("pp_entry", out["two_gpu_ranks"])
+    emit("pp_entry", runs=runs, losses=losses,
+         seconds={k: v[3] for k, v in out.items()}, two_gpu_ranks=refused)
+
+
+def phase_sp_entry() -> None:
+    """``python -m tpu_sandbox_torch.lm_train --parallelism sp --devices 4
+    --force-cpu`` at a small width (SP_ENTRY_FLAGS), once per --attn, and
+    ``--parallelism sp --devices 2`` without --force-cpu on this one-card
+    machine, all at once, each with a time limit: the first three exit 0,
+    print the JAX script's lines from rank 0 and their loss falls; the last
+    exits non-zero and names both counts (2 GPU ranks, the card count)."""
+    runs = {attn: [*SP_ENTRY_FLAGS, "--attn", attn]
+            for attn in ("ring", "ulysses", "flash_ring")}
+    runs["two_gpu_ranks"] = ["--parallelism", "sp", "--devices", "2",
+                             "--steps", "1"]
+    out = _entry_runs(runs, SP_ENTRY_LIMIT, Path(__file__).resolve().parent)
+    losses = {attn: _entry_losses(f"sp_entry {attn}", "sp", out[attn])
+              for attn in ("ring", "ulysses", "flash_ring")}
+    refused = _two_gpu_ranks_refused("sp_entry", out["two_gpu_ranks"])
     emit("sp_entry", flags=SP_ENTRY_FLAGS, losses=losses,
-         seconds={k: v[3] for k, v in out.items()},
-         two_gpu_ranks={"exit": rc, "stderr": stderr.strip()[-300:]})
+         seconds={k: v[3] for k, v in out.items()}, two_gpu_ranks=refused)
 
 
 def phase_main_path(ops, mnist_onegpu, expected: list[str], *, phase: str,
@@ -2734,6 +2933,7 @@ def main() -> int:
         torch.cuda.empty_cache()
     with timed("path_sp"):
         counts.update(phase_path_sp(ops, fa, lm_train, lm_ref))
+    counts.update(phase_lm_paths(ops, fa, lm_train, lm_ref))
     counts["ring_kernels"] = ring_counts
     for name, phase_fn, *a in (
             ("card_vs_cpu", phase_card_vs_cpu),
@@ -2742,7 +2942,8 @@ def main() -> int:
             ("profile_flag", phase_profile_flag, mnist_onegpu),
             ("curve_card_vs_cpu", phase_curve_card_vs_cpu),
             ("dist_scripts", phase_dist_scripts),
-            ("sp_entry", phase_sp_entry)):
+            ("sp_entry", phase_sp_entry),
+            ("pp_entry", phase_pp_entry)):
         with timed(name):
             phase_fn(*a)
     emit("seconds", phases=SECONDS, total=sum(SECONDS.values()))
@@ -2751,6 +2952,7 @@ def main() -> int:
     steps_of["path_dp"] = DP_STEPS
     steps_of.update({f"path_sp_{a}": SP_STEPS for a in SP_SCHEMES},
                     ring_kernels=1)
+    steps_of.update({phase: LM_PATH_STEPS for phase, *_ in LM_PATHS})
     for name, e in entries.items():
         e["launches_by_path"] = {p: c.get(name, 0) for p, c in counts.items()}
         # the count from the run of the first path this launch belongs to

@@ -4,7 +4,11 @@ make_batches' batches give the same losses (rtol 1e-5), with the plain
 attention and a constant rate, and with flash attention, the cosine
 schedule's warmup and global-norm clipping; the schedules' learning rates
 and the clipping against optax's; the batches bit for bit; the entry
-point's log lines; and the flags that are not ported refuse to run."""
+point's log lines; sequence and pipeline parallelism over gloo ranks
+(pp, circular pp, pp_sp and 3d as tests/test_lm_train.py:40-62 runs them,
+each logging the losses of the single-device run of the same flags) with
+the JAX script's exits; --remat logging the losses of the run without it;
+and the flags that are not ported refuse to run."""
 
 import os
 import re
@@ -177,24 +181,19 @@ def test_entry_script_needs_the_card_or_force_cpu():
     assert "CUDA is not available" in proc.stderr
 
 
+#: (flags, what the error names, the test id of the case)
 UNPORTED = [
-    (["--parallelism", "tp"], "--parallelism tp"),
-    (["--parallelism", "pp"], "--parallelism pp"),
-    (["--parallelism", "pp_sp"], "--parallelism pp_sp"),
-    (["--parallelism", "ep"], "--parallelism ep"),
-    (["--parallelism", "3d"], "--parallelism 3d"),
-    (["--devices", "2"], "--devices 2"),
-    (["--grad-compress", "int8"], "--grad-compress int8"),
-    (["--grad-compress", "bf16"], "--grad-compress bf16"),
-    (["--overlap-grad-sync"], "--overlap-grad-sync"),
-    (["--remat"], "--remat"),
+    (["--parallelism", "tp"], "--parallelism tp", "flags0"),
+    (["--parallelism", "ep"], "--parallelism ep", "flags4"),
+    (["--devices", "2"], "--devices 2", "flags6"),
+    (["--grad-compress", "int8"], "--grad-compress int8", "flags7"),
+    (["--grad-compress", "bf16"], "--grad-compress bf16", "flags8"),
+    (["--overlap-grad-sync"], "--overlap-grad-sync", "flags9"),
 ]
 
 
-# the ids the cases had while --parallelism sp (index 1, now
-# test_sp_needs_an_even_device_count) was among them
-@pytest.mark.parametrize("flags,what", UNPORTED, ids=[
-    f"flags{i + (i > 0)}-{what}" for i, (_, what) in enumerate(UNPORTED)])
+@pytest.mark.parametrize("flags,what", [u[:2] for u in UNPORTED],
+                         ids=[f"{i}-{what}" for _, what, i in UNPORTED])
 def test_unported_flags_raise(flags, what):
     args = lm_train.build_parser().parse_args(["--force-cpu", *flags])
     with pytest.raises(NotImplementedError, match="ROADMAP") as err:
@@ -213,10 +212,9 @@ def test_sp_needs_an_even_device_count(devices):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--parallelism", "sp", "--devices", "2", "--remat"],
     ["--parallelism", "sp", "--devices", "2", "--grad-compress", "int8"],
     ["--parallelism", "sp", "--devices", "2", "--overlap-grad-sync"],
-], ids=["remat", "grad-compress", "overlap"])
+], ids=["grad-compress", "overlap"])
 def test_sp_refuses_what_is_not_ported(flags):
     args = lm_train.build_parser().parse_args(["--force-cpu", *flags])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -284,3 +282,107 @@ def test_parser_has_the_jax_scripts_flags():
     port = {a.dest: a.default for a in lm_train.build_parser()._actions}
     ref = {a.dest: a.default for a in jax_lm_train.build_parser()._actions}
     assert port == ref
+
+
+@pytest.mark.parametrize("policy", ["full", "dots"])
+def test_remat_logs_the_losses_of_the_run_without_it(policy):
+    """As tests/test_lm_train.py::test_remat_matches_plain: --remat
+    changes memory, not the function; here the logged losses are the
+    same bits."""
+    flags = ["--force-cpu", "--steps", "8", "--log-every", "4",
+             "--seq-len", "32"]
+    plain = lm_train.train(lm_train.build_parser().parse_args(flags))
+    remat = lm_train.train(lm_train.build_parser().parse_args(
+        flags + ["--remat", "--remat-policy", policy]))
+    assert len(plain.losses) == 2 and remat.losses == plain.losses
+
+
+def test_entry_script_trains_sp_under_remat(dp_losses):
+    """--parallelism sp --remat (the blocks recomputed around the
+    flash-ring's collectives, every rank in the same order) logs the dp
+    run's losses within 2e-4."""
+    proc = _run_entry(*SP_FLAGS, "--parallelism", "sp", "--devices", "4",
+                      "--attn", "flash_ring", "--remat", "--remat-policy",
+                      "dots")
+    assert proc.returncode == 0, proc.stderr
+    np.testing.assert_allclose(_log(proc.stdout, "sp", 6, 2), dp_losses,
+                               rtol=0, atol=2e-4)
+
+
+#: tests/test_lm_train.py's small LM (its _args base, fp32)
+PP_BASE = ["--force-cpu", "--steps", "24", "--batch", "4", "--seq-len", "32",
+           "--vocab", "16", "--d-model", "16", "--n-heads", "2",
+           "--n-layers", "2", "--d-ff", "32", "--lr", "1e-2",
+           "--microbatches", "2", "--log-every", "8"]
+#: the pipelines of tests/test_lm_train.py:40-62
+PP_RUNS = {
+    "pp": ["--parallelism", "pp", "--devices", "4", "--n-layers", "4"],
+    "pp_circular": ["--parallelism", "pp", "--devices", "4", "--n-layers",
+                    "8", "--microbatches", "4", "--circular-chunks", "2"],
+    "pp_sp": ["--parallelism", "pp_sp", "--devices", "4"],
+    "3d": ["--parallelism", "3d", "--devices", "8", "--n-layers", "2",
+           "--batch", "4"],
+}
+
+
+@pytest.mark.parametrize("run", sorted(PP_RUNS))
+def test_entry_script_trains_the_pipelines_on_gloo_ranks(run):
+    """``--force-cpu`` ranks (4, or 8 for 3d), rank 0 printing the JAX
+    script's lines; the loss falls, and each printed loss is the one the
+    single-device run of the same flags prints (the pipelines compute its
+    function: the mean over microbatch means, the gradients summed over
+    'pipe' where a stage owns them)."""
+    flags = PP_BASE + PP_RUNS[run]
+    proc = _run_entry(*flags)
+    assert proc.returncode == 0, proc.stderr
+    parallelism = flags[flags.index("--parallelism") + 1]
+    losses = _log(proc.stdout, parallelism, 24, 8)
+    assert losses[-1] < losses[0]
+    dp = lm_train.build_parser().parse_args(flags)
+    dp.parallelism, dp.devices = "dp", 1
+    np.testing.assert_allclose(losses, lm_train.train(dp).losses, rtol=0,
+                               atol=2e-4)
+
+
+def _jax_exit(flags):
+    """The JAX script's SystemExit text for ``flags`` (on the CPU)."""
+    # start the backend at the conftest's 8 virtual devices first: on a
+    # fresh backend the script's ensure_devices would size the CPU client
+    # to this case's device count, too few for a later case
+    jax.devices()
+    args = jax_lm_train.build_parser().parse_args(["--force-cpu", *flags])
+    with pytest.raises(SystemExit) as err:
+        jax_lm_train.train(args)
+    return str(err.value)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--parallelism", "pp", "--devices", "3", "--n-layers", "4"],
+    ["--parallelism", "pp_sp", "--devices", "6"],
+    ["--parallelism", "pp_sp", "--devices", "4", "--n-layers", "3"],
+    ["--parallelism", "3d", "--devices", "4"],
+    ["--parallelism", "3d", "--devices", "8", "--n-heads", "3"],
+    ["--parallelism", "3d", "--devices", "8", "--n-layers", "3"],
+    ["--parallelism", "pp", "--devices", "2", "--clip-norm", "0.5"],
+    ["--parallelism", "3d", "--devices", "8", "--clip-norm", "1"],
+], ids=["pp-layers", "pp_sp-devices", "pp_sp-layers", "3d-devices",
+        "3d-heads", "3d-layers", "pp-clip-norm", "3d-clip-norm"])
+def test_pipelines_exit_as_the_jax_script_does(flags):
+    """Device counts, layer divisibility and --clip-norm: the JAX script's
+    SystemExit, word for word, before any rank starts."""
+    args = lm_train.build_parser().parse_args(["--force-cpu", *flags])
+    with pytest.raises(SystemExit) as err:
+        lm_train.train(args)
+    assert str(err.value) == _jax_exit(flags)
+
+
+def test_pp_needs_the_cards_or_force_cpu():
+    """No card and no --force-cpu: the pipeline fails before any rank
+    starts, even at one rank."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present here")
+    for devices in ("1", "2"):
+        args = lm_train.build_parser().parse_args([
+            "--parallelism", "pp", "--devices", devices, "--steps", "1"])
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            lm_train.train(args)

@@ -3,20 +3,26 @@ the JAX TransformerLM from bridged weights: logits, the mean cross-entropy
 and every parameter's gradient, in fp32 and bf16, with the plain causal
 attention and with flash attention (JAX's Pallas kernels in interpret
 mode, the port's kernels' plain versions on the CPU). Also the plain
-attention op alone and the nested weight bridge."""
+attention op alone, the nested weight bridge, and ``remat`` (full and
+dots): bitwise the model without it inside the port, JAX's remat model
+across, and dots recomputing no matrix product."""
+
+import dataclasses
+from collections import Counter
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from tpu_sandbox.models.transformer import TransformerConfig as JaxConfig
 from tpu_sandbox.models.transformer import TransformerLM as JaxLM
 from tpu_sandbox.ops.attention import causal_attention as jax_causal_attention
 from tpu_sandbox.ops.losses import cross_entropy_loss as jax_ce
 from tpu_sandbox.ops.pallas_attention import flash_attention_fn as jax_flash_fn
-from tpu_sandbox_torch.models.transformer import TransformerConfig, TransformerLM
+from tpu_sandbox_torch.models.transformer import DOT_OPS, TransformerConfig, TransformerLM
 from tpu_sandbox_torch.ops.attention import causal_attention
 from tpu_sandbox_torch.ops.flash_attention import flash_attention_fn
 from tpu_sandbox_torch.ops.losses import cross_entropy_loss
@@ -56,8 +62,16 @@ def _scaled_err(got, want):
 @pytest.mark.parametrize("flash", [False, True], ids=["plain", "flash"])
 @pytest.mark.parametrize("dt", ["fp32", "bf16"])
 def test_logits_loss_and_grads_match_jax(dt, flash):
+    _check_against_jax(dt, flash)
+
+
+def _check_against_jax(dt, flash, remat=None):
+    """The JAX model and the port's from the same weights, with ``remat``
+    the policy of both: logits, loss and every gradient within the
+    tolerances above."""
     jd, td = DTYPES[dt]
-    jcfg = JaxConfig(**SHAPE, dtype=jd, fp32_logits=True)
+    opts = dict(remat=True, remat_policy=remat) if remat else {}
+    jcfg = JaxConfig(**SHAPE, dtype=jd, fp32_logits=True, **opts)
     jm = JaxLM(jcfg, attention_fn=jax_flash_fn(interpret=True) if flash
                else None)
     tokens, targets = _batch()
@@ -73,7 +87,7 @@ def test_logits_loss_and_grads_match_jax(dt, flash):
     (jloss, jlogits), jgrads = jax.value_and_grad(loss_fn, has_aux=True)(
         params)
 
-    cfg = TransformerConfig(**SHAPE, dtype=td, fp32_logits=True)
+    cfg = TransformerConfig(**SHAPE, dtype=td, fp32_logits=True, **opts)
     model = TransformerLM(cfg, flash_attention_fn() if flash else None,
                           seed=1)
     model.load_state_dict(params_from_flax(
@@ -99,8 +113,72 @@ def test_logits_loss_and_grads_match_jax(dt, flash):
 def test_config_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="MoE"):
         TransformerLM(TransformerConfig(n_experts=2))
-    with pytest.raises(NotImplementedError, match="remat"):
-        TransformerLM(TransformerConfig(remat=True))
+
+
+@pytest.mark.parametrize("policy", ["full", "dots"])
+@pytest.mark.parametrize("flash", [False, True], ids=["plain", "flash"])
+def test_remat_matches_jaxs_remat_model(flash, policy):
+    """JAX's ``remat=True`` model with the same policy against the port's,
+    fp32, at the tolerances of test_logits_loss_and_grads_match_jax."""
+    _check_against_jax("fp32", flash, remat=policy)
+
+
+def _logits_and_grads(cfg, flash, tokens):
+    model = TransformerLM(cfg, flash_attention_fn() if flash else None,
+                          seed=5)
+    logits = model(tokens)
+    cross_entropy_loss(logits.reshape(-1, logits.shape[-1]),
+                       tokens.reshape(-1)).backward()
+    return logits.detach(), {k: p.grad for k, p in model.named_parameters()}
+
+
+@pytest.mark.parametrize("policy", ["full", "dots"])
+@pytest.mark.parametrize("flash", [False, True], ids=["plain", "flash"])
+@pytest.mark.parametrize("dt", ["fp32", "bf16"])
+def test_remat_is_bitwise_the_model_without_it(dt, flash, policy):
+    """The backward graph is the one the forward recorded and the
+    recompute fills in the same values: logits and every gradient to the
+    bit."""
+    cfg = TransformerConfig(**SHAPE, dtype=DTYPES[dt][1])
+    tokens = torch.from_numpy(_batch()[0]).long()
+    logits, grads = _logits_and_grads(cfg, flash, tokens)
+    r_logits, r_grads = _logits_and_grads(
+        dataclasses.replace(cfg, remat=True, remat_policy=policy), flash,
+        tokens)
+    assert torch.equal(r_logits, logits)
+    assert r_grads.keys() == grads.keys()
+    for key, g in grads.items():
+        assert torch.equal(r_grads[key], g), key
+
+
+class _CountProducts(TorchDispatchMode):
+    def __init__(self):
+        super().__init__()
+        self.counts = Counter()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func in DOT_OPS:
+            self.counts[str(func)] += 1
+        return func(*args, **(kwargs or {}))
+
+
+def test_dots_recomputes_no_product():
+    """checkpoint_dots keeps every product: a step under ``dots`` runs
+    the products of the step without remat, and ``full`` runs more (the
+    blocks' forward products again, up to the last one the backward
+    needs)."""
+    cfg = TransformerConfig(**SHAPE)
+    tokens = torch.from_numpy(_batch()[0]).long()
+    counts = {}
+    for name, c in (("none", cfg),
+                    ("full", dataclasses.replace(cfg, remat=True)),
+                    ("dots", dataclasses.replace(cfg, remat=True,
+                                                 remat_policy="dots"))):
+        with _CountProducts() as mode:
+            _logits_and_grads(c, False, tokens)
+        counts[name] = mode.counts
+    assert counts["dots"] == counts["none"]
+    assert sum(counts["full"].values()) > sum(counts["none"].values())
 
 
 @pytest.mark.parametrize("device", ["cpu", "meta"])

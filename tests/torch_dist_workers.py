@@ -3,8 +3,8 @@
 Spawned ranks import this module anew, so it imports no ``jax`` and
 nothing of the JAX package: only the port, torch and numpy. The tests that
 spawn these ranks (``tests/test_torch_{bootstrap,collectives,
-data_parallel,ring_attention,flash_ring,seq_parallel}.py``) compute the
-JAX package's results in their own process and compare. Each rank joins through the ``INIT_METHOD`` that
+data_parallel,ring_attention,flash_ring,seq_parallel,pipeline,
+pipeline_parallel}.py``) compute the JAX package's results in their own process and compare. Each rank joins through the ``INIT_METHOD`` that
 ``tpu_sandbox_torch.parallel.launch.spawn`` sets (a ``FileStore`` under
 the test's temporary directory) and saves what it computed to
 ``out_dir/rank{r}.pt``.
@@ -32,6 +32,7 @@ from tpu_sandbox_torch.parallel.collectives import (
     world_group,
 )
 from tpu_sandbox_torch.parallel.data_parallel import DataParallel
+from tpu_sandbox_torch.parallel.pipeline import PipelineParallel
 from tpu_sandbox_torch.runtime import bootstrap
 from tpu_sandbox_torch.runtime.mesh import make_mesh, submesh
 from tpu_sandbox_torch.train import SGD, Adam, TrainState
@@ -276,6 +277,107 @@ def seq_parallel_worker(rank: int, world_size: int, out_dir: str,
             "attn": _error(lambda: SeqParallel(ctor, sp_tx("sgd"), mesh,
                                                attn="dense")),
         }
+        _save(out_dir, rank, out)
+    finally:
+        bootstrap.cleanup()
+
+
+#: the pipeline cases' LM (tests/test_pipeline.py's CFG) and global batch
+PP_CFG = dict(vocab_size=64, d_model=32, n_heads=2, n_layers=4, d_ff=64,
+              max_len=64)
+PP_BATCH, PP_SEQ = 8, 16
+#: the constructor and shard_batch validations of tests/test_pipeline.py
+#: (:192-201, :307-330) on 4 ranks: (mesh, config overrides, options);
+#: ``attention_fn`` True passes a callable
+PP_VALIDATIONS = {
+    "chunks_layers": ({"data": 1, "pipe": 4}, {},
+                      dict(microbatches=4, circular_chunks=3)),
+    "chunks_microbatches": ({"data": 1, "pipe": 4}, dict(n_layers=8),
+                            dict(microbatches=2, circular_chunks=2)),
+    "chunks_zero": ({"data": 1, "pipe": 4}, {},
+                    dict(microbatches=2, circular_chunks=0)),
+    "layers": ({"data": 1, "pipe": 4}, dict(n_layers=3),
+               dict(microbatches=2)),
+    "no_pipe_axis": ({"data": 4}, {}, dict(microbatches=2)),
+    "tp_heads": ({"data": 1, "model": 2, "pipe": 2}, dict(n_heads=3),
+                 dict(microbatches=2, model_axis="model")),
+    "seq_owns_attention": ({"data": 1, "pipe": 2, "sp": 2}, {},
+                           dict(microbatches=2, seq_axis="sp",
+                                attention_fn=True)),
+    "seq_attn": ({"data": 1, "pipe": 2, "sp": 2}, {},
+                 dict(microbatches=2, seq_axis="sp", seq_attn="bogus")),
+    "shard_batch_sp": ({"data": 1, "pipe": 2, "sp": 2}, {},
+                       dict(microbatches=2, seq_axis="sp")),
+}
+#: bubble_fraction's (S, M, v) grid, n_layers 16; on 4 ranks
+PP_BUBBLES = [(s, m, v) for s in (2, 4) for m in (2, 4, 8) for v in (1, 2, 4)]
+
+
+def _pp_validation(name: str) -> str:
+    """The ValueError text of PP_VALIDATIONS[name] ('' if none)."""
+    mesh, cfg, options = PP_VALIDATIONS[name]
+    options = dict(options)
+    if options.get("attention_fn"):
+        options["attention_fn"] = lambda q, k, v: q
+
+    def make():
+        pp = PipelineParallel(TransformerConfig(**{**PP_CFG, **cfg}),
+                              sp_tx("sgd"), make_mesh(mesh), **options)
+        if name == "shard_batch_sp":
+            bad = np.zeros((4, 15), np.int32)   # S 15 over sp 2
+            pp.shard_batch(bad, bad)
+
+    return _error(make)
+
+
+def _pp_bubble(n_stages: int, microbatches: int, chunks: int):
+    """bubble_fraction of a {"data": 4 / S, "pipe": S} engine over 16
+    layers, or the constructor's ValueError text."""
+    out = []
+
+    def make():
+        out.append(PipelineParallel(
+            TransformerConfig(**{**PP_CFG, "n_layers": 16}), sp_tx("sgd"),
+            make_mesh({"data": 4 // n_stages, "pipe": n_stages}),
+            microbatches=microbatches,
+            circular_chunks=chunks).bubble_fraction())
+
+    err = _error(make)
+    return out[0] if out else err
+
+
+def pipeline_worker(rank: int, world_size: int, out_dir: str,
+                    in_path: str) -> None:
+    """Each case of ``in_path`` (mesh, config, engine options, optimizer,
+    microbatches, the single-device state dict JAX drew, the global batch):
+    ``PipelineParallel`` from that state, one step. Saves this rank's
+    coordinates, parameter names and stage row before the step, the loss
+    and the merged parameters after it; with ``checks``, also
+    ``bubble_fraction`` over PP_BUBBLES and the PP_VALIDATIONS texts."""
+    torch.set_num_threads(1)
+    bootstrap.init(device="cpu")
+    try:
+        inputs = torch.load(in_path, weights_only=False)
+        out = {}
+        for name, case in inputs["cases"].items():
+            mesh = make_mesh(case["mesh"])
+            pp = PipelineParallel(TransformerConfig(**case["cfg"]),
+                                  sp_tx(case["opt"]), mesh,
+                                  microbatches=case["microbatches"],
+                                  **case["options"])
+            state = pp.shard_state(pp.init_state(params=case["params"]))
+            res = {"coords": dict(zip(mesh.mesh_dim_names,
+                                      mesh.get_coordinate())),
+                   "names": sorted(n for n, _ in
+                                   state.model.named_parameters()),
+                   "row": pp.stage_row(state)}
+            res["loss"] = pp.train_step(state,
+                                        *pp.shard_batch(*case["batch"]))
+            res["merged"] = pp.merged_params(state)
+            out[name] = res
+        if inputs.get("checks"):
+            out["bubbles"] = {k: _pp_bubble(*k) for k in PP_BUBBLES}
+            out["errors"] = {k: _pp_validation(k) for k in PP_VALIDATIONS}
         _save(out_dir, rank, out)
     finally:
         bootstrap.cleanup()

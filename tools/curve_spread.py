@@ -13,6 +13,8 @@ max relative and mean abs deviation, ``curve_summary``) of
 - JAX's ConvNet against itself with XLA's CPU runtime on one thread
   (``--xla_cpu_multi_thread_eigen=false``, a second reduction order; run
   in a subprocess, since XLA reads its flags at start);
+- JAX's ConvNetS2D against its ConvNet from the same init (the same
+  function in a second JAX reduction order);
 - each of those curves against JAX's default one, the bar of
   ``test_30_steps_follow_the_jax_curve[plain]``.
 """
@@ -76,6 +78,8 @@ def main(argv=None) -> None:
     row("port plain, 8 threads vs 1", port[8], port[1])
     row("port plain, 8 threads vs 2", port[8], port[2])
     row("JAX ConvNet, one-thread XLA vs default", jax_one, want)
+    row("JAX ConvNetS2D vs JAX ConvNet", lc._jax_run(args.steps, True,
+                                                     s2d=True)[0], want)
     for n in THREADS:
         row(f"port plain, {n} threads vs JAX ConvNet", port[n], want)
     print(json.dumps({"what": "bar", "steps": args.steps,

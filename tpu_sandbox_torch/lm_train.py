@@ -1,10 +1,12 @@
 """Transformer-LM training: the port of ``lm_train.py`` (same flags,
-defaults and log lines), data parallelism on one device and sequence
-parallelism over ranks.
+defaults and log lines): data parallelism on one device, sequence and
+pipeline parallelism over ranks.
 
     python -m tpu_sandbox_torch.lm_train --flash --steps 60
     python -m tpu_sandbox_torch.lm_train --parallelism sp --devices 4 \
         --attn flash_ring
+    python -m tpu_sandbox_torch.lm_train --parallelism pp --devices 4 \
+        --n-layers 4 --force-cpu
 
 The decoder-only LM of ``models/transformer.py`` on the deterministic
 synthetic stream of ``make_batches`` (targets = tokens + 1, 2 or 3 by
@@ -14,23 +16,30 @@ position, mod vocab), mean cross-entropy over all tokens, Adam (optax's
 ``Training complete in:`` at the end; the run fails if the loss did not
 decrease. ``--flash`` takes the flash-attention kernels; at ``--vocab``
 4096 and up the loss takes the fused CE kernel and the logits stay in the
-compute dtype. Runs on ``cuda`` unless ``--force-cpu``; with no card and no
-``--force-cpu`` it fails.
+compute dtype. ``--remat`` recomputes each block in the backward
+(``--remat-policy full`` or ``dots``). Runs on ``cuda`` unless
+``--force-cpu``; with no card and no ``--force-cpu`` it fails.
 
 ``--parallelism sp --devices n`` (n even) starts n ranks, one OS process
 each, over a ``{"data": 2, "sp": n // 2}`` mesh (``parallel/
 seq_parallel.py``): NCCL ranks with one GPU each, or gloo ranks on the CPU
 with ``--force-cpu``. ``--attn`` picks the ring, Ulysses or flash-ring
-attention; ``--flash`` is unused there, as in the JAX script. Rank 0
-prints the ``[sp]`` lines. Fewer GPUs than ranks is an error naming both
-counts: no rank falls back to the CPU or to a smaller world.
+attention; ``--flash`` is unused there, as in the JAX script. The
+pipelines (``parallel/pipeline.py``, ``--microbatches``,
+``--circular-chunks``) start their ranks the same way: ``pp`` over
+``{"data": 1, "pipe": n}`` (one rank runs in this process), ``pp_sp``
+over ``{"data": 2, "pipe": 2, "sp": n // 4}`` (``--flash`` picks the
+flash-ring over the ring inside every stage) and ``3d`` over ``{"data":
+2, "model": 2, "pipe": n // 4}`` (Megatron stages); they refuse
+``--clip-norm``, as the JAX script does. Rank 0 prints the lines. Fewer
+GPUs than ranks is an error naming both counts: no rank falls back to the
+CPU or to a smaller world.
 
 Not ported yet (they raise NotImplementedError; ROADMAP.md, queue 1 items
-7 and 8): the other ``--parallelism`` values, ``--devices`` above 1 under
-``dp``, ``--grad-compress`` other than ``none``, ``--overlap-grad-sync``
-and ``--remat``. The flags that only those read (``--dp``,
-``--microbatches``, ``--circular-chunks``, ``--router-top-k``,
-``--remat-policy``, ``--bucket-mb``) are accepted and, as in the JAX
+4 and 8): ``--parallelism tp`` and ``ep``, ``--devices`` above 1 under
+``dp``, ``--grad-compress`` other than ``none`` and
+``--overlap-grad-sync``. The flags that only those read (``--dp``,
+``--router-top-k``, ``--bucket-mb``) are accepted and, as in the JAX
 script where they do not apply, unused.
 """
 
@@ -50,6 +59,7 @@ from tpu_sandbox_torch.models.transformer import TransformerConfig, TransformerL
 from tpu_sandbox_torch.ops.flash_attention import flash_attention_fn
 from tpu_sandbox_torch.ops.losses import FUSED_CE_MIN_CLASSES, cross_entropy_loss
 from tpu_sandbox_torch.parallel.launch import spawn
+from tpu_sandbox_torch.parallel.pipeline import PipelineParallel
 from tpu_sandbox_torch.parallel.seq_parallel import SeqParallel
 from tpu_sandbox_torch.runtime import bootstrap
 from tpu_sandbox_torch.runtime.mesh import make_mesh
@@ -57,8 +67,10 @@ from tpu_sandbox_torch.train.optim import Adam, clip_by_global_norm_, lm_schedul
 from tpu_sandbox_torch.train.trainer import to_device
 from tpu_sandbox_torch.utils.device import exact_fp32, rank_device, resolve_device
 
-#: seconds the spawned sp ranks may take, rendezvous included
+#: seconds the spawned sp and pipeline ranks may take, rendezvous included
 SP_TIMEOUT = 3600.0
+#: the --parallelism values that run PipelineParallel
+PIPELINES = ("pp", "pp_sp", "3d")
 
 
 def make_batches(vocab: int, batch: int, seq_len: int, steps: int, seed: int):
@@ -75,21 +87,22 @@ def make_batches(vocab: int, batch: int, seq_len: int, steps: int, seed: int):
 def check_ported(args) -> None:
     """Raise NotImplementedError for what the port does not run yet."""
     todo = []
-    if args.parallelism not in ("dp", "sp"):
+    if args.parallelism in ("tp", "ep"):
         todo.append(f"--parallelism {args.parallelism}")
-    if args.devices != 1 and args.parallelism != "sp":
+    if args.devices != 1 and args.parallelism == "dp":
         todo.append(f"--devices {args.devices}")
     if args.grad_compress != "none":
         todo.append(f"--grad-compress {args.grad_compress}")
     if args.overlap_grad_sync:
         todo.append("--overlap-grad-sync")
-    if args.remat:
-        todo.append("--remat")
     if todo:
         raise NotImplementedError(
             f"{', '.join(todo)}: not ported to PyTorch yet (ROADMAP.md, "
-            "queue 1 items 7 and 8); the port trains --parallelism dp on "
-            "one device and --parallelism sp on an even number of ranks")
+            "queue 1 item 8: PjitEngine for --parallelism tp and dp above "
+            "one device, the expert engine for ep; item 4 for the "
+            "compressed and overlapped gradient sync); the port trains "
+            "--parallelism dp on one device, sp on an even number of "
+            "ranks, and pp, pp_sp and 3d")
 
 
 def make_config(args) -> TransformerConfig:
@@ -99,6 +112,7 @@ def make_config(args) -> TransformerConfig:
         vocab_size=args.vocab, d_model=args.d_model, n_heads=args.n_heads,
         n_layers=args.n_layers, d_ff=args.d_ff, max_len=args.seq_len,
         dtype=torch.bfloat16 if args.dtype == "bf16" else torch.float32,
+        remat=args.remat, remat_policy=args.remat_policy,
         fp32_logits=args.vocab < FUSED_CE_MIN_CLASSES)
 
 
@@ -195,12 +209,15 @@ def fit(run: LMRun, args, device: torch.device, batch: Callable, *,
 
 
 def train(args) -> LMRun | None:
-    """Train as the JAX script's ``train`` does. ``dp`` runs here and
-    returns the ``LMRun``; ``sp`` starts its ranks and returns None when
-    every rank exited 0."""
+    """Train as the JAX script's ``train`` does. ``dp`` (and a pipeline
+    on one rank) runs here and returns the ``LMRun``; ``sp`` and the
+    pipelines start their ranks and return None when every rank exited
+    0."""
     check_ported(args)
     if args.parallelism == "sp":
         return train_sp(args)
+    if args.parallelism in PIPELINES:
+        return train_pp(args)
     device = resolve_device("cpu" if args.force_cpu else "cuda")
     if device.type == "cuda":
         exact_fp32()
@@ -212,28 +229,32 @@ def train(args) -> LMRun | None:
 
 def train_sp(args) -> None:
     """``--parallelism sp``: the JAX script's checks, then ``--devices``
-    ranks (one process each: ``sp_rank``) over a ``{"data": 2, "sp": n //
+    ranks (one process each: ``rank_main``) over a ``{"data": 2, "sp": n //
     2}`` mesh."""
     check_clip_norm(args)
     n = args.devices
     if n < 2 or n % 2:
         raise SystemExit("sp needs an even device count (data=2 x sp=n/2)")
     rank_device(n - 1, args.force_cpu)          # enough cards, or exit
-    spawn(sp_rank, n, args, timeout=SP_TIMEOUT)
+    spawn(rank_main, n, args, timeout=SP_TIMEOUT)
 
 
-def sp_rank(rank: int, world_size: int, args) -> None:
-    """One rank of ``--parallelism sp``: GPU ``LOCAL_RANK`` (NCCL) or the
-    CPU (gloo, with ``--force-cpu``)."""
+def rank_main(rank: int, world_size: int, args) -> LMRun:
+    """One rank of ``--parallelism sp`` or of a pipeline: GPU
+    ``LOCAL_RANK`` (NCCL) or the CPU (gloo, with ``--force-cpu``), over the
+    mesh of ``args.parallelism``."""
     device = rank_device(int(os.environ.get("LOCAL_RANK", 0)), args.force_cpu)
     if device.type == "cuda":
         exact_fp32()
-    else:
+    elif world_size > 1:
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // world_size))
     bootstrap.init(None, world_size, rank, device=device)
     try:
-        mesh = make_mesh({"data": 2, "sp": world_size // 2})
-        fit_sp(args, mesh, device, verbose=rank == 0)
+        if args.parallelism == "sp":
+            mesh, fit_rank = {"data": 2, "sp": world_size // 2}, fit_sp
+        else:
+            mesh, fit_rank = pp_mesh(args), fit_pp
+        return fit_rank(args, make_mesh(mesh), device, verbose=rank == 0)
     finally:
         bootstrap.cleanup()
 
@@ -249,6 +270,76 @@ def fit_sp(args, mesh, device: torch.device, *,
         lambda attn: TransformerLM(cfg, attn, seed=0, device=device),
         lambda params: make_adam(args, params), mesh, attn=args.attn,
         clip_norm=args.clip_norm)
+    state = eng.shard_state(eng.init_state())
+    run = LMRun(state.model, state.optimizer,
+                lambda *b: eng.train_step(state, *b))
+    return fit(run, args, device, eng.shard_batch, verbose=verbose)
+
+
+def pp_mesh(args) -> dict:
+    """The mesh of a pipeline at ``--devices``, after the JAX script's
+    checks (lm_train.py:175-216), which exit with its messages."""
+    n, p = args.devices, args.parallelism
+    if p == "pp":
+        if args.n_layers % n:
+            raise SystemExit(f"pp needs n_layers divisible by {n} devices")
+        return {"data": 1, "pipe": n}
+    if p == "pp_sp":
+        if n % 4:
+            raise SystemExit("pp_sp wants devices divisible by 4 "
+                             "(mesh data=2 x pipe=2 x sp=n/4)")
+        if args.n_layers % 2:
+            raise SystemExit("pp_sp needs even n_layers (2 stages)")
+        return {"data": 2, "pipe": 2, "sp": n // 4}
+    if n % 8:
+        raise SystemExit("3d wants devices divisible by 8 (2x2x2 mesh)")
+    shape = {"data": 2, "model": 2, "pipe": n // 4}
+    if args.n_layers % shape["pipe"] or args.n_heads % 2 or args.d_ff % 2:
+        raise SystemExit(
+            f"3d at {n} devices needs n_layers % {shape['pipe']} == 0 "
+            "and even --n-heads/--d-ff")
+    return shape
+
+
+def train_pp(args) -> LMRun | None:
+    """``--parallelism pp|pp_sp|3d``: the JAX script's checks, then
+    ``--devices`` ranks (one process each: ``rank_main``); one rank runs
+    in this process and returns its ``LMRun``."""
+    check_clip_norm(args)
+    if args.clip_norm:
+        # the stage gradients are rank-local: a per-rank norm would scale
+        # the replicated embedding and head gradients differently per rank
+        raise SystemExit(
+            "--clip-norm is not supported with --parallelism pp/pp_sp/3d "
+            "(per-stage norms would diverge); clip under dp/tp/sp/ep")
+    pp_mesh(args)                               # the JAX checks, or exit
+    n = args.devices
+    rank_device(n - 1, args.force_cpu)          # enough cards, or exit
+    if n == 1:
+        return rank_main(0, 1, args)
+    spawn(rank_main, n, args, timeout=SP_TIMEOUT)
+    return None
+
+
+def fit_pp(args, mesh, device: torch.device, *,
+           verbose: bool = True) -> LMRun:
+    """This rank's share of ``--parallelism pp|pp_sp|3d`` over ``mesh``
+    (its 'data' and 'pipe' axes, with 'sp' for pp_sp and 'model' for 3d;
+    the process group already open): ``PipelineParallel`` with
+    ``--microbatches`` and ``--circular-chunks``, the flash kernels with
+    ``--flash`` (the flash-ring under pp_sp), Adam under ``--schedule``,
+    every rank from the same seed."""
+    attention_fn = flash_attention_fn() if args.flash else None
+    options = {
+        "pp": dict(attention_fn=attention_fn),
+        "pp_sp": dict(seq_axis="sp",
+                      seq_attn="flash_ring" if args.flash else "ring"),
+        "3d": dict(model_axis="model", attention_fn=attention_fn),
+    }[args.parallelism]
+    eng = PipelineParallel(
+        make_config(args), lambda params: make_adam(args, params), mesh,
+        microbatches=args.microbatches,
+        circular_chunks=args.circular_chunks, **options)
     state = eng.shard_state(eng.init_state())
     run = LMRun(state.model, state.optimizer,
                 lambda *b: eng.train_step(state, *b))
@@ -282,9 +373,10 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--clip-norm", type=float, default=0.0,
                         help="global-norm gradient clipping (0 = off)")
     parser.add_argument("--microbatches", type=int, default=2,
-                        help="pp only: GPipe microbatches per step")
+                        help="pp, pp_sp, 3d: microbatches per step")
     parser.add_argument("--circular-chunks", type=int, default=1,
-                        help="pp/3d: layer chunks per stage")
+                        help="pp, pp_sp, 3d: layer chunks per stage (v > 1 "
+                             "is the circular schedule)")
     parser.add_argument("--router-top-k", type=int, default=1,
                         help="ep only: 1 = Switch top-1, 2 = GShard top-2")
     parser.add_argument("--log-every", type=int, default=10)
@@ -300,8 +392,7 @@ def build_parser() -> argparse.ArgumentParser:
                         default="full",
                         help="with --remat: what the backward recomputes")
     parser.add_argument("--remat", action="store_true",
-                        help="recompute each block in the backward (not "
-                             "ported yet)")
+                        help="recompute each block in the backward")
     parser.add_argument("--force-cpu", action="store_true",
                         help="run on the CPU (the kernels' plain PyTorch "
                              "versions) instead of the GPU")

@@ -1,7 +1,8 @@
 """Decoder-only transformer LM. Counterpart of
 ``tpu_sandbox/models/transformer.py``: ``TransformerConfig`` (:30),
 ``SelfAttention`` (:65), ``Mlp`` (:88), ``Block`` (:99) and
-``TransformerLM`` (:114), dense MLP only.
+``TransformerLM`` (:114), dense MLP only, with ``remat`` and
+``remat_policy`` (:45-54, :137-140).
 
 The parameters keep the Flax layouts and names, so the weight bridge is a
 rename: ``tok_emb.embedding`` [V, d], ``pos_emb.embedding`` [max_len, d],
@@ -16,6 +17,15 @@ gelu is the tanh approximation. Initial weights are drawn from the
 CPU generator seeded with ``seed`` with Flax's distributions (lecun-normal
 kernels, zero biases, N(0, 1/d) embeddings), not Flax's numbers, and then
 moved to the device, so one seed gives the same weights on every device.
+
+``remat`` runs each block under ``torch.utils.checkpoint`` (``nn.remat``):
+``full`` keeps only the block's input for the backward and recomputes the
+rest; ``dots`` (``jax.checkpoint_policies.checkpoint_dots``) also keeps
+the output of every matrix product (``DOT_OPS``) and recomputes the rest.
+Neither changes the function: the backward graph is the one the forward
+recorded, the recompute fills in what it saved. A kernel launched from
+Python (the flash forward) is no product, so both recompute it, as a
+Pallas call is no ``dot_general`` to JAX.
 """
 
 from __future__ import annotations
@@ -27,11 +37,22 @@ from typing import Callable
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from tpu_sandbox_torch.ops.attention import causal_attention
 
 # truncated_normal(-2, 2) has this stddev; lecun_normal divides it out
 _TRUNC_STD = 0.87962566103423978
+#: the matrix products whose outputs ``remat_policy="dots"`` keeps: what
+#: ``Dense`` (``@``) and the plain attention's einsums lower to
+DOT_OPS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+                     torch.ops.aten.bmm.default,
+                     torch.ops.aten.baddbmm.default})
 
 
 @dataclass(frozen=True)
@@ -43,9 +64,12 @@ class TransformerConfig:
     d_ff: int = 256
     max_len: int = 2048
     dtype: torch.dtype = torch.float32
-    # kept so that the unported options raise rather than vanish
+    # kept so that the unported MoE raises rather than vanishes
     n_experts: int = 0
+    # recompute each block in the backward; "full" or "dots" (what the
+    # backward keeps besides the block's input: nothing, or the products)
     remat: bool = False
+    remat_policy: str = "full"
     fp32_logits: bool = True
 
 
@@ -155,10 +179,6 @@ class TransformerLM(nn.Module):
             raise NotImplementedError(
                 "the MoE MLP (n_experts > 0) is not ported to PyTorch yet "
                 "(ROADMAP.md, queue 1 item 7)")
-        if cfg.remat:
-            raise NotImplementedError(
-                "remat is not ported to PyTorch yet (ROADMAP.md, queue 1 "
-                "item 7); it computes the same function with less memory")
         self.config = cfg
         # drawn on the CPU, then moved: one seed, the same weights on
         # every device (as JAX's init is the same on every backend)
@@ -178,7 +198,23 @@ class TransformerLM(nn.Module):
             positions = torch.arange(tokens.shape[1], device=tokens.device
                                      ).expand(tokens.shape)
         x = self.tok_emb(tokens) + self.pos_emb(positions)
+        keep = (_keep_dots if self.config.remat_policy == "dots"
+                else noop_context_fn)
         for i in range(self.config.n_layers):
-            x = getattr(self, f"block{i}")(x)
+            block = getattr(self, f"block{i}")
+            if self.config.remat:
+                x = checkpoint(block, x, use_reentrant=False, context_fn=keep,
+                               preserve_rng_state=False)
+            else:
+                x = block(x)
         logits = self.lm_head(self.ln_f(x))
         return logits.float() if self.config.fp32_logits else logits
+
+
+def _dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return (CheckpointPolicy.MUST_SAVE if op in DOT_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _keep_dots():
+    return create_selective_checkpoint_contexts(_dots_policy)

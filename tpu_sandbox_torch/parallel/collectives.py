@@ -150,16 +150,24 @@ class CollectiveGroup:
             dist.broadcast(p.data, src, group=self.group)
 
     @torch.no_grad()
-    def mean_grads_(self, params) -> None:
-        """The gradient mean over the group, in place, as ``lax.pmean``
-        writes it: one sum all-reduce a parameter in the given order, then
-        a true division by the group size (gloo has no ``ReduceOp.AVG``).
-        A parameter with no gradient takes zeros first, so every rank
-        issues the same collectives."""
+    def sum_grads_(self, params) -> None:
+        """The gradient sum over the group, in place (``lax.psum``): one
+        sum all-reduce a parameter in the given order. A parameter with no
+        gradient takes zeros first, so every rank issues the same
+        collectives."""
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
             dist.all_reduce(p.grad, group=self.group)
+
+    @torch.no_grad()
+    def mean_grads_(self, params) -> None:
+        """The gradient mean over the group, in place, as ``lax.pmean``
+        writes it: ``sum_grads_``, then a true division by the group size
+        (gloo has no ``ReduceOp.AVG``)."""
+        params = list(params)
+        self.sum_grads_(params)
+        for p in params:
             p.grad.div_(self.size)
 
     def shift(self, x, offset: int = 1) -> torch.Tensor:
