@@ -62,8 +62,10 @@ card or when the port is not beside it. Phases, one JSON line each:
    process (flash_attention_with_lse and make_flash_bwd_lse's closure on
    the kernels, 4 hops a rank each way) against the same ring on the
    plain versions and the full-sequence kernels, two passes bitwise
-   equal; each hop kind's time (diagonal, past, future) beside its bound,
-   and the hops of a pass beside the full-sequence kernels. The NHWC conv at CO 48 and 80 and at C 32, its tails at co 8
+   equal; each hop kind's time (diagonal, past, future) beside its bound
+   and aten's flash attention and its backward on the same blocks (none
+   for the future hop, which sees no key), and the hops of a pass beside
+   the full-sequence kernels. The NHWC conv at CO 48 and 80 and at C 32, its tails at co 8
    blk 2 and co 4 blk 4, and its own bf16 tie case; its bf16 forward's
    runs of rows at W 65 and 130, N*H 134 (more rows than the card's
    blocks, the last run short) and 140 one-row images, for the forward,
@@ -129,9 +131,15 @@ card or when the port is not beside it. Phases, one JSON line each:
    microbatches). path_remat_dots and path_remat_full: lm_path's train
    with --remat and each --remat-policy, the flash forward 24 times a
    step (recomputed: no product), the rest as lm_path; whether the losses
-   are lm_path's bit for bit. Beside each step's time, the cudaMalloc
-   calls and allocator retries of that step and the Python collections
-   of the oldest generation (sampled after each optimizer update).
+   are lm_path's bit for bit. path_tp (lm_train.fit_pjit with tp over a
+   one-rank {"data": 1, "model": 1} mesh: PjitEngine with
+   megatron_rules(), lm_path's function and launches) and path_ep
+   (fit_pjit with ep over {"data": 1, "expert": 1}: the MoE LM with
+   EP_EXPERTS = 4 experts, the function of ep --devices 4, lm_path's
+   launches; finite losses that fall). Beside each step's time, the
+   cudaMalloc calls and allocator retries of that step and the Python
+   collections of the oldest generation (sampled after each optimizer
+   update).
 8. card_vs_cpu: the port on the card against the port on the CPU, 64x64,
    fp32, 3 SGD steps from the same bridged weights on the same batches,
    on each transposed plan of the paths (path_accum's with 2 microbatches
@@ -146,7 +154,10 @@ card or when the port is not beside it. Phases, one JSON line each:
    heads, 2 layers, S 256, flash, fp32, 3 Adam steps), and SeqParallel
    with the plain ring attention on it at one rank (NCCL against gloo),
    after checking that the LM built on the card from seed 0 holds the
-   CPU-built weights bitwise.
+   CPU-built weights bitwise. moe_card_vs_cpu: the MoE LM at a small
+   width (MOE_SMALL) through PjitEngine with the expert rule at one rank,
+   NCCL against gloo, from the same seed: the first loss and every
+   gradient within 1e-4.
 9. profile_flag: mnist_onegpu --profile DIR, 2 steps of the default plan
    at 3000x3000; the trace must name one of the port's kernels.
    curve_card_vs_cpu: parity_run.py's protocol (128x128, batch 5, fp32,
@@ -168,13 +179,11 @@ card or when the port is not beside it. Phases, one JSON line each:
    dist_scripts (after the curve phase): python -m
    tpu_sandbox_torch.test_init and .allreduce_toy at world size 1 on the
    card and as 4 gloo ranks with --force-cpu, at once, each with a time
-   limit: exit 0, the reference's lines, the toy's sums. sp_entry:
-   python -m tpu_sandbox_torch.lm_train --parallelism sp --devices 4
-   --force-cpu at a small width once per --attn (exit 0, the [sp] lines,
-   a falling loss) and --devices 2 without --force-cpu (non-zero exit
-   naming the 2 ranks and the card count), at once. pp_entry: the same
-   for --parallelism pp --devices 4 --n-layers 4 and pp_sp --devices 4
-   with --force-cpu, and pp --devices 2 without it.
+   limit: exit 0, the reference's lines, the toy's sums.
+   entry_refusals: python -m tpu_sandbox_torch.lm_train --parallelism p
+   --devices 2 without --force-cpu for dp, tp, ep, sp and pp, at once:
+   each a non-zero exit naming the 2 ranks and the card count (their
+   gloo runs are CPU tests).
 11. the {"kernels": [...]} summary, the nvidia-smi line, and last
    {"ok": true, "device": {...}}.
 
@@ -427,12 +436,11 @@ RING_N = 4
 #: scheme, and its losses' bar against lm_path's (the same function, the
 #: same kernels; one bf16 ulp, 2^-8, relative)
 SP_STEPS, SP_SCHEMES, SP_LOSS_RTOL = 3, ("flash_ring", "ulysses"), 2.0 ** -8
-#: sp_entry: lm_train --parallelism sp over four gloo ranks at a small
-#: width, and the seconds all its commands may take together
-ENTRY_FLAGS = ["--force-cpu", "--steps", "6", "--log-every", "2",
-               "--seq-len", "32"]
-SP_ENTRY_FLAGS = [*ENTRY_FLAGS, "--parallelism", "sp", "--devices", "4"]
-SP_ENTRY_LIMIT = 300
+#: entry_refusals: lm_train with two GPU ranks of each plan that spawns
+#: ranks, on this one-card machine, and the seconds they may take together
+ENTRY_REFUSALS = {p: ["--parallelism", p, "--devices", "2", "--steps", "1"]
+                  for p in ("dp", "tp", "ep", "sp", "pp")}
+ENTRY_LIMIT = 120
 #: the pipelines' microbatches on the card, and the launches of one step
 #: under the engine's tick remat: every tick's forward runs twice (the
 #: recompute stops at the tick's last saved tensor, the CE's logits,
@@ -443,34 +451,42 @@ TICK_REMAT_KINDS = {"flash_fwd": 2 * 12 * PP_M, "flash_bwd_dkv": 12 * PP_M,
 #: --remat on the LM: the flash forward recomputed in every block (no
 #: matrix product, so dots recomputes it too), the head outside the blocks
 REMAT_KINDS = {**LM_KINDS, "flash_fwd": 2 * LM_KINDS["flash_fwd"]}
+#: the experts of path_ep: the function of ep --devices 4
+EP_EXPERTS = 4
 #: (phase, lm_train flags over LM_FLAGS, the one-rank mesh of fit_pp or
-#: None for lm_train.train, launches a step, ring hops a step);
-#: LM_PATH_STEPS steps each
+#: fit_pjit or None for lm_train.train, launches a step, ring hops a
+#: step, whether it computes lm_path's function); LM_PATH_STEPS steps each
 LM_PATHS = (
     ("path_pp", ["--parallelism", "pp", "--microbatches", str(PP_M)], None,
-     TICK_REMAT_KINDS, {}),
+     TICK_REMAT_KINDS, {}, True),
     ("path_pp_circular", ["--parallelism", "pp", "--microbatches",
                           str(PP_M), "--circular-chunks", "2"], None,
-     TICK_REMAT_KINDS, {}),
+     TICK_REMAT_KINDS, {}, True),
     ("path_pp_sp_flash_ring", ["--parallelism", "pp_sp", "--microbatches",
                                str(PP_M)], {"data": 1, "pipe": 1, "sp": 1},
      TICK_REMAT_KINDS, {"flash_fwd_lse": 2 * 12 * PP_M,
-                        "flash_bwd_lse": 12 * PP_M}),
+                        "flash_bwd_lse": 12 * PP_M}, True),
     ("path_3d", ["--parallelism", "3d", "--microbatches", str(PP_M)],
-     {"data": 1, "model": 1, "pipe": 1}, TICK_REMAT_KINDS, {}),
+     {"data": 1, "model": 1, "pipe": 1}, TICK_REMAT_KINDS, {}, True),
     ("path_remat_dots", ["--remat", "--remat-policy", "dots"], None,
-     REMAT_KINDS, {}),
+     REMAT_KINDS, {}, True),
     ("path_remat_full", ["--remat", "--remat-policy", "full"], None,
-     REMAT_KINDS, {}),
+     REMAT_KINDS, {}, True),
+    ("path_tp", ["--parallelism", "tp"], {"data": 1, "model": 1},
+     LM_KINDS, {}, True),
+    ("path_ep", ["--parallelism", "ep", "--devices", str(EP_EXPERTS)],
+     {"data": 1, "expert": 1}, LM_KINDS, {}, False),
 )
 #: LM_PATHS' steps: lm_path's, all its losses held; the step time is the
 #: median of the 4 after the first
 LM_PATH_STEPS = STEPS
-#: pp_entry: the pipelines on four gloo ranks at a small width
-PP_ENTRY_RUNS = {
-    "pp": ["--parallelism", "pp", "--devices", "4", "--n-layers", "4"],
-    "pp_sp": ["--parallelism", "pp_sp", "--devices", "4"],
-}
+#: moe_card_vs_cpu: the MoE LM at a small width (vocab 4100, so that the
+#: CE kernel runs), its first loss (rtol) and gradients (of max|CPU|)
+MOE_SMALL = ["--parallelism", "ep", "--devices", str(EP_EXPERTS), "--flash",
+             "--vocab", "4100", "--d-model", "64", "--n-heads", "2",
+             "--n-layers", "2", "--d-ff", "128", "--seq-len", "256",
+             "--batch", "2", "--steps", "1", "--dtype", "fp32"]
+MOE_RTOL = 1e-4
 
 
 def emit(phase: str, **kw) -> None:
@@ -1920,6 +1936,8 @@ def phase_ring_kernels(ops, fa) -> tuple[dict, dict]:
         kb, vb = (k, v) if src is None else (rows(k, src), rows(v, src))
         kv_off = 0 if src is None else src * sl
         args = (qr, kb, vb, q_off, kv_off)
+        library = (_sdpa_hop(qr, kb, vb, gr, kind.startswith("diagonal"))
+                   if pairs else None)
         bwd = fa.make_flash_bwd_lse(qr, out_r, gr, lse_r, causal=True,
                                     q_offset=q_off)
         pbwd = _plain_bwd_lse(fa, qr, out_r, gr, lse_r, q_off)
@@ -1957,13 +1975,15 @@ def phase_ring_kernels(ops, fa) -> tuple[dict, dict]:
             ms = cuda_ms(fn)
             b_ms, b_by = bound(flops, bytes_)
             name = f"{fn_name} {kind}"
+            lib_fn = library and library[fn_name == "flash_bwd_lse"]
             entries[name] = dict(
                 name=name, route="cuda", source=FLASH_SRC, replaces=replaces,
                 max_abs_err=max(x["max_abs_err"] for x in rec), ms=ms,
                 plain_ms=cuda_ms(plain_fn, reps=3), bound_ms=b_ms,
-                bound_by=b_by, library_ms=None,
-                library_note="none: no single call computes a ring hop's "
-                             "partial or its gradients against a given lse",
+                bound_by=b_by,
+                library_ms=cuda_ms(lib_fn) if lib_fn else None,
+                library_note=SDPA_NOTE[fn_name] if lib_fn else
+                "no call: the hop is wholly masked (no visible pair)",
                 fp32_rel_err=None,
                 bf16_rel_err=max(x["rel_err"] for x in rec),
                 bf16_f32out_rel_err=None, attrs=None,
@@ -1971,7 +1991,7 @@ def phase_ring_kernels(ops, fa) -> tuple[dict, dict]:
             timing[name] = {k: entries[name][k] for k in (
                 "ms", "ms_back_to_back", "device_ms", "bound_ms")}
             timing[name].update(pairs=pairs, per_pass=per_pass)
-        del o_b, lse_b, grads, bwd, pbwd
+        del o_b, lse_b, grads, bwd, pbwd, library
         torch.cuda.empty_cache()
     seconds["hop_timings"] = time.monotonic() - t0 - seconds["checks"]
     out, lse = fa.flash_fwd(*full[:3], **kw)
@@ -2001,6 +2021,32 @@ def phase_ring_kernels(ops, fa) -> tuple[dict, dict]:
     del q, k, v, g, full, got, out, lse, delta, bargs
     torch.cuda.empty_cache()
     return entries, counts
+
+
+#: what the library times of the ring's hop lines are
+SDPA_NOTE = {
+    "flash_fwd_lse": "torch.ops.aten._scaled_dot_product_flash_attention "
+                     "on the hop's q and k/v block ([B, H, S, D], bf16: out "
+                     "and logsumexp), causal on a diagonal hop",
+    "flash_bwd_lse": "torch.ops.aten._scaled_dot_product_flash_attention_"
+                     "backward against that call's out and logsumexp: dq, "
+                     "dk and dv of the hop"}
+
+
+def _sdpa_hop(q, k, v, g, causal: bool):
+    """(forward, backward) closures of aten's flash attention on one hop's
+    blocks [B, S, H, D] (moved to [B, H, S, D] first, untimed): the
+    library's call computing the hop's out and logsumexp, and its backward
+    against them. Timed only, never used by the port."""
+    q, k, v, g = (t.transpose(1, 2).contiguous() for t in (q, k, v, g))
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    fwd_op = torch.ops.aten._scaled_dot_product_flash_attention
+    bwd_op = torch.ops.aten._scaled_dot_product_flash_attention_backward
+    out, lse, cq, ck, mq, mk, seed, offset, _ = fwd_op(
+        q, k, v, 0.0, causal, scale=scale)
+    return (lambda: fwd_op(q, k, v, 0.0, causal, scale=scale),
+            lambda: bwd_op(g, q, k, v, out, lse, cq, ck, mq, mk, 0.0, causal,
+                           seed, offset, scale=scale))
 
 
 def phase_path_sp(ops, fa, lm_train, lm_ref: dict) -> dict:
@@ -2105,16 +2151,19 @@ def phase_lm_paths(ops, fa, lm_train, lm_ref: dict) -> dict:
     """Each of LM_PATHS at the LM's bench width, LM_PATH_STEPS Adam steps,
     the counters zeroed just before and read just after: exactly its
     launches and ring hops a step; losses against lm_path's within
-    SP_LOSS_RTOL (the same function: with microbatches, the mean of their
-    means); step ms (median, min and max after the first), tokens/s and
-    peak memory beside lm_path's, and each step's cudaMalloc calls,
-    allocator retries and oldest-generation collections."""
+    SP_LOSS_RTOL where the path computes its function (with microbatches,
+    the mean of their means; tp at one rank), finite and falling where it
+    does not (ep: the MoE LM); step ms (median, min and max after the
+    first), tokens/s and peak memory beside lm_path's, and each step's
+    cudaMalloc calls, allocator retries and oldest-generation
+    collections. A mesh path runs fit_pp, or fit_pjit for dp, tp and
+    ep."""
     from tpu_sandbox_torch.runtime import bootstrap
     from tpu_sandbox_torch.runtime.mesh import make_mesh
     from tpu_sandbox_torch.train.optim import Adam
 
     counts, n = {}, LM_PATH_STEPS
-    for phase, flags, mesh, kinds, hops_a_step in LM_PATHS:
+    for phase, flags, mesh, kinds, hops_a_step, same in LM_PATHS:
         with timed(phase):
             args = lm_train.build_parser().parse_args(
                 [*LM_FLAGS, *flags, "--steps", str(n)])
@@ -2127,10 +2176,13 @@ def phase_lm_paths(ops, fa, lm_train, lm_ref: dict) -> dict:
                 if mesh is None:
                     run = lm_train.train(args)
                 else:
+                    fit = (lm_train.fit_pjit
+                           if args.parallelism in lm_train.PJIT_RULES
+                           else lm_train.fit_pp)
                     bootstrap.init(device="cuda")
                     try:
-                        run = lm_train.fit_pp(args, make_mesh(mesh),
-                                              torch.device("cuda"))
+                        run = fit(args, make_mesh(mesh),
+                                  torch.device("cuda"))
                     finally:
                         bootstrap.cleanup()
             torch.cuda.synchronize()
@@ -2149,13 +2201,16 @@ def phase_lm_paths(ops, fa, lm_train, lm_ref: dict) -> dict:
                     f"{run.optimizer.count} steps")
             ref = lm_ref["losses"][:n]
             dev = max(abs(a - w) / abs(w) for a, w in zip(run.losses, ref))
-            require(dev <= SP_LOSS_RTOL,
+            # fit itself exits when the loss did not fall
+            require(not same or dev <= SP_LOSS_RTOL,
                     f"{phase} losses {run.losses} against lm_path's {ref}")
             timed_ms = [t * 1e3 for t in run.step_seconds[1:]]
             step_ms = statistics.median(timed_ms)
             emit(phase, flags=flags, mesh=mesh, losses=run.losses,
-                 lm_path_losses=ref, max_rel_dev_from_lm_path=dev,
-                 loss_rtol=SP_LOSS_RTOL, bitwise_lm_path=run.losses == ref,
+                 lm_path_losses=ref, lm_path_function=same,
+                 max_rel_dev_from_lm_path=dev,
+                 loss_rtol=SP_LOSS_RTOL if same else None,
+                 bitwise_lm_path=run.losses == ref,
                  step_ms_each=[t * 1e3 for t in run.step_seconds],
                  step_ms_median_after_first=step_ms,
                  step_ms_min_after_first=min(timed_ms),
@@ -2203,22 +2258,6 @@ def _entry_runs(runs: dict, limit: float, root: Path) -> dict:
     return out
 
 
-def _entry_losses(what: str, p: str, res) -> list:
-    """The losses of a 6-step run logged every 2 steps, which must have
-    exited 0 with the JAX script's lines and a falling loss."""
-    rc, stdout, stderr, _ = res
-    pat = re.compile(rf"^\[{p}\] Step \[(\d+)/6\], Loss: (\d+\.\d{{4}})$")
-    lines = stdout.splitlines()
-    rows = [pat.match(ln) for ln in lines[:-1]]
-    require(rc == 0 and all(rows) and [int(m[1]) for m in rows]
-            == [2, 4, 6] and lines[-1].startswith("Training complete in: "),
-            f"{what}: exit {rc}, lines {lines}, stderr {stderr[-2000:]}")
-    losses = [float(m[2]) for m in rows]
-    require(losses[-1] < losses[0],
-            f"{what}: the loss did not fall: {losses}")
-    return losses
-
-
 def _two_gpu_ranks_refused(what: str, res) -> dict:
     """``--devices 2`` without --force-cpu on this machine: a non-zero
     exit naming the 2 GPU ranks and the card count."""
@@ -2232,41 +2271,19 @@ def _two_gpu_ranks_refused(what: str, res) -> dict:
     return {"exit": rc, "stderr": stderr.strip()[-300:]}
 
 
-def phase_pp_entry() -> None:
-    """``python -m tpu_sandbox_torch.lm_train`` with PP_ENTRY_RUNS on four
-    gloo ranks (ENTRY_FLAGS: --force-cpu, a small width, 6 steps), and
-    ``--parallelism pp --devices 2`` without --force-cpu, all at once under
-    SP_ENTRY_LIMIT: the first exit 0, print the JAX script's lines from
-    rank 0 and their loss falls; the last exits non-zero naming both
-    counts."""
-    runs = {name: [*ENTRY_FLAGS, *argv] for name, argv in PP_ENTRY_RUNS.items()}
-    runs["two_gpu_ranks"] = ["--parallelism", "pp", "--devices", "2",
-                             "--steps", "1"]
-    out = _entry_runs(runs, SP_ENTRY_LIMIT, Path(__file__).resolve().parent)
-    losses = {name: _entry_losses(f"pp_entry {name}", argv[1], out[name])
-              for name, argv in PP_ENTRY_RUNS.items()}
-    refused = _two_gpu_ranks_refused("pp_entry", out["two_gpu_ranks"])
-    emit("pp_entry", runs=runs, losses=losses,
-         seconds={k: v[3] for k, v in out.items()}, two_gpu_ranks=refused)
-
-
-def phase_sp_entry() -> None:
-    """``python -m tpu_sandbox_torch.lm_train --parallelism sp --devices 4
-    --force-cpu`` at a small width (SP_ENTRY_FLAGS), once per --attn, and
-    ``--parallelism sp --devices 2`` without --force-cpu on this one-card
-    machine, all at once, each with a time limit: the first three exit 0,
-    print the JAX script's lines from rank 0 and their loss falls; the last
-    exits non-zero and names both counts (2 GPU ranks, the card count)."""
-    runs = {attn: [*SP_ENTRY_FLAGS, "--attn", attn]
-            for attn in ("ring", "ulysses", "flash_ring")}
-    runs["two_gpu_ranks"] = ["--parallelism", "sp", "--devices", "2",
-                             "--steps", "1"]
-    out = _entry_runs(runs, SP_ENTRY_LIMIT, Path(__file__).resolve().parent)
-    losses = {attn: _entry_losses(f"sp_entry {attn}", "sp", out[attn])
-              for attn in ("ring", "ulysses", "flash_ring")}
-    refused = _two_gpu_ranks_refused("sp_entry", out["two_gpu_ranks"])
-    emit("sp_entry", flags=SP_ENTRY_FLAGS, losses=losses,
-         seconds={k: v[3] for k, v in out.items()}, two_gpu_ranks=refused)
+def phase_entry_refusals() -> None:
+    """``python -m tpu_sandbox_torch.lm_train --parallelism p --devices 2``
+    without --force-cpu for each plan that spawns ranks (ENTRY_REFUSALS:
+    dp, tp, ep, sp, pp), all at once under ENTRY_LIMIT: each exits non-zero
+    naming the 2 GPU ranks and the card count (no rank falls back to the
+    CPU or to a smaller world). Their gloo runs are CPU tests
+    (tests/test_torch_lm_train.py)."""
+    out = _entry_runs(ENTRY_REFUSALS, ENTRY_LIMIT,
+                      Path(__file__).resolve().parent)
+    refused = {name: _two_gpu_ranks_refused(f"entry_refusals {name}", res)
+               for name, res in out.items()}
+    emit("entry_refusals", runs=ENTRY_REFUSALS, refused=refused,
+         seconds={k: v[3] for k, v in out.items()})
 
 
 def phase_main_path(ops, mnist_onegpu, expected: list[str], *, phase: str,
@@ -2854,6 +2871,53 @@ def _sp_ring_losses(lm_train, args, tree, dev: str) -> list:
         bootstrap.cleanup()
 
 
+def phase_moe_card_vs_cpu(lm_train) -> None:
+    """The MoE LM (MOE_SMALL: E 4, top-1, vocab 4100, d 64, 2 heads, 2
+    layers, S 256, flash, fp32) through PjitEngine with the expert rule at
+    one rank, NCCL on the card against gloo on the CPU, from the same seed
+    (the weights drawn on the CPU generator on both): the first step's
+    loss (the mean CE plus 0.01 times the mean load-balance loss) within
+    rtol MOE_RTOL, and every gradient within MOE_RTOL of max|CPU's|."""
+    from tpu_sandbox_torch.parallel.pjit_engine import PjitEngine
+    from tpu_sandbox_torch.runtime import bootstrap
+    from tpu_sandbox_torch.runtime.mesh import make_mesh
+
+    args = lm_train.build_parser().parse_args(MOE_SMALL)
+    tokens, targets = next(lm_train.make_batches(
+        args.vocab, args.batch, args.seq_len, 1, 0))
+    res = {}
+    for dev in ("cpu", "cuda"):
+        device = torch.device(dev)
+        bootstrap.init(device=dev)
+        try:
+            eng = PjitEngine(
+                lm_train.build_model(args, device),
+                lambda params: lm_train.make_adam(args, params),
+                make_mesh({"data": 1, "expert": 1}), task="lm",
+                rules=lm_train.PJIT_RULES["ep"]())
+            state = eng.shard_state()
+            loss = eng.loss(state.model, *eng.shard_batch(tokens, targets))
+            loss.backward()
+            res[dev] = (loss.item(), {leaf.name: leaf.param.grad.cpu()
+                                      for leaf in eng.leaves})
+        finally:
+            bootstrap.cleanup()
+    (cpu_loss, cpu_g), (card_loss, card_g) = res["cpu"], res["cuda"]
+    loss_dev = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    grad_dev = {k: float((card_g[k] - g).abs().max()
+                         / g.abs().max().clamp_min(1e-30))
+                for k, g in cpu_g.items()}
+    worst = max(grad_dev, key=grad_dev.get)
+    emit("moe_card_vs_cpu", flags=MOE_SMALL, rtol=MOE_RTOL,
+         loss_cpu=cpu_loss, loss_cuda=card_loss, loss_rel_dev=loss_dev,
+         grad_max_rel_dev=grad_dev[worst], grad_worst=worst,
+         grads=len(grad_dev))
+    require(sorted(card_g) == sorted(cpu_g) and loss_dev <= MOE_RTOL
+            and grad_dev[worst] <= MOE_RTOL,
+            f"MoE card and CPU differ: loss {card_loss} vs {cpu_loss}, "
+            f"d{worst} {grad_dev[worst]:.3g} of max|CPU|")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2941,9 +3005,9 @@ def main() -> int:
             ("lm_card_vs_cpu", phase_lm_card_vs_cpu, lm_train),
             ("profile_flag", phase_profile_flag, mnist_onegpu),
             ("curve_card_vs_cpu", phase_curve_card_vs_cpu),
+            ("moe_card_vs_cpu", phase_moe_card_vs_cpu, lm_train),
             ("dist_scripts", phase_dist_scripts),
-            ("sp_entry", phase_sp_entry),
-            ("pp_entry", phase_pp_entry)):
+            ("entry_refusals", phase_entry_refusals)):
         with timed(name):
             phase_fn(*a)
     emit("seconds", phases=SECONDS, total=sum(SECONDS.values()))

@@ -49,6 +49,8 @@ def test_import_loads_no_jax_and_no_jax_package():
         "import tpu_sandbox_torch.parallel.flash_ring\n"
         "import tpu_sandbox_torch.parallel.seq_parallel\n"
         "import tpu_sandbox_torch.parallel.pipeline\n"
+        "import tpu_sandbox_torch.parallel.pjit_engine\n"
+        "import tpu_sandbox_torch.parallel.expert\n"
         "import tpu_sandbox_torch.test_init\n"
         "import tpu_sandbox_torch.allreduce_toy\n"
         "import tpu_sandbox_torch.mnist_distributed\n"

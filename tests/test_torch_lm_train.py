@@ -7,8 +7,11 @@ and the clipping against optax's; the batches bit for bit; the entry
 point's log lines; sequence and pipeline parallelism over gloo ranks
 (pp, circular pp, pp_sp and 3d as tests/test_lm_train.py:40-62 runs them,
 each logging the losses of the single-device run of the same flags) with
-the JAX script's exits; --remat logging the losses of the run without it;
-and the flags that are not ported refuse to run."""
+the JAX script's exits; the compiler-driven plans (dp over 2 ranks, tp
+over {"data": 2, "model": 2}, ep with 2 experts) logging the losses of the
+single-device function, with the JAX script's exits; --remat logging the
+losses of the run without it; and the flags that are not ported refuse to
+run."""
 
 import os
 import re
@@ -32,6 +35,7 @@ from tpu_sandbox.models.transformer import TransformerLM as JaxLM  # noqa: E402
 from tpu_sandbox.ops.losses import cross_entropy_loss as jax_ce  # noqa: E402
 from tpu_sandbox.ops.pallas_attention import flash_attention_fn as jax_flash_fn  # noqa: E402
 from tpu_sandbox_torch import lm_train  # noqa: E402
+from tpu_sandbox_torch.ops.losses import cross_entropy_loss  # noqa: E402
 from tpu_sandbox_torch.train import optim  # noqa: E402
 from tpu_sandbox_torch.train.trainer import to_device  # noqa: E402
 from tpu_sandbox_torch.utils.bridge import params_from_flax  # noqa: E402
@@ -183,9 +187,6 @@ def test_entry_script_needs_the_card_or_force_cpu():
 
 #: (flags, what the error names, the test id of the case)
 UNPORTED = [
-    (["--parallelism", "tp"], "--parallelism tp", "flags0"),
-    (["--parallelism", "ep"], "--parallelism ep", "flags4"),
-    (["--devices", "2"], "--devices 2", "flags6"),
     (["--grad-compress", "int8"], "--grad-compress int8", "flags7"),
     (["--grad-compress", "bf16"], "--grad-compress bf16", "flags8"),
     (["--overlap-grad-sync"], "--overlap-grad-sync", "flags9"),
@@ -216,9 +217,12 @@ def test_sp_needs_an_even_device_count(devices):
     ["--parallelism", "sp", "--devices", "2", "--overlap-grad-sync"],
 ], ids=["grad-compress", "overlap"])
 def test_sp_refuses_what_is_not_ported(flags):
+    """The compressed and overlapped sync outside dp: the JAX script's
+    refusal, word for word, before any rank starts."""
     args = lm_train.build_parser().parse_args(["--force-cpu", *flags])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(SystemExit) as err:
         lm_train.train(args)
+    assert str(err.value) == _jax_exit(flags)
 
 
 def _log(stdout, p, steps, every):
@@ -386,3 +390,80 @@ def test_pp_needs_the_cards_or_force_cpu():
             "--parallelism", "pp", "--devices", devices, "--steps", "1"])
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             lm_train.train(args)
+
+
+#: the compiler-driven plans through the entry (SP_FLAGS' LM): dp and tp
+#: compute the single-device function, ep the MoE LM's
+PJIT_RUNS = {
+    "dp": ["--parallelism", "dp", "--devices", "2"],
+    "tp": ["--parallelism", "tp", "--devices", "4", "--dp", "2"],
+    "ep": ["--parallelism", "ep", "--devices", "2"],
+}
+
+
+def _moe_losses(args):
+    """The ep run's function in this process: the MoE LM with
+    ``--devices`` experts on the whole batch, the mean CE plus 0.01 times
+    the mean load-balance loss, Adam."""
+    model = lm_train.build_model(args, torch.device("cpu"))
+    opt = lm_train.make_optimizer(args, model)
+    losses = []
+    for t, y in lm_train.make_batches(args.vocab, args.batch, args.seq_len,
+                                      args.steps, 0):
+        tokens, targets = to_device(t, y, torch.device("cpu"))
+        logits = model(tokens)
+        aux = model.aux_losses()
+        loss = cross_entropy_loss(logits.reshape(-1, logits.shape[-1]),
+                                  targets.reshape(-1)) + (
+            0.01 * sum(aux) / len(aux))
+        loss.backward()
+        opt.step()
+        losses.append(loss.item())
+    return losses[args.log_every - 1::args.log_every]
+
+
+@pytest.mark.parametrize("run", sorted(PJIT_RUNS))
+def test_entry_script_trains_the_pjit_plans_on_gloo_ranks(dp_losses, run):
+    """``--force-cpu`` gloo ranks (2, or 4 for tp on {"data": 2, "model":
+    2}), rank 0 printing the JAX script's lines; the loss falls, and the
+    printed losses are the single-device function's within 2e-4 (the last
+    printed digit): dp's for dp and tp, the MoE LM's for ep."""
+    flags = SP_FLAGS + PJIT_RUNS[run]
+    proc = _run_entry(*flags)
+    assert proc.returncode == 0, proc.stderr
+    losses = _log(proc.stdout, run, 6, 2)
+    assert losses[-1] < losses[0]
+    want = dp_losses if run != "ep" else _moe_losses(
+        lm_train.build_parser().parse_args(flags))
+    np.testing.assert_allclose(losses, want, rtol=0, atol=2e-4)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--parallelism", "tp", "--devices", "4", "--dp", "3"],
+    ["--parallelism", "tp", "--devices", "4", "--dp", "0"],
+    ["--parallelism", "tp", "--devices", "4", "--n-heads", "2"],
+    ["--parallelism", "tp", "--devices", "2", "--vocab", "63"],
+    ["--parallelism", "tp", "--devices", "2", "--grad-compress", "int8"],
+    ["--parallelism", "ep", "--devices", "2", "--overlap-grad-sync"],
+], ids=["tp-dp", "tp-dp-zero", "tp-heads", "tp-vocab", "tp-grad-compress",
+        "ep-overlap"])
+def test_pjit_plans_exit_as_the_jax_script_does(flags):
+    """tp's divisibility checks and the compressed or overlapped sync
+    outside dp: the JAX script's SystemExit, word for word, before any
+    rank starts."""
+    args = lm_train.build_parser().parse_args(["--force-cpu", *flags])
+    with pytest.raises(SystemExit) as err:
+        lm_train.train(args)
+    assert str(err.value) == _jax_exit(flags)
+
+
+@pytest.mark.parametrize("plan", sorted(PJIT_RUNS))
+def test_pjit_plans_need_the_cards_or_force_cpu(plan):
+    """No card and no --force-cpu: the plan fails before any rank starts
+    (no fallback to gloo ranks on the CPU)."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present here")
+    args = lm_train.build_parser().parse_args(PJIT_RUNS[plan] + [
+        "--steps", "1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        lm_train.train(args)

@@ -22,10 +22,12 @@ from tpu_sandbox.models.transformer import TransformerLM as JaxLM
 from tpu_sandbox.ops.attention import causal_attention as jax_causal_attention
 from tpu_sandbox.ops.losses import cross_entropy_loss as jax_ce
 from tpu_sandbox.ops.pallas_attention import flash_attention_fn as jax_flash_fn
+from tpu_sandbox.parallel.expert import MoeMlp as JaxMoeMlp
 from tpu_sandbox_torch.models.transformer import DOT_OPS, TransformerConfig, TransformerLM
 from tpu_sandbox_torch.ops.attention import causal_attention
 from tpu_sandbox_torch.ops.flash_attention import flash_attention_fn
 from tpu_sandbox_torch.ops.losses import cross_entropy_loss
+from tpu_sandbox_torch.parallel.expert import MoeMlp
 from tpu_sandbox_torch.utils.bridge import params_from_flax, params_to_flax
 
 DTYPES = {"fp32": (jnp.float32, torch.float32),
@@ -111,8 +113,16 @@ def _check_against_jax(dt, flash, remat=None):
 
 
 def test_config_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="MoE"):
-        TransformerLM(TransformerConfig(n_experts=2))
+    """n_experts takes the MoE only through mlp_cls, as in JAX: the default
+    MLP stays dense; MoeMlp refuses a config without experts with JAX's
+    ValueError."""
+    model = TransformerLM(TransformerConfig(n_experts=2))
+    assert not any("w_up" in k for k in model.state_dict())
+    with pytest.raises(ValueError) as jerr:
+        JaxMoeMlp(JaxConfig()).init(jax.random.key(0), jnp.zeros((1, 4, 64)))
+    with pytest.raises(ValueError) as err:
+        TransformerLM(TransformerConfig(), mlp_cls=MoeMlp)
+    assert str(err.value) == str(jerr.value)
 
 
 @pytest.mark.parametrize("policy", ["full", "dots"])

@@ -4,7 +4,7 @@ Spawned ranks import this module anew, so it imports no ``jax`` and
 nothing of the JAX package: only the port, torch and numpy. The tests that
 spawn these ranks (``tests/test_torch_{bootstrap,collectives,
 data_parallel,ring_attention,flash_ring,seq_parallel,pipeline,
-pipeline_parallel}.py``) compute the JAX package's results in their own process and compare. Each rank joins through the ``INIT_METHOD`` that
+pipeline_parallel,pjit_engine,moe}.py``) compute the JAX package's results in their own process and compare. Each rank joins through the ``INIT_METHOD`` that
 ``tpu_sandbox_torch.parallel.launch.spawn`` sets (a ``FileStore`` under
 the test's temporary directory) and saves what it computed to
 ``out_dir/rank{r}.pt``.
@@ -19,7 +19,8 @@ import numpy as np
 import torch
 
 from tpu_sandbox_torch.models import ConvNet
-from tpu_sandbox_torch.models.transformer import TransformerConfig, TransformerLM
+from tpu_sandbox_torch.models.transformer import Mlp, TransformerConfig, TransformerLM
+from tpu_sandbox_torch.ops.flash_attention import flash_attention_fn
 from tpu_sandbox_torch.parallel import (
     SeqParallel,
     make_flash_ring_attention,
@@ -32,10 +33,12 @@ from tpu_sandbox_torch.parallel.collectives import (
     world_group,
 )
 from tpu_sandbox_torch.parallel.data_parallel import DataParallel
+from tpu_sandbox_torch.parallel.expert import MoeMlp
 from tpu_sandbox_torch.parallel.pipeline import PipelineParallel
+from tpu_sandbox_torch.parallel.pjit_engine import P, PjitEngine, megatron_rules
 from tpu_sandbox_torch.runtime import bootstrap
 from tpu_sandbox_torch.runtime.mesh import make_mesh, submesh
-from tpu_sandbox_torch.train import SGD, Adam, TrainState
+from tpu_sandbox_torch.train import SGD, Adam, AdamW, TrainState
 from tpu_sandbox_torch.train.optim import constant_schedule
 
 #: per-rank values, leading dim = 4 ranks (row r is rank r's), all exact in
@@ -378,6 +381,149 @@ def pipeline_worker(rank: int, world_size: int, out_dir: str,
         if inputs.get("checks"):
             out["bubbles"] = {k: _pp_bubble(*k) for k in PP_BUBBLES}
             out["errors"] = {k: _pp_validation(k) for k in PP_VALIDATIONS}
+        _save(out_dir, rank, out)
+    finally:
+        bootstrap.cleanup()
+
+
+#: the PjitEngine cases' LM (tests/test_moe.py's CFG, dense unless
+#: n_experts is set) and global batch; the ConvNet's images (28x28, as
+#: tests/test_pjit_engine.py)
+PJIT_CFG = dict(vocab_size=64, d_model=32, n_heads=2, n_layers=2, d_ff=64,
+                max_len=16)
+PJIT_BATCH, PJIT_SEQ, PJIT_STEPS, PJIT_IMAGE = 8, 16, 3, 28
+#: the rules of a case by name
+PJIT_RULES = {"none": lambda: [], "megatron": megatron_rules,
+              "expert": lambda: [(r"w_(up|down)", P("expert", None, None))]}
+#: the constructor's checks on 4 ranks: (mesh, engine options, model);
+#: JAX's ValueErrors word for word, and what the port does not run yet
+PJIT_VALIDATIONS = {
+    "task": ({"data": 4}, dict(task="speech"), "lm"),
+    "batch_axis": ({"data": 4}, dict(batch_axis="model"), "lm"),
+    "fsdp_axis": ({"data": 4}, dict(fsdp_axis="model"), "lm"),
+    "zero_conflict": ({"data": 2, "model": 2},
+                      dict(zero_axis="model", fsdp_axis="data"), "lm"),
+    "zero_axis": ({"data": 4}, dict(zero_axis="model"), "lm"),
+    "compress_mode": ({"data": 4}, dict(grad_compress="fp8"), "lm"),
+    "bucket_mb": ({"data": 4}, dict(bucket_mb=0.0), "lm"),
+    "compress_rules": ({"data": 2, "model": 2},
+                       dict(grad_compress="int8", rules="megatron"), "lm"),
+    "overlap_fsdp": ({"data": 4}, dict(overlap_grad_sync=True,
+                                       fsdp_axis="data"), "lm"),
+    "compress_spatial": ({"data": 2, "spatial": 2},
+                         dict(grad_compress="bf16",
+                              input_spec=("data", "spatial")), "image"),
+}
+#: what the port refuses with NotImplementedError: (mesh, options, model)
+PJIT_UNPORTED = {
+    "grad_compress": ({"data": 4}, dict(grad_compress="int8"), "lm"),
+    "overlap_grad_sync": ({"data": 4}, dict(overlap_grad_sync=True), "lm"),
+    "spatial": ({"data": 2, "spatial": 2},
+                dict(input_spec=("data", "spatial")), "image"),
+    "image_rules": ({"data": 2, "model": 2},
+                    dict(rules="fc", task="image"), "image"),
+    "batch_norm": ({"data": 4}, dict(task="image"), "image_bn"),
+    "partial_megatron": ({"data": 2, "model": 2},
+                         dict(rules="qkv_only"), "lm"),
+    "lower_step": ({"data": 4}, {}, "lm"),
+}
+
+
+def pjit_tx(opt: str):
+    """The optimizer of a PjitEngine case: ``sp_tx``'s sgd and adam,
+    ``sgd0`` (rate 0: the step's loss is the objective alone) or
+    optax.adamw(1e-3, eps=1e-3)."""
+    if opt == "sgd0":
+        return lambda params: SGD(params, 0.0, momentum=0.0)
+    if opt != "adamw":
+        return sp_tx(opt)
+
+    def adamw(params):
+        opt = AdamW(params, constant_schedule(1e-3))
+        opt.eps = 1e-3
+        return opt
+
+    return adamw
+
+
+def _pjit_model(kind: str, cfg: dict, flash: bool, seed: int):
+    if kind == "lm":
+        config = TransformerConfig(**cfg)
+        return TransformerLM(config, flash_attention_fn() if flash else None,
+                             mlp_cls=MoeMlp if config.n_experts else Mlp,
+                             seed=seed)
+    return ConvNet((PJIT_IMAGE, PJIT_IMAGE), device="cpu", seed=seed,
+                   use_bn=kind == "image_bn")
+
+
+def _pjit_engine(mesh: dict, options: dict, kind: str, seed: int):
+    options = dict(options)
+    rules = options.pop("rules", "none")
+    rules = {"fc": lambda: [("fc/kernel", P(None, "model"))],
+             "qkv_only": lambda: [("attn/qkv/kernel",
+                                   P(None, None, "model", None))],
+             }.get(rules, PJIT_RULES.get(rules))()
+    if "input_spec" in options:
+        options["input_spec"] = P(*options["input_spec"])
+    options.setdefault("task", "image" if kind != "lm" else "lm")
+    return PjitEngine(_pjit_model(kind, PJIT_CFG, False, seed),
+                      pjit_tx("sgd"), make_mesh(mesh), rules=rules,
+                      **options)
+
+
+def _pjit_refusal(name: str) -> str:
+    """The NotImplementedError text of PJIT_UNPORTED[name] ('' if none)."""
+    mesh, options, kind = PJIT_UNPORTED[name]
+
+    def make():
+        eng = _pjit_engine(mesh, options, kind, 0)
+        eng.shard_state()
+        if name == "lower_step":
+            eng.lower_step()
+
+    try:
+        make()
+    except NotImplementedError as e:
+        return str(e)
+    return ""
+
+
+def pjit_worker(rank: int, world_size: int, out_dir: str,
+                in_path: str) -> None:
+    """Each case of ``in_path`` (task, mesh, config, rules, engine
+    options, optimizer, clipping, the whole state dict JAX drew, the global
+    batches): ``PjitEngine`` from that state, one step a batch. Saves the
+    losses, the gathered parameters after the steps and this rank's
+    parameter and moment shapes and specs; with ``checks``, also the
+    PJIT_VALIDATIONS and PJIT_UNPORTED texts."""
+    torch.set_num_threads(1)
+    bootstrap.init(device="cpu")
+    try:
+        inputs = torch.load(in_path, weights_only=False)
+        out = {}
+        for name, case in inputs["cases"].items():
+            kind = case["task"] if case["task"] == "lm" else "image"
+            eng = PjitEngine(
+                _pjit_model(kind, case["cfg"], case.get("flash", False),
+                            rank + 1),
+                pjit_tx(case["opt"]), make_mesh(case["mesh"]),
+                task=case["task"], rules=PJIT_RULES[case["rules"]](),
+                clip_norm=case.get("clip_norm", 0.0),
+                **case.get("options", {}))
+            state = eng.shard_state(case["params"])
+            res = {"local": {leaf.name: (tuple(leaf.param.shape), leaf.spec)
+                             for leaf in eng.leaves},
+                   "moments": {leaf.name: tuple(m.shape) for leaf, m in zip(
+                       eng.leaves, getattr(state.optimizer, "mu", []))}}
+            res["losses"] = torch.stack([
+                eng.train_step(state, *eng.shard_batch(x, y))
+                for x, y in case["batches"]])
+            res["params"] = eng.full_params(state)
+            out[name] = res
+        if inputs.get("checks"):
+            out["errors"] = {k: _error(lambda k=k: _pjit_engine(
+                *PJIT_VALIDATIONS[k], 0)) for k in PJIT_VALIDATIONS}
+            out["refusals"] = {k: _pjit_refusal(k) for k in PJIT_UNPORTED}
         _save(out_dir, rank, out)
     finally:
         bootstrap.cleanup()

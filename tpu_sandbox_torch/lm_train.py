@@ -1,12 +1,15 @@
 """Transformer-LM training: the port of ``lm_train.py`` (same flags,
-defaults and log lines): data parallelism on one device, sequence and
-pipeline parallelism over ranks.
+defaults and log lines): data parallelism, tensor and expert
+parallelism through the compiler-driven engine, sequence and pipeline
+parallelism, over one device or over ranks.
 
     python -m tpu_sandbox_torch.lm_train --flash --steps 60
     python -m tpu_sandbox_torch.lm_train --parallelism sp --devices 4 \
         --attn flash_ring
     python -m tpu_sandbox_torch.lm_train --parallelism pp --devices 4 \
         --n-layers 4 --force-cpu
+    python -m tpu_sandbox_torch.lm_train --parallelism tp --devices 4 \
+        --dp 2 --force-cpu
 
 The decoder-only LM of ``models/transformer.py`` on the deterministic
 synthetic stream of ``make_batches`` (targets = tokens + 1, 2 or 3 by
@@ -31,16 +34,20 @@ pipelines (``parallel/pipeline.py``, ``--microbatches``,
 over ``{"data": 2, "pipe": 2, "sp": n // 4}`` (``--flash`` picks the
 flash-ring over the ring inside every stage) and ``3d`` over ``{"data":
 2, "model": 2, "pipe": n // 4}`` (Megatron stages); they refuse
-``--clip-norm``, as the JAX script does. Rank 0 prints the lines. Fewer
-GPUs than ranks is an error naming both counts: no rank falls back to the
-CPU or to a smaller world.
+``--clip-norm``, as the JAX script does. The compiler-driven engine
+(``parallel/pjit_engine.py``) runs ``dp`` above one device over
+``{"data": n}``, ``tp`` over ``{"data": --dp, "model": n // --dp}`` with
+``megatron_rules()`` and ``ep`` over ``{"data": 1, "expert": n}``: the
+MoE MLP (``parallel/expert.py``) with n experts, one a rank, and
+top-``--router-top-k`` routing; at one rank ``tp`` and ``ep`` run in this
+process. Rank 0 prints the lines. Fewer GPUs than ranks is an error
+naming both counts: no rank falls back to the CPU or to a smaller world.
 
-Not ported yet (they raise NotImplementedError; ROADMAP.md, queue 1 items
-4 and 8): ``--parallelism tp`` and ``ep``, ``--devices`` above 1 under
-``dp``, ``--grad-compress`` other than ``none`` and
-``--overlap-grad-sync``. The flags that only those read (``--dp``,
-``--router-top-k``, ``--bucket-mb``) are accepted and, as in the JAX
-script where they do not apply, unused.
+Not ported yet (they raise NotImplementedError; ROADMAP.md, queue 1 item
+4): ``--grad-compress`` other than ``none`` and ``--overlap-grad-sync``,
+which outside ``dp`` exit with the JAX script's refusal first. The flag
+that only they read (``--bucket-mb``) is accepted and, as in the JAX
+script where it does not apply, unused.
 """
 
 from __future__ import annotations
@@ -55,11 +62,21 @@ from typing import Callable
 import numpy as np
 import torch
 
-from tpu_sandbox_torch.models.transformer import TransformerConfig, TransformerLM
+from tpu_sandbox_torch.models.transformer import (
+    Mlp,
+    TransformerConfig,
+    TransformerLM,
+)
 from tpu_sandbox_torch.ops.flash_attention import flash_attention_fn
 from tpu_sandbox_torch.ops.losses import FUSED_CE_MIN_CLASSES, cross_entropy_loss
+from tpu_sandbox_torch.parallel.expert import MoeMlp
 from tpu_sandbox_torch.parallel.launch import spawn
 from tpu_sandbox_torch.parallel.pipeline import PipelineParallel
+from tpu_sandbox_torch.parallel.pjit_engine import (
+    P,
+    PjitEngine,
+    megatron_rules,
+)
 from tpu_sandbox_torch.parallel.seq_parallel import SeqParallel
 from tpu_sandbox_torch.runtime import bootstrap
 from tpu_sandbox_torch.runtime.mesh import make_mesh
@@ -67,10 +84,13 @@ from tpu_sandbox_torch.train.optim import Adam, clip_by_global_norm_, lm_schedul
 from tpu_sandbox_torch.train.trainer import to_device
 from tpu_sandbox_torch.utils.device import exact_fp32, rank_device, resolve_device
 
-#: seconds the spawned sp and pipeline ranks may take, rendezvous included
+#: seconds the spawned ranks may take, rendezvous included
 SP_TIMEOUT = 3600.0
 #: the --parallelism values that run PipelineParallel
 PIPELINES = ("pp", "pp_sp", "3d")
+#: the --parallelism values that run PjitEngine, with their rules
+PJIT_RULES = {"dp": lambda: [], "tp": megatron_rules,
+              "ep": lambda: [(r"w_(up|down)", P("expert", None, None))]}
 
 
 def make_batches(vocab: int, batch: int, seq_len: int, steps: int, seed: int):
@@ -85,12 +105,16 @@ def make_batches(vocab: int, batch: int, seq_len: int, steps: int, seed: int):
 
 
 def check_ported(args) -> None:
-    """Raise NotImplementedError for what the port does not run yet."""
+    """The JAX script's refusal of the compressed and overlapped gradient
+    sync outside ``dp`` (lm_train.py:132-140), then NotImplementedError
+    for them under ``dp``, which the port does not run yet."""
+    p = args.parallelism
+    if (args.grad_compress != "none" or args.overlap_grad_sync) and p != "dp":
+        raise SystemExit(
+            f"--grad-compress/--overlap-grad-sync only compose with "
+            f"--parallelism dp (got {p!r}): other plans let XLA place the "
+            "grad collectives")
     todo = []
-    if args.parallelism in ("tp", "ep"):
-        todo.append(f"--parallelism {args.parallelism}")
-    if args.devices != 1 and args.parallelism == "dp":
-        todo.append(f"--devices {args.devices}")
     if args.grad_compress != "none":
         todo.append(f"--grad-compress {args.grad_compress}")
     if args.overlap_grad_sync:
@@ -98,11 +122,7 @@ def check_ported(args) -> None:
     if todo:
         raise NotImplementedError(
             f"{', '.join(todo)}: not ported to PyTorch yet (ROADMAP.md, "
-            "queue 1 item 8: PjitEngine for --parallelism tp and dp above "
-            "one device, the expert engine for ep; item 4 for the "
-            "compressed and overlapped gradient sync); the port trains "
-            "--parallelism dp on one device, sp on an even number of "
-            "ranks, and pp, pp_sp and 3d")
+            "queue 1 item 4: the compressed and overlapped gradient sync)")
 
 
 def make_config(args) -> TransformerConfig:
@@ -113,15 +133,18 @@ def make_config(args) -> TransformerConfig:
         n_layers=args.n_layers, d_ff=args.d_ff, max_len=args.seq_len,
         dtype=torch.bfloat16 if args.dtype == "bf16" else torch.float32,
         remat=args.remat, remat_policy=args.remat_policy,
+        n_experts=args.devices if args.parallelism == "ep" else 0,
+        router_top_k=args.router_top_k,
         fp32_logits=args.vocab < FUSED_CE_MIN_CLASSES)
 
 
 def build_model(args, device: torch.device, *, seed: int = 0) -> TransformerLM:
     """The script's LM (``make_config``), flash attention with
-    ``--flash``."""
+    ``--flash``, the MoE MLP under ``ep``."""
     attention_fn = flash_attention_fn() if args.flash else None
-    return TransformerLM(make_config(args), attention_fn, seed=seed,
-                         device=device)
+    return TransformerLM(
+        make_config(args), attention_fn, seed=seed, device=device,
+        mlp_cls=MoeMlp if args.parallelism == "ep" else Mlp)
 
 
 def check_clip_norm(args) -> None:
@@ -209,15 +232,17 @@ def fit(run: LMRun, args, device: torch.device, batch: Callable, *,
 
 
 def train(args) -> LMRun | None:
-    """Train as the JAX script's ``train`` does. ``dp`` (and a pipeline
-    on one rank) runs here and returns the ``LMRun``; ``sp`` and the
-    pipelines start their ranks and return None when every rank exited
-    0."""
+    """Train as the JAX script's ``train`` does. ``dp`` on one device
+    (and any other plan on one rank but ``sp``) runs here and returns the
+    ``LMRun``; over ranks the plans start them and return None when every
+    rank exited 0."""
     check_ported(args)
     if args.parallelism == "sp":
         return train_sp(args)
     if args.parallelism in PIPELINES:
         return train_pp(args)
+    if args.parallelism != "dp" or args.devices != 1:
+        return train_pjit(args)
     device = resolve_device("cpu" if args.force_cpu else "cuda")
     if device.type == "cuda":
         exact_fp32()
@@ -240,7 +265,7 @@ def train_sp(args) -> None:
 
 
 def rank_main(rank: int, world_size: int, args) -> LMRun:
-    """One rank of ``--parallelism sp`` or of a pipeline: GPU
+    """One rank of any plan but ``dp`` on one device: GPU
     ``LOCAL_RANK`` (NCCL) or the CPU (gloo, with ``--force-cpu``), over the
     mesh of ``args.parallelism``."""
     device = rank_device(int(os.environ.get("LOCAL_RANK", 0)), args.force_cpu)
@@ -252,6 +277,8 @@ def rank_main(rank: int, world_size: int, args) -> LMRun:
     try:
         if args.parallelism == "sp":
             mesh, fit_rank = {"data": 2, "sp": world_size // 2}, fit_sp
+        elif args.parallelism in PJIT_RULES:
+            mesh, fit_rank = pjit_mesh(args), fit_pjit
         else:
             mesh, fit_rank = pp_mesh(args), fit_pp
         return fit_rank(args, make_mesh(mesh), device, verbose=rank == 0)
@@ -341,6 +368,58 @@ def fit_pp(args, mesh, device: torch.device, *,
         microbatches=args.microbatches,
         circular_chunks=args.circular_chunks, **options)
     state = eng.shard_state(eng.init_state())
+    run = LMRun(state.model, state.optimizer,
+                lambda *b: eng.train_step(state, *b))
+    return fit(run, args, device, eng.shard_batch, verbose=verbose)
+
+
+def pjit_mesh(args) -> dict:
+    """The mesh of ``dp``, ``tp`` or ``ep`` at ``--devices``, after the JAX
+    script's checks (lm_train.py:141-166, 218-226), which exit with its
+    messages."""
+    n, p = args.devices, args.parallelism
+    if p == "dp":
+        return {"data": n}
+    if p == "ep":
+        return {"data": 1, "expert": n}
+    if args.dp < 1 or n % args.dp:
+        raise SystemExit(f"--dp {args.dp} must be >= 1 and divide {n} devices")
+    m = n // args.dp
+    if args.n_heads % m or args.d_ff % m or args.vocab % m or args.d_model % m:
+        raise SystemExit(
+            f"tp shards heads, d_ff, vocab and d_model: --n-heads "
+            f"{args.n_heads}, --d-ff {args.d_ff}, --vocab {args.vocab}, "
+            f"--d-model {args.d_model} must be divisible by {m} "
+            "model-parallel ranks")
+    return {"data": args.dp, "model": m}
+
+
+def train_pjit(args) -> LMRun | None:
+    """``--parallelism dp`` above one device, ``tp`` and ``ep``: the JAX
+    script's checks, then ``--devices`` ranks (one process each:
+    ``rank_main``); one rank runs in this process and returns its
+    ``LMRun``."""
+    check_clip_norm(args)
+    pjit_mesh(args)                             # the JAX checks, or exit
+    n = args.devices
+    rank_device(n - 1, args.force_cpu)          # enough cards, or exit
+    if n == 1:
+        return rank_main(0, 1, args)
+    spawn(rank_main, n, args, timeout=SP_TIMEOUT)
+    return None
+
+
+def fit_pjit(args, mesh, device: torch.device, *,
+             verbose: bool = True) -> LMRun:
+    """This rank's share of ``--parallelism dp|tp|ep`` over ``mesh`` (its
+    'data' axis, with 'model' for tp and 'expert' for ep; the process group
+    already open): ``PjitEngine(task="lm")`` with the plan's rules, the
+    flash kernels with ``--flash``, Adam under ``--schedule`` and
+    ``--clip-norm`` on the global norm, every rank from the same seed."""
+    eng = PjitEngine(build_model(args, device), lambda params: make_adam(
+        args, params), mesh, task="lm",
+        rules=PJIT_RULES[args.parallelism](), clip_norm=args.clip_norm)
+    state = eng.shard_state()
     run = LMRun(state.model, state.optimizer,
                 lambda *b: eng.train_step(state, *b))
     return fit(run, args, device, eng.shard_batch, verbose=verbose)

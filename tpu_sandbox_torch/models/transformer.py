@@ -1,8 +1,9 @@
 """Decoder-only transformer LM. Counterpart of
 ``tpu_sandbox/models/transformer.py``: ``TransformerConfig`` (:30),
 ``SelfAttention`` (:65), ``Mlp`` (:88), ``Block`` (:99) and
-``TransformerLM`` (:114), dense MLP only, with ``remat`` and
-``remat_policy`` (:45-54, :137-140).
+``TransformerLM`` (:114), with ``mlp_cls`` (the dense ``Mlp`` or
+``parallel/expert.py``'s ``MoeMlp``), ``remat`` and ``remat_policy``
+(:45-54, :137-140).
 
 The parameters keep the Flax layouts and names, so the weight bridge is a
 rename: ``tok_emb.embedding`` [V, d], ``pos_emb.embedding`` [max_len, d],
@@ -64,13 +65,26 @@ class TransformerConfig:
     d_ff: int = 256
     max_len: int = 2048
     dtype: torch.dtype = torch.float32
-    # kept so that the unported MoE raises rather than vanishes
+    # MoE: 0 experts = dense MLP; > 0 with ``mlp_cls=MoeMlp``
+    # (parallel/expert.py) an MoE MLP in every block, per-sequence
+    # capacity ``capacity_factor * S / n_experts``, top-``router_top_k``
+    # routing
     n_experts: int = 0
+    capacity_factor: float = 2.0
+    router_top_k: int = 1
     # recompute each block in the backward; "full" or "dots" (what the
     # backward keeps besides the block's input: nothing, or the products)
     remat: bool = False
     remat_policy: str = "full"
     fp32_logits: bool = True
+
+
+def lecun_normal(shape, fan_in: int, gen: torch.Generator) -> torch.Tensor:
+    """Flax's ``lecun_normal``: a normal truncated to [-2, 2] standard
+    deviations with variance 1 / ``fan_in``, drawn from ``gen``."""
+    t = torch.empty(shape)
+    nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return t * (math.sqrt(1.0 / fan_in) / _TRUNC_STD)
 
 
 class Dense(nn.Module):
@@ -82,19 +96,31 @@ class Dense(nn.Module):
         super().__init__()
         self.in_shape, self.out_shape = tuple(in_shape), tuple(out_shape)
         self.dtype = dtype
-        fan_in = math.prod(self.in_shape)
-        kernel = torch.empty((*self.in_shape, *self.out_shape))
-        nn.init.trunc_normal_(kernel, 0.0, 1.0, -2.0, 2.0, generator=gen)
-        self.kernel = nn.Parameter(kernel * (math.sqrt(1.0 / fan_in) / _TRUNC_STD))
+        self.kernel = nn.Parameter(lecun_normal(
+            (*self.in_shape, *self.out_shape), math.prod(self.in_shape), gen))
         self.bias = nn.Parameter(torch.zeros(self.out_shape))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        lead = x.shape[:x.ndim - len(self.in_shape)]
-        fan_in = math.prod(self.in_shape)
+    def _contract(self, x: torch.Tensor):
+        """(x @ kernel as [prod(lead), prod(out)], lead, out) in ``dtype``.
+        The shapes are the kernel's, so a kernel cut into shards
+        (``parallel/pjit_engine.py``) contracts its own shard."""
+        n_in = len(self.in_shape)
+        k_in, k_out = self.kernel.shape[:n_in], self.kernel.shape[n_in:]
+        lead = x.shape[:x.ndim - n_in]
+        fan_in = math.prod(k_in)
         y = x.reshape(*lead, fan_in).to(self.dtype) @ self.kernel.reshape(
             fan_in, -1).to(self.dtype)
+        return y, lead, k_out
+
+    def product(self, x: torch.Tensor) -> torch.Tensor:
+        """The contraction without the bias, [*lead, *out]."""
+        y, lead, k_out = self._contract(x)
+        return y.reshape(*lead, *k_out)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y, lead, k_out = self._contract(x)
         y = y + self.bias.reshape(-1).to(self.dtype)
-        return y.reshape(*lead, *self.out_shape)
+        return y.reshape(*lead, *k_out)
 
 
 class Embed(nn.Module):
@@ -153,12 +179,16 @@ class Mlp(nn.Module):
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: TransformerConfig, attention_fn, gen):
+    """``mlp_cls(cfg, gen)`` builds the MLP: ``Mlp`` or
+    ``parallel.expert.MoeMlp``."""
+
+    def __init__(self, cfg: TransformerConfig, attention_fn, gen,
+                 mlp_cls: type = Mlp):
         super().__init__()
         self.ln1 = LayerNorm(cfg.d_model)
         self.attn = SelfAttention(cfg, attention_fn, gen)
         self.ln2 = LayerNorm(cfg.d_model)
-        self.mlp = Mlp(cfg, gen)
+        self.mlp = mlp_cls(cfg, gen)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(self.ln1(x))
@@ -172,13 +202,10 @@ class TransformerLM(nn.Module):
     ``ops.flash_attention.flash_attention_fn()``)."""
 
     def __init__(self, cfg: TransformerConfig,
-                 attention_fn: Callable | None = None, *, seed: int = 0,
+                 attention_fn: Callable | None = None, *,
+                 mlp_cls: type = Mlp, seed: int = 0,
                  device: str | torch.device = "cpu"):
         super().__init__()
-        if cfg.n_experts:
-            raise NotImplementedError(
-                "the MoE MLP (n_experts > 0) is not ported to PyTorch yet "
-                "(ROADMAP.md, queue 1 item 7)")
         self.config = cfg
         # drawn on the CPU, then moved: one seed, the same weights on
         # every device (as JAX's init is the same on every backend)
@@ -186,7 +213,8 @@ class TransformerLM(nn.Module):
         self.tok_emb = Embed(cfg.vocab_size, cfg.d_model, cfg.dtype, gen)
         self.pos_emb = Embed(cfg.max_len, cfg.d_model, cfg.dtype, gen)
         for i in range(cfg.n_layers):
-            self.add_module(f"block{i}", Block(cfg, attention_fn, gen))
+            self.add_module(f"block{i}",
+                            Block(cfg, attention_fn, gen, mlp_cls))
         self.ln_f = LayerNorm(cfg.d_model)
         self.lm_head = Dense((cfg.d_model,), (cfg.vocab_size,), cfg.dtype,
                              gen)
@@ -209,6 +237,15 @@ class TransformerLM(nn.Module):
                 x = block(x)
         logits = self.lm_head(self.ln_f(x))
         return logits.float() if self.config.fp32_logits else logits
+
+    def aux_losses(self) -> list[torch.Tensor]:
+        """The auxiliary losses of the last forward, one a block whose MLP
+        keeps one (``MoeMlp.aux_loss``, Flax's sown ``aux_loss``
+        collection); [] for the dense MLP."""
+        mlps = (getattr(self, f"block{i}").mlp
+                for i in range(self.config.n_layers))
+        return [m.aux_loss for m in mlps
+                if getattr(m, "aux_loss", None) is not None]
 
 
 def _dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:

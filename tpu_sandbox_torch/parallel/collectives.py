@@ -19,6 +19,11 @@ host. The compressed all-reduce (:211, :314-506) is not ported yet
 sequence parallelism needs, where JAX differentiates ``lax.ppermute`` and
 ``lax.all_to_all`` itself: autograd functions whose backward issues the
 adjoint collective (the shift by ``-offset``, the inverse all-to-all).
+``tp_region_input`` and ``tp_region_output`` are Megatron's conjugate
+pair around a tensor-parallel region, ``tp_gather`` the gather of a
+sharded activation that every rank uses whole, ``fsdp_gather`` FSDP's
+gather of a parameter at use: what XLA derives from the sharding specs of
+the pipeline and the compiler-driven engine, written out.
 Autograd runs a graph's backward nodes in one order on every rank, so
 every rank issues those collectives in the same order.
 """
@@ -274,6 +279,97 @@ def ring_shift(x: torch.Tensor, group: CollectiveGroup,
     ``lax.ppermute`` differentiates: the cotangent shifts back by
     ``-offset``."""
     return _Shift.apply(x, group, offset)
+
+
+class _RegionInput(torch.autograd.Function):
+    """Megatron's 'f': identity forward, sum over the group backward. The
+    input of a column-parallel matmul feeds every rank's shard, each of
+    which gives only its shard's share of the cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.all_reduce(g.contiguous(), "sum"), None
+
+
+class _RegionOutput(torch.autograd.Function):
+    """Megatron's 'g': sum over the group forward, identity backward (the
+    conjugate of 'f'; a summing backward would multiply the row-parallel
+    gradients by the group size)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return group.all_reduce(x.contiguous(), "sum")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def tp_region_input(x: torch.Tensor, group: CollectiveGroup) -> torch.Tensor:
+    """Megatron's 'f' over ``group``: the identity forward, the sum
+    backward (``tpu_sandbox/parallel/pipeline.py::_tp_region_input``,
+    :128-150)."""
+    return _RegionInput.apply(x, group)
+
+
+def tp_region_output(x: torch.Tensor, group: CollectiveGroup) -> torch.Tensor:
+    """Megatron's 'g' over ``group``: the sum forward, the identity
+    backward (``tpu_sandbox/parallel/pipeline.py::_tp_region_output``,
+    :153-173)."""
+    return _RegionOutput.apply(x, group)
+
+
+class _GatherDim(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim, ctx.k = group, dim, x.shape[dim]
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(group.size)]
+        dist.all_gather(parts, x, group=group.group)
+        return torch.cat(parts, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        k = ctx.k
+        return (g.narrow(ctx.dim, ctx.group.rank * k, k).contiguous(), None,
+                None)
+
+
+def tp_gather(x: torch.Tensor, group: CollectiveGroup,
+              dim: int = -1) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` in rank order, for a
+    sharded activation that every rank of ``group`` then uses whole (a
+    vocab-sharded head's logits, a d_model-sharded embedding): the
+    backward is this rank's slice of the cotangent, which every rank
+    computed alike, so nothing is summed."""
+    return _GatherDim.apply(x, group, dim % x.dim())
+
+
+class _GatherParam(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return group.all_gather(x.contiguous())
+
+    @staticmethod
+    def backward(ctx, g):
+        grp = ctx.group
+        rows = g.shape[0] // grp.size
+        part = grp.reduce_scatter(g.contiguous().reshape(1, -1))
+        return part.reshape(rows, *g.shape[1:]) / grp.size, None
+
+
+def fsdp_gather(x: torch.Tensor, group: CollectiveGroup) -> torch.Tensor:
+    """A parameter sharded on dim 0 over ``group``, whole (FSDP's gather
+    at use): the all-gather forward; the backward reduce-scatters the
+    cotangent and divides it by the group size, the mean over the group
+    of this rank's block of every rank's gradient."""
+    return _GatherParam.apply(x, group)
 
 
 def _tiled(x, group, split_axis, concat_axis):

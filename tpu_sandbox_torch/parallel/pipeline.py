@@ -64,7 +64,12 @@ from torch.utils.checkpoint import checkpoint
 from tpu_sandbox_torch.models.transformer import Block, TransformerConfig, TransformerLM
 from tpu_sandbox_torch.ops.attention import causal_attention
 from tpu_sandbox_torch.ops.losses import cross_entropy_loss
-from tpu_sandbox_torch.parallel.collectives import CollectiveGroup, ring_shift
+from tpu_sandbox_torch.parallel.collectives import (
+    CollectiveGroup,
+    ring_shift,
+    tp_region_input,
+    tp_region_output,
+)
 from tpu_sandbox_torch.parallel.flash_ring import flash_ring_attention
 from tpu_sandbox_torch.parallel.ring_attention import check_axis, ring_attention
 from tpu_sandbox_torch.train.state import TrainState
@@ -115,45 +120,6 @@ def _layernorm(x, scale, bias):
     mean = xf.mean(-1, keepdim=True)
     var = (xf - mean).square().mean(-1, keepdim=True)
     return (xf - mean) / torch.sqrt(var + 1e-6) * scale + bias
-
-
-class _RegionInput(torch.autograd.Function):
-    """Megatron's 'f': identity forward, sum over the group backward. The
-    input of a column-parallel matmul feeds every rank's shard, each of
-    which gives only its shard's share of the cotangent."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return x
-
-    @staticmethod
-    def backward(ctx, g):
-        return ctx.group.all_reduce(g.contiguous(), "sum"), None
-
-
-class _RegionOutput(torch.autograd.Function):
-    """Megatron's 'g': sum over the group forward, identity backward (the
-    conjugate of 'f'; a summing backward would multiply the row-parallel
-    gradients by the group size)."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        return group.all_reduce(x.contiguous(), "sum")
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None
-
-
-def tp_region_input(x: torch.Tensor, group: CollectiveGroup) -> torch.Tensor:
-    """``_tp_region_input`` (:128-150) over ``group``."""
-    return _RegionInput.apply(x, group)
-
-
-def tp_region_output(x: torch.Tensor, group: CollectiveGroup) -> torch.Tensor:
-    """``_tp_region_output`` (:153-173) over ``group``."""
-    return _RegionOutput.apply(x, group)
 
 
 class _Take(torch.autograd.Function):

@@ -82,13 +82,15 @@ def lm_schedule(schedule: str, lr: float, steps: int,
 
 
 @torch.no_grad()
-def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float
-                         ) -> torch.Tensor:
+def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float,
+                         norm: torch.Tensor | None = None) -> torch.Tensor:
     """``optax.clip_by_global_norm`` in place: when the global norm
     ``sqrt(sum |g|^2)`` is at least ``max_norm``, every g becomes
     ``(g / norm) * max_norm``; below it nothing changes. Returns the
-    norm."""
-    norm = torch.sqrt(sum((g.float() * g.float()).sum() for g in grads))
+    norm. ``norm`` is the global norm when ``grads`` are shards of it
+    (``PjitEngine`` sums the squares of sharded leaves over their axes)."""
+    if norm is None:
+        norm = torch.sqrt(sum((g.float() * g.float()).sum() for g in grads))
     keep = norm < max_norm                  # on the device: no host sync
     for g in grads:
         g.copy_(torch.where(keep, g, (g / norm) * max_norm))

@@ -8,7 +8,8 @@ The port keeps the Flax layouts (conv kernels [5,5,ci,co], the fc kernel
 [d, 3, H, hd]), so the bridge is a rename: the path through
 ``variables[collection]`` joined by dots is the torch state-dict key, at any
 depth (``conv1/kernel`` <-> ``conv1.kernel``, ``block3/attn/qkv/kernel``
-<-> ``block3.attn.qkv.kernel``), for the ``params`` and ``batch_stats``
+<-> ``block3.attn.qkv.kernel``, the MoE's ``block0/mlp/w_up`` and
+``block0/mlp/router/kernel``), for the ``params`` and ``batch_stats``
 collections.
 """
 
