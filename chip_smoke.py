@@ -176,6 +176,19 @@ card or when the port is not beside it. Phases, one JSON line each:
    images/s, peak memory and the rank-0 log line; then DataParallel at one
    rank against the single-device trainer from the same seed on the same
    batches, 2 steps: losses, parameters and BN statistics bitwise equal.
+   path_dp_ext: the same run with each of the data-parallel extensions
+   (DP_EXT_MODES: --opt adamw, then with --zero; --overlap-grad-sync;
+   --grad-compress bf16; --grad-compress int8 with error feedback, and
+   with --overlap-grad-sync), 3 steps each, counters zeroed before and
+   read after: the main path's kinds once a step and no other, finite
+   losses; --zero bitwise --opt adamw's run (losses, parameters, BN
+   statistics: at one rank every leaf is its own whole block), and
+   --overlap-grad-sync bitwise path_dp's losses; step time, its excess
+   over path_dp's in this run, images/s and peak memory. The LM's
+   compressed and bucketed sync is path_dp_int8_overlap in LM_PATHS
+   (fit_pjit, dp over a one-rank {"data": 1} mesh, --grad-compress int8
+   --overlap-grad-sync: the engine's int8 exchange and buckets on the
+   card), its losses within 1e-4 relative of lm_path's.
    dist_scripts (after the curve phase): python -m
    tpu_sandbox_torch.test_init and .allreduce_toy at world size 1 on the
    card and as 4 gloo ranks with --force-cpu, at once, each with a time
@@ -308,6 +321,19 @@ PATH_FLAGS = {"path_accum": ["--accum-steps", str(ACCUM_STEPS),
 #: path_dp: mnist_distributed -g 1 (NCCL, one rank) on the card's default
 #: plan, and the steps held bitwise against the single-device trainer
 DP_STEPS, DP_BITWISE_STEPS = 3, 2
+#: path_dp_ext: the mnist_distributed flags of each data-parallel
+#: extension over path_dp's, DP_STEPS steps each
+DP_EXT_MODES = (
+    ("adamw", ["--opt", "adamw"]),
+    ("adamw_zero", ["--opt", "adamw", "--zero"]),
+    ("overlap", ["--overlap-grad-sync"]),
+    ("bf16", ["--grad-compress", "bf16"]),
+    ("int8", ["--grad-compress", "int8"]),
+    ("int8_overlap", ["--grad-compress", "int8", "--overlap-grad-sync"]),
+)
+#: the modes that must be another run bit for bit: a mode's whole run, or
+#: path_dp's losses (None)
+DP_EXT_BITWISE = {"adamw_zero": "adamw", "overlap": None}
 #: dist_scripts: (name, argv after python -m, time limit in seconds)
 DIST_SCRIPTS = (
     ("test_init_nccl", ["tpu_sandbox_torch.test_init", "--world-size", "1"],
@@ -453,29 +479,39 @@ TICK_REMAT_KINDS = {"flash_fwd": 2 * 12 * PP_M, "flash_bwd_dkv": 12 * PP_M,
 REMAT_KINDS = {**LM_KINDS, "flash_fwd": 2 * LM_KINDS["flash_fwd"]}
 #: the experts of path_ep: the function of ep --devices 4
 EP_EXPERTS = 4
+#: path_dp_int8_overlap's losses' bar against lm_path's: its int8 mean
+#: moves the gradient by up to half a step of each block's scale, which
+#: moved the 5 losses by up to 1.4e-5 relative on the H100 (PERF.md); a
+#: broken exchange (scales, codes, the residual) moves them far more
+DP_INT8_LOSS_RTOL = 1e-4
 #: (phase, lm_train flags over LM_FLAGS, the one-rank mesh of fit_pp or
 #: fit_pjit or None for lm_train.train, launches a step, ring hops a
-#: step, whether it computes lm_path's function); LM_PATH_STEPS steps each
+#: step, the losses' bar against lm_path's: SP_LOSS_RTOL where it computes
+#: lm_path's function, None where it does not); LM_PATH_STEPS steps each
 LM_PATHS = (
     ("path_pp", ["--parallelism", "pp", "--microbatches", str(PP_M)], None,
-     TICK_REMAT_KINDS, {}, True),
+     TICK_REMAT_KINDS, {}, SP_LOSS_RTOL),
     ("path_pp_circular", ["--parallelism", "pp", "--microbatches",
                           str(PP_M), "--circular-chunks", "2"], None,
-     TICK_REMAT_KINDS, {}, True),
+     TICK_REMAT_KINDS, {}, SP_LOSS_RTOL),
     ("path_pp_sp_flash_ring", ["--parallelism", "pp_sp", "--microbatches",
                                str(PP_M)], {"data": 1, "pipe": 1, "sp": 1},
      TICK_REMAT_KINDS, {"flash_fwd_lse": 2 * 12 * PP_M,
-                        "flash_bwd_lse": 12 * PP_M}, True),
+                        "flash_bwd_lse": 12 * PP_M}, SP_LOSS_RTOL),
     ("path_3d", ["--parallelism", "3d", "--microbatches", str(PP_M)],
-     {"data": 1, "model": 1, "pipe": 1}, TICK_REMAT_KINDS, {}, True),
+     {"data": 1, "model": 1, "pipe": 1}, TICK_REMAT_KINDS, {},
+     SP_LOSS_RTOL),
     ("path_remat_dots", ["--remat", "--remat-policy", "dots"], None,
-     REMAT_KINDS, {}, True),
+     REMAT_KINDS, {}, SP_LOSS_RTOL),
     ("path_remat_full", ["--remat", "--remat-policy", "full"], None,
-     REMAT_KINDS, {}, True),
+     REMAT_KINDS, {}, SP_LOSS_RTOL),
     ("path_tp", ["--parallelism", "tp"], {"data": 1, "model": 1},
-     LM_KINDS, {}, True),
+     LM_KINDS, {}, SP_LOSS_RTOL),
     ("path_ep", ["--parallelism", "ep", "--devices", str(EP_EXPERTS)],
-     {"data": 1, "expert": 1}, LM_KINDS, {}, False),
+     {"data": 1, "expert": 1}, LM_KINDS, {}, None),
+    ("path_dp_int8_overlap", ["--grad-compress", "int8",
+                              "--overlap-grad-sync"], {"data": 1},
+     LM_KINDS, {}, DP_INT8_LOSS_RTOL),
 )
 #: LM_PATHS' steps: lm_path's, all its losses held; the step time is the
 #: median of the 4 after the first
@@ -2152,8 +2188,9 @@ def phase_lm_paths(ops, fa, lm_train, lm_ref: dict) -> dict:
     the counters zeroed just before and read just after: exactly its
     launches and ring hops a step; losses against lm_path's within
     SP_LOSS_RTOL where the path computes its function (with microbatches,
-    the mean of their means; tp at one rank), finite and falling where it
-    does not (ep: the MoE LM); step ms (median, min and max after the
+    the mean of their means; tp at one rank), within DP_INT8_LOSS_RTOL
+    under the int8 exchange, finite and falling where it computes another
+    (ep: the MoE LM); step ms (median, min and max after the
     first), tokens/s and peak memory beside lm_path's, and each step's
     cudaMalloc calls, allocator retries and oldest-generation
     collections. A mesh path runs fit_pp, or fit_pjit for dp, tp and
@@ -2163,7 +2200,7 @@ def phase_lm_paths(ops, fa, lm_train, lm_ref: dict) -> dict:
     from tpu_sandbox_torch.train.optim import Adam
 
     counts, n = {}, LM_PATH_STEPS
-    for phase, flags, mesh, kinds, hops_a_step, same in LM_PATHS:
+    for phase, flags, mesh, kinds, hops_a_step, rtol in LM_PATHS:
         with timed(phase):
             args = lm_train.build_parser().parse_args(
                 [*LM_FLAGS, *flags, "--steps", str(n)])
@@ -2202,14 +2239,14 @@ def phase_lm_paths(ops, fa, lm_train, lm_ref: dict) -> dict:
             ref = lm_ref["losses"][:n]
             dev = max(abs(a - w) / abs(w) for a, w in zip(run.losses, ref))
             # fit itself exits when the loss did not fall
-            require(not same or dev <= SP_LOSS_RTOL,
+            require(rtol is None or dev <= rtol,
                     f"{phase} losses {run.losses} against lm_path's {ref}")
             timed_ms = [t * 1e3 for t in run.step_seconds[1:]]
             step_ms = statistics.median(timed_ms)
             emit(phase, flags=flags, mesh=mesh, losses=run.losses,
-                 lm_path_losses=ref, lm_path_function=same,
-                 max_rel_dev_from_lm_path=dev,
-                 loss_rtol=SP_LOSS_RTOL if same else None,
+                 lm_path_losses=ref,
+                 lm_path_function=rtol == SP_LOSS_RTOL,
+                 max_rel_dev_from_lm_path=dev, loss_rtol=rtol,
                  bitwise_lm_path=run.losses == ref,
                  step_ms_each=[t * 1e3 for t in run.step_seconds],
                  step_ms_median_after_first=step_ms,
@@ -2442,21 +2479,19 @@ def phase_dist_scripts() -> None:
          lines={k: v for k, v in out.items()}, toy_steps=sums)
 
 
-def phase_path_dp(ops, mnist_distributed, expected: list[str]):
-    """mnist_distributed -g 1 at 3000x3000, batch 5, bf16, the card's
-    default plan, DP_STEPS steps, in this process (NCCL, one rank), the
-    launch counters zeroed just before and read just after: the main
-    path's kinds once a step and no other; step time, images/s, peak
-    memory and the rank-0 log line. Then the same model from the same seed
-    through DataParallel and, beside it, through the single-device trainer
-    (make_train_step) on the same batches for DP_BITWISE_STEPS steps:
-    losses and every parameter and BN statistic bitwise equal."""
+def _dp_run(ops, mnist_distributed, expected: list[str], phase: str,
+            flags: list[str] = ()):
+    """mnist_distributed's train at -g 1 with path_dp's arguments and
+    ``flags``, the launch counters zeroed just before and read just
+    after: the main path's kinds once a step and no other, the rank-0
+    log lines, finite losses. Returns (result, counts, trainer, state,
+    args)."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     argv = ["-g", "1", "--plan", "auto", "--image-size", str(IMAGE),
             "--batch-size", str(BATCH), "--dtype", "bf16",
             "--synthetic-n", str(DP_STEPS * BATCH), "--limit-steps",
-            str(DP_STEPS), "--epochs", "1", "--log-every", "1"]
+            str(DP_STEPS), "--epochs", "1", "--log-every", "1", *flags]
     args = mnist_distributed.build_parser().parse_args(argv)
     log = io.StringIO()
     ops.reset_launch_counts()
@@ -2471,22 +2506,24 @@ def phase_path_dp(ops, mnist_distributed, expected: list[str]):
     print(log.getvalue(), end="", flush=True)
     for key in expected:
         require(counts.get(key, 0) == DP_STEPS,
-                f"path_dp launched {key} {counts.get(key, 0)} times in "
+                f"{phase} launched {key} {counts.get(key, 0)} times in "
                 f"{DP_STEPS} steps")
     require(set(counts) == set(expected),
-            f"unexpected launches on path_dp: {counts}")
+            f"unexpected launches on {phase}: {counts}")
     want_lines = [f"Rank [0], Epoch [1/1], Step [{s}/{DP_STEPS}], Loss: "
                   f"{loss:.4f}" for s, loss in zip(range(1, DP_STEPS + 1),
                                                    trainer.losses)]
     require([ln for ln in lines if ln.startswith("Rank [")] == want_lines
             and lines[-1].startswith("Training complete in: "),
-            f"path_dp log lines {lines}")
-    require(all(math.isfinite(v) for v in trainer.losses),
-            f"path_dp non-finite loss {trainer.losses}")
+            f"{phase} log lines {lines}")
+    require(len(trainer.losses) == DP_STEPS
+            and all(math.isfinite(v) for v in trainer.losses),
+            f"{phase} non-finite loss {trainer.losses}")
     step_ms = statistics.median(trainer.step_seconds[1:]) * 1e3
     model = state.model
     res = dict(image=IMAGE, batch=BATCH, dtype="bf16", steps=DP_STEPS,
                world_size=1, backend="nccl", model=type(model).__name__,
+               flags=list(flags),
                fused_tail=getattr(model, "fused_tail", None),
                sparse_conv1=getattr(model, "sparse_conv1", None),
                fused_conv1_bwd=getattr(model, "fused_conv1_bwd", None),
@@ -2496,10 +2533,71 @@ def phase_path_dp(ops, mnist_distributed, expected: list[str]):
                images_per_s=BATCH / (step_ms / 1e3),
                peak_memory_bytes=peak, wall_s_with_init=wall,
                launches=counts, log_lines=want_lines)
-    del trainer, state, model
+    return res, counts, trainer, state, args
+
+
+def phase_path_dp(ops, mnist_distributed, expected: list[str]):
+    """mnist_distributed -g 1 at 3000x3000, batch 5, bf16, the card's
+    default plan, DP_STEPS steps, in this process (NCCL, one rank), the
+    launch counters zeroed just before and read just after: the main
+    path's kinds once a step and no other; step time, images/s, peak
+    memory and the rank-0 log line. Then the same model from the same seed
+    through DataParallel and, beside it, through the single-device trainer
+    (make_train_step) on the same batches for DP_BITWISE_STEPS steps:
+    losses and every parameter and BN statistic bitwise equal."""
+    res, counts, trainer, state, args = _dp_run(ops, mnist_distributed,
+                                                expected, "path_dp")
+    del res["flags"]
+    del trainer, state
     torch.cuda.empty_cache()
     res["bitwise_vs_single_device"] = _dp_bitwise(mnist_distributed, args)
     return res, counts
+
+
+def phase_path_dp_ext(ops, mnist_distributed, expected: list[str],
+                      dp_res: dict) -> dict:
+    """Each of DP_EXT_MODES through _dp_run: the main path's kinds once a
+    step, finite losses, the DP_EXT_BITWISE pairs bit for bit (losses,
+    and with a mode's run every parameter and BN statistic); step time
+    beside path_dp's of this run. Returns the counts by phase."""
+    import gc
+
+    counts, kept = {}, {}
+    for mode, flags in DP_EXT_MODES:
+        phase = f"path_dp_ext_{mode}"
+        with timed(phase):
+            res, counts[phase], trainer, state, _ = _dp_run(
+                ops, mnist_distributed, expected, phase, flags)
+            if mode in DP_EXT_BITWISE.values():     # kept on the host
+                kept[mode] = (list(trainer.losses),
+                              {k: v.detach().cpu() for k, v in
+                               state.model.state_dict().items()})
+            if mode in DP_EXT_BITWISE:
+                other = DP_EXT_BITWISE[mode]
+                if other is None:
+                    same = trainer.losses == dp_res["losses"]
+                    differ = []
+                else:
+                    losses, sd = kept.pop(other)
+                    differ = [k for k, v in state.model.state_dict().items()
+                              if not torch.equal(sd[k], v.cpu())]
+                    same = trainer.losses == losses and not differ
+                    del sd
+                require(same, f"{phase} is not {other or 'path_dp'}'s run "
+                        f"bit for bit: losses {trainer.losses}, state "
+                        f"entries differing {differ}")
+                res["bitwise_vs"] = other or "path_dp"
+            dp_ms = dp_res["step_ms_median_after_first"]
+            res["path_dp_step_ms_median_after_first"] = dp_ms
+            res["extra_ms_over_path_dp"] = (res["step_ms_median_after_first"]
+                                            - dp_ms)
+            res["residual_leaves"] = (None if state.grad_residual is None
+                                      else len(state.grad_residual))
+            emit(phase, **res)
+            del trainer, state
+            gc.collect()
+            torch.cuda.empty_cache()
+    return counts
 
 
 def _dp_bitwise(mnist_distributed, args) -> dict:
@@ -2987,9 +3085,12 @@ def main() -> int:
     with timed("dist_bootstrap"):
         phase_dist_bootstrap()
     with timed("path_dp"):
-        res, counts["path_dp"] = phase_path_dp(ops, mnist_distributed,
-                                               MAIN_KINDS)
-        emit("path_dp", **res, main_path_step_ms_median_after_first=main_ms)
+        dp_res, counts["path_dp"] = phase_path_dp(ops, mnist_distributed,
+                                                  MAIN_KINDS)
+        emit("path_dp", **dp_res,
+             main_path_step_ms_median_after_first=main_ms)
+    counts.update(phase_path_dp_ext(ops, mnist_distributed, MAIN_KINDS,
+                                    dp_res))
     with timed("lm_path"):
         run, counts["lm_path"], lm_ref = phase_lm_path(ops, lm_train)
         phase_lm_profile(lm_train, run)
@@ -3014,6 +3115,7 @@ def main() -> int:
     steps_of = {phase: steps for phase, _, _, steps, _ in PATHS}
     steps_of["lm_path"] = STEPS
     steps_of["path_dp"] = DP_STEPS
+    steps_of.update({f"path_dp_ext_{m}": DP_STEPS for m, _ in DP_EXT_MODES})
     steps_of.update({f"path_sp_{a}": SP_STEPS for a in SP_SCHEMES},
                     ring_kernels=1)
     steps_of.update({phase: LM_PATH_STEPS for phase, *_ in LM_PATHS})

@@ -24,6 +24,7 @@ import torch
 
 from tpu_sandbox.ops import pallas_bn_tail as jax_tail
 from tpu_sandbox_torch.ops import bn_tail
+from torch_threads import one_torch_thread  # noqa: F401
 
 GEOMS = [(4, 4, 12), (2, 16, 8), (4, 16, 8), (2, 32, 6), (2, 4, 6)]  # (blk, co, hw)
 DTYPES = {"fp32": (jnp.float32, torch.float32),

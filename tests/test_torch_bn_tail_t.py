@@ -20,6 +20,7 @@ from tpu_sandbox.ops import pallas_bn_tail_t as jax_tail
 from tpu_sandbox.ops.pallas_bn_tail import selection_matrix
 from tpu_sandbox_torch.ops import bn_tail_t
 from tpu_sandbox_torch.ops.conv_t import wgrad_slabs
+from torch_threads import one_torch_thread  # noqa: F401
 
 GEOMS = [(4, 4, 12), (2, 16, 8), (4, 16, 8)]      # (blk, co, hw)
 DTYPES = {"fp32": (jnp.float32, torch.float32),

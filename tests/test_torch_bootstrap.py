@@ -10,6 +10,7 @@ import torch
 
 from tpu_sandbox.runtime import bootstrap as jax_bootstrap
 from tpu_sandbox_torch.runtime import bootstrap
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

@@ -17,6 +17,7 @@ from tpu_sandbox.ops.losses import cross_entropy_loss as jax_ce_loss
 from tpu_sandbox.ops.pallas_ce import _block_rows as jax_block_rows
 from tpu_sandbox.ops.pallas_ce import pallas_cross_entropy
 from tpu_sandbox_torch.ops import ce, losses
+from torch_threads import one_torch_thread  # noqa: F401
 
 DTYPES = {"fp32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}

@@ -22,6 +22,7 @@ from torch_dist_workers import (
 from tpu_sandbox.parallel.collectives import CollectiveGroup as JaxGroup
 from tpu_sandbox.runtime.mesh import make_mesh as jax_make_mesh
 from tpu_sandbox_torch.parallel.launch import spawn
+from torch_threads import one_torch_thread  # noqa: F401
 
 WORLD = 4
 

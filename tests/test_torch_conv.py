@@ -18,6 +18,7 @@ from tpu_sandbox.ops.pallas_conv import conv3x3 as jax_conv3x3
 from tpu_sandbox.ops.pallas_conv import conv3x3_reference as jax_reference
 from tpu_sandbox.ops.pallas_conv import conv3x3_stats as jax_stats
 from tpu_sandbox_torch.ops import conv
+from torch_threads import one_torch_thread  # noqa: F401
 
 # (N, H, W, C, CO)
 SHAPES = [(2, 5, 12, 16, 32), (1, 4, 1, 8, 16)]

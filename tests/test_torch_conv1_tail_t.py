@@ -19,6 +19,7 @@ import torch
 from tpu_sandbox.models.convnet_s2d_t import space_to_depth_t
 from tpu_sandbox.ops.pallas_conv1_tail_t import conv1_tail_t as jax_conv1_tail_t
 from tpu_sandbox_torch.ops import bn_tail_t, conv1_tail_t, conv5_t
+from torch_threads import one_torch_thread  # noqa: F401
 
 F1, BLK = 8, 4
 DTYPES = {"fp32": (jnp.float32, torch.float32),

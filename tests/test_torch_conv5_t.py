@@ -20,6 +20,7 @@ import torch
 from tpu_sandbox.models.convnet_s2d_t import space_to_depth_t
 from tpu_sandbox.ops import pallas_conv5_t as jax_conv5
 from tpu_sandbox_torch.ops import conv5_t
+from torch_threads import one_torch_thread  # noqa: F401
 
 F1 = 8
 DTYPES = {"fp32": (jnp.float32, torch.float32),

@@ -18,6 +18,7 @@ from tpu_sandbox.ops.pallas_conv_t import conv3x3_t as jax_conv3x3_t
 from tpu_sandbox.ops.pallas_conv_t import conv3x3_t_stats as jax_stats
 from tpu_sandbox.ops.pallas_conv_t import conv3x3_t_wgrad as jax_wgrad
 from tpu_sandbox_torch.ops import conv_t
+from torch_threads import one_torch_thread  # noqa: F401
 
 # (N, H, C, W, CO): W=13 and W=70 are not multiples of the 64-wide tile
 SHAPES = [(2, 6, 16, 13, 24), (1, 4, 16, 70, 32)]

@@ -26,6 +26,7 @@ from tpu_sandbox_torch.models import ConvNet, ConvNetS2D, ConvNetS2DT
 from tpu_sandbox_torch.models.convnet import max_pool
 from tpu_sandbox_torch.ops.losses import cross_entropy_loss
 from tpu_sandbox_torch.utils.bridge import params_from_flax, params_to_flax
+from torch_threads import one_torch_thread  # noqa: F401
 
 #: (H, W, use_bn)
 CASES = [(32, 32, True), (32, 32, False), (30, 30, True), (30, 30, False)]

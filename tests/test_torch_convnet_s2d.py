@@ -39,6 +39,7 @@ from tpu_sandbox_torch.ops.losses import cross_entropy_loss
 from tpu_sandbox_torch.train import TrainState, make_train_step
 from tpu_sandbox_torch.train.trainer import prepare_inputs, to_device
 from tpu_sandbox_torch.utils.bridge import params_from_flax, params_to_flax
+from torch_threads import one_torch_thread  # noqa: F401
 
 HW = (32, 32)
 #: (fused_conv, fused_tail)
@@ -142,8 +143,9 @@ def test_bf16_logits_match_jax(case):
     ReLU, the fc in bf16); the remaining difference is a few bf16 ulps."""
     jm = JaxConvNetS2D(dtype=jnp.bfloat16, **case["plan"])
     x = jax_prepare_inputs(jm, case["images"], HW)
-    want, _ = jm.apply(case["variables"], x, train=True,
-                       mutable=["batch_stats"])
+    want, _ = jax.jit(lambda v, x: jm.apply(v, x, train=True,
+                                            mutable=["batch_stats"]))(
+        case["variables"], x)
     model = _torch_model(case["variables"], torch.bfloat16, **case["plan"])
     got = model(prepare_inputs(model, torch.from_numpy(case["images"]), HW))
     assert got.dtype == torch.float32

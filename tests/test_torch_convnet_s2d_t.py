@@ -35,6 +35,7 @@ from tpu_sandbox_torch.models.convnet_s2d_t import (
 )
 from tpu_sandbox_torch.ops.losses import cross_entropy_loss
 from tpu_sandbox_torch.utils.bridge import params_from_flax, params_to_flax
+from torch_threads import one_torch_thread  # noqa: F401
 
 HW = (32, 32)
 
@@ -188,8 +189,9 @@ def test_sparse_conv1_logits_loss_grads_and_stats_match_jax(sparse_case):
 def _check_bf16_logits(case):
     jm = _jax_model(jnp.bfloat16, **case["plan"])
     x = jax_prepare_inputs(jm, case["images"], HW)
-    want, _ = jm.apply(case["variables"], x, train=True,
-                       mutable=["batch_stats"])
+    want, _ = jax.jit(lambda v, x: jm.apply(v, x, train=True,
+                                            mutable=["batch_stats"]))(
+        case["variables"], x)
     model = _torch_model(case["variables"], torch.bfloat16, **case["plan"])
     got = model(model.fused_input_stage(torch.from_numpy(case["images"]), HW))
     _close(got.detach().numpy(), np.asarray(want), 3e-2, "bf16 logits")

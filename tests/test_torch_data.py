@@ -12,6 +12,7 @@ from tpu_sandbox.data import loader as jax_loader
 from tpu_sandbox.data import mnist as jax_mnist
 from tpu_sandbox.data import sampler as jax_sampler
 from tpu_sandbox_torch.data import loader, mnist, sampler
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("n,seed", [(10, 0), (257, 3)])

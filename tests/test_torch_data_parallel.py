@@ -31,6 +31,7 @@ from tpu_sandbox_torch.runtime import bootstrap
 from tpu_sandbox_torch.runtime.mesh import make_mesh
 from tpu_sandbox_torch.train import TrainState, make_train_step
 from tpu_sandbox_torch.utils.bridge import params_from_flax
+from torch_threads import one_torch_thread  # noqa: F401
 
 WORLD, BS = 2, 2
 TOL = dict(rtol=1e-5, atol=1e-6)
@@ -187,10 +188,35 @@ def test_dp_validates_axis(one_rank_mesh):
     dict(zero=True), dict(grad_compress="int8"), dict(grad_compress="bf16"),
     dict(error_feedback=False), dict(overlap_grad_sync=True),
     dict(bucket_mb=4.0)], ids=lambda o: next(iter(o)))
-def test_unported_switches_raise(one_rank_mesh, option):
-    model = ConvNet((DP_IMAGE, DP_IMAGE), device="cpu", use_bn=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 4"):
-        DataParallel(model, one_rank_mesh, **option)
+def test_extension_switches_configure_the_engine(one_rank_mesh, option):
+    """Each switch sets what JAX's DataParallel sets (the compression
+    policy, ZeRO-1, the overlap and the bucket target), and one step runs
+    at one rank: the exact switches give the single-device step bit for
+    bit, the compressed ones a finite loss within their rounding."""
+    model, tx, _ = _jax_state(False)
+    ref = JaxDataParallel(model, tx, jax_make_mesh(
+        {"data": 1}, devices=jax.devices()[:1]), donate=False, **option)
+    models = [ConvNet((DP_IMAGE, DP_IMAGE), device="cpu", use_bn=False)
+              for _ in "ab"]
+    dp = DataParallel(models[1], one_rank_mesh, **option)
+    assert (dp.compress.mode, dp.compress.block,
+            dp.compress.error_feedback) == (
+        ref.compress.mode, ref.compress.block, ref.compress.error_feedback)
+    assert (dp.zero, dp.overlap, dp.bucket_bytes) == (
+        ref.zero, ref.overlap, ref.bucket_bytes)
+    single = make_train_step(TrainState(models[0], lr=DP_LR))
+    state = dp.shard_state(TrainState(models[1], lr=DP_LR))
+    x, y = _batches(3, 1)[0]
+    x, y = torch.from_numpy(x), torch.from_numpy(y).long()
+    want, got = single(x, y), dp.train_step(state, x, y)
+    assert torch.equal(got, want)               # the loss precedes the sync
+    exact = dp.compress.mode == "none"
+    for name, value in models[0].state_dict().items():
+        other = models[1].state_dict()[name]
+        if exact:
+            assert torch.equal(value, other), name
+        else:
+            torch.testing.assert_close(other, value, rtol=0, atol=1e-3)
 
 
 @pytest.mark.parametrize("method", ["shard_state_local", "checkpoint_template",
@@ -260,6 +286,38 @@ def test_prefetch_loader_keeps_order_and_delegates():
         np.testing.assert_array_equal(pl, bl)
     first = next(iter(pre))                 # a consumer that breaks off
     assert first[0].shape == (8, 28, 28)
+
+
+def test_prefetch_loader_stages_in_the_producer_thread():
+    """``stage`` (JAX :143-219) runs on each batch in the producer thread,
+    in order, as JAX's does; the trainer's stage puts the batch on its
+    device as tensors, labels int64."""
+    import threading
+
+    from tpu_sandbox.data.loader import PrefetchLoader as JaxPrefetchLoader
+    from tpu_sandbox_torch.train.trainer import to_device
+
+    images, labels = jax_synthetic_mnist(n=30, seed=0)
+    seen = []
+
+    def stage(x, y):
+        seen.append(threading.current_thread().name)
+        return x.sum(), y[:2]
+
+    base = ShardedBatchLoader(images, labels, 4, 2)
+    got = list(PrefetchLoader(base, stage=stage))
+    want = list(JaxPrefetchLoader(
+        JaxShardedBatchLoader(images, labels, 4, 2),
+        stage=lambda x, y: (x.sum(), y[:2])))
+    assert len(got) == len(want) == len(base)
+    for (gs, gl), (ws, wl) in zip(got, want):
+        assert gs == ws
+        np.testing.assert_array_equal(gl, wl)
+    assert set(seen) == {"prefetch-loader"}
+    x, y = next(iter(PrefetchLoader(base, stage=lambda x, y: to_device(
+        x, y, torch.device("cpu"), non_blocking=True))))
+    assert isinstance(x, torch.Tensor) and y.dtype == torch.int64
+    np.testing.assert_array_equal(x.numpy(), next(iter(base))[0])
 
 
 def test_prefetch_loader_raises_the_producers_error():

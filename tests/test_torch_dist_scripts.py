@@ -7,7 +7,8 @@ The scripts run once for the module, all at the same time, each with a
 time limit: ``mnist_distributed -g 2`` (one process spawning two ranks)
 and ``-n 2 -nr 0`` / ``-n 2 -nr 1`` (two processes sharing
 ``MASTER_PORT``, the multi-node form) train the same job and must log the
-same losses."""
+same losses. The data-parallel extensions' flags parse (their runs:
+tests/test_torch_dp_ext_entry.py)."""
 
 import os
 import re
@@ -26,6 +27,7 @@ from tpu_sandbox_torch.runtime.bootstrap import find_free_port
 from tpu_sandbox_torch.train import SGD, AdamW
 from tpu_sandbox_torch.train.optim import constant_schedule
 from tpu_sandbox_torch.utils.device import rank_device
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 LIMIT = 120
@@ -136,8 +138,23 @@ def test_unported_flag_is_refused(flag, capsys):
     assert exc.value.code == 2
     err = capsys.readouterr().err
     assert f"{flag} is not ported yet (ROADMAP queue 1 item" in err
-    if flag == "--zero":
-        assert mnist_distributed.ZERO_SGD_NOTE in err
+
+
+#: the flags of the data-parallel extensions, lifted from the refusals:
+#: (argv, the parsed value)
+LIFTED = {
+    "--zero": ([], True), "--grad-compress": (["bf16"], "bf16"),
+    "--no-error-feedback": ([], True), "--overlap-grad-sync": ([], True),
+    "--bucket-mb": (["4.5"], 4.5),
+}
+
+
+@pytest.mark.parametrize("flag", sorted(LIFTED))
+def test_lifted_flag_is_parsed(flag):
+    argv, value = LIFTED[flag]
+    args = mnist_distributed.build_parser().parse_args([flag, *argv])
+    assert getattr(args, flag[2:].replace("-", "_")) == value
+    assert flag not in mnist_distributed.UNPORTED
 
 
 def test_no_silent_cpu_fallback(monkeypatch):

@@ -14,6 +14,7 @@ import torch
 from tpu_sandbox.ops.pallas_fc_t import fc_dgrad_t as jax_fc_dgrad_t
 from tpu_sandbox.ops.pallas_fc_t import fc_t as jax_fc_t
 from tpu_sandbox_torch.ops import fc_t
+from torch_threads import one_torch_thread  # noqa: F401
 
 DTYPES = {"fp32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}

@@ -20,6 +20,7 @@ from tpu_sandbox.ops.pallas_attention import _blockwise_bwd, _flash_bwd
 from tpu_sandbox.ops.pallas_attention import flash_attention as jax_flash
 from tpu_sandbox.ops.pallas_attention import flash_attention_lse as jax_flash_lse
 from tpu_sandbox_torch.ops import flash_attention as fa
+from torch_threads import one_torch_thread  # noqa: F401
 
 DTYPES = {"fp32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}

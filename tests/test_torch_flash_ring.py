@@ -32,6 +32,7 @@ from tpu_sandbox.parallel.flash_ring import make_flash_ring_attention as jax_fr
 from tpu_sandbox.runtime.mesh import make_mesh as jax_make_mesh
 from tpu_sandbox_torch.ops import flash_attention as fa
 from tpu_sandbox_torch.parallel.flash_ring import merge
+from torch_threads import one_torch_thread  # noqa: F401
 
 HOP_TOL = 1e-5
 DTYPES = {"fp32": (jnp.float32, torch.float32),

@@ -44,6 +44,8 @@ def test_import_loads_no_jax_and_no_jax_package():
         "import tpu_sandbox_torch.parallel.collectives\n"
         "import tpu_sandbox_torch.parallel.launch\n"
         "import tpu_sandbox_torch.parallel.data_parallel\n"
+        "import tpu_sandbox_torch.parallel.buckets\n"
+        "import tpu_sandbox_torch.utils.cli\n"
         "import tpu_sandbox_torch.parallel.ring_attention\n"
         "import tpu_sandbox_torch.parallel.ulysses\n"
         "import tpu_sandbox_torch.parallel.flash_ring\n"

@@ -4,14 +4,11 @@ make_batches' batches give the same losses (rtol 1e-5), with the plain
 attention and a constant rate, and with flash attention, the cosine
 schedule's warmup and global-norm clipping; the schedules' learning rates
 and the clipping against optax's; the batches bit for bit; the entry
-point's log lines; sequence and pipeline parallelism over gloo ranks
-(pp, circular pp, pp_sp and 3d as tests/test_lm_train.py:40-62 runs them,
-each logging the losses of the single-device run of the same flags) with
-the JAX script's exits; the compiler-driven plans (dp over 2 ranks, tp
-over {"data": 2, "model": 2}, ep with 2 experts) logging the losses of the
-single-device function, with the JAX script's exits; --remat logging the
-losses of the run without it; and the flags that are not ported refuse to
-run."""
+point's log lines; the JAX script's exits of sequence, pipeline and
+compiler-driven parallelism and their refusals without the cards; and
+dp's compressed and bucketed sync taking the engine. Their runs over gloo
+ranks and --remat's losses: tests/test_torch_lm_entry.py and
+tests/test_torch_lm_entry_pp.py."""
 
 import os
 import re
@@ -25,6 +22,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
@@ -35,10 +33,10 @@ from tpu_sandbox.models.transformer import TransformerLM as JaxLM  # noqa: E402
 from tpu_sandbox.ops.losses import cross_entropy_loss as jax_ce  # noqa: E402
 from tpu_sandbox.ops.pallas_attention import flash_attention_fn as jax_flash_fn  # noqa: E402
 from tpu_sandbox_torch import lm_train  # noqa: E402
-from tpu_sandbox_torch.ops.losses import cross_entropy_loss  # noqa: E402
 from tpu_sandbox_torch.train import optim  # noqa: E402
 from tpu_sandbox_torch.train.trainer import to_device  # noqa: E402
 from tpu_sandbox_torch.utils.bridge import params_from_flax  # noqa: E402
+from test_torch_lm_entry import PJIT_RUNS  # noqa: E402
 
 FLAGS = ["--vocab", "96", "--d-model", "64", "--n-heads", "2", "--n-layers",
          "2", "--d-ff", "128", "--seq-len", "64", "--batch", "2", "--steps",
@@ -185,21 +183,26 @@ def test_entry_script_needs_the_card_or_force_cpu():
     assert "CUDA is not available" in proc.stderr
 
 
-#: (flags, what the error names, the test id of the case)
-UNPORTED = [
+#: (flags, what the run names, the test id of the case): the compressed
+#: and bucketed sync under dp
+SYNCED = [
     (["--grad-compress", "int8"], "--grad-compress int8", "flags7"),
     (["--grad-compress", "bf16"], "--grad-compress bf16", "flags8"),
     (["--overlap-grad-sync"], "--overlap-grad-sync", "flags9"),
 ]
 
 
-@pytest.mark.parametrize("flags,what", [u[:2] for u in UNPORTED],
-                         ids=[f"{i}-{what}" for _, what, i in UNPORTED])
-def test_unported_flags_raise(flags, what):
+@pytest.mark.parametrize("flags,what", [u[:2] for u in SYNCED],
+                         ids=[f"{i}-{what}" for _, what, i in SYNCED])
+def test_sync_flags_run_dp_through_the_engine(flags, what, monkeypatch):
+    """dp with the compressed or bucketed sync runs PjitEngine, at one
+    device too (lm_train.py:141-148 builds the engine at any --devices),
+    instead of the in-process step that has no sync."""
+    seen = []
+    monkeypatch.setattr(lm_train, "train_pjit", lambda a: seen.append(a))
     args = lm_train.build_parser().parse_args(["--force-cpu", *flags])
-    with pytest.raises(NotImplementedError, match="ROADMAP") as err:
-        lm_train.train(args)
-    assert what in str(err.value)
+    lm_train.train(args)
+    assert seen == [args] and lm_train.synced(args), what
 
 
 @pytest.mark.parametrize("devices", ["1", "3"])
@@ -225,45 +228,6 @@ def test_sp_refuses_what_is_not_ported(flags):
     assert str(err.value) == _jax_exit(flags)
 
 
-def _log(stdout, p, steps, every):
-    """The losses of the JAX script's log lines, which must be all the
-    lines: one each ``every`` steps, then the total time."""
-    lines = stdout.strip().splitlines()
-    pat = rf"\[{p}\] Step \[(\d+)/{steps}\], Loss: (\d+\.\d{{4}})"
-    rows = [re.fullmatch(pat, ln) for ln in lines[:-1]]
-    assert all(rows), lines
-    assert [int(m[1]) for m in rows] == list(range(every, steps + 1, every))
-    assert re.fullmatch(r"Training complete in: \d+:\d\d:\d\d(\.\d+)?",
-                        lines[-1])
-    return [float(m[2]) for m in rows]
-
-
-SP_FLAGS = ["--force-cpu", "--steps", "6", "--log-every", "2",
-            "--seq-len", "32"]
-
-
-@pytest.fixture(scope="module")
-def dp_losses():
-    """The same flags under --parallelism dp, run here."""
-    args = lm_train.build_parser().parse_args(SP_FLAGS)
-    return lm_train.train(args).losses
-
-
-@pytest.mark.parametrize("attn", ["ring", "ulysses", "flash_ring"])
-def test_entry_script_trains_sp_on_four_gloo_ranks(dp_losses, attn):
-    """``--parallelism sp --devices 4 --force-cpu``: four gloo ranks on a
-    {"data": 2, "sp": 2} mesh, rank 0 printing the JAX script's lines; the
-    loss falls, and the step is the single-device step's function (the
-    mean loss over the global batch, the mean gradient): the printed
-    losses are the dp run's within 2e-4 (the last printed digit)."""
-    proc = _run_entry(*SP_FLAGS, "--parallelism", "sp", "--devices", "4",
-                      "--attn", attn)
-    assert proc.returncode == 0, proc.stderr
-    losses = _log(proc.stdout, "sp", 6, 2)
-    assert losses[-1] < losses[0]
-    np.testing.assert_allclose(losses, dp_losses, rtol=0, atol=2e-4)
-
-
 def test_sp_entry_needs_the_cards_or_force_cpu():
     """No card and no --force-cpu: the run fails before any rank starts
     (no fallback to gloo ranks on the CPU)."""
@@ -286,66 +250,6 @@ def test_parser_has_the_jax_scripts_flags():
     port = {a.dest: a.default for a in lm_train.build_parser()._actions}
     ref = {a.dest: a.default for a in jax_lm_train.build_parser()._actions}
     assert port == ref
-
-
-@pytest.mark.parametrize("policy", ["full", "dots"])
-def test_remat_logs_the_losses_of_the_run_without_it(policy):
-    """As tests/test_lm_train.py::test_remat_matches_plain: --remat
-    changes memory, not the function; here the logged losses are the
-    same bits."""
-    flags = ["--force-cpu", "--steps", "8", "--log-every", "4",
-             "--seq-len", "32"]
-    plain = lm_train.train(lm_train.build_parser().parse_args(flags))
-    remat = lm_train.train(lm_train.build_parser().parse_args(
-        flags + ["--remat", "--remat-policy", policy]))
-    assert len(plain.losses) == 2 and remat.losses == plain.losses
-
-
-def test_entry_script_trains_sp_under_remat(dp_losses):
-    """--parallelism sp --remat (the blocks recomputed around the
-    flash-ring's collectives, every rank in the same order) logs the dp
-    run's losses within 2e-4."""
-    proc = _run_entry(*SP_FLAGS, "--parallelism", "sp", "--devices", "4",
-                      "--attn", "flash_ring", "--remat", "--remat-policy",
-                      "dots")
-    assert proc.returncode == 0, proc.stderr
-    np.testing.assert_allclose(_log(proc.stdout, "sp", 6, 2), dp_losses,
-                               rtol=0, atol=2e-4)
-
-
-#: tests/test_lm_train.py's small LM (its _args base, fp32)
-PP_BASE = ["--force-cpu", "--steps", "24", "--batch", "4", "--seq-len", "32",
-           "--vocab", "16", "--d-model", "16", "--n-heads", "2",
-           "--n-layers", "2", "--d-ff", "32", "--lr", "1e-2",
-           "--microbatches", "2", "--log-every", "8"]
-#: the pipelines of tests/test_lm_train.py:40-62
-PP_RUNS = {
-    "pp": ["--parallelism", "pp", "--devices", "4", "--n-layers", "4"],
-    "pp_circular": ["--parallelism", "pp", "--devices", "4", "--n-layers",
-                    "8", "--microbatches", "4", "--circular-chunks", "2"],
-    "pp_sp": ["--parallelism", "pp_sp", "--devices", "4"],
-    "3d": ["--parallelism", "3d", "--devices", "8", "--n-layers", "2",
-           "--batch", "4"],
-}
-
-
-@pytest.mark.parametrize("run", sorted(PP_RUNS))
-def test_entry_script_trains_the_pipelines_on_gloo_ranks(run):
-    """``--force-cpu`` ranks (4, or 8 for 3d), rank 0 printing the JAX
-    script's lines; the loss falls, and each printed loss is the one the
-    single-device run of the same flags prints (the pipelines compute its
-    function: the mean over microbatch means, the gradients summed over
-    'pipe' where a stage owns them)."""
-    flags = PP_BASE + PP_RUNS[run]
-    proc = _run_entry(*flags)
-    assert proc.returncode == 0, proc.stderr
-    parallelism = flags[flags.index("--parallelism") + 1]
-    losses = _log(proc.stdout, parallelism, 24, 8)
-    assert losses[-1] < losses[0]
-    dp = lm_train.build_parser().parse_args(flags)
-    dp.parallelism, dp.devices = "dp", 1
-    np.testing.assert_allclose(losses, lm_train.train(dp).losses, rtol=0,
-                               atol=2e-4)
 
 
 def _jax_exit(flags):
@@ -390,52 +294,6 @@ def test_pp_needs_the_cards_or_force_cpu():
             "--parallelism", "pp", "--devices", devices, "--steps", "1"])
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             lm_train.train(args)
-
-
-#: the compiler-driven plans through the entry (SP_FLAGS' LM): dp and tp
-#: compute the single-device function, ep the MoE LM's
-PJIT_RUNS = {
-    "dp": ["--parallelism", "dp", "--devices", "2"],
-    "tp": ["--parallelism", "tp", "--devices", "4", "--dp", "2"],
-    "ep": ["--parallelism", "ep", "--devices", "2"],
-}
-
-
-def _moe_losses(args):
-    """The ep run's function in this process: the MoE LM with
-    ``--devices`` experts on the whole batch, the mean CE plus 0.01 times
-    the mean load-balance loss, Adam."""
-    model = lm_train.build_model(args, torch.device("cpu"))
-    opt = lm_train.make_optimizer(args, model)
-    losses = []
-    for t, y in lm_train.make_batches(args.vocab, args.batch, args.seq_len,
-                                      args.steps, 0):
-        tokens, targets = to_device(t, y, torch.device("cpu"))
-        logits = model(tokens)
-        aux = model.aux_losses()
-        loss = cross_entropy_loss(logits.reshape(-1, logits.shape[-1]),
-                                  targets.reshape(-1)) + (
-            0.01 * sum(aux) / len(aux))
-        loss.backward()
-        opt.step()
-        losses.append(loss.item())
-    return losses[args.log_every - 1::args.log_every]
-
-
-@pytest.mark.parametrize("run", sorted(PJIT_RUNS))
-def test_entry_script_trains_the_pjit_plans_on_gloo_ranks(dp_losses, run):
-    """``--force-cpu`` gloo ranks (2, or 4 for tp on {"data": 2, "model":
-    2}), rank 0 printing the JAX script's lines; the loss falls, and the
-    printed losses are the single-device function's within 2e-4 (the last
-    printed digit): dp's for dp and tp, the MoE LM's for ep."""
-    flags = SP_FLAGS + PJIT_RUNS[run]
-    proc = _run_entry(*flags)
-    assert proc.returncode == 0, proc.stderr
-    losses = _log(proc.stdout, run, 6, 2)
-    assert losses[-1] < losses[0]
-    want = dp_losses if run != "ep" else _moe_losses(
-        lm_train.build_parser().parse_args(flags))
-    np.testing.assert_allclose(losses, want, rtol=0, atol=2e-4)
 
 
 @pytest.mark.parametrize("flags", [

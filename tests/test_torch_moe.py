@@ -47,6 +47,7 @@ from tpu_sandbox_torch.parallel.expert import MoeMlp, route
 from tpu_sandbox_torch.parallel.launch import spawn
 from tpu_sandbox_torch.train.optim import Adam, constant_schedule
 from tpu_sandbox_torch.utils.bridge import params_to_flax
+from torch_threads import one_torch_thread  # noqa: F401
 
 OUT_ATOL, AUX_RTOL, GRAD_TOL = 1e-5, 1e-6, 1e-5
 #: tests/test_moe.py's CFG
@@ -88,7 +89,8 @@ def jax_layer(name):
     layer = JaxMoeMlp(JaxConfig(**cfg))
     x = jax.random.normal(jax.random.key(kx), shape)
     params = layer.init(jax.random.key(kp), x)["params"]
-    y, sown = layer.apply({"params": params}, x, mutable=["aux_loss"])
+    y, sown = jax.jit(lambda p, x: layer.apply(
+        {"params": p}, x, mutable=["aux_loss"]))(params, x)
     return x, params, y, float(jax.tree.leaves(sown["aux_loss"])[0])
 
 
@@ -187,7 +189,7 @@ def test_gradients_match_jax(name):
         y, sown = layer.apply({"params": p}, x, mutable=["aux_loss"])
         return (y * w).sum() + jax.tree.leaves(sown["aux_loss"])[0]
 
-    jgrads, jdx = jax.grad(objective, argnums=(0, 1))(params, x)
+    jgrads, jdx = jax.jit(jax.grad(objective, argnums=(0, 1)))(params, x)
     port = port_layer(name, params)
     xt = torch.from_numpy(np.array(x)).requires_grad_()
     ((port(xt) * torch.from_numpy(w)).sum() + port.aux_loss).backward()

@@ -18,6 +18,7 @@ from tpu_sandbox_torch.data import (
     synthetic_mnist,
 )
 from tpu_sandbox_torch.data.native_loader import NativeBatchLoader
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("drop_last", [False, True])

@@ -47,6 +47,7 @@ from tpu_sandbox_torch.ops.losses import cross_entropy_loss
 from tpu_sandbox_torch.parallel import pipeline
 from tpu_sandbox_torch.parallel.launch import spawn
 from tpu_sandbox_torch.utils.bridge import params_from_flax
+from torch_threads import one_torch_thread  # noqa: F401
 
 WORLD = 4
 LOSS_RTOL, PARAM_ATOL = 1e-5, 2e-5

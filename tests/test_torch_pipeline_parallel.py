@@ -24,6 +24,7 @@ from test_torch_pipeline import (
     run_ranks,
     single_device_step,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 TWO_LAYERS = {**PP_CFG, "n_layers": 2}
 CASES = {

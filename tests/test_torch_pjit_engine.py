@@ -15,11 +15,15 @@ Pallas kernel in interpret mode) and once with global-norm clipping; the
 BN-free ConvNet (28x28, 16 images a batch, AdamW 1e-3 with eps 1e-3: at
 optax's 1e-8 the first updates are lr * sign(g), noise where g is 0 up to
 rounding) replicated, with ZeRO-1 and with FSDP over 'data', and with
-FSDP over 'model' of {"data": 2, "model": 2}. Bars: the pipeline's, loss
-rtol 1e-5 and gathered parameters atol 2e-5; ZeRO-1 and FSDP also equal
-the port's replicated engine within 1e-6 (JAX's own bar between them,
-tests/test_pjit_engine.py:234-254), and the LM cases the port's own
-single-device steps.
+FSDP over 'model' of {"data": 2, "model": 2}; the LM under pure data
+parallelism with the bf16 and int8 gradient sync, with the bucketed sync
+(16 KB buckets) alone and under int8, and the ConvNet's ZeRO-1 under int8.
+Bars: the pipeline's, loss rtol 1e-5 and gathered parameters atol 2e-5;
+the compressed cases within twice (bf16: four times) what the compression
+moves JAX's own run beyond those bars; ZeRO-1 and FSDP also equal the
+port's replicated engine within 1e-6 (JAX's own bar between them,
+tests/test_pjit_engine.py:234-254), the bucketed sync the plain one, and
+the LM cases the port's own single-device steps.
 """
 
 import jax
@@ -65,6 +69,7 @@ from tpu_sandbox_torch.parallel.launch import spawn
 from tpu_sandbox_torch.parallel.pjit_engine import P
 from tpu_sandbox_torch.train.optim import clip_by_global_norm_
 from tpu_sandbox_torch.utils.bridge import params_from_flax
+from torch_threads import one_torch_thread  # noqa: F401
 
 WORLD = 4
 LOSS_RTOL, PARAM_ATOL = 1e-5, 2e-5
@@ -84,7 +89,27 @@ CASES = {
                  options=dict(fsdp_axis="data")),
     "fsdp_model": dict(IMAGE, mesh={"data": 2, "model": 2}, rules="none",
                        opt="adamw", options=dict(fsdp_axis="model")),
+    # the compressed and bucketed sync (16 KB buckets: several a step)
+    "dp_bf16": dict(LM, mesh={"data": 4}, rules="none", opt="adam",
+                    options=dict(grad_compress="bf16")),
+    "dp_int8": dict(LM, mesh={"data": 4}, rules="none", opt="adam",
+                    options=dict(grad_compress="int8")),
+    "dp_overlap": dict(LM, mesh={"data": 4}, rules="none", opt="adam",
+                       options=dict(overlap_grad_sync=True,
+                                    bucket_mb=16 / 1024)),
+    "dp_overlap_int8": dict(LM, mesh={"data": 4}, rules="none", opt="adam",
+                            options=dict(grad_compress="int8",
+                                         overlap_grad_sync=True,
+                                         bucket_mb=16 / 1024)),
+    "zero_int8": dict(IMAGE, mesh={"data": 4}, rules="none", opt="adamw",
+                      options=dict(zero_axis="data", grad_compress="int8")),
 }
+#: the compressed cases and the uncompressed case of the same function:
+#: held to JAX within twice (bf16: four times) what the compression moves
+#: JAX's own run, plus the plain bars (tests/test_torch_data_parallel_ext.py
+#: gives the reasons)
+COMPRESSED = {"dp_bf16": "dp", "dp_int8": "dp", "dp_overlap_int8": "dp",
+              "zero_int8": "replicated"}
 JAX_RULES = {"none": lambda: [], "megatron": jax_pjit.megatron_rules,
              "expert": lambda: [(r"w_(up|down)", JP("expert", None, None))],
              "fc": lambda: [("fc/kernel", JP(None, "model"))],
@@ -320,11 +345,19 @@ def _jax_validation(name: str) -> str:
         options["input_spec"] = JP(*options["input_spec"])
     options.setdefault("task", "image" if kind != "lm" else "lm")
     case = dict(LM) if kind == "lm" else dict(IMAGE)
-    model, _ = jax_model(case)
+    model, sample = jax_model(case)
+    if kind == "image_bn":
+        model = JaxConvNet(use_bn=True)
     try:
-        jax_pjit.PjitEngine(model, optax.sgd(0.1), jax_make_mesh(
+        eng = jax_pjit.PjitEngine(model, optax.sgd(0.1), jax_make_mesh(
             mesh, devices=jax.devices()[:WORLD]), rules=rules,
             donate=False, **options)
+        if kind == "image_bn":          # JAX checks BN at the first step
+            tx = optax.sgd(0.1)
+            st = eng.shard_state(JaxTrainState.create(
+                model, jax.random.key(0), sample, tx))
+            images, labels = image_batches()[0]
+            eng.train_step(st, *eng.shard_batch(images, labels))
     except ValueError as e:
         return str(e)
     return ""
@@ -341,11 +374,9 @@ def test_validations_match_jax(ranks, name):
 
 @pytest.mark.parametrize("name", sorted(PJIT_UNPORTED))
 def test_what_is_not_ported_raises(ranks, name):
-    """Compression, overlap, spatial specs, image rules, BN, a partial
-    Megatron layout and lower_step raise NotImplementedError naming their
-    ROADMAP item."""
-    item = {"grad_compress": "item 4", "overlap_grad_sync": "item 4",
-            "lower_step": "item 12"}.get(name, "item 8")
+    """Spatial specs, image rules, BN, a partial Megatron layout and
+    lower_step raise NotImplementedError naming their ROADMAP item."""
+    item = {"lower_step": "item 12"}.get(name, "item 8")
     for res in ranks:
         assert "ROADMAP.md" in res["refusals"][name]
         assert item in res["refusals"][name], res["refusals"][name]
@@ -356,9 +387,35 @@ def test_what_is_not_ported_raises(ranks, name):
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_steps_match_jax_pjit_engine(ranks, jax_results, case):
+    want = jax_results[case]
+    if case not in COMPRESSED:
+        for r, res in enumerate(ranks):
+            check_run(res[case], want["losses"], want["params"],
+                      f"{case} rank {r}")
+        return
+    plain = jax_results[COMPRESSED[case]]
+    k = 4 if "bf16" in case else 2
+    loss_bar = k * np.abs(np.subtract(want["losses"], plain["losses"]))
     for r, res in enumerate(ranks):
-        check_run(res[case], jax_results[case]["losses"],
-                  jax_results[case]["params"], f"{case} rank {r}")
+        got = res[case]
+        dev = np.abs(got["losses"].numpy() - want["losses"])
+        assert (dev <= loss_bar + LOSS_RTOL * np.abs(want["losses"])).all()
+        moved = False
+        for name, value in got["params"].items():
+            ref = np.asarray(want["params"][name])
+            bar = k * np.abs(ref - np.asarray(plain["params"][name])).max()
+            dev = np.abs(value.numpy() - ref).max()
+            assert dev <= bar + PARAM_ATOL, (case, name, r, dev, bar)
+            moved |= not torch.equal(value, res[COMPRESSED[case]]["params"][
+                name])
+        assert moved, f"{case}: the port's run is its uncompressed run"
+
+
+def test_bucketed_sync_equals_the_plain_sync(ranks):
+    for res in ranks:
+        check_run(res["dp_overlap"], res["dp"]["losses"].numpy(),
+                  {k: v.numpy() for k, v in res["dp"]["params"].items()},
+                  "dp_overlap", rtol=SAME_TOL, atol=SAME_TOL)
 
 
 @pytest.mark.parametrize("case", sorted(CASES))

@@ -11,6 +11,7 @@ import torch
 
 from tpu_sandbox_torch import mnist_onegpu
 from tpu_sandbox_torch.utils import profiling
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _events(logdir):

@@ -25,6 +25,7 @@ from tpu_sandbox.parallel.ring_attention import make_ring_attention as jax_ring
 from tpu_sandbox.parallel.ulysses import make_ulysses_attention as jax_ulysses
 from tpu_sandbox.runtime.mesh import make_mesh as jax_make_mesh
 from tpu_sandbox_torch.parallel.launch import spawn
+from torch_threads import one_torch_thread  # noqa: F401
 
 WORLD, B, S, D = 4, 4, 32, 16
 OUT_ATOL, GRAD_ATOL = 2e-5, 1e-4

@@ -35,6 +35,7 @@ from tpu_sandbox_torch.models.convnet_s2d_t import ConvNetS2DT
 from tpu_sandbox_torch.train import TrainState, make_eval_step, make_train_step
 from tpu_sandbox_torch.train.trainer import resize_on_device, to_device
 from tpu_sandbox_torch.utils.bridge import params_from_flax, params_to_flax
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 HW = (32, 32)

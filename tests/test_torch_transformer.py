@@ -29,6 +29,7 @@ from tpu_sandbox_torch.ops.flash_attention import flash_attention_fn
 from tpu_sandbox_torch.ops.losses import cross_entropy_loss
 from tpu_sandbox_torch.parallel.expert import MoeMlp
 from tpu_sandbox_torch.utils.bridge import params_from_flax, params_to_flax
+from torch_threads import one_torch_thread  # noqa: F401
 
 DTYPES = {"fp32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}
@@ -86,8 +87,8 @@ def _check_against_jax(dt, flash, remat=None):
                       jnp.asarray(targets).reshape(-1))
         return loss, logits
 
-    (jloss, jlogits), jgrads = jax.value_and_grad(loss_fn, has_aux=True)(
-        params)
+    (jloss, jlogits), jgrads = jax.jit(jax.value_and_grad(
+        loss_fn, has_aux=True))(params)
 
     cfg = TransformerConfig(**SHAPE, dtype=td, fp32_logits=True, **opts)
     model = TransformerLM(cfg, flash_attention_fn() if flash else None,

@@ -413,11 +413,11 @@ PJIT_VALIDATIONS = {
     "compress_spatial": ({"data": 2, "spatial": 2},
                          dict(grad_compress="bf16",
                               input_spec=("data", "spatial")), "image"),
+    "compress_bn": ({"data": 4}, dict(grad_compress="int8"), "image_bn"),
+    "overlap_bn": ({"data": 4}, dict(overlap_grad_sync=True), "image_bn"),
 }
 #: what the port refuses with NotImplementedError: (mesh, options, model)
 PJIT_UNPORTED = {
-    "grad_compress": ({"data": 4}, dict(grad_compress="int8"), "lm"),
-    "overlap_grad_sync": ({"data": 4}, dict(overlap_grad_sync=True), "lm"),
     "spatial": ({"data": 2, "spatial": 2},
                 dict(input_spec=("data", "spatial")), "image"),
     "image_rules": ({"data": 2, "model": 2},
@@ -527,3 +527,336 @@ def pjit_worker(rank: int, world_size: int, out_dir: str,
         _save(out_dir, rank, out)
     finally:
         bootstrap.cleanup()
+
+
+# -- compressed and bucketed gradient sync ---------------------------------
+
+class RecordingGroup(CollectiveGroup):
+    """A ``CollectiveGroup`` that records each sum all-reduce and
+    all-to-all it issues: ``(op, numel, dtype name)`` in issue order."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.issued = []
+
+    def sum_(self, t, async_op=False):
+        self.issued.append(("sum", t.numel(), str(t.dtype)))
+        return super().sum_(t, async_op)
+
+    def all_to_all_start(self, x):
+        self.issued.append(("a2a", x.numel(), str(x.dtype)))
+        return super().all_to_all_start(x)
+
+
+def _row(a, rank):
+    """Rank ``rank``'s row of ``a``, a tensor of its own (the none mode
+    reduces in place)."""
+    return None if a is None else torch.from_numpy(a[rank].copy())
+
+
+def compress_worker(rank: int, world_size: int, out_dir: str,
+                    in_path: str) -> None:
+    """``in_path``'s cases (every array's leading dim the ranks): each
+    ``int8`` case's ``int8_block_pmean`` (mean and new residual), each
+    ``bf16`` case's ``CompressedAllReduce("bf16").pmean``, and the
+    telescoping run: ``tele`` steps of int8 with error feedback, the
+    residual carried."""
+    from tpu_sandbox_torch.parallel.collectives import (
+        CompressedAllReduce,
+        int8_block_pmean,
+    )
+
+    torch.set_num_threads(1)
+    bootstrap.init(device="cpu")
+    try:
+        inputs = torch.load(in_path, weights_only=False)
+        group = world_group()
+        out = {"int8": {}, "bf16": {}}
+        for name, (values, residual, block) in inputs["int8"].items():
+            out["int8"][name] = int8_block_pmean(
+                _row(values, rank), _row(residual, rank), group, world_size,
+                block)
+        for name, values in inputs["bf16"].items():
+            out["bf16"][name] = CompressedAllReduce("bf16").pmean(
+                _row(values, rank), group, world_size)[0]
+        policy = CompressedAllReduce("int8", block=inputs["tele_block"])
+        res, means = torch.zeros(inputs["tele"][0].shape[1:]), []
+        for values in inputs["tele"]:
+            mean, res = policy.pmean(_row(values, rank), group, world_size,
+                                     res)
+            means.append(mean)
+        out["tele"] = (torch.stack(means), res)
+        _save(out_dir, rank, out)
+    finally:
+        bootstrap.cleanup()
+
+
+class _TwoLayer(torch.nn.Module):
+    """y = (x @ b.kernel) @ a.kernel: the backward lands a's gradient
+    before b's, while JAX's flatten order puts a first."""
+
+    def __init__(self):
+        super().__init__()
+        gen = torch.Generator().manual_seed(0)
+        self.a = torch.nn.Module()
+        self.b = torch.nn.Module()
+        self.a.kernel = torch.nn.Parameter(torch.randn(6, 3, generator=gen))
+        self.b.kernel = torch.nn.Parameter(torch.randn(4, 6, generator=gen))
+
+    def forward(self, x):
+        return (x @ self.b.kernel) @ self.a.kernel
+
+
+def buckets_worker(rank: int, world_size: int, out_dir: str,
+                   in_path: str) -> None:
+    """``sync_buckets`` of ``in_path``'s per-rank gradients and residuals
+    (leaves in JAX's flatten order) at its ``bucket_bytes`` in each mode;
+    the collectives each issue, through a ``RecordingGroup``; and the
+    hooks of ``BucketedSync`` on ``_TwoLayer``: the order the gradients
+    land in and the order the buckets issue in."""
+    from tpu_sandbox_torch.parallel.buckets import BucketedSync, sync_buckets
+    from tpu_sandbox_torch.parallel.collectives import CompressedAllReduce
+
+    torch.set_num_threads(1)
+    bootstrap.init(device="cpu")
+    try:
+        inputs = torch.load(in_path, weights_only=False)
+        group = RecordingGroup()
+        out = {}
+        for mode, policy in inputs["modes"].items():
+            grads = [_row(g, rank) for g in inputs["grads"]]
+            res = [_row(r, rank) for r in inputs["residuals"]]
+            group.issued = []
+            means, new_res = sync_buckets(
+                grads, group, world_size, CompressedAllReduce(**policy),
+                res, inputs["bucket_bytes"])
+            out[mode] = {"means": means, "residuals": new_res,
+                         "issued": group.issued}
+        model = _TwoLayer()
+        landed = []
+        for name, p in model.named_parameters():
+            p.register_post_accumulate_grad_hook(
+                lambda p, name=name: landed.append(name))
+        hooks = {}
+        for mode in ("none", "int8"):
+            group.issued, landed[:] = [], []
+            sync = BucketedSync([model.a.kernel, model.b.kernel], group,
+                                CompressedAllReduce(mode), 1)
+            sync.begin()
+            x = torch.from_numpy(inputs["x"][rank])
+            model(x).square().sum().backward()
+            issued_in_backward = list(group.issued)
+            sync.finish()
+            sync.remove()
+            hooks[mode] = {"landed": list(landed),
+                           "issued_in_backward": issued_in_backward,
+                           "issued": group.issued,
+                           "grads": [model.a.kernel.grad.clone(),
+                                     model.b.kernel.grad.clone()]}
+            model.zero_grad(set_to_none=True)
+        out["hooks"] = hooks
+        # the hooks hold the sync weakly: dropping the model and its sync
+        # frees the parameters by reference counting alone
+        import gc
+        import weakref
+        gc.disable()
+        try:
+            model = _TwoLayer()
+            sync = BucketedSync(list(model.parameters()), group,
+                                CompressedAllReduce("none"), 1)
+            param = weakref.ref(model.a.kernel)
+            del model, sync
+            out["freed_without_gc"] = param() is None
+        finally:
+            gc.enable()
+        _save(out_dir, rank, out)
+    finally:
+        bootstrap.cleanup()
+
+
+#: the DataParallel extension cases' ConvNet input (normalized synthetic
+#: MNIST, as tests/test_grad_compress.py trains) and SGD rate, at which 3
+#: steps stay in the loss's smooth regime, with BN too; the compressed
+#: cases' rate ("sgd_fine"), at which a code that one framework rounds
+#: the other way moves the parameters less than the gradients' own
+#: rounding noise, so that later steps quantise the same values
+DP_EXT_IMAGE, DP_EXT_LR, DP_EXT_FINE_LR = 28, 0.01, 1e-4
+#: (optimizer, DataParallel options); a bucket target of 4096 bytes makes
+#: four buckets of the ConvNet's gradients
+DP_EXT_BUCKET_MB = 4096 / 2 ** 20
+DP_EXT_CASES = {
+    "plain_sgd": ("sgd", {}),
+    "plain_momentum": ("momentum", {}),
+    "plain_adamw": ("adamw", {}),
+    "plain_fine": ("sgd_fine", {}),
+    "none": ("sgd", dict(grad_compress="none")),
+    "zero_momentum": ("momentum", dict(zero=True)),
+    "zero_adamw": ("adamw", dict(zero=True)),
+    "bf16": ("sgd_fine", dict(grad_compress="bf16")),
+    "int8": ("sgd_fine", dict(grad_compress="int8")),
+    "int8_noef": ("sgd_fine", dict(grad_compress="int8",
+                                   error_feedback=False)),
+    "overlap_none": ("sgd", dict(overlap_grad_sync=True,
+                                 bucket_mb=DP_EXT_BUCKET_MB)),
+    "overlap_int8": ("sgd_fine", dict(grad_compress="int8",
+                                      overlap_grad_sync=True,
+                                      bucket_mb=DP_EXT_BUCKET_MB)),
+    "overlap_zero": ("momentum", dict(zero=True, overlap_grad_sync=True,
+                                      bucket_mb=DP_EXT_BUCKET_MB)),
+}
+#: the cases also run on the 2-rank 'data' groups of a {"data": 2,
+#: "pair": 2} mesh, where a sum over two ranks has one order
+DP_EXT_PAIR_CASES = ("plain_sgd", "none", "overlap_none")
+#: DataParallel's ValueErrors: options (``opt`` "factored" for an
+#: optimizer whose state matches no parameter's shape, under zero)
+DP_EXT_VALIDATIONS = {
+    "bucket_mb": dict(bucket_mb=0.0),
+    "bucket_mb_negative": dict(overlap_grad_sync=True, bucket_mb=-1.0),
+    "grad_compress": dict(grad_compress="fp8"),
+    "factored": dict(zero=True, opt="factored"),
+}
+DP_EXT_ADAMW_EPS = 1e-3
+
+
+class _Factored(SGD):
+    """An optimizer whose state holds a tensor that matches no
+    parameter's shape (an (8,) row factor), as factored moments do."""
+
+    STATE = ("trace", "factor")
+
+    def __init__(self, params, lr):
+        super().__init__(params, lr, momentum=0.0)
+        self.factor = [torch.zeros(8)]
+
+
+def dp_ext_optimizer(opt: str, params):
+    """optax.sgd (None: the state's own update at ``dp_ext_lr(opt)``), sgd
+    with momentum 0.9, adamw(1e-3, eps=DP_EXT_ADAMW_EPS), or
+    ``_Factored``."""
+    if opt in ("sgd", "sgd_fine"):
+        return None
+    if opt == "momentum":
+        return SGD(params, DP_EXT_LR, momentum=0.9)
+    if opt == "factored":
+        return _Factored(params, DP_EXT_LR)
+    adamw = AdamW(params, constant_schedule(1e-3))
+    adamw.eps = DP_EXT_ADAMW_EPS
+    return adamw
+
+
+def dp_ext_lr(opt: str) -> float:
+    return DP_EXT_FINE_LR if opt == "sgd_fine" else DP_EXT_LR
+
+
+def _dp_ext_run(inputs, use_bn, mesh, axis, opt, options):
+    model = ConvNet((DP_EXT_IMAGE, DP_EXT_IMAGE), device="cpu",
+                    use_bn=use_bn)
+    model.load_state_dict(inputs["bn" if use_bn else "no_bn"])
+    state = TrainState(model, lr=dp_ext_lr(opt),
+                       optimizer=dp_ext_optimizer(opt, model.parameters()))
+    dp = DataParallel(model, mesh, axis, **options)
+    dp.shard_state(state)
+    grad1 = {}
+    apply_update = state.apply_update
+
+    def capture(params=None):
+        if not grad1:     # step 1's synced gradients, before the update
+            grad1.update((n, p.grad.clone()) for n, p in
+                         zip(dp.names, dp.params) if p.grad is not None)
+        apply_update(params)
+
+    state.apply_update = capture
+    losses = []
+    for images, labels in inputs["batches"]:
+        x, y = dp.shard_batch(images, labels)
+        losses.append(dp.train_step(state, torch.from_numpy(x),
+                                    torch.from_numpy(y).long()))
+    res = state.grad_residual
+    return {"losses": torch.stack(losses),
+            "state": {k: v.detach().clone()
+                      for k, v in model.state_dict().items()},
+            "residual": None if res is None else dict(zip(dp.names, res)),
+            "grad1": grad1,
+            "blocks": {n: tuple(u.shape) for n, u in zip(dp.names,
+                                                       dp.updates)}}
+
+
+def dp_ext_worker(rank: int, world_size: int, out_dir: str,
+                  in_path: str) -> None:
+    """Each of DP_EXT_CASES from the bridged trees of ``in_path`` on its
+    global batches, with and without BN, over all the ranks; the
+    DP_EXT_PAIR_CASES on the 2-rank groups; the DP_EXT_VALIDATIONS."""
+    torch.set_num_threads(1)
+    bootstrap.init(device="cpu")
+    try:
+        inputs = torch.load(in_path, weights_only=False)
+        mesh = make_mesh({"data": world_size})
+        out = {}
+        for use_bn in (False, True):
+            for name, (opt, options) in DP_EXT_CASES.items():
+                out[name, use_bn] = _dp_ext_run(inputs, use_bn, mesh, "data",
+                                                opt, options)
+        pairs = make_mesh({"data": 2, "pair": world_size // 2})
+        pair_inputs = dict(inputs, batches=inputs["pair_batches"])
+        for name in DP_EXT_PAIR_CASES:
+            opt, options = DP_EXT_CASES[name]
+            out["pair", name] = _dp_ext_run(pair_inputs, True, pairs, "data",
+                                            opt, options)
+
+        def invalid(options):
+            options = dict(options)
+            opt = options.pop("opt", "sgd")
+            model = ConvNet((DP_EXT_IMAGE, DP_EXT_IMAGE), device="cpu",
+                            use_bn=False)
+            dp = DataParallel(model, mesh, **options)
+            dp.shard_state(TrainState(
+                model, optimizer=dp_ext_optimizer(opt, model.parameters())))
+
+        out["errors"] = {k: _error(lambda o=o: invalid(o))
+                         for k, o in DP_EXT_VALIDATIONS.items()}
+        _save(out_dir, rank, out)
+    finally:
+        bootstrap.cleanup()
+
+
+def entry_worker(rank: int, world_size: int, out_dir: str,
+                 in_path: str) -> None:
+    """The entry scripts' own rank bodies on ``in_path``'s cases: each
+    case is (script, argv, the whole state dict to start from): every rank
+    builds its model as the script does, takes that state (JAX's init,
+    bridged), and runs ``mnist_distributed.train`` or
+    ``lm_train.rank_main`` over a process group of its own; rank 0's
+    printed lines are saved."""
+    import contextlib
+    import io
+
+    from tpu_sandbox_torch import lm_train, mnist_distributed
+
+    inputs = torch.load(in_path, weights_only=False)
+    builders = {"mnist": (mnist_distributed, "pick_convnet"),
+                "lm": (lm_train, "build_model")}
+    out = {}
+    for name, (script, argv, state) in inputs["cases"].items():
+        module, attr = builders[script]
+        build = getattr(module, attr)
+
+        def seeded(*args, build=build, state=state, **kwargs):
+            model = build(*args, **kwargs)
+            model.load_state_dict(state)
+            return model
+
+        os.environ["INIT_METHOD"] = f"file://{out_dir}/store_{name}"
+        setattr(module, attr, seeded)
+        log = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(log):
+                args = module.build_parser().parse_args(argv)
+                if script == "mnist":
+                    torch.set_num_threads(1)
+                    module.train(args, rank, world_size, rank)
+                else:
+                    module.rank_main(rank, world_size, args)
+        finally:
+            setattr(module, attr, build)
+        out[name] = log.getvalue()
+    _save(out_dir, rank, out)

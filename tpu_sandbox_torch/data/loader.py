@@ -137,18 +137,24 @@ class PrefetchLoader:
     ``PrefetchLoader`` (:143-219).
 
     A daemon thread assembles the next ``depth`` batches into a FIFO queue
-    while the caller runs the current step. One producer and
-    a FIFO: exactly the wrapped loader's batches in its order;
-    ``set_epoch`` and ``len`` delegate. The producer is stopped and joined
-    when iteration ends for any reason (exhausted, the consumer raised or
-    broke off), and an error it raised is raised in the consumer.
+    while the caller runs the current step. ``stage``: an optional
+    ``(images, labels) -> staged batch`` run in the producer thread, e.g.
+    ``Trainer.fit``'s copy to the rank's device, so that the host-side
+    assembly and pinning overlap the previous step (the copy itself is
+    enqueued on the producer thread's current stream, which on the card is
+    the step's default stream). One producer and a FIFO:
+    exactly the wrapped loader's batches in its order; ``set_epoch`` and
+    ``len`` delegate. The producer is stopped and joined when iteration
+    ends for any reason (exhausted, the consumer raised or broke off), and
+    an error it raised is raised in the consumer.
     """
 
-    def __init__(self, loader, *, depth: int = 2):
+    def __init__(self, loader, *, depth: int = 2, stage=None):
         if depth < 1:
             raise ValueError(f"depth must be >= 1, got {depth}")
         self.loader = loader
         self.depth = depth
+        self.stage = stage
 
     def set_epoch(self, epoch: int) -> None:
         self.loader.set_epoch(epoch)
@@ -172,6 +178,8 @@ class PrefetchLoader:
         def produce():
             try:
                 for batch in self.loader:
+                    if self.stage is not None:
+                        batch = self.stage(*batch)
                     if not put(("batch", batch)):
                         return
                 put(("done", None))

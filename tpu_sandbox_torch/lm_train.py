@@ -10,6 +10,8 @@ parallelism, over one device or over ranks.
         --n-layers 4 --force-cpu
     python -m tpu_sandbox_torch.lm_train --parallelism tp --devices 4 \
         --dp 2 --force-cpu
+    python -m tpu_sandbox_torch.lm_train --devices 2 --grad-compress int8 \
+        --overlap-grad-sync --force-cpu
 
 The decoder-only LM of ``models/transformer.py`` on the deterministic
 synthetic stream of ``make_batches`` (targets = tokens + 1, 2 or 3 by
@@ -40,14 +42,14 @@ flash-ring over the ring inside every stage) and ``3d`` over ``{"data":
 ``megatron_rules()`` and ``ep`` over ``{"data": 1, "expert": n}``: the
 MoE MLP (``parallel/expert.py``) with n experts, one a rank, and
 top-``--router-top-k`` routing; at one rank ``tp`` and ``ep`` run in this
-process. Rank 0 prints the lines. Fewer GPUs than ranks is an error
-naming both counts: no rank falls back to the CPU or to a smaller world.
-
-Not ported yet (they raise NotImplementedError; ROADMAP.md, queue 1 item
-4): ``--grad-compress`` other than ``none`` and ``--overlap-grad-sync``,
-which outside ``dp`` exit with the JAX script's refusal first. The flag
-that only they read (``--bucket-mb``) is accepted and, as in the JAX
-script where it does not apply, unused.
+process. ``dp`` with ``--grad-compress bf16|int8`` or
+``--overlap-grad-sync`` (``--bucket-mb`` buckets) also runs through the
+engine, at one device too, in this process: its gradient mean is the
+compressed or bucketed exchange, stateless (no ``--no-error-feedback``
+here, as in the JAX script). Outside ``dp`` these flags exit with the
+JAX script's refusal. Rank 0 prints the lines. Fewer GPUs than ranks is
+an error naming both counts: no rank falls back to the CPU or to a
+smaller world.
 """
 
 from __future__ import annotations
@@ -82,6 +84,7 @@ from tpu_sandbox_torch.runtime import bootstrap
 from tpu_sandbox_torch.runtime.mesh import make_mesh
 from tpu_sandbox_torch.train.optim import Adam, clip_by_global_norm_, lm_schedule
 from tpu_sandbox_torch.train.trainer import to_device
+from tpu_sandbox_torch.utils.cli import add_grad_compress_cli, add_overlap_cli
 from tpu_sandbox_torch.utils.device import exact_fp32, rank_device, resolve_device
 
 #: seconds the spawned ranks may take, rendezvous included
@@ -104,25 +107,20 @@ def make_batches(vocab: int, batch: int, seq_len: int, steps: int, seed: int):
         yield tokens, targets
 
 
+def synced(args) -> bool:
+    """Whether the gradient mean is the compressed or bucketed exchange."""
+    return args.grad_compress != "none" or args.overlap_grad_sync
+
+
 def check_ported(args) -> None:
     """The JAX script's refusal of the compressed and overlapped gradient
-    sync outside ``dp`` (lm_train.py:132-140), then NotImplementedError
-    for them under ``dp``, which the port does not run yet."""
+    sync outside ``dp`` (lm_train.py:132-140)."""
     p = args.parallelism
-    if (args.grad_compress != "none" or args.overlap_grad_sync) and p != "dp":
+    if synced(args) and p != "dp":
         raise SystemExit(
             f"--grad-compress/--overlap-grad-sync only compose with "
             f"--parallelism dp (got {p!r}): other plans let XLA place the "
             "grad collectives")
-    todo = []
-    if args.grad_compress != "none":
-        todo.append(f"--grad-compress {args.grad_compress}")
-    if args.overlap_grad_sync:
-        todo.append("--overlap-grad-sync")
-    if todo:
-        raise NotImplementedError(
-            f"{', '.join(todo)}: not ported to PyTorch yet (ROADMAP.md, "
-            "queue 1 item 4: the compressed and overlapped gradient sync)")
 
 
 def make_config(args) -> TransformerConfig:
@@ -235,13 +233,14 @@ def train(args) -> LMRun | None:
     """Train as the JAX script's ``train`` does. ``dp`` on one device
     (and any other plan on one rank but ``sp``) runs here and returns the
     ``LMRun``; over ranks the plans start them and return None when every
-    rank exited 0."""
+    rank exited 0. ``dp`` with the compressed or bucketed sync runs the
+    engine, at one rank too."""
     check_ported(args)
     if args.parallelism == "sp":
         return train_sp(args)
     if args.parallelism in PIPELINES:
         return train_pp(args)
-    if args.parallelism != "dp" or args.devices != 1:
+    if args.parallelism != "dp" or args.devices != 1 or synced(args):
         return train_pjit(args)
     device = resolve_device("cpu" if args.force_cpu else "cuda")
     if device.type == "cuda":
@@ -265,9 +264,9 @@ def train_sp(args) -> None:
 
 
 def rank_main(rank: int, world_size: int, args) -> LMRun:
-    """One rank of any plan but ``dp`` on one device: GPU
-    ``LOCAL_RANK`` (NCCL) or the CPU (gloo, with ``--force-cpu``), over the
-    mesh of ``args.parallelism``."""
+    """One rank of any plan but ``dp`` on one device with the plain mean:
+    GPU ``LOCAL_RANK`` (NCCL) or the CPU (gloo, with ``--force-cpu``), over
+    the mesh of ``args.parallelism``."""
     device = rank_device(int(os.environ.get("LOCAL_RANK", 0)), args.force_cpu)
     if device.type == "cuda":
         exact_fp32()
@@ -395,10 +394,10 @@ def pjit_mesh(args) -> dict:
 
 
 def train_pjit(args) -> LMRun | None:
-    """``--parallelism dp`` above one device, ``tp`` and ``ep``: the JAX
-    script's checks, then ``--devices`` ranks (one process each:
-    ``rank_main``); one rank runs in this process and returns its
-    ``LMRun``."""
+    """``--parallelism dp`` above one device or with the compressed or
+    bucketed sync, ``tp`` and ``ep``: the JAX script's checks, then
+    ``--devices`` ranks (one process each: ``rank_main``); one rank runs in
+    this process and returns its ``LMRun``."""
     check_clip_norm(args)
     pjit_mesh(args)                             # the JAX checks, or exit
     n = args.devices
@@ -415,10 +414,14 @@ def fit_pjit(args, mesh, device: torch.device, *,
     'data' axis, with 'model' for tp and 'expert' for ep; the process group
     already open): ``PjitEngine(task="lm")`` with the plan's rules, the
     flash kernels with ``--flash``, Adam under ``--schedule`` and
-    ``--clip-norm`` on the global norm, every rank from the same seed."""
+    ``--clip-norm`` on the global norm, dp's ``--grad-compress``,
+    ``--overlap-grad-sync`` and ``--bucket-mb``, every rank from the same
+    seed."""
     eng = PjitEngine(build_model(args, device), lambda params: make_adam(
         args, params), mesh, task="lm",
-        rules=PJIT_RULES[args.parallelism](), clip_norm=args.clip_norm)
+        rules=PJIT_RULES[args.parallelism](), clip_norm=args.clip_norm,
+        grad_compress=args.grad_compress,
+        overlap_grad_sync=args.overlap_grad_sync, bucket_mb=args.bucket_mb)
     state = eng.shard_state()
     run = LMRun(state.model, state.optimizer,
                 lambda *b: eng.train_step(state, *b))
@@ -475,17 +478,11 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--force-cpu", action="store_true",
                         help="run on the CPU (the kernels' plain PyTorch "
                              "versions) instead of the GPU")
-    # the flag groups of tpu_sandbox/utils/cli.py:52 and :71 as the JAX
-    # script registers them (no --no-error-feedback, no --prefetch)
-    parser.add_argument("--grad-compress", choices=["none", "bf16", "int8"],
-                        default="none",
-                        help="compress the data-parallel gradient sync "
-                             "(not ported yet)")
-    parser.add_argument("--overlap-grad-sync", action="store_true",
-                        help="bucket the gradient sync (not ported yet)")
-    parser.add_argument("--bucket-mb", type=float, default=25.0,
-                        metavar="MB",
-                        help="with --overlap-grad-sync: bucket size target")
+    # dp only; no --no-error-feedback here: PjitEngine's compressed sync
+    # is stateless (no residual to carry), unlike DataParallel's
+    add_grad_compress_cli(parser, error_feedback=False)
+    # dp only likewise; no --prefetch (synthetic in-memory stream)
+    add_overlap_cli(parser, prefetch=False)
     return parser
 
 

@@ -12,19 +12,23 @@ One OS process a rank, as the reference runs (mnist_distributed.py:48-
 (``ShardedBatchLoader`` with ``rank=``, never reshuffled across epochs:
 the reference calls no ``set_epoch``), batch ``--batch-size`` a rank,
 through ``parallel/data_parallel.py`` (mean gradients, per-rank BN
-statistics), and rank 0 prints ``Rank [0], Epoch [e/E], Step [s/S],
-Loss: L`` every ``--log-every`` steps and the wall-clock total. ``-g 1``
+statistics; ``--zero`` ZeRO-1, ``--grad-compress none|bf16|int8`` with
+error feedback unless ``--no-error-feedback``, ``--overlap-grad-sync``
+with ``--bucket-mb`` buckets), and rank 0 prints ``Rank [0], Epoch
+[e/E], Step [s/S], Loss: L`` every ``--log-every`` steps and the
+wall-clock total. ``-g 1``
 runs its rank in the calling process; more ranks are spawned (the
 ``--multiprocess`` flag is accepted for launch compatibility). ``-n 2
 -nr 0`` and ``-n 2 -nr 1``, started on two machines (or twice on one)
 with the same ``MASTER_ADDR``/``MASTER_PORT``, form one job (a node of
-one rank runs it in its own process).
+one rank runs it in its own process). ``--prefetch`` assembles and pins
+the next batch and enqueues its copy to the rank's device in a background
+thread (on the card that copy runs on the default stream, after the
+current step's kernels).
 
-Not ported yet, and refused by argparse with their ROADMAP item:
-``--zero``, ``--grad-compress``, ``--no-error-feedback``,
-``--overlap-grad-sync`` and ``--bucket-mb`` (queue 1 item 4), the
-checkpoint flags (item 6), and the elastic, agent, pool and KV flags
-(item 6).
+Not ported yet, and refused by argparse with their ROADMAP item: the
+checkpoint flags and the elastic, agent, pool and KV flags (queue 1 item
+6).
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ from tpu_sandbox_torch.runtime import bootstrap
 from tpu_sandbox_torch.train import SGD, AdamW, Trainer, TrainState
 from tpu_sandbox_torch.train.optim import constant_schedule
 from tpu_sandbox_torch.utils import exact_fp32
+from tpu_sandbox_torch.utils.cli import add_grad_compress_cli, add_overlap_cli
 from tpu_sandbox_torch.utils.device import rank_device
 
 IMAGE_SHAPE = [3000, 3000]
@@ -57,11 +62,6 @@ TIMEOUT = 3600.0
 
 #: flag -> (takes a value, ROADMAP item): refused until ported
 UNPORTED = {
-    "--zero": (False, "queue 1 item 4, ZeRO-1"),
-    "--grad-compress": (True, "queue 1 item 4, grad_compress"),
-    "--no-error-feedback": (False, "queue 1 item 4, grad_compress"),
-    "--overlap-grad-sync": (False, "queue 1 item 4, overlap buckets"),
-    "--bucket-mb": (True, "queue 1 item 4, overlap buckets"),
     "--ckpt-every": (True, "queue 1 item 6, checkpoints"),
     "--ckpt-dir": (True, "queue 1 item 6, checkpoints"),
     "--resume": (False, "queue 1 item 6, checkpoints"),
@@ -89,13 +89,11 @@ ZERO_SGD_NOTE = ("note: --zero with plain SGD shards no optimizer state "
 
 
 class _Refuse(argparse.Action):
-    """Fails the parse with the flag's ROADMAP item (and, for ``--zero``,
-    the JAX script's note on plain SGD)."""
+    """Fails the parse with the flag's ROADMAP item."""
 
     def __call__(self, parser, namespace, values, option_string=None):
-        note = f"; {ZERO_SGD_NOTE}" if option_string == "--zero" else ""
         parser.error(f"{option_string} is not ported yet (ROADMAP "
-                     f"{UNPORTED[option_string][1]}){note}")
+                     f"{UNPORTED[option_string][1]})")
 
 
 def load_training_arrays(args, world_size: int, verbose: bool = True):
@@ -149,7 +147,11 @@ def train(args, rank: int = 0, world_size: int = 1, local_rank: int = 0, *,
         loader = ShardedBatchLoader(images, labels, args.batch_size,
                                     world_size, shuffle=True, seed=0,
                                     rank=rank)
-        dp = DataParallel(model, image_size=image_shape)
+        dp = DataParallel(model, image_size=image_shape, zero=args.zero,
+                          grad_compress=args.grad_compress,
+                          error_feedback=not args.no_error_feedback,
+                          overlap_grad_sync=args.overlap_grad_sync,
+                          bucket_mb=args.bucket_mb)
         state = dp.shard_state(state)
         trainer = Trainer(lambda x, y: dp.train_step(state, x, y), device,
                           log_every=args.log_every, log_rank=0,
@@ -189,20 +191,23 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--opt", choices=["sgd", "momentum", "adamw"],
                         default="sgd",
                         help="optimizer (default: the reference's plain "
-                             "SGD 1e-4)")
+                             "SGD 1e-4; momentum/adamw give --zero real "
+                             "state to shard)")
+    parser.add_argument("--zero", action="store_true",
+                        help="ZeRO-1: shard optimizer state over the data "
+                             "axis (same math, 1/N the optimizer memory)")
     parser.add_argument("--plan", choices=["auto", "s2dt", "s2d", "plain"],
                         default="auto",
                         help="ConvNet execution plan, as mnist_onegpu's")
     parser.add_argument("--dtype", choices=["bf16", "fp32"], default="bf16")
+    add_grad_compress_cli(parser)
+    add_overlap_cli(parser)
     parser.add_argument("--force-cpu", action="store_true",
                         help="gloo ranks on the CPU instead of one GPU a "
                              "rank over NCCL")
     parser.add_argument("--multiprocess", action="store_true",
                         help="accepted for launch compatibility: ranks are "
                              "always OS processes here")
-    parser.add_argument("--prefetch", action="store_true",
-                        help="assemble the next batch in a background "
-                             "thread (same batches, same order)")
     for flag, (takes_value, _) in UNPORTED.items():
         parser.add_argument(flag, action=_Refuse,
                             nargs="?" if takes_value else 0,
@@ -213,6 +218,8 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     args = build_parser().parse_args(argv)
     world_size = args.gpus * args.nodes                      # reference :123
+    if args.zero and args.opt == "sgd":
+        print(ZERO_SGD_NOTE)                # once, from the launcher
     rank_device(args.gpus - 1, args.force_cpu)      # enough cards, or raise
     if world_size == 1:
         return train(args)

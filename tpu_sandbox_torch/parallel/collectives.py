@@ -1,6 +1,7 @@
 """Raw collectives over a process group or a mesh axis: the port of
 ``tpu_sandbox/parallel/collectives.py`` (``CollectiveGroup`` :33-312,
-``world_group`` / ``sub_groups`` :508-521).
+``world_group`` / ``sub_groups`` :508-521) and its compressed gradient
+sync (``CompressedAllReduce``, ``int8_block_pmean``, :300-505).
 
 The JAX package is single-controller: a "per-rank value" there is an array
 whose leading dimension is the group, rank i's block is row block i. Here
@@ -12,8 +13,15 @@ Results are this rank's block of JAX's result. The group is bound once
 gloo on the CPU, NCCL on CUDA tensors. gloo lacks ``reduce_scatter`` in
 some PyTorch releases, so on gloo it is composed: a sum all-reduce of the
 whole payload, then this rank's slice. NCCL data never goes through the
-host. The compressed all-reduce (:211, :314-506) is not ported yet
-(ROADMAP queue 1 item 4).
+host.
+
+The compressed mean of a gradient (``CompressedAllReduce``) has JAX's
+modes: ``none`` is the port's plain mean (a sum all-reduce in place, then
+a division by the group size), ``bf16`` the same on a bf16 copy, ``int8``
+the two-shot block-quantised exchange of ``int8_block_pmean``. ``start``
+issues a mean and returns the call that finishes it, so a caller can issue
+the first shot and do other work before the second (``parallel/
+buckets.py``); ``pmean`` does both at once.
 
 ``ring_shift`` and ``all_to_all_tiled`` are the differentiable forms that
 sequence parallelism needs, where JAX differentiates ``lax.ppermute`` and
@@ -30,11 +38,14 @@ every rank issues those collectives in the same order.
 
 from __future__ import annotations
 
+import dataclasses
 import time
+from typing import Callable, Sequence
 
 import numpy as np
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 from torch.distributed.device_mesh import DeviceMesh
 
 from tpu_sandbox_torch.runtime import bootstrap
@@ -163,7 +174,7 @@ class CollectiveGroup:
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-            dist.all_reduce(p.grad, group=self.group)
+            self.sum_(p.grad)
 
     @torch.no_grad()
     def mean_grads_(self, params) -> None:
@@ -194,14 +205,28 @@ class CollectiveGroup:
         """Rank i holds ``[size, ...]`` whose j-th row goes to rank j;
         returns ``[size, ...]`` whose row i came from rank i (JAX's
         ``out[j, i] = values[i, j]`` seen from rank j)."""
-        t = self._local(x)
+        out, work = self.all_to_all_start(x)
+        work.wait()
+        return out
+
+    def all_to_all_start(self, x) -> tuple[torch.Tensor, dist.Work]:
+        """``all_to_all`` issued without waiting: the output buffer and
+        the handle whose ``wait()`` completes it."""
+        t = x.to(self.device) if isinstance(x, torch.Tensor) else \
+            self._local(x)
         if t.dim() < 1 or t.shape[0] != self.size:
             raise ValueError(
                 f"all_to_all wants shape (size, ...) with size "
                 f"{self.size}, got {tuple(t.shape)}")
         out = torch.empty_like(t)
-        dist.all_to_all_single(out, t.contiguous(), group=self.group)
-        return out
+        work = dist.all_to_all_single(out, t.contiguous(), group=self.group,
+                                      async_op=True)
+        return out, work
+
+    def sum_(self, t: torch.Tensor, async_op: bool = False):
+        """The sum all-reduce of ``t`` in place; with ``async_op`` the
+        handle whose ``wait()`` completes it (else None)."""
+        return dist.all_reduce(t, group=self.group, async_op=async_op)
 
     def barrier(self) -> None:
         """Block the host until every rank of the group has arrived: a sum
@@ -400,6 +425,228 @@ def all_to_all_tiled(x: torch.Tensor, group: CollectiveGroup,
     ``concat_axis`` in rank order. Differentiable: the backward is the
     inverse all-to-all (split and concat axes swapped)."""
     return _AllToAll.apply(x, group, split_axis, concat_axis)
+
+
+# -- compressed gradient synchronization ------------------------------------
+#
+# The wire payload of the gradient mean shrinks by a bf16 cast (2x) or an
+# int8 block-scaled two-shot exchange (~4x), with an optional
+# error-feedback residual that re-injects the quantisation error into the
+# next step's gradient instead of losing it.
+
+_COMPRESS_MODES = ("none", "bf16", "int8")
+
+
+def _quantize_int8_blocks(v: torch.Tensor):
+    """Symmetric per-block int8: ``v`` is fp32 ``[..., block]``; returns
+    ``(q int8, scale fp32 [..., 1])`` with scale = blockwise absmax / 127
+    (guarded so that an all-zero block dequantises to exact zeros).
+    ``torch.round`` rounds half to even, as ``jnp.round``."""
+    s = v.abs().amax(-1, keepdim=True) / 127.0
+    safe = torch.where(s > 0, s, torch.ones_like(s))
+    q = torch.clamp(torch.round(v / safe), -127, 127).to(torch.int8)
+    return q, s
+
+
+#: a mean in flight: calling it finishes it and returns ``(mean,
+#: new_residual)``
+Pending = Callable[[], tuple]
+
+
+def int8_block_pmean_start(value: torch.Tensor,
+                           residual: torch.Tensor | None,
+                           group: CollectiveGroup, size: int,
+                           block: int) -> Pending:
+    """``int8_block_pmean`` with its first shot issued and its second left
+    to the returned call."""
+    shape, dtype = value.shape, value.dtype
+    flat = value.float().reshape(-1)
+    n = flat.numel()
+    if residual is not None:
+        flat = flat + residual.reshape(-1).float()
+    chunk = -(-n // (size * block)) * block
+    pad = size * chunk - n
+    v = F.pad(flat, (0, pad)).reshape(size, chunk // block, block)
+    q, s = _quantize_int8_blocks(v)
+    qx, qwork = group.all_to_all_start(q)
+    sx, swork = group.all_to_all_start(s)
+
+    def finish():
+        qwork.wait()
+        swork.wait()
+        red = (qx.float() * sx).sum(0) / size               # [nb, block]
+        q2, s2 = _quantize_int8_blocks(red)
+        q2g, s2g = group.all_gather(q2), group.all_gather(s2)
+        mean = ((q2g.float() * s2g).reshape(-1)[:n].reshape(shape)
+                .to(dtype))
+        if residual is None:
+            return mean, None
+        err = v - q.float() * s
+        err[group.rank] += (red - q2.float() * s2) * size
+        return mean, err.reshape(-1)[:n].reshape(shape).to(residual.dtype)
+
+    return finish
+
+
+def int8_block_pmean(value: torch.Tensor, residual: torch.Tensor | None,
+                     group: CollectiveGroup, size: int, block: int):
+    """Block-quantised mean over ``group`` of one tensor (JAX
+    ``parallel/collectives.py:324-373``). Returns ``(mean,
+    new_residual)``.
+
+    Two shots, so that the sum is taken in fp32, never in int8:
+
+    1. flatten, add the residual, pad to ``size * chunk`` (chunk a
+       multiple of ``block``), quantise ``[size, nb, block]`` and
+       ``all_to_all`` the int8 payload and its fp32 scales: rank j
+       receives every rank's chunk j (a quantised reduce-scatter);
+    2. dequantise, take the fp32 mean of the chunks, quantise this rank's
+       chunk again and ``all_gather`` it back.
+
+    With ``residual`` (error feedback) the new residual is the shot-1
+    error plus ``size`` times the shot-2 error at this rank's own chunk,
+    so that the sum of the residuals over ranks next step re-injects
+    exactly what this step's mean dropped."""
+    return int8_block_pmean_start(value, residual, group, size, block)()
+
+
+@dataclasses.dataclass(frozen=True)
+class CompressedAllReduce:
+    """The gradient sync's compression policy (JAX
+    ``parallel/collectives.py:376-497``).
+
+    ``mode``: ``"none"`` the plain mean, in place; ``"bf16"`` the mean of
+    a bf16 copy, cast back; ``"int8"`` ``int8_block_pmean``. ``block``:
+    the int8 scale granularity, one fp32 scale per ``block`` elements.
+    ``error_feedback``: int8 only; the engine then carries a
+    parameter-shaped fp32 residual from step to step
+    (``needs_residual``)."""
+
+    mode: str = "none"
+    block: int = 256
+    error_feedback: bool = True
+
+    def __post_init__(self):
+        if self.mode not in _COMPRESS_MODES:
+            raise ValueError(
+                f"grad_compress mode {self.mode!r} not in {_COMPRESS_MODES}"
+            )
+        if self.block < 1:
+            raise ValueError(f"block must be positive, got {self.block}")
+
+    @property
+    def needs_residual(self) -> bool:
+        return self.mode == "int8" and self.error_feedback
+
+    def block_for(self, n: int, size: int) -> int:
+        """The int8 block of a leaf of ``n`` elements over ``size`` ranks:
+        ``block``, halved (to a floor of 8) while it exceeds the leaf's
+        per-rank chunk, which ``int8_block_pmean`` pads to a whole
+        block."""
+        per_rank = -(-int(n) // size)
+        b = self.block
+        while b > 8 and b > per_rank:
+            b //= 2
+        return b
+
+    def start(self, value: torch.Tensor, group: CollectiveGroup, size: int,
+              residual: torch.Tensor | None = None) -> Pending:
+        """Issue the mean of ``value`` over ``group``; calling the result
+        gives ``(mean, new_residual)``. ``none`` sums ``value`` itself in
+        place and divides it by ``size``, as
+        ``CollectiveGroup.mean_grads_``."""
+        if self.mode == "none":
+            work = group.sum_(value, async_op=True)
+
+            def finish():
+                work.wait()
+                return value.div_(size), residual
+
+            return finish
+        if self.mode == "bf16":
+            t = value.to(torch.bfloat16)
+            work = group.sum_(t, async_op=True)
+
+            def finish():
+                work.wait()
+                return t.div_(size).to(value.dtype), residual
+
+            return finish
+        if not self.error_feedback:
+            residual = None
+        return int8_block_pmean_start(
+            value, residual, group, size, self.block_for(value.numel(),
+                                                         size))
+
+    def pmean(self, value: torch.Tensor, group: CollectiveGroup, size: int,
+              residual: torch.Tensor | None = None):
+        """The compressed mean of one tensor over ``group``: ``(mean,
+        new_residual)``."""
+        return self.start(value, group, size, residual)()
+
+    def pmean_tree(self, grads: Sequence[torch.Tensor],
+                   group: CollectiveGroup, size: int,
+                   residuals: Sequence[torch.Tensor] | None = None):
+        """``pmean`` of each tensor in turn. ``residuals`` is None (no
+        error feedback) or one per tensor; returns ``(means,
+        new_residuals)``, ``new_residuals`` None iff no residual was
+        threaded in."""
+        if not self.needs_residual:
+            residuals = None
+        pairs = [self.pmean(g, group, size,
+                            None if residuals is None else residuals[i])
+                 for i, g in enumerate(grads)]
+        means = [m for m, _ in pairs]
+        if residuals is None:
+            return means, None
+        return means, [r for _, r in pairs]
+
+    @torch.no_grad()
+    def mean_grads_(self, params: Sequence[torch.Tensor],
+                    group: CollectiveGroup,
+                    residuals: Sequence[torch.Tensor] | None = None):
+        """``pmean_tree`` of the parameters' gradients (zeros where there
+        is none, so that every rank issues the same collectives), each
+        gradient set to its mean; returns the new residuals."""
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        means, new_res = self.pmean_tree([p.grad for p in params], group,
+                                         group.size, residuals)
+        for p, m in zip(params, means):
+            p.grad = m
+        return new_res
+
+    def wire_bytes(self, leaf_sizes, size: int) -> dict:
+        """Bytes each rank puts on the wire a step for gradients of the
+        given element counts: ``payload`` the elements at the compressed
+        width, ``overhead`` int8's scales and padding on both shots,
+        ``total`` both (JAX's accounting, :458-497)."""
+        payload = total = 0
+        for n in leaf_sizes:
+            n = int(n)
+            if self.mode == "none":
+                payload += 4 * n
+                total += 4 * n
+            elif self.mode == "bf16":
+                payload += 2 * n
+                total += 2 * n
+            else:
+                block = self.block_for(n, size)
+                chunk = -(-n // (size * block)) * block
+                nb = chunk // block
+                payload += n + -(-n // size)
+                total += size * chunk + size * nb * 4
+                total += chunk + nb * 4
+        return {"total": total, "payload": payload,
+                "overhead": total - payload}
+
+
+def as_compress_policy(policy) -> CompressedAllReduce:
+    """A CLI string, None or a policy, as a policy."""
+    if isinstance(policy, CompressedAllReduce):
+        return policy
+    return CompressedAllReduce(mode=str(policy) if policy else "none")
 
 
 def world_group(mesh: DeviceMesh | None = None,

@@ -29,7 +29,14 @@ what XLA derives from them:
 - ``fsdp_axis``: those leaves themselves are sharded and gathered at use
   (``fsdp_gather``, a parametrization, so a recompute gathers again);
   their gradients come back reduce-scattered and averaged. FSDP implies
-  ZeRO-1 over the same axis.
+  ZeRO-1 over the same axis;
+- ``grad_compress`` and ``overlap_grad_sync`` (pure data parallelism
+  only, as in JAX, :240-262): the batch axis's gradient mean goes through
+  ``CompressedAllReduce`` leaf by leaf, or through ``parallel/
+  buckets.py``'s buckets issued by gradient hooks during the backward.
+  Stateless: no error-feedback residual is carried (JAX's comment at
+  :240-249; ``DataParallel`` carries one). The buckets follow JAX's
+  flatten order of the parameters (``buckets.flatten_order``).
 
 Every rank builds the whole model from the same seed; ``shard_state``
 cuts this rank's shards from its state dict (or from a bridged one) and
@@ -41,9 +48,8 @@ layers of the MoE's load-balance losses to the mean cross-entropy.
 
 Not ported (``NotImplementedError`` naming the ROADMAP item): rules on
 image models, spatial input specs and BatchNorm under the engine (queue 1
-item 8), ``grad_compress`` and ``overlap_grad_sync`` (item 4),
-``lower_step`` (item 12). ``donate`` is accepted: the port updates in
-place.
+item 8), ``lower_step`` (item 12). ``donate`` is accepted: the port
+updates in place.
 """
 
 from __future__ import annotations
@@ -60,8 +66,15 @@ from torch.distributed.device_mesh import DeviceMesh
 from torch.nn.utils import parametrize
 
 from tpu_sandbox_torch.ops.losses import cross_entropy_loss
+from tpu_sandbox_torch.parallel.buckets import (
+    DEFAULT_BUCKET_MB,
+    BucketedSync,
+    flatten_order,
+)
 from tpu_sandbox_torch.parallel.collectives import (
     CollectiveGroup,
+    CompressedAllReduce,
+    as_compress_policy,
     fsdp_gather,
     tp_gather,
     tp_region_input,
@@ -71,10 +84,7 @@ from tpu_sandbox_torch.train.optim import clip_by_global_norm_
 from tpu_sandbox_torch.train.state import TrainState
 from tpu_sandbox_torch.train.trainer import prepare_inputs
 
-_COMPRESS_MODES = ("none", "bf16", "int8")
 _ITEM8 = "(ROADMAP.md, queue 1 item 8)"
-_COMPRESS = ("{} under PjitEngine is not ported yet (ROADMAP.md, queue 1 "
-             "item 4)")
 _LOWER = ("ahead-of-time lowering has no counterpart yet (ROADMAP.md, "
           "queue 1 item 12)")
 
@@ -311,8 +321,10 @@ class PjitEngine:
                  image_size: tuple[int, int] | None = None,
                  task: str = "image", aux_weight: float = 0.01,
                  zero_axis: str | None = None, fsdp_axis: str | None = None,
-                 donate: bool = True, grad_compress: str | None = "none",
-                 overlap_grad_sync: bool = False, bucket_mb: float = 25.0,
+                 donate: bool = True,
+                 grad_compress: str | CompressedAllReduce | None = "none",
+                 overlap_grad_sync: bool = False,
+                 bucket_mb: float = DEFAULT_BUCKET_MB,
                  clip_norm: float = 0.0):
         names = tuple(mesh.mesh_dim_names or ())
         if task not in ("image", "lm"):
@@ -343,14 +355,14 @@ class PjitEngine:
                 f"zero axis {zero_axis!r} not in mesh axes {names}")
         self.zero_axis, self.fsdp_axis = zero_axis, fsdp_axis
         self.donate = donate
-        mode = str(grad_compress) if grad_compress else "none"
-        if mode not in _COMPRESS_MODES:
-            raise ValueError(
-                f"grad_compress mode {mode!r} not in {_COMPRESS_MODES}")
+        self.grad_compress = as_compress_policy(grad_compress)
         if bucket_mb <= 0:
             raise ValueError(f"bucket_mb must be positive, got {bucket_mb}")
-        if mode != "none" or overlap_grad_sync:
-            what = "grad_compress" if mode != "none" else "overlap_grad_sync"
+        self.overlap = bool(overlap_grad_sync)
+        self.bucket_bytes = int(bucket_mb * 2 ** 20)
+        if self.grad_compress.mode != "none" or self.overlap:
+            what = ("grad_compress" if self.grad_compress.mode != "none"
+                    else "overlap_grad_sync")
             if self.rules:
                 raise ValueError(
                     f"{what} composes only with pure data parallelism; "
@@ -363,7 +375,13 @@ class PjitEngine:
                 raise ValueError(
                     f"{what} needs input_spec == P({batch_axis!r}) "
                     f"(batch-only sharding), got {self.input_spec}")
-            raise NotImplementedError(_COMPRESS.format(what))
+            if any(True for _ in model.buffers()):
+                raise ValueError(
+                    "grad_compress/overlap_grad_sync under PjitEngine "
+                    "requires a BN-free model: batch stats mutate per data "
+                    "shard inside the grad shard_map and cannot be returned "
+                    "replicated. Use DataParallel (per-replica BN) instead."
+                )
         if tuple(self.input_spec) != (batch_axis,):
             raise NotImplementedError(
                 f"input_spec {self.input_spec}: spatial partitioning is not "
@@ -381,6 +399,7 @@ class PjitEngine:
         self.device = self.batch.device
         self.leaves: list[Leaf] = []
         self._moe: list[nn.Module] = []
+        self.sync: BucketedSync | None = None
 
     # -- state --------------------------------------------------------------
 
@@ -452,6 +471,11 @@ class PjitEngine:
             self.leaves.append(Leaf(
                 name, p, spec, fsdp, zero_rows, p if zero_rows is None
                 else nn.Parameter(p[zero_rows].clone())))
+        if self.overlap:       # the buckets hold JAX's flatten order
+            flat = [leaf.param for _, leaf in flatten_order(
+                (leaf.name, leaf) for leaf in self.leaves)]
+            self.sync = BucketedSync(flat, self.batch, self.grad_compress,
+                                     self.bucket_bytes)
         return TrainState(model, optimizer=self.tx(
             [leaf.update for leaf in self.leaves]))
 
@@ -543,14 +567,20 @@ class PjitEngine:
         batch axis (the mean over the global batch) on every rank."""
         model = state.model
         model.train()
+        if self.sync is not None:
+            self.sync.begin()
         loss = self.loss(model, inputs, labels)
         loss.backward()
         for m in self._moe:
             m.aux_loss = None
-        # an FSDP leaf's gradient is already the mean over its axis
-        self.batch.mean_grads_(
-            [leaf.param for leaf in self.leaves
-             if not (leaf.fsdp and self.fsdp_axis == self.batch_axis)])
+        if self.sync is not None:
+            self.sync.finish()
+        else:
+            # an FSDP leaf's gradient is already the mean over its axis
+            self.grad_compress.mean_grads_(
+                [leaf.param for leaf in self.leaves
+                 if not (leaf.fsdp and self.fsdp_axis == self.batch_axis)],
+                self.batch)
         if self.clip_norm:
             clip_by_global_norm_([leaf.param.grad for leaf in self.leaves],
                                  self.clip_norm, norm=self._global_norm())

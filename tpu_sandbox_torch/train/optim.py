@@ -111,6 +111,9 @@ class Adam:
 
     b1, b2, eps = 0.9, 0.999, 1e-8
     weight_decay = 0.0
+    #: the per-parameter state lists, each one tensor a parameter of
+    #: ``params`` (ZeRO-1 cuts them with their parameters)
+    STATE = ("mu", "nu")
 
     def __init__(self, params: Iterable[torch.nn.Parameter],
                  lr: Callable[[int], float]):
@@ -155,6 +158,8 @@ class SGD:
     """``optax.sgd(lr, momentum)`` over the model's parameters, in place, in
     f32: optax's ``trace`` (not Nesterov), t = g + momentum * t from zeros,
     then p - lr * t. (Plain SGD is ``TrainState.apply_sgd``.)"""
+
+    STATE = ("trace",)
 
     def __init__(self, params: Iterable[torch.nn.Parameter], lr: float,
                  momentum: float):

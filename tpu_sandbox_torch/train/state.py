@@ -1,5 +1,7 @@
 """Train state: the model (parameters and BN running stats), the SGD
-optimizer and the step count. Counterpart of ``tpu_sandbox/train/state.py``.
+optimizer, the step count and, under int8 gradient sync with error
+feedback, this rank's residual. Counterpart of
+``tpu_sandbox/train/state.py``.
 
 The JAX package keeps these in one immutable pytree; here the model is an
 ``nn.Module`` updated in place. SGD without momentum (optax.sgd), the
@@ -21,21 +23,25 @@ class TrainState:
     lr: float = 1e-4
     step: int = 0
     optimizer: object | None = None
+    #: the error-feedback residual, one fp32 tensor a parameter (rank-local;
+    #: ``DataParallel`` starts it at zeros), or None
+    grad_residual: list[torch.Tensor] | None = None
 
-    def apply_update(self) -> None:
+    def apply_update(self, params=None) -> None:
         """The optimizer's update from the gradients (plain SGD at ``lr``
-        without one), which clears them; counts the step."""
+        without one, of ``params`` or else the model's parameters), which
+        clears them; counts the step."""
         if self.optimizer is None:
-            self.apply_sgd()
+            self.apply_sgd(params)
             return
         self.optimizer.step()
         self.step += 1
 
     @torch.no_grad()
-    def apply_sgd(self) -> None:
+    def apply_sgd(self, params=None) -> None:
         """p <- p - lr * grad for every parameter (optax.sgd, no
         momentum), in place; clears the gradients; counts the step."""
-        for p in self.model.parameters():
+        for p in self.model.parameters() if params is None else params:
             if p.grad is not None:
                 p.sub_(self.lr * p.grad)
                 p.grad = None

@@ -46,9 +46,21 @@ def prepare_inputs(model, images: torch.Tensor, image_size) -> torch.Tensor:
     return resize_on_device(images, image_size)
 
 
-def to_device(images: np.ndarray, labels: np.ndarray, device: torch.device):
-    return (torch.from_numpy(np.ascontiguousarray(images)).to(device),
-            torch.from_numpy(np.ascontiguousarray(labels)).long().to(device))
+def to_device(images, labels, device: torch.device, *,
+              non_blocking: bool = False):
+    """A host batch as tensors on ``device``, labels int64; a batch of
+    tensors already there passes through. ``non_blocking`` pins the batch
+    and enqueues its copy (on a CUDA device) without waiting for it."""
+    def put(a, dtype=None):
+        t = a if isinstance(a, torch.Tensor) else torch.from_numpy(
+            np.ascontiguousarray(a))
+        if dtype is not None:
+            t = t.to(dtype)
+        if non_blocking and device.type == "cuda" and t.device.type == "cpu":
+            t = t.pin_memory()
+        return t.to(device, non_blocking=non_blocking)
+
+    return put(images), put(labels, torch.long)
 
 
 def make_train_step(state: TrainState, *,
@@ -144,9 +156,13 @@ class Trainer:
         """Run ``epochs`` epochs. ``set_epoch=False`` keeps the reference's
         quirk of never reshuffling across epochs (no ``sampler.set_epoch``);
         ``prefetch`` wraps the loader in a ``PrefetchLoader`` (same batches,
-        same order, assembled while the previous step runs)."""
+        same order, assembled and pinned on the host, and their copies to
+        the device enqueued, while the previous step runs; the copies go on
+        the producer thread's current stream, the default stream, so on
+        the device they still run after the step's kernels)."""
         if prefetch and not isinstance(loader, PrefetchLoader):
-            loader = PrefetchLoader(loader)
+            loader = PrefetchLoader(loader, stage=lambda x, y: to_device(
+                x, y, self.device, non_blocking=True))
         start = time.monotonic()
         total_step = len(loader)
         for epoch in range(epochs):
