@@ -197,7 +197,29 @@ card or when the port is not beside it. Phases, one JSON line each:
    --devices 2 without --force-cpu for dp, tp, ep, sp and pp, at once:
    each a non-zero exit naming the 2 ranks and the card count (their
    gloo runs are CPU tests).
-11. the {"kernels": [...]} summary, the nvidia-smi line, and last
+11. checkpoints and elastic resume, at the main path's width (after
+   path_dp_ext). ckpt_card: the default plan through make_train_step, 2
+   steps, the single-device save (the copy of the state to the host, the
+   npz write with its SHA-256, the SHA-256 alone over the warm file, each
+   timed), restore into a model built anew on the card (timed), the
+   restored leaves bitwise the saved ones and 2 more steps from each state
+   bitwise equal (losses and every leaf); the same with --opt adamw
+   through HostCheckpoint and ShardedCheckpoint(compress=True), with the
+   bytes on disk of each. path_ckpt: main_path with --ckpt-dir D
+   --ckpt-every 2: its launches, its losses bitwise main_path's, its step
+   times beside main_path's, the saver's copy and write seconds and the
+   last line "saved checkpoint at step 5". path_resumable:
+   mnist_distributed's elastic rank body (train_elastic_worker) in this
+   process at one NCCL rank against a KV store of this process, 6 steps
+   of train_resumable with the non-finite guard and a HostCheckpoint
+   every 2 steps: the main path's kinds once a step. path_elastic:
+   mnist_distributed -g 1 --elastic under the supervisor of this process,
+   one worker process a generation, once with a fault plan that SIGKILLs
+   rank 0 at step 3 (two generations, one restart charged) and once with
+   --ckpt-sharded and a SIGTERM at step 3 (the worker saves and exits 75,
+   not charged): each final checkpoint bitwise path_resumable's; each
+   generation's seconds.
+12. the {"kernels": [...]} summary, the nvidia-smi line, and last
    {"ok": true, "device": {...}}.
 
 fp32 matmuls and convolutions run without TF32 throughout (the plain
@@ -334,6 +356,15 @@ DP_EXT_MODES = (
 #: the modes that must be another run bit for bit: a mode's whole run, or
 #: path_dp's losses (None)
 DP_EXT_BITWISE = {"adamw_zero": "adamw", "overlap": None}
+#: ckpt_card: steps before the save and after the restore; path_ckpt's
+#: --ckpt-every; path_resumable and path_elastic: mnist_distributed -g 1
+#: with --ckpt-every ELASTIC_EVERY for ELASTIC_STEPS steps, the faults at
+#: ELASTIC_FAULT_STEP
+CKPT_STEPS, CKPT_EVERY = 2, 2
+ELASTIC_STEPS, ELASTIC_EVERY, ELASTIC_FAULT_STEP = 6, 2, 3
+#: where the checkpoint phases write (inside the checkpoint, gitignored;
+#: removed after each phase)
+CKPT_ROOT = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
 #: dist_scripts: (name, argv after python -m, time limit in seconds)
 DIST_SCRIPTS = (
     ("test_init_nccl", ["tpu_sandbox_torch.test_init", "--world-size", "1"],
@@ -3016,6 +3047,369 @@ def phase_moe_card_vs_cpu(lm_train) -> None:
             f"d{worst} {grad_dev[worst]:.3g} of max|CPU|")
 
 
+def _leaves_equal(a: dict, b: dict) -> list[str]:
+    """Paths whose values differ (a per-replica leaf of a sharded step,
+    ``[1, ...]`` at one rank, is held to the single-device one)."""
+    import numpy as np
+
+    def arr(x):
+        return (x.float().numpy() if isinstance(x, torch.Tensor)
+                else np.asarray(x))
+
+    bad = [p for p in a if p not in b]
+    for p in b:
+        x, y = arr(a.get(p, np.zeros(0))), arr(b[p])
+        if x.shape != y.shape and x.shape[1:] == y.shape and x.shape[0] == 1:
+            x = x[0]
+        if x.shape != y.shape or not np.array_equal(x, y):
+            bad.append(p)
+    return bad
+
+
+def _dir_bytes(d: Path) -> int:
+    return sum(f.stat().st_size for f in d.rglob("*") if f.is_file())
+
+
+def _fresh_ckpt_dir(name: str) -> Path:
+    import shutil
+
+    d = CKPT_ROOT / name
+    for x in (d, d.with_name(d.name + ".quarantine")):
+        shutil.rmtree(x, ignore_errors=True)
+    d.parent.mkdir(parents=True, exist_ok=True)
+    return d
+
+
+def phase_ckpt_card(ops, expected: list[str]) -> tuple[dict, dict]:
+    """The default plan at 3000x3000, batch 5, bf16 through make_train_step:
+    CKPT_STEPS steps, the single-device ``save`` (timed: the copy of the
+    state to the host, the npz write with its SHA-256, and the SHA-256
+    alone over the warm file), ``restore`` into a model built anew on the
+    card (timed), the restored leaves bitwise the saved ones, then
+    CKPT_STEPS more steps from each state on the same batches: losses and
+    every leaf bitwise equal. Then the same with --opt adamw through
+    HostCheckpoint and ShardedCheckpoint(compress=True), their bytes on
+    disk. The launch counters are zeroed before and read after: the main
+    path's kinds once a step."""
+    import gc
+    import shutil
+
+    from tpu_sandbox_torch.data import normalize, synthetic_mnist
+    from tpu_sandbox_torch.models import pick_convnet
+    from tpu_sandbox_torch.train import AdamW, TrainState, make_train_step
+    from tpu_sandbox_torch.train import checkpoint as ck
+    from tpu_sandbox_torch.train.optim import constant_schedule
+    from tpu_sandbox_torch.train.trainer import to_device
+    from tpu_sandbox_torch.utils.bridge import (
+        state_from_leaves,
+        state_template,
+    )
+
+    dev = torch.device("cuda")
+    shape = (IMAGE, IMAGE)
+    images, labels = synthetic_mnist(n=2 * CKPT_STEPS * BATCH, seed=0)
+    images, labels = normalize(images), labels.astype("int32")
+    batches = [to_device(images[i:i + BATCH], labels[i:i + BATCH], dev)
+               for i in range(0, len(images), BATCH)]
+
+    def build(opt):
+        model = pick_convnet(shape, plan="auto", num_classes=10,
+                             dtype=torch.bfloat16, seed=0, device="cuda")
+        optimizer = (AdamW(model.parameters(), constant_schedule(1e-4))
+                     if opt == "adamw" else None)
+        state = TrainState(model, lr=1e-4, optimizer=optimizer)
+        return state, make_train_step(state, image_size=shape)
+
+    def run(step, bs):
+        return [step(*b) for b in bs]
+
+    def sync_s(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    res, steps = {}, 0
+    ops.reset_launch_counts()
+    for opt, formats in (("sgd", ("single",)),
+                         ("adamw", ("host", "sharded_compressed"))):
+        state, step = build(opt)
+        run(step, batches[:CKPT_STEPS])
+        steps += CKPT_STEPS
+        leaves, copy_s = sync_s(state.host_view)
+        nbytes_state = sum(v.numel() * v.element_size()
+                           if isinstance(v, torch.Tensor) else v.nbytes
+                           for v in leaves.values())
+        restored = {}
+        for fmt in formats:
+            d = _fresh_ckpt_dir(f"ckpt_card_{opt}_{fmt}")
+            fresh, fresh_step = build(opt)
+            template = state_template(fresh)
+            t0 = time.perf_counter()
+            if fmt == "single":
+                ck.save(d, leaves)
+                shard = d / f"step-{CKPT_STEPS:08d}" / "shard-00000.npz"
+            elif fmt == "host":
+                shard = ck.HostCheckpoint(d).save(leaves, CKPT_STEPS,
+                                                  epoch=0, offset=CKPT_STEPS)
+            else:
+                require(ck.ShardedCheckpoint(
+                    d, rank=0, world_size=1, verbose=False,
+                    compress=True).save(leaves, {p: "rep" for p in leaves},
+                                        CKPT_STEPS, epoch=0,
+                                        offset=CKPT_STEPS),
+                        f"ckpt_card {opt} {fmt}: the step did not seal")
+                shard = d / f"step-{CKPT_STEPS:08d}" / "shard-00000.npz"
+            save_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            ck._sha256_file(shard)
+            hash_s = time.perf_counter() - t0
+
+            def restore():
+                if fmt == "single":
+                    ck.restore(d, fresh)
+                    return
+                tree, _ = (ck.HostCheckpoint(d) if fmt == "host" else
+                           ck.ShardedCheckpoint(d, rank=0, world_size=1,
+                                                verbose=False)
+                           ).restore(template)
+                state_from_leaves(fresh, tree)
+
+            _, restore_s = sync_s(restore)
+            differ = _leaves_equal(fresh.host_view(), leaves)
+            require(not differ, f"ckpt_card {opt} {fmt}: the restored "
+                    f"state differs from the saved one in {differ}")
+            restored[fmt] = (fresh, fresh_step)
+            res[f"{opt}_{fmt}"] = dict(
+                state_bytes=nbytes_state, bytes_on_disk=_dir_bytes(d),
+                copy_to_host_s=copy_s, save_s=save_s,
+                sha256_warm_s=hash_s, restore_s=restore_s,
+                leaves=len(leaves))
+            shutil.rmtree(d, ignore_errors=True)
+        after = batches[CKPT_STEPS:2 * CKPT_STEPS]
+        want = [float(v) for v in run(step, after)]
+        steps += CKPT_STEPS
+        for fmt, (fresh, fresh_step) in restored.items():
+            got = [float(v) for v in run(fresh_step, after)]
+            steps += CKPT_STEPS
+            differ = _leaves_equal(fresh.host_view(), state.host_view())
+            require(got == want and not differ,
+                    f"ckpt_card {opt} {fmt}: {CKPT_STEPS} steps from the "
+                    f"restored state give losses {got} against {want}, "
+                    f"leaves differing {differ}")
+            res[f"{opt}_{fmt}"]["losses_after"] = got
+        del state, step, restored, leaves
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    for key in expected:
+        require(counts.get(key, 0) == steps,
+                f"ckpt_card launched {key} {counts.get(key, 0)} times in "
+                f"{steps} steps")
+    require(set(counts) == set(expected),
+            f"unexpected launches on ckpt_card: {counts}")
+    return dict(image=IMAGE, batch=BATCH, dtype="bf16", steps=steps,
+                formats=res, launches=counts), counts
+
+
+def phase_path_ckpt(ops, mnist_onegpu, expected: list[str],
+                    main_res: dict) -> tuple[dict, dict]:
+    """main_path with --ckpt-dir D --ckpt-every CKPT_EVERY: the same
+    launches, losses bitwise main_path's, its step time beside main_path's
+    of this run, the saver's copy and write seconds, and the last line
+    "saved checkpoint at step N"."""
+    d = _fresh_ckpt_dir("path_ckpt")
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        res, counts, trainer = phase_main_path(
+            ops, mnist_onegpu, expected, phase="path_ckpt", plan="auto",
+            steps=STEPS, flags=["--ckpt-dir", str(d), "--ckpt-every",
+                                str(CKPT_EVERY)])
+    print(log.getvalue(), end="", flush=True)
+    lines = log.getvalue().splitlines()
+    saves = [ln for ln in lines if ln.startswith("checkpoint saved at")]
+    require(lines[-1] == f"saved checkpoint at step {STEPS}"
+            and len(saves) == STEPS // CKPT_EVERY,
+            f"path_ckpt printed {lines}")
+    require(trainer.losses == main_res["losses"],
+            f"path_ckpt losses {trainer.losses} are not main_path's "
+            f"{main_res['losses']}")
+    res["ckpt_timings"] = [dict(step=s, copy_s=c, write_s=w)
+                           for s, c, w in trainer.ckpt_timings]
+    res["bytes_on_disk"] = _dir_bytes(d)
+    res["main_path_step_ms_median_after_first"] = main_res[
+        "step_ms_median_after_first"]
+    res["main_path_step_ms_each"] = main_res["step_ms_each"]
+    import shutil
+
+    shutil.rmtree(d, ignore_errors=True)
+    return res, counts
+
+
+def _elastic_argv(d: Path, *extra: str) -> list[str]:
+    return ["-g", "1", "--plan", "auto", "--image-size", str(IMAGE),
+            "--batch-size", str(BATCH), "--dtype", "bf16", "--synthetic-n",
+            str(ELASTIC_STEPS * BATCH), "--limit-steps", str(ELASTIC_STEPS),
+            "--epochs", "1", "--log-every", "1", "--ckpt-dir", str(d),
+            "--ckpt-every", str(ELASTIC_EVERY), *extra]
+
+
+def _final_leaves(d: Path, template: dict, sharded: bool) -> dict:
+    from tpu_sandbox_torch.train import checkpoint as ck
+
+    if sharded:
+        tree, meta = ck.ShardedCheckpoint(d, rank=0, world_size=1,
+                                          verbose=False).restore(template)
+    else:
+        tree, meta = ck.HostCheckpoint(d).restore(template)
+    require(meta["step"] == ELASTIC_STEPS,
+            f"the final checkpoint under {d} is step {meta['step']}")
+    return tree
+
+
+def _npz_template(path: Path) -> dict:
+    """A restore template of the leaves an npz checkpoint holds, read from
+    its members' headers (no payload is read)."""
+    import zipfile
+
+    from tpu_sandbox_torch.runtime.staging import read_npy_header
+    from tpu_sandbox_torch.train.checkpoint import ShapeDtype
+
+    out = {}
+    with zipfile.ZipFile(path) as z:
+        for name in z.namelist():
+            if name.startswith("leaf:"):
+                with z.open(name) as f:
+                    shape, _, dtype = read_npy_header(f)
+                out[name[len("leaf:"):-len(".npy")]] = ShapeDtype(shape,
+                                                                   dtype)
+    return out
+
+
+def phase_path_resumable(ops, mnist_distributed,
+                         expected: list[str]) -> tuple[dict, dict, dict]:
+    """mnist_distributed's elastic rank body (train_elastic_worker) in this
+    process at one NCCL rank, against a KV store of this process: the
+    default plan at 3000x3000, batch 5, bf16, ELASTIC_STEPS steps of
+    train_resumable with the non-finite guard and a HostCheckpoint every
+    ELASTIC_EVERY steps; the counters zeroed before and read after: the
+    main path's kinds once a step and no other. Its final checkpoint is
+    path_elastic's reference."""
+    from tpu_sandbox_torch.runtime.kvstore import KVServer
+    from tpu_sandbox_torch.runtime.bootstrap import find_free_port
+
+    d = _fresh_ckpt_dir("path_resumable")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with KVServer() as kv:
+        args = mnist_distributed.build_parser().parse_args(_elastic_argv(
+            d, "--elastic-worker", "--rank", "0", "--port",
+            find_free_port(), "--kv-port", str(kv.port)))
+        log = io.StringIO()
+        ops.reset_launch_counts()
+        t0 = time.monotonic()
+        with contextlib.redirect_stdout(log):
+            mnist_distributed.train_elastic_worker(args, 1)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        counts = ops.launch_counts()
+    print(log.getvalue(), end="", flush=True)
+    lines = log.getvalue().splitlines()
+    for key in expected:
+        require(counts.get(key, 0) == ELASTIC_STEPS,
+                f"path_resumable launched {key} {counts.get(key, 0)} times "
+                f"in {ELASTIC_STEPS} steps")
+    require(set(counts) == set(expected),
+            f"unexpected launches on path_resumable: {counts}")
+    require(f"[gen 1] fresh start; applied {ELASTIC_STEPS} step(s), final "
+            f"step {ELASTIC_STEPS}" in lines, f"path_resumable: {lines}")
+    losses = [float(ln.rsplit(" ", 1)[1]) for ln in lines
+              if ln.startswith("Rank [0]")]
+    require(len(losses) == ELASTIC_STEPS
+            and all(math.isfinite(v) for v in losses),
+            f"path_resumable losses {losses}")
+    template = _npz_template(d / f"step-{ELASTIC_STEPS:08d}.npz")
+    ref = _final_leaves(d, template, sharded=False)
+    res = dict(image=IMAGE, batch=BATCH, dtype="bf16", steps=ELASTIC_STEPS,
+               ckpt_every=ELASTIC_EVERY, losses_printed=losses,
+               wall_s_with_init=wall,
+               peak_memory_bytes=torch.cuda.max_memory_allocated(),
+               bytes_on_disk=_dir_bytes(d), launches=counts)
+    import shutil
+
+    shutil.rmtree(d, ignore_errors=True)
+    return res, counts, (template, ref)
+
+
+def phase_path_elastic(mnist_distributed, template: dict,
+                       ref: dict) -> dict:
+    """mnist_distributed -g 1 --elastic under the single-host supervisor
+    of this process, each generation one worker process (NCCL, one rank),
+    twice: a fault plan that SIGKILLs rank 0 at ELASTIC_FAULT_STEP (two
+    generations, the first charged, exit 0) and --ckpt-sharded with a
+    SIGTERM at the same step (the worker saves and exits 75, which is not
+    charged). Each final checkpoint bitwise path_resumable's. Each
+    generation's seconds."""
+    import os
+    import shutil
+
+    out = {}
+    for name, flags, plan, sharded in (
+            ("kill", [], "kill", False),
+            ("sigterm_sharded", ["--ckpt-sharded"], "sigterm", True)):
+        d = _fresh_ckpt_dir(f"path_elastic_{name}")
+        args = mnist_distributed.build_parser().parse_args(
+            _elastic_argv(d, "--elastic", *flags))
+        env = {"TPU_SANDBOX_FAULT_PLAN": json.dumps([{
+            "rank": 0, "step": ELASTIC_FAULT_STEP, "action": plan,
+            "target": None}]), "TPU_SANDBOX_BACKOFF": "0.1"}
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        log = io.StringIO()
+        t0 = time.monotonic()
+        try:
+            with contextlib.redirect_stdout(log):
+                result = mnist_distributed.spawn_elastic(args, 1)
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        wall = time.monotonic() - t0
+        print(log.getvalue(), end="", flush=True)
+        gens = result.generations
+        first = "failure" if plan == "kill" else "preemption"
+        require([g.outcome for g in gens] == [first, "ok"],
+                 f"path_elastic {name}: generations {gens}")
+        if plan == "kill":
+            require(result.restarts_charged == 1 and result.preemptions == 0,
+                    f"path_elastic {name}: {result.summary()}")
+        else:
+            require(gens[0].exit_codes == [75] and result.restarts_charged == 0
+                    and result.preemptions == 1,
+                    f"path_elastic {name}: {result.summary()}")
+        final = _final_leaves(d, template, sharded)
+        differ = _leaves_equal(final, ref)
+        require(not differ, f"path_elastic {name}: the final state differs "
+                f"from path_resumable's in {differ}")
+        out[name] = dict(flags=flags, fault={"rank": 0,
+                                             "step": ELASTIC_FAULT_STEP,
+                                             "action": plan},
+                         generations=[dict(generation=g.generation,
+                                           outcome=g.outcome,
+                                           exit_codes=g.exit_codes,
+                                           seconds=g.elapsed) for g in gens],
+                         summary=result.summary(), wall_s=wall,
+                         bitwise_vs="path_resumable")
+        shutil.rmtree(d, ignore_errors=True)
+        shutil.rmtree(d.with_name(d.name + ".quarantine"), ignore_errors=True)
+    return out
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3061,7 +3455,7 @@ def main() -> int:
     with timed("ring_kernels"):
         ring_entries, ring_counts = phase_ring_kernels(ops, fa)
     entries.update(ring_entries)
-    counts, main_ms = {}, None
+    counts, main_ms, main_res = {}, None, None
     for phase, plan, options, steps, kinds in PATHS:
         with timed(phase):
             res, counts[phase], trainer = phase_main_path(
@@ -3074,6 +3468,7 @@ def main() -> int:
                         "the card's default plan is not the JAX package's "
                         f"whole chip plan: {res}")
                 main_ms = res["step_ms_median_after_first"]
+                main_res = res
                 emit(phase, **res)
                 phase_profile(trainer)
             else:
@@ -3091,6 +3486,20 @@ def main() -> int:
              main_path_step_ms_median_after_first=main_ms)
     counts.update(phase_path_dp_ext(ops, mnist_distributed, MAIN_KINDS,
                                     dp_res))
+    with timed("ckpt_card"):
+        res, counts["ckpt_card"] = phase_ckpt_card(ops, MAIN_KINDS)
+        emit("ckpt_card", **res)
+    with timed("path_ckpt"):
+        res, counts["path_ckpt"] = phase_path_ckpt(ops, mnist_onegpu,
+                                                   MAIN_KINDS, main_res)
+        emit("path_ckpt", **res)
+    with timed("path_resumable"):
+        res, counts["path_resumable"], ref = phase_path_resumable(
+            ops, mnist_distributed, MAIN_KINDS)
+        emit("path_resumable", **res)
+    with timed("path_elastic"):
+        emit("path_elastic", **phase_path_elastic(mnist_distributed, *ref))
+        del ref
     with timed("lm_path"):
         run, counts["lm_path"], lm_ref = phase_lm_path(ops, lm_train)
         phase_lm_profile(lm_train, run)
@@ -3115,6 +3524,7 @@ def main() -> int:
     steps_of = {phase: steps for phase, _, _, steps, _ in PATHS}
     steps_of["lm_path"] = STEPS
     steps_of["path_dp"] = DP_STEPS
+    steps_of.update(path_ckpt=STEPS, path_resumable=ELASTIC_STEPS)
     steps_of.update({f"path_dp_ext_{m}": DP_STEPS for m, _ in DP_EXT_MODES})
     steps_of.update({f"path_sp_{a}": SP_STEPS for a in SP_SCHEMES},
                     ring_kernels=1)

@@ -7,8 +7,10 @@ The scripts run once for the module, all at the same time, each with a
 time limit: ``mnist_distributed -g 2`` (one process spawning two ranks)
 and ``-n 2 -nr 0`` / ``-n 2 -nr 1`` (two processes sharing
 ``MASTER_PORT``, the multi-node form) train the same job and must log the
-same losses. The data-parallel extensions' flags parse (their runs:
-tests/test_torch_dp_ext_entry.py)."""
+same losses. The data-parallel extensions', the checkpoints' and the
+elastic runs' flags parse (their runs: tests/test_torch_dp_ext_entry.py,
+tests/test_torch_elastic_entry.py); the cross-host agent flags are
+refused."""
 
 import os
 import re
@@ -140,12 +142,18 @@ def test_unported_flag_is_refused(flag, capsys):
     assert f"{flag} is not ported yet (ROADMAP queue 1 item" in err
 
 
-#: the flags of the data-parallel extensions, lifted from the refusals:
-#: (argv, the parsed value)
+#: the flags of the data-parallel extensions, the checkpoints and the
+#: single-host elastic runs, lifted from the refusals: (argv, the parsed
+#: value)
 LIFTED = {
     "--zero": ([], True), "--grad-compress": (["bf16"], "bf16"),
     "--no-error-feedback": ([], True), "--overlap-grad-sync": ([], True),
     "--bucket-mb": (["4.5"], 4.5),
+    "--ckpt-every": (["2"], 2), "--ckpt-dir": (["ck"], "ck"),
+    "--resume": ([], True), "--ckpt-sharded": ([], True),
+    "--ckpt-verify-interval": (["1.5"], 1.5), "--ckpt-compress": ([], True),
+    "--elastic": ([], True), "--elastic-worker": ([], True),
+    "--max-restarts": (["5"], 5), "--kv-port": (["4321"], "4321"),
 }
 
 

@@ -56,6 +56,13 @@ def test_import_loads_no_jax_and_no_jax_package():
         "import tpu_sandbox_torch.test_init\n"
         "import tpu_sandbox_torch.allreduce_toy\n"
         "import tpu_sandbox_torch.mnist_distributed\n"
+        "import tpu_sandbox_torch.runtime.staging\n"
+        "import tpu_sandbox_torch.runtime.kvstore\n"
+        "import tpu_sandbox_torch.runtime.watchdog\n"
+        "import tpu_sandbox_torch.runtime.faults\n"
+        "import tpu_sandbox_torch.runtime.supervisor\n"
+        "import tpu_sandbox_torch.obs, tpu_sandbox_torch.obs.record\n"
+        "import tpu_sandbox_torch.train.checkpoint\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "print(','.join(sorted(bad)))\n"
@@ -100,8 +107,9 @@ def test_native_build_reads_the_ports_own_source():
 
     assert build.SRC == ROOT / "tpu_sandbox_torch" / "native" / "src"
     assert build.BUILD == ROOT / "tpu_sandbox_torch" / "_build"
-    assert (build.SRC / "dataloader.cpp").is_file()
-    assert build.target("dataloader").parent == build.BUILD
+    for name in ("dataloader", "kvstore"):
+        assert (build.SRC / f"{name}.cpp").is_file()
+        assert build.target(name).parent == build.BUILD
     for path in (ROOT / "tpu_sandbox_torch" / "native").rglob("*"):
         if path.is_file() and path.suffix in (".py", ".cpp"):
             text = path.read_text()

@@ -157,14 +157,27 @@ def test_entry_script_needs_the_card_or_force_cpu():
     assert "CUDA is not available" in proc.stderr
 
 
-def test_entry_script_refuses_unported_flags():
-    """The checkpoint flags are not ported yet: argparse refuses all
-    three."""
-    proc = _run_entry("--force-cpu", "--resume", "--ckpt-dir", "ck",
-                      "--ckpt-every", "5")
-    assert proc.returncode == 2
-    assert ("unrecognized arguments: --resume --ckpt-dir ck --ckpt-every 5"
-            in proc.stderr)
+def test_entry_script_checkpoints_and_resumes(tmp_path):
+    """``--ckpt-dir D --ckpt-every 2`` saves every 2 steps and at the end;
+    ``--resume`` then restores the newest step and goes on counting from
+    it (the JAX script's lines)."""
+    flags = ("--force-cpu", "--image-size", "32", "--limit-steps", "4",
+             "--epochs", "1", "--synthetic-n", "40", "--log-every", "2",
+             "--ckpt-dir", str(tmp_path / "ck"), "--ckpt-every", "2")
+    first = _run_entry(*flags)
+    assert first.returncode == 0, first.stderr
+    lines = first.stdout.splitlines()
+    assert [x for x in lines if x.startswith("checkpoint saved")] == [
+        "checkpoint saved at step 2", "checkpoint saved at step 4"]
+    assert lines[-1] == "saved checkpoint at step 4"
+    again = _run_entry(*flags, "--resume")
+    assert again.returncode == 0, again.stderr
+    lines = again.stdout.splitlines()
+    assert "resumed from step 4" in lines
+    assert "checkpoint saved at step 6" in lines
+    assert lines[-1] == "saved checkpoint at step 8"
+    assert sorted(p.name for p in (tmp_path / "ck").iterdir()) == [
+        "LAYOUT", "step-00000004", "step-00000006", "step-00000008"]
 
 
 # -- gradient accumulation ---------------------------------------------------

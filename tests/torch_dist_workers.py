@@ -860,3 +860,56 @@ def entry_worker(rank: int, world_size: int, out_dir: str,
             setattr(module, attr, build)
         out[name] = log.getvalue()
     _save(out_dir, rank, out)
+
+
+GUARD_IMAGE, GUARD_BS = 32, 2
+
+
+def guard_worker(rank: int, world_size: int, out_dir: str,
+                 in_path: str) -> None:
+    """The non-finite guard of ``DataParallel.train_step(guard=True)`` under
+    ZeRO-1, int8 error feedback, the bucketed sync and AdamW: one good
+    step, then a step whose loss is NaN on rank 1 only (every rank must
+    skip it and keep its whole state bitwise), then ``train_resumable``
+    over batches that are NaN on rank 0 only (every rank must abort on
+    the third)."""
+    from tpu_sandbox_torch.train import AbortOnAnomaly, train_resumable
+
+    torch.set_num_threads(1)
+    bootstrap.init(device="cpu")
+    try:
+        inputs = torch.load(in_path, weights_only=False)
+        model = ConvNet((GUARD_IMAGE, GUARD_IMAGE), device="cpu")
+        model.load_state_dict(inputs["init"])
+        state = TrainState(model, optimizer=AdamW(
+            model.parameters(), constant_schedule(1e-3)))
+        dp = DataParallel(model, image_size=(GUARD_IMAGE, GUARD_IMAGE),
+                          zero=True, grad_compress="int8",
+                          overlap_grad_sync=True, bucket_mb=0.001)
+        dp.shard_state(state)
+
+        def batch(i, poison_rank=None):
+            x, y = inputs["batches"][i]
+            x, y = dp.shard_batch(x, y)
+            x = torch.from_numpy(x.copy())
+            if rank == poison_rank:
+                x[0, 0, 0, 0] = float("nan")
+            return x, torch.from_numpy(y).long()
+
+        out = {"first": dp.train_step(state, *batch(0), guard=True)}
+        out["before"] = state.host_view()
+        out["poisoned"] = dp.train_step(state, *batch(1, poison_rank=1),
+                                        guard=True)
+        out["after"] = state.host_view()
+        bad = [batch(i, poison_rank=0) for i in range(1, 4)]
+        try:
+            train_resumable(lambda s, x, y: dp.train_step(s, x, y,
+                                                          guard=True),
+                            state, bad, 1, max_bad_steps=3, verbose=False)
+            out["aborted"] = False
+        except AbortOnAnomaly as e:
+            out["aborted"] = str(e)
+        out["end"] = state.host_view()
+        _save(out_dir, rank, out)
+    finally:
+        bootstrap.cleanup()

@@ -26,15 +26,35 @@ the next batch and enqueues its copy to the rank's device in a background
 thread (on the card that copy runs on the default stream, after the
 current step's kernels).
 
+Checkpoints (``--ckpt-dir D``, ``--ckpt-every N``, ``--resume``): every
+rank restores the newest step of D before the first sync, and rank 0
+saves the single-device view (``DataParallel.unshard_state``: rank 0's BN
+statistics) in ``mnist_onegpu``'s format, every N steps and at the end,
+so the two scripts' checkpoints interoperate.
+
+``--elastic`` runs the ranks under the single-host supervisor
+(``runtime/supervisor.py``): each generation spawns one ``python -m
+tpu_sandbox_torch.mnist_distributed --elastic-worker --rank r`` a rank on
+a fresh coordinator port, with a KV store for heartbeats, rendezvous,
+fault claims and the preemption flag. A worker trains in
+``train_resumable``: it checkpoints with the data order (rank 0's npz, or
+with ``--ckpt-sharded`` or ``--zero`` every rank's shard sealed by a
+manifest), resumes where the newest valid step left off, skips a step
+whose loss is not finite on any rank, and on SIGTERM saves and exits 75,
+which the supervisor does not charge to ``--max-restarts``. The
+``TPU_SANDBOX_*`` environment (fault plan, backoff, watchdog, commit
+timeout) is the JAX package's.
+
 Not ported yet, and refused by argparse with their ROADMAP item: the
-checkpoint flags and the elastic, agent, pool and KV flags (queue 1 item
-6).
+cross-host agent, cluster pool and KV-bind flags (queue 1 item 6b).
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import sys
+from pathlib import Path
 
 import torch
 
@@ -49,9 +69,15 @@ from tpu_sandbox_torch.parallel.data_parallel import DataParallel
 from tpu_sandbox_torch.parallel.launch import spawn
 from tpu_sandbox_torch.runtime import bootstrap
 from tpu_sandbox_torch.train import SGD, AdamW, Trainer, TrainState
+from tpu_sandbox_torch.train import checkpoint as ckpt
 from tpu_sandbox_torch.train.optim import constant_schedule
 from tpu_sandbox_torch.utils import exact_fp32
-from tpu_sandbox_torch.utils.cli import add_grad_compress_cli, add_overlap_cli
+from tpu_sandbox_torch.utils.cli import (
+    add_checkpoint_cli,
+    add_elastic_cli,
+    add_grad_compress_cli,
+    add_overlap_cli,
+)
 from tpu_sandbox_torch.utils.device import rank_device
 
 IMAGE_SHAPE = [3000, 3000]
@@ -61,25 +87,20 @@ LR = 1e-4
 TIMEOUT = 3600.0
 
 #: flag -> (takes a value, ROADMAP item): refused until ported
+_ITEM_6B = "queue 1 item 6b, elastic agents and the cluster pool"
 UNPORTED = {
-    "--ckpt-every": (True, "queue 1 item 6, checkpoints"),
-    "--ckpt-dir": (True, "queue 1 item 6, checkpoints"),
-    "--resume": (False, "queue 1 item 6, checkpoints"),
-    "--ckpt-sharded": (False, "queue 1 item 6, checkpoints"),
-    "--ckpt-verify-interval": (True, "queue 1 item 6, checkpoints"),
-    "--ckpt-compress": (False, "queue 1 item 6, checkpoints"),
-    "--elastic": (False, "queue 1 item 6, elastic resume"),
-    "--elastic-worker": (False, "queue 1 item 6, elastic resume"),
-    "--max-restarts": (True, "queue 1 item 6, elastic resume"),
-    "--agents": (True, "queue 1 item 6, elastic resume"),
-    "--agent-id": (True, "queue 1 item 6, elastic resume"),
-    "--leader": (False, "queue 1 item 6, elastic resume"),
-    "--job-id": (True, "queue 1 item 6, elastic resume"),
-    "--priority": (True, "queue 1 item 6, elastic resume"),
-    "--pool": (True, "queue 1 item 6, elastic resume"),
-    "--kv-bind": (True, "queue 1 item 6, elastic resume"),
-    "--kv-port": (True, "queue 1 item 6, elastic resume"),
+    "--agents": (True, _ITEM_6B),
+    "--agent-id": (True, _ITEM_6B),
+    "--leader": (False, _ITEM_6B),
+    "--job-id": (True, _ITEM_6B),
+    "--priority": (True, _ITEM_6B),
+    "--pool": (True, _ITEM_6B),
+    "--kv-bind": (True, _ITEM_6B),
 }
+
+#: the package's parent directory: the supervisor's workers import the
+#: package from there whatever their working directory
+_ROOT = str(Path(__file__).resolve().parent.parent)
 
 
 #: the JAX script's note on ``--zero`` with ``--opt sgd`` (:51-53)
@@ -125,6 +146,28 @@ def make_optimizer(args, model):
     return AdamW(model.parameters(), constant_schedule(LR))
 
 
+def _build(args, device, world_size: int, rank: int, *,
+           model_options: dict | None = None):
+    """The model, its state (with ``--opt``'s optimizer), this rank's
+    loader and the data-parallel engine, as every rank builds them."""
+    image_shape = (args.image_size, args.image_size)
+    dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
+    model = pick_convnet(image_shape, plan=args.plan, num_classes=10,
+                         dtype=dtype, seed=0, device=device,
+                         **(model_options or {}))
+    state = TrainState(model, lr=LR, optimizer=make_optimizer(args, model))
+    images, labels = load_training_arrays(args, world_size,
+                                          verbose=rank == 0)
+    loader = ShardedBatchLoader(images, labels, args.batch_size,
+                                world_size, shuffle=True, seed=0, rank=rank)
+    dp = DataParallel(model, image_size=image_shape, zero=args.zero,
+                      grad_compress=args.grad_compress,
+                      error_feedback=not args.no_error_feedback,
+                      overlap_grad_sync=args.overlap_grad_sync,
+                      bucket_mb=args.bucket_mb)
+    return state, loader, dp
+
+
 def train(args, rank: int = 0, world_size: int = 1, local_rank: int = 0, *,
           model_options: dict | None = None):
     """One rank's run, in this process, on GPU ``local_rank`` (or the CPU):
@@ -135,37 +178,245 @@ def train(args, rank: int = 0, world_size: int = 1, local_rank: int = 0, *,
         exact_fp32()
     bootstrap.init(None, world_size, rank, device=device)
     try:
-        image_shape = (args.image_size, args.image_size)
-        dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
-        model = pick_convnet(image_shape, plan=args.plan, num_classes=10,
-                             dtype=dtype, seed=0, device=device,
-                             **(model_options or {}))
-        state = TrainState(model, lr=LR,
-                           optimizer=make_optimizer(args, model))
-        images, labels = load_training_arrays(args, world_size,
-                                              verbose=rank == 0)
-        loader = ShardedBatchLoader(images, labels, args.batch_size,
-                                    world_size, shuffle=True, seed=0,
-                                    rank=rank)
-        dp = DataParallel(model, image_size=image_shape, zero=args.zero,
-                          grad_compress=args.grad_compress,
-                          error_feedback=not args.no_error_feedback,
-                          overlap_grad_sync=args.overlap_grad_sync,
-                          bucket_mb=args.bucket_mb)
+        state, loader, dp = _build(args, device, world_size, rank,
+                                   model_options=model_options)
+        if args.ckpt_dir and args.resume:
+            if ckpt.latest_step(args.ckpt_dir) is not None:
+                ckpt.restore(args.ckpt_dir, state)
+                if rank == 0:
+                    print(f"resumed from step {state.step}")
         state = dp.shard_state(state)
         trainer = Trainer(lambda x, y: dp.train_step(state, x, y), device,
                           log_every=args.log_every, log_rank=0,
-                          verbose=rank == 0)
+                          verbose=rank == 0, ckpt_dir=args.ckpt_dir,
+                          ckpt_every=args.ckpt_every,
+                          state_for_checkpoint=dp.unshard_state,
+                          ckpt_writer=rank == 0)
         state = trainer.fit(state, loader, args.epochs, set_epoch=False,
                             prefetch=args.prefetch)
+        if args.ckpt_dir:
+            # the single-device view (rank 0's BN statistics), the layout
+            # mnist_onegpu saves: the two scripts' checkpoints interoperate
+            view = dp.unshard_state(state)
+            if rank == 0:
+                print(f"saved checkpoint at step {ckpt.save(args.ckpt_dir, view)}")
     finally:
         bootstrap.cleanup()
     return trainer, state
 
 
+def train_elastic_worker(args, world_size: int) -> None:
+    """One rank of an elastic generation: heartbeat and generation-scoped
+    rendezvous over the supervisor's KV store, fault injection from the
+    environment's plan, resumable training with coordination-free
+    checkpoints (rank 0's npz, or every rank's shard sealed by rank 0's
+    manifest, which ``--zero`` requires), and SIGTERM → save → exit 75 so
+    the supervisor restarts the generation without charging its budget."""
+    from tpu_sandbox_torch.runtime import Heartbeat, wait_for_world
+    from tpu_sandbox_torch.runtime.faults import FaultInjector, FaultPlan
+    from tpu_sandbox_torch.runtime.kvstore import KVClient, for_job
+    from tpu_sandbox_torch.train import (
+        PREEMPTED_EXIT_CODE,
+        ElasticEnv,
+        Preempted,
+        PreemptionHandler,
+        build_elastic_checkpoint,
+        train_resumable,
+    )
+    from tpu_sandbox_torch.utils.bridge import state_template
+
+    rank = args.rank
+    if args.force_cpu:
+        _cpu_rank_threads(world_size)
+    eenv = ElasticEnv.from_env()
+    kv = for_job(KVClient(port=int(args.kv_port)), eenv.job_id)
+    hb = Heartbeat(kv, rank, interval=0.5).start()
+    preemption = PreemptionHandler(kv)
+    plan = FaultPlan.from_env()
+    injector = None
+    if plan.faults:
+        injector = FaultInjector(
+            plan, rank, kv,
+            on_hang_heartbeat=lambda: hb.stop(deregister=False),
+            agent_id=eenv.agent_id,
+        )
+    wait_for_world(kv, world_size, rank, timeout=120.0)
+    device = rank_device(rank, args.force_cpu)
+    if device.type == "cuda":
+        exact_fp32()
+    bootstrap.init(f"127.0.0.1:{args.port}", world_size, rank, device=device)
+    # after init_process_group: whoever installs last owns SIGTERM
+    preemption.install()
+    state, loader, dp = _build(args, device, world_size, rank)
+    template = state_template(state)           # global shapes, before ZeRO
+
+    def agree_preempt(flag: bool) -> bool:
+        """OR of every rank's flag: one all-reduce at each boundary."""
+        vote = torch.tensor([1.0 if flag else 0.0], device=device)
+        return float(dp.group.all_reduce(vote, "sum")) > 0
+
+    gen = eenv.generation
+    save_fn = restore_fn = verifier = None
+    if args.ckpt_dir:
+        save_fn, restore_fn, verifier = build_elastic_checkpoint(
+            args.ckpt_dir, dp=dp, state=state, template=template, rank=rank,
+            world_size=world_size,
+            sharded=bool(args.ckpt_sharded or args.zero),
+            kv=kv, injector=injector,
+            verify_interval=args.ckpt_verify_interval,
+            commit_timeout=float(
+                os.environ.get("TPU_SANDBOX_COMMIT_TIMEOUT", 60.0)),
+            generation=gen, verbose=rank == 0, compress=args.ckpt_compress,
+        )
+    if verifier is not None:
+        verifier.start()
+    state = dp.shard_state(state)
+    try:
+        state, report = train_resumable(
+            lambda s, x, y: dp.train_step(s, x, y, guard=True), state,
+            loader, args.epochs, save_fn=save_fn, restore_fn=restore_fn,
+            ckpt_every=args.ckpt_every, preemption=preemption,
+            agree_fn=agree_preempt if world_size > 1 else None,
+            injector=injector, log_every=args.log_every, log_rank=rank,
+            verbose=rank == 0, set_epoch=False, prefetch=args.prefetch,
+            device=device,
+        )
+        if rank == 0:
+            resumed = (f"resumed from step {report.resumed_step}"
+                       if report.resumed_step is not None else "fresh start")
+            print(f"[gen {gen}] {resumed}; applied {report.steps_applied} "
+                  f"step(s), final step {report.final_step}", flush=True)
+        if save_fn is not None:
+            save_fn(state, report.final_step, args.epochs, 0)
+    except Preempted:
+        hb.stop(deregister=True)
+        bootstrap.cleanup()
+        sys.exit(PREEMPTED_EXIT_CODE)
+    except BaseException:
+        # a peer's preemption can surface here as a collective error; if
+        # the flag is up, this exit is a preemption too (the supervisor
+        # classifies by the initiators' codes)
+        if preemption.requested():
+            hb.stop(deregister=True)
+            sys.exit(PREEMPTED_EXIT_CODE)
+        raise
+    finally:
+        preemption.uninstall()
+        if verifier is not None:
+            verifier.stop()
+    bootstrap.cleanup()
+    hb.stop(deregister=True)
+
+
+def _elastic_passthrough(args) -> list[str]:
+    """The worker-facing flags, re-serialized for the child processes."""
+    passthrough = [
+        "-n", str(args.nodes), "-g", str(args.gpus),
+        "--epochs", str(args.epochs), "--batch-size", str(args.batch_size),
+        "--image-size", str(args.image_size),
+        "--synthetic-n", str(args.synthetic_n),
+        "--log-every", str(args.log_every), "--dtype", args.dtype,
+        "--plan", args.plan, "--opt", args.opt,
+    ]
+    if args.data_dir:
+        passthrough += ["--data-dir", args.data_dir]
+    if args.limit_steps:
+        passthrough += ["--limit-steps", str(args.limit_steps)]
+    if args.ckpt_dir:
+        passthrough += ["--ckpt-dir", args.ckpt_dir]
+    if args.ckpt_every:
+        passthrough += ["--ckpt-every", str(args.ckpt_every)]
+    if args.zero:
+        passthrough += ["--zero"]
+    if args.ckpt_sharded:
+        passthrough += ["--ckpt-sharded"]
+    if args.ckpt_verify_interval:
+        passthrough += ["--ckpt-verify-interval",
+                        str(args.ckpt_verify_interval)]
+    if args.ckpt_compress:
+        passthrough += ["--ckpt-compress"]
+    if args.grad_compress != "none":
+        passthrough += ["--grad-compress", args.grad_compress]
+    if args.no_error_feedback:
+        passthrough += ["--no-error-feedback"]
+    if args.overlap_grad_sync:
+        passthrough += ["--overlap-grad-sync"]
+    if args.bucket_mb != 25.0:
+        passthrough += ["--bucket-mb", str(args.bucket_mb)]
+    if args.prefetch:
+        passthrough += ["--prefetch"]
+    if args.force_cpu:
+        passthrough += ["--force-cpu"]
+    return passthrough
+
+
+def _validate_fault_plan() -> None:
+    from tpu_sandbox_torch.runtime.faults import FaultPlan
+
+    try:
+        # fail fast here: a malformed plan would otherwise crash every
+        # worker at startup and silently burn the whole restart budget
+        FaultPlan.from_env()
+    except (TypeError, ValueError) as e:
+        raise SystemExit(f"invalid TPU_SANDBOX_FAULT_PLAN: {e}") from e
+
+
+def spawn_elastic(args, world_size: int):
+    """Run the ranks under the elastic supervisor: crashes and preemptions
+    tear the generation down and relaunch it on a fresh coordinator port;
+    the workers resume from the newest valid checkpoint with exact data
+    order. Returns the supervisor's ``ElasticResult``."""
+    from tpu_sandbox_torch.runtime.supervisor import (
+        RestartBudgetExceeded,
+        Supervisor,
+    )
+
+    _validate_fault_plan()
+    if not args.ckpt_dir:
+        print("note: --elastic without --ckpt-dir restarts from step 0 "
+              "(pass --ckpt-dir/--ckpt-every to resume where the crash hit)")
+    passthrough = _elastic_passthrough(args)
+
+    def build(gen, kv_port):
+        port = bootstrap.find_free_port()  # fresh coordinator port per gen
+        base = [sys.executable, "-m", "tpu_sandbox_torch.mnist_distributed",
+                "--elastic-worker", "--port", port, "--kv-port",
+                str(kv_port)] + passthrough
+        return [base + ["--rank", str(r)] for r in range(world_size)]
+
+    path = os.environ.get("PYTHONPATH")
+    sup = Supervisor(
+        world_size, build,
+        max_restarts=args.max_restarts,
+        backoff=float(os.environ.get("TPU_SANDBOX_BACKOFF", 1.0)),
+        heartbeat_timeout=float(
+            os.environ.get("TPU_SANDBOX_WATCHDOG_TIMEOUT", 60.0)),
+        grace=float(os.environ.get("TPU_SANDBOX_WATCHDOG_GRACE", 180.0)),
+        term_timeout=float(os.environ.get("TPU_SANDBOX_TERM_TIMEOUT", 30.0)),
+        extra_env={"PYTHONPATH": _ROOT + (os.pathsep + path if path else "")},
+    )
+    try:
+        result = sup.run()
+    except RestartBudgetExceeded as e:
+        raise SystemExit(str(e))
+    if not result.ok:
+        # preempted from outside: saved state, clean stop, propagate 75
+        sys.exit(result.generations[-1].exit_codes[0] or 0)
+    return result
+
+
+def _cpu_rank_threads(ranks: int) -> None:
+    """A CPU rank's intra-op threads: ``OMP_NUM_THREADS`` when it is set
+    (one thread a rank makes a CPU run's reductions repeatable under
+    load), else its share of the cores."""
+    n = os.environ.get("OMP_NUM_THREADS")
+    torch.set_num_threads(int(n) if n else max(1, (os.cpu_count() or 1)
+                                               // ranks))
+
+
 def _rank_main(rank: int, world_size: int, args) -> None:
     if args.force_cpu:
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // args.gpus))
+        _cpu_rank_threads(args.gpus)
     train(args, rank, world_size, int(os.environ["LOCAL_RANK"]))
 
 
@@ -200,6 +451,7 @@ def build_parser() -> argparse.ArgumentParser:
                         default="auto",
                         help="ConvNet execution plan, as mnist_onegpu's")
     parser.add_argument("--dtype", choices=["bf16", "fp32"], default="bf16")
+    add_checkpoint_cli(parser)
     add_grad_compress_cli(parser)
     add_overlap_cli(parser)
     parser.add_argument("--force-cpu", action="store_true",
@@ -208,6 +460,13 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--multiprocess", action="store_true",
                         help="accepted for launch compatibility: ranks are "
                              "always OS processes here")
+    add_elastic_cli(parser)
+    parser.add_argument("--elastic-worker", action="store_true",
+                        help=argparse.SUPPRESS)
+    parser.add_argument("--rank", type=int, default=0, help=argparse.SUPPRESS)
+    parser.add_argument("--port", type=str, default="", help=argparse.SUPPRESS)
+    parser.add_argument("--kv-port", type=str, default="",
+                        help=argparse.SUPPRESS)
     for flag, (takes_value, _) in UNPORTED.items():
         parser.add_argument(flag, action=_Refuse,
                             nargs="?" if takes_value else 0,
@@ -218,9 +477,13 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     args = build_parser().parse_args(argv)
     world_size = args.gpus * args.nodes                      # reference :123
+    if args.elastic_worker:
+        return train_elastic_worker(args, world_size)
     if args.zero and args.opt == "sgd":
         print(ZERO_SGD_NOTE)                # once, from the launcher
     rank_device(args.gpus - 1, args.force_cpu)      # enough cards, or raise
+    if args.elastic:
+        return spawn_elastic(args, world_size)
     if world_size == 1:
         return train(args)
     init_method = None

@@ -19,9 +19,13 @@ into K microbatches with one SGD update (the single-device out-of-memory
 workaround; the ragged last batch is dropped), ``--native-loader`` feeds
 batches from the C++ prefetching loader, and ``--profile DIR`` writes a
 torch.profiler trace of training into DIR. Without MNIST IDX files a
-deterministic synthetic MNIST stands in. The JAX script's checkpoint
-flags (--ckpt-every, --ckpt-dir, --resume) are not ported yet and
-argparse refuses them.
+deterministic synthetic MNIST stands in. ``--ckpt-dir D`` saves a
+checkpoint there after training ("saved checkpoint at step N") and, with
+``--ckpt-every N``, every N steps while training (copied to the host at
+the step, written in the background); ``--resume`` first restores the
+newest step of D ("resumed from step N"). The format is the port's
+single-device one (``train/checkpoint.py``), which
+``mnist_distributed``'s checkpoints share.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from tpu_sandbox_torch.data import (
     synthetic_mnist,
 )
 from tpu_sandbox_torch.models import pick_convnet
+from tpu_sandbox_torch.train import checkpoint as ckpt
 from tpu_sandbox_torch.train import (
     Trainer,
     TrainState,
@@ -94,9 +99,14 @@ def train(args, *, model_options: dict | None = None):
                              args.batch_size, shuffle=True, seed=0,
                              drop_last=drop_last)
 
+    if args.ckpt_dir and args.resume:
+        if ckpt.latest_step(args.ckpt_dir) is not None:
+            ckpt.restore(args.ckpt_dir, state)
+            print(f"resumed from step {state.step}")
     step = make_train_step(state, image_size=image_shape,
                            accum_steps=args.accum_steps)
-    trainer = Trainer(step, device, log_every=args.log_every)
+    trainer = Trainer(step, device, log_every=args.log_every,
+                      ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every)
     profile_ctx = (trace(args.profile, cuda=device.type == "cuda")
                    if args.profile else contextlib.nullcontext())
     with profile_ctx:
@@ -127,6 +137,8 @@ def train(args, *, model_options: dict | None = None):
                   f"mean loss {loss_sum / batches:.4f}")
         else:
             print("Eval: no test data available, skipped")
+    if args.ckpt_dir:
+        print(f"saved checkpoint at step {ckpt.save(args.ckpt_dir, state)}")
     return trainer, state
 
 
@@ -162,6 +174,14 @@ def build_parser() -> argparse.ArgumentParser:
                         help="compute dtype; params and loss stay fp32")
     parser.add_argument("--native-loader", action="store_true",
                         help="use the C++ prefetching data loader")
+    parser.add_argument("--ckpt-every", type=int, default=0, metavar="N",
+                        help="with --ckpt-dir: also save every N steps "
+                             "(crash recovery), not just at the end")
+    parser.add_argument("--ckpt-dir", type=str, default=None,
+                        help="save a checkpoint here after training")
+    parser.add_argument("--resume", action="store_true",
+                        help="restore the latest checkpoint from --ckpt-dir "
+                             "first")
     parser.add_argument("--profile", type=str, default=None, metavar="DIR",
                         help="write a torch.profiler trace of training into "
                              "DIR (view in Perfetto or chrome://tracing)")

@@ -36,12 +36,27 @@ the counterpart of the reference's ``DistributedDataParallel(model)``
 The buckets follow JAX's flatten order of the parameters (``names``: the
 dotted names sorted part by part, as ``jax.tree.flatten`` orders Flax's
 nested dicts), so that a bucket holds the leaves it holds in JAX.
-The sharded checkpoint hooks are not ported yet: they raise
-``NotImplementedError`` naming their ROADMAP item.
+
+Checkpoints (JAX :184-358) speak JAX's leaf paths (``utils/bridge.py``):
+``host_view`` is this rank's part of a sharded checkpoint (its BN
+statistics and residual behind a leading axis of 1, its ZeRO-1 blocks),
+``checkpoint_spec`` the kind of each leaf ("shard0" for those, "rep" for
+the rest), ``checkpoint_template`` the restore template with the
+residual's slot; ``shard_state(state, host)`` places a restored host
+tree (every rank's own replica with ``stats_expanded``),
+``shard_state_local`` a partial restore; ``unshard_state`` is the
+single-device view that ``train/checkpoint.py::save`` takes.
+
+``train_step(..., guard=True)`` is the step of the resumable loop: it
+decides after the forward, before the backward, whether every rank's
+loss is finite (one all-reduce of a flag); when one is not, it puts back
+the BN statistics the forward moved and skips the backward and the
+update on every rank, so the whole state stays bitwise what it was.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.distributed as dist
 import torch.nn as nn
@@ -57,10 +72,13 @@ from tpu_sandbox_torch.parallel.collectives import (
     CollectiveGroup,
     CompressedAllReduce,
 )
+from tpu_sandbox_torch.train.checkpoint import ShapeDtype
 from tpu_sandbox_torch.train.state import TrainState
 from tpu_sandbox_torch.train.trainer import prepare_inputs
+from tpu_sandbox_torch.utils.bridge import state_from_leaves, state_refs
 
-_CKPT = "sharded checkpoints are not ported yet (ROADMAP queue 1 item 6)"
+#: leaves that hold one value a rank (BN statistics, the int8 residual)
+PER_REPLICA = ("batch_stats/", "grad_residual/")
 _LOWER = ("ahead-of-time lowering has no counterpart yet (ROADMAP queue 1 "
           "item 12)")
 
@@ -127,17 +145,91 @@ class DataParallel:
     # -- state --------------------------------------------------------------
 
     @torch.no_grad()
-    def shard_state(self, state: TrainState) -> TrainState:
+    def shard_state(self, state: TrainState, host: dict | None = None, *,
+                    stats_expanded: bool = False) -> TrainState:
         """Every rank takes group rank 0's parameters; BN statistics stay
         this rank's own. Under ``zero`` the optimizer steps this rank's
         dim-0 block of each eligible parameter, its state cut alike; with
-        error feedback the residual starts at zeros."""
+        error feedback the residual starts at zeros.
+
+        ``host`` is a restored host tree in JAX's leaf paths (global
+        values: whole optimizer leaves, whatever world size wrote them, so
+        this is also the reshard), loaded into the state first. With
+        ``stats_expanded`` its BN statistics and residual carry a leading
+        axis of one replica a rank, and each rank takes its own: the
+        exact per-replica resume at an unchanged world size."""
+        if host is not None:
+            self._load(state, host, stats_expanded)
         self.group.broadcast_params_(self.model.parameters())
-        if self.zero:
+        if self.zero and all(r is None for r in self.rows):
             self._shard_optimizer(state.optimizer)
         if self.compress.needs_residual and state.grad_residual is None:
             state.grad_residual = [torch.zeros_like(p, dtype=torch.float32)
                                    for p in self.params]
+        return state
+
+    def _rows_of(self, path: str):
+        """ZeRO-1 rows of the parameter an optimizer leaf belongs to (None:
+        not sharded, or not an optimizer leaf of a parameter)."""
+        parts = path.split("/")
+        if parts[0] != "opt_state" or len(parts) < 4:
+            return None
+        name = ".".join(parts[3:])
+        return self.rows[self.names.index(name)] if name in self.names \
+            else None
+
+    def _load(self, state: TrainState, host: dict,
+              stats_expanded: bool) -> None:
+        """Write a global host tree into this rank's state: its replica of
+        the per-replica leaves, its rows of each sharded optimizer leaf."""
+        local = {}
+        for path, value in host.items():
+            if stats_expanded and path.startswith(PER_REPLICA):
+                value = value[self.rank]
+            rows = self._rows_of(path)
+            local[path] = value if rows is None else value[rows]
+        state_from_leaves(state, local)
+        self._refresh_blocks()
+
+    @torch.no_grad()
+    def _refresh_blocks(self) -> None:
+        """ZeRO-1's block parameters take their rows of the (restored)
+        parameters: the optimizer steps the blocks, not the parameters."""
+        for p, rows, u in zip(self.params, self.rows, self.updates):
+            if rows is not None:
+                u.copy_(p[rows])
+
+    @torch.no_grad()
+    def shard_state_local(self, state: TrainState, local: dict,
+                          template: dict) -> TrainState:
+        """Place a partial restore (``ShardedCheckpoint.restore_partial``):
+        replicated leaves arrive whole, this rank's BN statistics and
+        residual as ``[1, ...]`` blocks and its ZeRO-1 optimizer rows as
+        its block — written as they are, with no cross-rank read.
+        ``template`` is the global template the restore used; a block
+        that does not fit it raises."""
+        self.shard_state(state)
+        out = {}
+        for path, value in local.items():
+            want = tuple(template[path].shape)
+            got = tuple(np.shape(value))
+            if path.startswith(PER_REPLICA):
+                if got != (1, *want):
+                    raise ValueError(f"leaf {path!r}: local block {got} != "
+                                     f"(1, *{want})")
+                value = value[0]
+            elif self._rows_of(path) is not None:
+                block = (want[0] // self.size, *want[1:])
+                if got != block:
+                    raise ValueError(
+                        f"local block shape {got} != expected {block} for "
+                        f"global {want} over world {self.size}")
+            elif got != want:
+                raise ValueError(f"replicated leaf shape {got} != template "
+                                 f"{want}")
+            out[path] = value
+        state_from_leaves(state, out)
+        self._refresh_blocks()
         return state
 
     def _shard_optimizer(self, opt) -> None:
@@ -171,16 +263,59 @@ class DataParallel:
                     getattr(opt, n)[j] = getattr(opt, n)[j][rows].clone()
 
     @torch.no_grad()
-    def unshard_state(self, state: TrainState,
-                      rank: int = 0) -> dict[str, torch.Tensor]:
-        """The single-device view as a state dict: the (replicated)
-        parameters and group rank ``rank``'s BN statistics. Every rank must
-        call it (the statistics are broadcast from ``rank``)."""
-        out = {k: v.detach().clone()
-               for k, v in state.model.state_dict().items()}
+    def unshard_state(self, state: TrainState, rank: int = 0) -> dict:
+        """The single-device view, as the host leaves that
+        ``train/checkpoint.py::save`` takes: the (replicated) parameters,
+        group rank ``rank``'s BN statistics, the whole optimizer state
+        (ZeRO-1 blocks gathered) and the step. The error-feedback residual
+        is dropped: a single rank's slice of it means nothing to a resumed
+        run. Every rank must call it (it broadcasts and gathers)."""
         src = self.group._global_rank(rank)
-        for name, _ in state.model.named_buffers():
-            dist.broadcast(out[name], src, group=self.group.group)
+        out = {}
+        for path, leaf in state_refs(state):
+            if path.startswith("grad_residual/"):
+                continue
+            if isinstance(leaf, tuple):
+                out[path] = np.asarray(leaf[1], np.int32)
+                continue
+            t = leaf.detach()
+            if path.startswith("batch_stats/"):
+                t = t.clone()
+                dist.broadcast(t, src, group=self.group.group)
+            elif self._rows_of(path) is not None:
+                t = self.group.all_gather(t)
+            out[path] = t.to("cpu", copy=True).numpy()
+        return out
+
+    def host_view(self, state: TrainState) -> dict:
+        """This rank's part of a sharded checkpoint, in JAX's leaf paths:
+        ``state.host_view()`` with the per-replica leaves behind a leading
+        axis of 1 (JAX's first addressable shard of a ``P('data')``
+        leaf)."""
+        return {p: v[None] if p.startswith(PER_REPLICA) else v
+                for p, v in state.host_view().items()}
+
+    def checkpoint_spec(self, state: TrainState) -> dict:
+        """The kind of each leaf for ``ShardedCheckpoint``: "shard0" for the
+        per-replica leaves and, under ZeRO-1, the sharded optimizer
+        blocks; "rep" for everything else."""
+        return {path: "shard0" if (path.startswith(PER_REPLICA)
+                                   or self._rows_of(path) is not None)
+                else "rep"
+                for path, _ in state_refs(state)}
+
+    def checkpoint_template(self, template: dict) -> dict:
+        """The global restore template with the error-feedback residual's
+        slot (one fp32 leaf a parameter): a template built before the
+        first step has none, and leaves a template does not name are never
+        restored."""
+        if not self.compress.needs_residual or any(
+                p.startswith("grad_residual/") for p in template):
+            return template
+        out = dict(template)
+        for name, p in zip(self.names, self.params):
+            out["grad_residual/" + name.replace(".", "/")] = ShapeDtype(
+                tuple(p.shape), torch.float32)
         return out
 
     def shard_batch(self, images, labels):
@@ -197,10 +332,12 @@ class DataParallel:
     # -- the step -----------------------------------------------------------
 
     def train_step(self, state: TrainState, images: torch.Tensor,
-                   labels: torch.Tensor) -> torch.Tensor:
+                   labels: torch.Tensor, *, guard: bool = False):
         """One data-parallel step on this rank's rows (on the model's
         device); returns this rank's loss (or the mean over ranks with
-        ``average_loss``)."""
+        ``average_loss``). With ``guard`` it returns ``(loss, applied)``:
+        ``applied`` is False on every rank when any rank's loss was not
+        finite, and then nothing of the state changed."""
         model = state.model
         model.train()
         x = images
@@ -208,9 +345,16 @@ class DataParallel:
             x = prepare_inputs(model, x, self.image_size)
         residual = (state.grad_residual if self.compress.needs_residual
                     else None)
+        saved = ([b.detach().clone() for b in model.buffers()]
+                 if guard else None)
+        loss = cross_entropy_loss(model(x), labels)
+        if guard and not self._all_finite(loss):
+            with torch.no_grad():
+                for b, s in zip(model.buffers(), saved):
+                    b.copy_(s)
+            return self._loss_out(loss.detach()), False
         if self.sync is not None:
             self.sync.begin(residual)
-        loss = cross_entropy_loss(model(x), labels)
         loss.backward()
         # ZeRO-1 with the plain mean reduce-scatters its blocks itself
         scatter = (self.zero and self.sync is None
@@ -226,10 +370,19 @@ class DataParallel:
             self._zero_step(state, scatter)
         else:
             state.apply_update()
-        loss = loss.detach()
+        loss = self._loss_out(loss.detach())
+        return (loss, True) if guard else loss
+
+    def _loss_out(self, loss: torch.Tensor) -> torch.Tensor:
         if self.average_loss:
             loss = self.group.all_reduce(loss, "mean")
         return loss
+
+    def _all_finite(self, loss: torch.Tensor) -> bool:
+        """Every rank's verdict on its loss, reduced over the group: one
+        all-reduce of a flag and one host sync."""
+        bad = (~torch.isfinite(loss.detach())).float().reshape(1)
+        return float(self.group.all_reduce(bad, "sum")) == 0.0
 
     @torch.no_grad()
     def _zero_step(self, state: TrainState, scatter: bool) -> None:
@@ -257,15 +410,6 @@ class DataParallel:
                 p.copy_(self.group.all_gather(u))
 
     # -- not ported yet -----------------------------------------------------
-
-    def shard_state_local(self, *args, **kwargs):
-        raise NotImplementedError(_CKPT)
-
-    def checkpoint_template(self, *args, **kwargs):
-        raise NotImplementedError(_CKPT)
-
-    def checkpoint_spec(self, *args, **kwargs):
-        raise NotImplementedError(_CKPT)
 
     def lower_step(self, *args, **kwargs):
         raise NotImplementedError(_LOWER)

@@ -8,6 +8,9 @@ The JAX package keeps these in one immutable pytree; here the model is an
 default, needs no optimizer state beyond the learning rate; any other
 optimizer (``train/optim.py``: ``SGD`` with momentum, ``AdamW``) rides in
 ``optimizer`` and keeps its own state.
+
+``host_view`` is the state as the flat ``{path: array}`` of JAX's leaf
+paths (``utils/bridge.py``), which every checkpoint format writes.
 """
 
 from __future__ import annotations
@@ -26,6 +29,16 @@ class TrainState:
     #: the error-feedback residual, one fp32 tensor a parameter (rank-local;
     #: ``DataParallel`` starts it at zeros), or None
     grad_residual: list[torch.Tensor] | None = None
+
+    def host_view(self) -> dict:
+        """This process's host copy of every leaf, in JAX's leaf paths:
+        the whole value of each parameter, BN statistic (this rank's own)
+        and residual, and under ZeRO-1 this rank's block of each dim-0
+        sharded optimizer leaf. Read without a collective, so it works
+        while peer ranks are dead."""
+        from tpu_sandbox_torch.utils.bridge import state_to_leaves
+
+        return state_to_leaves(self)
 
     def apply_update(self, params=None) -> None:
         """The optimizer's update from the gradients (plain SGD at ``lr``
