@@ -219,7 +219,39 @@ card or when the port is not beside it. Phases, one JSON line each:
    --ckpt-sharded and a SIGTERM at step 3 (the worker saves and exits 75,
    not charged): each final checkpoint bitwise path_resumable's; each
    generation's seconds.
-12. the {"kernels": [...]} summary, the nvidia-smi line, and last
+12. serving (after the LM paths), through tpu_sandbox_torch.serve, which
+   launches no kernel of the port (JAX leaves prefill and decode attention
+   to XLA; the port leaves them to PyTorch). serve_card_vs_cpu: the JAX
+   serve tests' small LM (SERVE_SMALL) in fp32 from one seed through both
+   engines on the card and on the CPU: the same greedy tokens, each step's
+   logits within 1e-4 of max|CPU|, continuous equal to static, and a
+   forced preemption replaying on the card to the tokens of the same
+   requests without block pressure. path_serve: the LM at its bench width
+   (SERVE_WIDTH) in bf16 with a bf16 cache (CacheConfig(1024, 16, 128),
+   max_batch 16, buckets 128-1024), a seeded Poisson trace of 64 requests
+   (SERVE_TRACE: prompts of 32-1024 tokens, a quarter opening with one
+   256-token prefix, 16-128 new tokens, 10 ms mean gap) through
+   ContinuousEngine and StaticEngine, open loop on the wall clock, kernel
+   counters zeroed before and read after (none may launch): tokens/s,
+   p50/p99 time to first token and inter-token latency, the median decode
+   step, each bucket's median prefill, preemptions, prefix hits, peak
+   memory, one decode step's device time by kind under torch.profiler
+   beside its bound (weights, live K/V and logits once);
+   continuous must equal static to the token. The 4 requests with the
+   longest contexts (over 1000 tokens), served again, must give the same
+   tokens, and each served logit row must lie within 2e-2 of max|plain|
+   of one plain forward of the same weights over prompt and generated
+   tokens, while the control (the context's first block replaced) must
+   move every row by more than that. The shared
+   prefix's K/V written under buckets 256, 512 and 1024 must agree within
+   2^-7 of max|K, V|. path_replica: python -m
+   tpu_sandbox_torch.serve.replica on the card at the same width (fp32,
+   as the replica builds it) against a KV server of this process, 8
+   requests: a SIGTERM once two verdicts are out (drain, exit 75), a
+   second replica finishing the requeued ones (exit 0); one verdict a
+   request, each "ok" with the tokens of the replica's engine run in this
+   process.
+13. the {"kernels": [...]} summary, the nvidia-smi line, and last
    {"ok": true, "device": {...}}.
 
 fp32 matmuls and convolutions run without TF32 throughout (the plain
@@ -554,6 +586,36 @@ MOE_SMALL = ["--parallelism", "ep", "--devices", str(EP_EXPERTS), "--flash",
              "--n-layers", "2", "--d-ff", "128", "--seq-len", "256",
              "--batch", "2", "--steps", "1", "--dtype", "fp32"]
 MOE_RTOL = 1e-4
+#: serving (serve_card_vs_cpu, path_serve, path_replica): the LM at its
+#: bench width, lm_path's, with the slice's cache, batch and buckets
+SERVE_WIDTH = dict(vocab_size=32768, d_model=1024, n_heads=8, n_layers=12,
+                   d_ff=4096, max_len=2048)
+SERVE_CACHE = dict(num_blocks=1024, block_size=16, max_blocks_per_seq=128)
+SERVE_BATCH = 16
+SERVE_BUCKETS = (128, 256, 512, 1024)
+#: path_serve's trace: Poisson arrivals at this mean gap, prompt and new
+#: token counts uniform in these ranges, a quarter of the requests opening
+#: with one shared prefix of this many tokens
+SERVE_TRACE = dict(requests=64, prompt=(32, 1024), new=(16, 128),
+                   prefix=256, interarrival_s=0.010, seed=0)
+#: path_serve against a plain forward: the trace's requests with the
+#: longest contexts, served again, each served logit row within this share
+#: of max|plain| at its position (bf16 weights, activations and cache on
+#: both sides, accumulated in another order)
+SERVE_REF_REQUESTS = 4
+SERVE_REF_TOL = 2e-2
+#: path_serve's prefix probe: the shared prefix's K/V pages written under
+#: each bucket that holds it, within this share of max|K, V| of the first
+SERVE_PREFIX_TOL = 2 ** -7
+#: serve_card_vs_cpu: the JAX serve tests' geometry (tests/test_serve.py),
+#: fp32; each call's logits on the card within this share of max|CPU|
+SERVE_SMALL = dict(vocab_size=64, d_model=32, n_heads=4, n_layers=2,
+                   d_ff=64, max_len=128)
+SERVE_SMALL_CACHE = dict(num_blocks=24, block_size=4, max_blocks_per_seq=8)
+SERVE_CARD_TOL = 1e-4
+#: path_replica: requests, and the seconds a replica process may take
+REPLICA_REQUESTS = 8
+REPLICA_LIMIT = 300.0
 
 
 def emit(phase: str, **kw) -> None:
@@ -3410,6 +3472,570 @@ def phase_path_elastic(mnist_distributed, template: dict,
 
 
 
+def serve_trace(vocab: int, *, requests: int, prompt: tuple, new: tuple,
+                prefix: int, interarrival_s: float, seed: int) -> list:
+    """[(arrival s, rid, prompt tokens, max new tokens)] in arrival order:
+    Poisson arrivals, uniform prompt and new-token counts, a quarter of
+    the requests (drawn at random) opening with one shared prefix."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    arrivals = np.cumsum(rng.exponential(interarrival_s, requests))
+    shared = set(rng.permutation(requests)[:requests // 4].tolist())
+    head = rng.integers(1, vocab, size=prefix).tolist()
+    trace = []
+    for i in range(requests):
+        if i in shared:
+            n = int(rng.integers(prefix + 1, prompt[1] + 1))
+            toks = head + rng.integers(1, vocab, size=n - prefix).tolist()
+        else:
+            n = int(rng.integers(prompt[0], prompt[1] + 1))
+            toks = rng.integers(1, vocab, size=n).tolist()
+        trace.append((float(arrivals[i]), f"r{i}", toks,
+                      int(rng.integers(new[0], new[1] + 1))))
+    return trace
+
+
+def _watched_step(step, record):
+    """``step`` (a DecodeStep) with each prefill and decode call passed to
+    ``record(kind, seconds, logits)`` after the card finished it (host
+    clock around the call, the card synchronised on both sides; the engine
+    copies the logits to the host right after anyway). Its steps run on
+    the card or the CPU."""
+    import dataclasses
+
+    def wrap(fn, kind):
+        def run(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            record(kind, time.perf_counter() - t0, out[0])
+            return out
+        return run
+    return dataclasses.replace(
+        step, prefill={b: wrap(f, f"prefill_{b}")
+                       for b, f in step.prefill.items()},
+        decode=wrap(step.decode, "decode"))
+
+
+def _serve_open_loop(engine, trace, request_cls) -> float:
+    """Submit each request of ``trace`` when the wall clock passes its
+    arrival (open loop, JAX's bench_serve), stepping the engine meanwhile,
+    until every request has its verdict. Returns the wall seconds."""
+    from collections import deque
+
+    pending = deque(trace)
+    start = time.monotonic()
+    while pending or not engine.idle:
+        now = time.monotonic() - start
+        while pending and pending[0][0] <= now:
+            off, rid, prompt, n = pending.popleft()
+            engine.submit(request_cls(rid=rid, prompt=list(prompt),
+                                      max_new_tokens=n, arrival=start + off))
+        if engine.idle:
+            time.sleep(min(1e-3, max(0.0, pending[0][0] - now)))
+            continue
+        engine.step()
+    return time.monotonic() - start
+
+
+def _pct(values, q) -> float | None:
+    import numpy as np
+
+    return float(np.percentile(values, q)) if len(values) else None
+
+
+def phase_serve_card_vs_cpu() -> None:
+    """The port's engines on the card against the port's on the CPU: the
+    JAX serve tests' small LM (SERVE_SMALL) in fp32 from one seed, their
+    request trace: the same greedy tokens, each step's logits within
+    SERVE_CARD_TOL of max|CPU|, continuous equal to static on the card,
+    and a forced preemption (three 12-token prompts decoding to the
+    32-token context in a 23-block pool) replaying on the card to the
+    tokens of the same requests without block pressure."""
+    import numpy as np
+
+    from tpu_sandbox_torch.models.transformer import (TransformerConfig,
+                                                      TransformerLM)
+    from tpu_sandbox_torch.serve import (CacheConfig, ContinuousEngine,
+                                         Request, ServeConfig, StaticEngine)
+    from tpu_sandbox_torch.serve.decode import build_decode_step
+
+    cfg = TransformerConfig(**SERVE_SMALL)
+    params = TransformerLM(cfg, seed=0).state_dict()
+    ccfg = CacheConfig(**SERVE_SMALL_CACHE)
+    step = build_decode_step(cfg, ccfg, max_batch=3, buckets=(8, 16))
+    rng = np.random.default_rng(1)
+    trace = []
+    for i in range(8):
+        prompt = rng.integers(1, 64, size=int(rng.integers(3, 13))).tolist()
+        trace.append((f"r{i}", prompt, int(rng.integers(4, 10))))
+    rng = np.random.default_rng(3)
+    pressure = [(f"p{i}", rng.integers(1, 64, size=12).tolist(), 20)
+                for i in range(3)]
+
+    def run(cls, dev, reqs, cache=ccfg):
+        log = []
+        eng = cls(params, ServeConfig(model=cfg, cache=cache, max_batch=3,
+                                      buckets=(8, 16)),
+                  step=_watched_step(step, lambda kind, seconds, logits:
+                                     log.append(logits.float().cpu().numpy())),
+                  device=dev)
+        for rid, prompt, n in reqs:
+            eng.submit(Request(rid=rid, prompt=list(prompt),
+                               max_new_tokens=n))
+        eng.run_until_idle()
+        return ({rid: r.tokens for rid, r in eng.results.items()}, log,
+                sum(r.preemptions for r in eng.results.values()))
+
+    out = {(cls.__name__, dev): run(cls, dev, trace)
+           for cls in (ContinuousEngine, StaticEngine)
+           for dev in ("cpu", "cuda")}
+    worst = 0.0
+    for name in ("ContinuousEngine", "StaticEngine"):
+        (t_cpu, log_cpu, _), (t_gpu, log_gpu, _) = (out[(name, "cpu")],
+                                                    out[(name, "cuda")])
+        require(t_gpu == t_cpu, f"serve_card_vs_cpu {name}: card tokens "
+                f"{t_gpu} differ from the CPU's {t_cpu}")
+        require(len(log_gpu) == len(log_cpu), f"serve_card_vs_cpu {name}: "
+                f"{len(log_gpu)} step calls on the card, {len(log_cpu)} on "
+                "the CPU")
+        for a, b in zip(log_gpu, log_cpu):
+            err = float(np.abs(a - b).max()) / float(np.abs(b).max())
+            worst = max(worst, err)
+    require(worst <= SERVE_CARD_TOL, f"serve_card_vs_cpu: a step's logits "
+            f"differ by {worst:.3g} of max|CPU|, tolerance {SERVE_CARD_TOL}")
+    cont, stat = (out[("ContinuousEngine", "cuda")][0],
+                  out[("StaticEngine", "cuda")][0])
+    require(cont == stat, "serve_card_vs_cpu: continuous and static "
+            "engines differ on the card")
+    pressed, _, preempted = run(ContinuousEngine, "cuda", pressure)
+    calm, _, calm_pre = run(ContinuousEngine, "cuda", pressure,
+                            CacheConfig(num_blocks=64, block_size=4,
+                                        max_blocks_per_seq=8))
+    pressed_cpu, _, _ = run(ContinuousEngine, "cpu", pressure)
+    emit("serve_card_vs_cpu", model=SERVE_SMALL, cache=SERVE_SMALL_CACHE,
+         dtype="fp32", requests=len(trace), max_rel_logit_err=worst,
+         tolerance=SERVE_CARD_TOL, tokens_equal=True,
+         continuous_equals_static=True, preemptions=preempted,
+         preempted_replay_equal=pressed == calm,
+         preempted_equal_cpu=pressed == pressed_cpu)
+    require(preempted >= 1 and calm_pre == 0,
+            f"serve_card_vs_cpu: the pressure trace preempted {preempted} "
+            f"times ({calm_pre} without pressure)")
+    require(pressed == calm, "serve_card_vs_cpu: preempted requests replayed "
+            f"to {pressed}, not {calm}")
+    require(pressed == pressed_cpu, "serve_card_vs_cpu: preempted requests "
+            "differ between the card and the CPU")
+
+
+def phase_path_serve(ops) -> dict:
+    """The serving slice at the LM's bench width (SERVE_WIDTH) in bf16 with
+    a bf16 cache: SERVE_TRACE through ContinuousEngine, then StaticEngine,
+    open loop on the wall clock, each on fresh pages from one DecodeStep
+    (after a warm-up engine that prefills once at each bucket), kernel
+    counters zeroed before the two runs and read after: no kernel of the
+    port launches. Per engine: tokens/s, p50/p99 time to first token and
+    inter-token latency, the median decode step and each bucket's median
+    prefill (the card's time, synchronised), preemptions, prefix hits and
+    peak device memory. Continuous must equal static to the token, every
+    step's logits must be finite, the served logits must follow a plain
+    forward (``_serve_reference``) and the prefix's pages must agree
+    across buckets (``_prefix_probe``)."""
+    from tpu_sandbox_torch.models.transformer import (TransformerConfig,
+                                                      TransformerLM)
+    from tpu_sandbox_torch.serve import (CacheConfig, ContinuousEngine,
+                                         Request, ServeConfig, StaticEngine)
+    from tpu_sandbox_torch.serve.decode import build_decode_step
+
+    cfg = TransformerConfig(**SERVE_WIDTH, dtype=torch.bfloat16)
+    params = {k: v.to(torch.bfloat16) for k, v in
+              TransformerLM(cfg, seed=0, device="cuda").state_dict().items()}
+    torch.cuda.empty_cache()
+    scfg = ServeConfig(model=cfg, cache=CacheConfig(**SERVE_CACHE),
+                       max_batch=SERVE_BATCH, buckets=SERVE_BUCKETS,
+                       cache_dtype=torch.bfloat16)
+    step = build_decode_step(cfg, scfg.cache, max_batch=SERVE_BATCH,
+                             buckets=SERVE_BUCKETS,
+                             cache_dtype=torch.bfloat16)
+    trace = serve_trace(cfg.vocab_size, **SERVE_TRACE)
+    warm = ContinuousEngine(params, scfg, step=step)
+    for b in SERVE_BUCKETS:
+        warm.submit(Request(rid=f"w{b}", max_new_tokens=2, prompt=[
+            1 + i % (cfg.vocab_size - 1) for i in range(b)]))
+    warm.run_until_idle()
+    del warm
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    res, tokens, finite = {}, {}, []
+    for name, cls in (("continuous", ContinuousEngine),
+                      ("static", StaticEngine)):
+        times: dict[str, list] = {}
+
+        def record(kind, seconds, logits):
+            times.setdefault(kind, []).append(seconds * 1e3)
+            finite.append(bool(torch.isfinite(logits).all().item()))
+
+        torch.cuda.reset_peak_memory_stats()
+        eng = cls(params, scfg, step=_watched_step(step, record))
+        wall = _serve_open_loop(eng, trace, Request)
+        results = eng.results
+        ttft = [r.ttft for r in results.values()]
+        itl = [g for r in results.values() for g in r.itl]
+        generated = sum(len(r.tokens) for r in results.values())
+        tokens[name] = {rid: r.tokens for rid, r in results.items()}
+        res[name] = {
+            "wall_s": wall, "generated_tokens": generated,
+            "tokens_per_s": generated / wall,
+            "p50_ttft_ms": _pct(ttft, 50) * 1e3,
+            "p99_ttft_ms": _pct(ttft, 99) * 1e3,
+            "p50_itl_ms": _pct(itl, 50) * 1e3,
+            "p99_itl_ms": _pct(itl, 99) * 1e3,
+            "decode_steps": len(times["decode"]),
+            "decode_step_ms_median": statistics.median(times["decode"]),
+            "decode_step_ms_p99": _pct(times["decode"], 99),
+            "prefill_ms_median": {k[len("prefill_"):]: statistics.median(v)
+                                  for k, v in sorted(times.items())
+                                  if k.startswith("prefill_")},
+            "prefills": {k[len("prefill_"):]: len(v)
+                         for k, v in sorted(times.items())
+                         if k.startswith("prefill_")},
+            "preemptions": sum(r.preemptions for r in results.values()),
+            "prefix_hits": eng.cache.stats["prefix_hits"],
+            "prefix_blocks_reused": eng.cache.stats["prefix_blocks_reused"],
+            "evicted_cache_blocks": eng.cache.stats["evicted_cache_blocks"],
+            "shed": len(eng.shed),
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+        }
+        del eng
+        torch.cuda.empty_cache()
+    counts = ops.launch_counts()
+    differ = sorted(rid for rid in tokens["continuous"]
+                    if tokens["continuous"][rid] != tokens["static"].get(rid))
+    ref = _serve_reference(step, params, scfg, trace, tokens["continuous"])
+    probe = _prefix_probe(step, params, scfg)
+    out = dict(model=SERVE_WIDTH, dtype="bf16", cache_dtype="bf16",
+               cache=SERVE_CACHE, max_batch=SERVE_BATCH,
+               buckets=list(SERVE_BUCKETS), trace=SERVE_TRACE,
+               parameters=sum(v.numel() for v in params.values()),
+               **res, launches=counts, continuous_equals_static=not differ,
+               differing_requests=differ, reference=ref, prefix_probe=probe,
+               decode_profile=_decode_profile(step, params, scfg))
+    emit("path_serve", **out)
+    for name, r in res.items():
+        require(len(tokens[name]) == len(trace) and r["shed"] == 0,
+                f"path_serve {name}: {len(tokens[name])} results and "
+                f"{r['shed']} shed of {len(trace)} requests")
+    require(all(finite), "path_serve: non-finite logits")
+    require(counts == {}, f"path_serve launched port kernels: {counts}")
+    require(not differ, f"path_serve: continuous and static tokens differ "
+            f"for {differ}")
+    require(ref["tokens_equal_trace"], "path_serve: the reference requests "
+            "served again gave other tokens than in the trace run")
+    require(ref["max_rel_err"] <= SERVE_REF_TOL, f"path_serve: served logits "
+            f"differ from the plain forward's by {ref['max_rel_err']:.3g} of "
+            f"max|plain|, tolerance {SERVE_REF_TOL}")
+    require(ref["control_min_rel_err"] > SERVE_REF_TOL, f"path_serve: a "
+            f"replaced first block moves a row by only "
+            f"{ref['control_min_rel_err']:.3g} of max|plain|, within the "
+            f"tolerance {SERVE_REF_TOL}: the check would not see it")
+    require(probe["rel_diff"] <= SERVE_PREFIX_TOL, f"path_serve: prefix K/V "
+            f"differ across buckets by {probe['rel_diff']:.3g} of max|K, V|, "
+            f"tolerance {SERVE_PREFIX_TOL}")
+    return out
+
+
+def _serve_reference(step, params, scfg, trace, served) -> dict:
+    """The served logits against one plain forward of the same bf16 LM on
+    the card. The SERVE_REF_REQUESTS requests of ``trace`` with the longest
+    contexts are served again together by a ContinuousEngine on fresh
+    pages, each step's logit row of each kept; then each prompt and its
+    generated tokens go through functional_call of the same weight dict
+    with the model's own causal attention and no pages. Each served row is
+    held against the plain row at its position, relative to max|plain|
+    there. A control does the same against the plain forward with the
+    context's first block of tokens replaced (what a block table pointing
+    at the wrong block would read): how far such a fault moves the rows.
+    Also the share of served tokens that are the plain argmax, and whether
+    the requests served again gave the trace run's tokens (``served``)."""
+    import dataclasses
+
+    from torch.func import functional_call
+
+    from tpu_sandbox_torch.models.transformer import TransformerLM
+    from tpu_sandbox_torch.serve import ContinuousEngine, Request
+
+    sample = sorted(trace, key=lambda r: len(r[2]) + r[3])[
+        -SERVE_REF_REQUESTS:]
+    by_prompt = {tuple(p): rid for _, rid, p, _ in sample}
+    rows: dict[str, list] = {}
+    eng = None
+
+    def prefill_of(fn):
+        def run(p, k, v, toks, dest, last_pos):
+            out = fn(p, k, v, toks, dest, last_pos)
+            # a replay after preemption starts the request's rows again
+            rid = by_prompt[tuple(toks[0, :last_pos + 1].tolist())]
+            rows[rid] = [out[0].float().clone()]
+            return out
+        return run
+
+    def decode(p, k, v, toks, lengths, tables):
+        out = step.decode(p, k, v, toks, lengths, tables)
+        for i, s in enumerate(eng.slots):
+            if s is not None:
+                rows[s.request.rid].append(out[0][i].float().clone())
+        return out
+
+    eng = ContinuousEngine(params, scfg, step=dataclasses.replace(
+        step, prefill={b: prefill_of(f) for b, f in step.prefill.items()},
+        decode=decode))
+    for _, rid, prompt, n in sample:
+        eng.submit(Request(rid=rid, prompt=list(prompt), max_new_tokens=n))
+    eng.run_until_idle()
+    results = {rid: r.tokens for rid, r in eng.results.items()}
+    del eng
+    torch.cuda.empty_cache()
+    with torch.device("meta"):
+        model = TransformerLM(scfg.model, device="meta")
+    bs = scfg.cache.block_size
+    gen = torch.Generator().manual_seed(5)
+    errs, ctrl, agree, contexts = [], [], 0, []
+    with torch.no_grad():
+        for _, rid, prompt, n in sample:
+            gen_toks = results[rid]
+            seq = torch.tensor([list(prompt) + gen_toks[:-1]])
+            other = seq.clone()
+            other[0, :bs] = torch.randint(1, scfg.model.vocab_size, (bs,),
+                                          generator=gen)
+            at = len(prompt) - 1
+            plain, wrong = (functional_call(model, params, (t.cuda(),))[0, at:]
+                            for t in (seq, other))
+            got = torch.stack(rows[rid])                       # [n, vocab]
+            scale = plain.abs().amax(-1)
+            errs.append(((got - plain).abs().amax(-1) / scale).cpu())
+            ctrl.append(((got - wrong).abs().amax(-1) / scale).cpu())
+            agree += int((plain.argmax(-1).cpu()
+                          == torch.tensor(gen_toks)).sum())
+            contexts.append(seq.shape[1] + 1)
+    errs, ctrl = torch.cat(errs), torch.cat(ctrl)
+    return {"requests": [rid for _, rid, _, _ in sample],
+            "contexts": contexts, "rows": int(errs.numel()),
+            "max_rel_err": float(errs.max()),
+            "median_rel_err": float(errs.median()),
+            "tolerance": SERVE_REF_TOL,
+            "control_median_rel_err": float(ctrl.median()),
+            "control_min_rel_err": float(ctrl.min()),
+            "argmax_share": agree / errs.numel(),
+            "tokens_equal_trace": all(results[rid] == served[rid]
+                                      for _, rid, _, _ in sample)}
+
+
+def _prefix_probe(step, params, scfg) -> dict:
+    """Prefill K/V of one SERVE_TRACE['prefix']-token prefix under each
+    bucket that holds it, other tokens behind it, each written to blocks of
+    its own in one page pool: how far the prefix's pages differ between
+    buckets (a prefix-cache hit reads pages written under another
+    bucket's prefill)."""
+    from tpu_sandbox_torch.serve.decode import init_pages
+
+    n, bs = SERVE_TRACE["prefix"], scfg.cache.block_size
+    vocab = scfg.model.vocab_size
+    gen = torch.Generator().manual_seed(4)
+    prefix = torch.randint(1, vocab, (n,), generator=gen)
+    buckets = [b for b in SERVE_BUCKETS if b >= n]
+    k, v = init_pages(scfg.model, scfg.cache, torch.bfloat16, "cuda")
+    blocks = []
+    for i, b in enumerate(buckets):
+        toks = torch.randint(1, vocab, (1, b), generator=gen)
+        toks[0, :n] = prefix
+        first = 1 + i * (n // bs)
+        dest = torch.zeros(b, dtype=torch.long)
+        dest[:n] = first * bs + torch.arange(n)
+        step.prefill[b](params, k, v, toks.cuda(), dest.cuda(), n - 1)
+        blocks.append(slice(first, first + n // bs))
+    diff = max(float((pages[:, blk] - pages[:, blocks[0]]).float().abs().max())
+               for pages in (k, v) for blk in blocks[1:])
+    scale = max(float(pages[:, blocks[0]].float().abs().max())
+                for pages in (k, v))
+    del k, v
+    torch.cuda.empty_cache()
+    return {"prefix_tokens": n, "buckets": buckets, "max_abs_diff": diff,
+            "rel_diff": diff / scale, "bitwise": diff == 0.0,
+            "tolerance": SERVE_PREFIX_TOL}
+
+
+def _decode_profile(step, params, scfg) -> dict:
+    """Where one decode step's device time goes: every slot full, context
+    lengths uniform from 3 blocks to a slot's share of the pool (48 to
+    1008 at SERVE_CACHE, 63 blocks a slot), under
+    torch.profiler over 5 calls. Kernels are grouped by what they do:
+    matrix products, the gather of K/V through the block tables
+    (``index`` reads), the scatter of the new token's K/V (``index_put``)
+    and the rest."""
+    from tpu_sandbox_torch.serve.decode import init_pages
+
+    gen = torch.Generator().manual_seed(0)
+    b, bs = SERVE_BATCH, scfg.cache.block_size
+    own = min(scfg.cache.max_blocks_per_seq, (scfg.cache.num_blocks - 1) // b)
+    lengths = torch.randint(3 * bs, own * bs + 1, (b,), generator=gen)
+    tables = torch.zeros((b, scfg.cache.max_blocks_per_seq), dtype=torch.long)
+    for i in range(b):
+        need = -(-int(lengths[i]) // bs)
+        tables[i, :need] = 1 + own * i + torch.arange(need)
+    tokens = torch.randint(1, scfg.model.vocab_size, (b, 1), generator=gen)
+    k, v = init_pages(scfg.model, scfg.cache, torch.bfloat16, "cuda")
+    args = [t.to(k.device) for t in (tokens, lengths, tables)]
+    rows = device_times(lambda: step.decode(params, k, v, *args), calls=5)
+    del k, v
+    torch.cuda.empty_cache()
+
+    def kind(name):
+        low = name.lower()
+        if "index_put" in low or "scatter" in low:
+            return "scatter"
+        if "index" in low or "gather" in low:
+            return "gather"
+        if any(w in low for w in ("gemm", "gemv", "nvjet", "xmma", "cutlass",
+                                  "sm90", "matmul", "splitk")):
+            return "matmul"
+        return "other"
+
+    groups: Counter = Counter()
+    for ms, _, name in rows:
+        groups[kind(name)] += ms
+    total = sum(groups.values())
+    # the bytes the step must move: every weight once, each slot's live
+    # context of K and V (bf16) once a layer, the fp32 logits once; the
+    # gather of a slot's whole max_context is the design's, not the work's
+    weights = sum(t.numel() * t.element_size() for t in params.values())
+    kv = 2 * scfg.model.n_layers * int(lengths.sum()) * scfg.model.d_model * 2
+    logits = b * scfg.model.vocab_size * 4
+    return {"device_ms": total, "by_kind_ms": dict(groups),
+            "gather_share": groups["gather"] / total if total else None,
+            "top": [{"ms": ms, "calls": n, "name": name[:120]}
+                    for ms, n, name in rows[:12]],
+            "weight_bytes": weights, "live_kv_bytes": kv,
+            "max_context_kv_bytes": (2 * scfg.model.n_layers * b
+                                     * scfg.cache.max_context
+                                     * scfg.model.d_model * 2),
+            "bound_ms": (weights + kv + logits) / PEAK_BYTES * 1e3,
+            "context_lengths": lengths.tolist()}
+
+
+def phase_path_replica() -> dict:
+    """The replica process on the card at the LM's bench width (fp32
+    weights and cache, as the replica builds its engine; SERVE_CACHE,
+    SERVE_BATCH, SERVE_BUCKETS), against a KV server in this process:
+    REPLICA_REQUESTS requests queued, ``python -m
+    tpu_sandbox_torch.serve.replica`` started, a SIGTERM once two verdicts
+    are out (it must drain, requeue the rest and exit 75), then a second
+    replica that finishes the requeued ones and exits 0. Every request
+    gets exactly one verdict, "ok", with the tokens of the replica's own
+    engine (``_build_engine`` from the same config) run in this process."""
+    import os
+    import signal
+
+    import numpy as np
+
+    from tpu_sandbox_torch.runtime.kvstore import KVClient, KVServer
+    from tpu_sandbox_torch.runtime.supervisor import (ENV_KV_PORT,
+                                                      PREEMPTED_EXIT_CODE)
+    from tpu_sandbox_torch.serve import Request
+    from tpu_sandbox_torch.serve import replica as R
+
+    cfg = {"model": SERVE_WIDTH, "cache": SERVE_CACHE,
+           "max_batch": SERVE_BATCH, "buckets": list(SERVE_BUCKETS),
+           "param_seed": 0, "lease_ttl": 3.0, "timeout": REPLICA_LIMIT}
+    rng = np.random.default_rng(2)
+    reqs = [(f"q{i}", rng.integers(1, SERVE_WIDTH["vocab_size"],
+                                   size=int(rng.integers(32, 513))).tolist(),
+             16 * (i + 1)) for i in range(REPLICA_REQUESTS)]
+    root = Path(__file__).resolve().parent
+    procs = []
+
+    def start(tag):
+        p = subprocess.Popen(
+            [sys.executable, "-m", "tpu_sandbox_torch.serve.replica",
+             "--config", json.dumps(cfg), "--tag", tag], cwd=root,
+            env={**os.environ, ENV_KV_PORT: str(srv.port)}, text=True,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+        procs.append(p)
+        return p
+
+    def finish(p, what):
+        try:
+            stdout, stderr = p.communicate(timeout=REPLICA_LIMIT)
+        except subprocess.TimeoutExpired:
+            require(False, f"path_replica: {what} ran past {REPLICA_LIMIT} s")
+        return p.returncode, stdout, stderr
+
+    t0 = time.monotonic()
+    with KVServer() as srv:
+        kv = KVClient(port=srv.port)
+        try:
+            for rid, prompt, n in reqs:
+                R.submit_request(kv, rid, prompt, n)
+            R.announce_total(kv, len(reqs))
+            first = start("replica-1")
+            deadline = time.monotonic() + REPLICA_LIMIT
+            while (len(kv.keys("serve/result/")) < 2 and first.poll() is None
+                   and time.monotonic() < deadline):
+                time.sleep(0.005)
+            at_term = len(kv.keys("serve/result/"))
+            first.send_signal(signal.SIGTERM)
+            rc1, out1, err1 = finish(first, "the first replica")
+            first_s = time.monotonic() - t0
+            require(rc1 == PREEMPTED_EXIT_CODE,
+                    f"path_replica: the first replica exited {rc1}, not "
+                    f"{PREEMPTED_EXIT_CODE}, after SIGTERM with {at_term} "
+                    f"verdicts out: {out1[-2000:]} {err1[-4000:]}")
+            after_first = len(kv.keys("serve/result/"))
+            second = start("replica-2")
+            rc2, out2, err2 = finish(second, "the second replica")
+            require(rc2 == 0, f"path_replica: the second replica exited "
+                    f"{rc2}: {out2[-2000:]} {err2[-4000:]}")
+            verdicts = {rid: json.loads(kv.get(R.k_result(rid)))
+                        for rid, _, _ in reqs}
+            claims = {rid: int(kv.get(R.k_done(rid))) for rid, _, _ in reqs}
+        finally:
+            kv.close()
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    replicas_s = time.monotonic() - t0
+    requeued = re.search(r"requeued (\d+)", out1)
+    engine = R._build_engine(cfg, torch.device("cuda"))
+    for rid, prompt, n in reqs:
+        engine.submit(Request(rid=rid, prompt=prompt, max_new_tokens=n))
+    engine.run_until_idle()
+    want = {rid: r.tokens for rid, r in engine.results.items()}
+    del engine
+    torch.cuda.empty_cache()
+    by = Counter(v.get("replica") for v in verdicts.values())
+    out = dict(requests=len(reqs), verdicts_at_sigterm=at_term,
+               verdicts_after_first=after_first,
+               requeued=int(requeued.group(1)) if requeued else None,
+               answered_by=dict(by), first_exit=rc1, second_exit=rc2,
+               first_replica_s=first_s, replicas_s=replicas_s,
+               tokens_equal={rid: verdicts[rid].get("tokens") == want[rid]
+                             for rid, _, _ in reqs},
+               verdict_claims=claims)
+    emit("path_replica", **out)
+    require(all(v["verdict"] == "ok" for v in verdicts.values()),
+            f"path_replica: verdicts {verdicts}")
+    require(all(c == 1 for c in claims.values()),
+            f"path_replica: verdicts claimed more than once: {claims}")
+    require(out["requeued"] and by.get("replica-2"),
+            f"path_replica: nothing was requeued to the second replica: {out}")
+    require(all(out["tokens_equal"].values()),
+            "path_replica: a replica's tokens differ from the in-process "
+            f"engine's: {out['tokens_equal']}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3508,6 +4134,12 @@ def main() -> int:
     with timed("path_sp"):
         counts.update(phase_path_sp(ops, fa, lm_train, lm_ref))
     counts.update(phase_lm_paths(ops, fa, lm_train, lm_ref))
+    with timed("serve_card_vs_cpu"):
+        phase_serve_card_vs_cpu()
+    with timed("path_serve"):
+        counts["path_serve"] = phase_path_serve(ops)["launches"]
+    with timed("path_replica"):
+        phase_path_replica()
     counts["ring_kernels"] = ring_counts
     for name, phase_fn, *a in (
             ("card_vs_cpu", phase_card_vs_cpu),

@@ -63,6 +63,12 @@ def test_import_loads_no_jax_and_no_jax_package():
         "import tpu_sandbox_torch.runtime.supervisor\n"
         "import tpu_sandbox_torch.obs, tpu_sandbox_torch.obs.record\n"
         "import tpu_sandbox_torch.train.checkpoint\n"
+        "import tpu_sandbox_torch.obs.metrics, tpu_sandbox_torch.obs.tsdb\n"
+        "import tpu_sandbox_torch.serve, tpu_sandbox_torch.serve.cache\n"
+        "import tpu_sandbox_torch.serve.decode\n"
+        "import tpu_sandbox_torch.serve.engine\n"
+        "import tpu_sandbox_torch.serve.replica\n"
+        "import tpu_sandbox_torch.serve.client\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "print(','.join(sorted(bad)))\n"

@@ -162,10 +162,16 @@ class SelfAttention(nn.Module):
         self.qkv = Dense((cfg.d_model,), (3, cfg.n_heads, hd), cfg.dtype, gen)
         self.out = Dense((cfg.n_heads, hd), (cfg.d_model,), cfg.dtype, gen)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, *, attention_fn: Callable | None = None,
+                kv_taps: list | None = None) -> torch.Tensor:
+        """``attention_fn`` replaces the module's own for this call;
+        ``kv_taps`` gets this layer's (k, v) [B, S, H, hd] appended (JAX's
+        ``kv_cache`` sow). Both serve ``serve/decode.py``."""
         qkv = self.qkv(x)                               # [B, S, 3, H, hd]
-        out = self.attention_fn(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])
-        return self.out(out)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        if kv_taps is not None:
+            kv_taps.append((k, v))
+        return self.out((attention_fn or self.attention_fn)(q, k, v))
 
 
 class Mlp(nn.Module):
@@ -190,8 +196,10 @@ class Block(nn.Module):
         self.ln2 = LayerNorm(cfg.d_model)
         self.mlp = mlp_cls(cfg, gen)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.ln1(x))
+    def forward(self, x: torch.Tensor, *, attention_fn: Callable | None = None,
+                kv_taps: list | None = None) -> torch.Tensor:
+        x = x + self.attn(self.ln1(x), attention_fn=attention_fn,
+                          kv_taps=kv_taps)
         return x + self.mlp(self.ln2(x))
 
 
@@ -199,7 +207,13 @@ class TransformerLM(nn.Module):
     """tokens [B, S] (+ positions [B, S]) -> logits [B, S, vocab], f32 when
     ``fp32_logits``, else in the compute dtype. ``attention_fn(q, k, v)``
     on [B, S, H, hd] replaces the plain causal attention (e.g.
-    ``ops.flash_attention.flash_attention_fn()``)."""
+    ``ops.flash_attention.flash_attention_fn()``).
+
+    Serving's two hooks, per call (``serve/decode.py``): ``attention_fn=``
+    replaces every layer's attention for this forward alone, called once a
+    layer in layer order (decode's paged attention), and ``kv_taps=`` (a
+    list) collects each layer's (k, v) in the compute dtype, in layer order
+    (prefill). Neither changes a forward that does not pass them."""
 
     def __init__(self, cfg: TransformerConfig,
                  attention_fn: Callable | None = None, *,
@@ -221,7 +235,9 @@ class TransformerLM(nn.Module):
         self.to(torch.device(device))
 
     def forward(self, tokens: torch.Tensor,
-                positions: torch.Tensor | None = None) -> torch.Tensor:
+                positions: torch.Tensor | None = None, *,
+                attention_fn: Callable | None = None,
+                kv_taps: list | None = None) -> torch.Tensor:
         if positions is None:
             positions = torch.arange(tokens.shape[1], device=tokens.device
                                      ).expand(tokens.shape)
@@ -232,9 +248,10 @@ class TransformerLM(nn.Module):
             block = getattr(self, f"block{i}")
             if self.config.remat:
                 x = checkpoint(block, x, use_reentrant=False, context_fn=keep,
-                               preserve_rng_state=False)
+                               preserve_rng_state=False,
+                               attention_fn=attention_fn, kv_taps=kv_taps)
             else:
-                x = block(x)
+                x = block(x, attention_fn=attention_fn, kv_taps=kv_taps)
         logits = self.lm_head(self.ln_f(x))
         return logits.float() if self.config.fp32_logits else logits
 

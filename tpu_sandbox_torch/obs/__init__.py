@@ -1,5 +1,8 @@
-"""The recorder of the port's elastic plane: the part of
-``tpu_sandbox/obs/`` it needs (``record.py``'s ``get_recorder``)."""
+"""Observability of the port: the recorder (``record.py``), the metrics
+registry (``metrics.py``) and the durable time series (``tsdb.py``),
+copies of ``tpu_sandbox/obs/``'s, exported as its ``__init__`` exports
+them. The collector, the critical-path analysis, the health monitor and
+the workload export are not ported yet (ROADMAP item 6b)."""
 
 from tpu_sandbox_torch.obs.record import (  # noqa: F401
     ENV_TRACE_DIR,
@@ -8,3 +11,25 @@ from tpu_sandbox_torch.obs.record import (  # noqa: F401
     get_recorder,
     reset_recorder,
 )
+from tpu_sandbox_torch.obs.metrics import (  # noqa: F401
+    MetricsRegistry,
+    get_registry,
+)
+from tpu_sandbox_torch.obs.tsdb import (  # noqa: F401
+    TimeSeriesFlusher,
+    list_series,
+    read_series,
+)
+
+__all__ = [
+    "ENV_TRACE_DIR",
+    "MetricsRegistry",
+    "Recorder",
+    "TimeSeriesFlusher",
+    "TraceContext",
+    "get_recorder",
+    "get_registry",
+    "list_series",
+    "read_series",
+    "reset_recorder",
+]

@@ -1,21 +1,52 @@
-"""The event recorder: per-process append-only JSONL. The port's copy
-of ``tpu_sandbox/obs/record.py``, cut to what ``get_recorder`` and its
-caller here need: instants (``instant``, which ``runtime/faults.py``
-announces each fault with), without spans, metrics or clock
-calibration.
+"""The span/event recorder: per-process append-only JSONL, cheap enough
+to leave on. The port's copy of ``tpu_sandbox/obs/record.py``, whole: the
+same record forms and fields, so either package's tools read either
+package's traces.
 
-The recorder is **disabled unless** ``TPU_SANDBOX_TRACE_DIR`` is set in the
-environment; every emit on a disabled recorder is a couple of attribute
-reads. Record forms (one JSON object per line, timestamps are this
-process's ``time.monotonic()`` seconds):
+One :class:`Recorder` per process, obtained via :func:`get_recorder`. It
+is **disabled unless** ``TPU_SANDBOX_TRACE_DIR`` is set in the
+environment — every emit on a disabled recorder is a couple of attribute
+reads, so instrumentation stays in the hot paths unconditionally.
 
-    {"ph":"P", ...}   preamble: proc name, pid, a coarse (mono, wall) pair
-    {"ph":"i", ...}   instant event (fault injections), flushed at once so
-                      it survives a SIGKILL issued on the next line
+Record forms (one JSON object per line, all timestamps are THIS
+process's ``time.monotonic()`` seconds — never wall clock, never another
+host's clock):
+
+    {"ph":"P", ...}   preamble: proc name, pid, a coarse (mono, wall)
+                      pair — the fallback clock anchor
+    {"ph":"X", ...}   complete span: ts + dur, trace/span/parent ids
+    {"ph":"i", ...}   instant event (fault injections, verdicts, job
+                      lifecycle); flushed immediately so it survives a
+                      SIGKILL issued on the next line
+    {"ph":"C", ...}   clock-calibration sample: (kv-sequencer value,
+                      mono midpoint, rtt, wall) — the collector derives
+                      per-process offsets from these (see
+                      ``obs/collect.py::clock_offsets``)
+    {"ph":"m", ...}   metric sample: (series name, numeric value) —
+                      rendered by the collector as a Chrome/Perfetto
+                      counter track (``ph:"C"`` in the Chrome JSON; the
+                      recorder's own "C" phase was already taken by
+                      calibration) so time-series and spans share one
+                      timeline
+
+Causality is carried by :class:`TraceContext` — ``(trace_id, span_id)``
+pairs serialized as ``{"t":…,"s":…}`` wherever a request body crosses a
+process boundary (gateway wire frames, ``serve/req/<rid>`` bodies). A
+disabled recorder *passes contexts through* unchanged, so one dark
+process does not sever the chain between two instrumented ones.
+
+Span discipline: ``with rec.span(name) as sp`` is the sanctioned form;
+``begin_span`` exists for the rare span that cannot be a ``with`` block
+and MUST be closed in a ``try/finally`` (graftlint GL-O401 polices
+this — a leaked open span never emits and corrupts the merged timeline).
+Spans whose start time predates the call (claim/admit/decode latencies
+measured around existing control flow) use :meth:`Recorder.complete`,
+which emits retrospectively and cannot leak.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import threading
@@ -24,6 +55,12 @@ from dataclasses import dataclass
 
 ENV_TRACE_DIR = "TPU_SANDBOX_TRACE_DIR"
 ENV_PROC_NAME = "TPU_SANDBOX_OBS_PROC"
+
+#: the KV store's shared sequencer for clock calibration: every
+#: ``kv.add`` on this key is serialized by the single-threaded server,
+#: so the returned values give a TOTAL order across hosts that the
+#: collector can pin each host's monotonic clock against
+CLOCK_SEQ_KEY = "obs/clock/seq"
 
 
 @dataclass(frozen=True)
@@ -51,6 +88,38 @@ class TraceContext:
         return None
 
 
+class Span:
+    """A live span handle. ``ctx`` is the context CHILDREN of this span
+    should carry; on a disabled recorder it passes the parent through."""
+
+    __slots__ = ("_rec", "name", "ctx", "parent", "args", "_t0", "_closed")
+
+    def __init__(self, rec: "Recorder", name: str,
+                 ctx: TraceContext | None, parent: TraceContext | None,
+                 args: dict | None, t0: float | None):
+        self._rec = rec
+        self.name = name
+        self.ctx = ctx
+        self.parent = parent
+        self.args = args if args is not None else {}
+        self._t0 = t0
+        self._closed = t0 is None  # disabled spans have nothing to emit
+
+    def close(self) -> None:
+        if self._closed:
+            return
+        self._closed = True
+        now = time.monotonic()
+        self._rec._emit({
+            "ph": "X", "name": self.name, "ts": self._t0,
+            "dur": now - self._t0,
+            "trace": None if self.ctx is None else self.ctx.trace_id,
+            "span": None if self.ctx is None else self.ctx.span_id,
+            "parent": None if self.parent is None else self.parent.span_id,
+            "args": self.args,
+        })
+
+
 class Recorder:
     """Bounded-buffer JSONL event sink. Thread-safe; one per process.
 
@@ -60,7 +129,9 @@ class Recorder:
     == 0 means fully manual flushing, which is how the backpressure path
     is exercised: once the buffer holds ``max_buffered`` records, new
     ones are DROPPED and counted — the recorder prefers losing its own
-    data to growing without bound (``dropped`` counts them)."""
+    data to growing without bound inside a serving process. The drop
+    count rides the engine load reports (satellite: a silently-dropping
+    recorder is visible, not invisible)."""
 
     def __init__(self, path: str | None, *, proc: str | None = None,
                  flush_every: int = 64, max_buffered: int = 4096):
@@ -123,6 +194,10 @@ class Recorder:
                 self._fh = None
         self.enabled = False
 
+    def stats(self) -> dict:
+        """The load-report rider: emitted vs dropped-on-backpressure."""
+        return {"events": self.events, "dropped": self.dropped}
+
     # -- ids -----------------------------------------------------------------
 
     def _mint_span_id(self) -> str:
@@ -139,6 +214,44 @@ class Recorder:
 
     # -- spans / events ------------------------------------------------------
 
+    def begin_span(self, name: str, parent=None,
+                   args: dict | None = None) -> Span:
+        """Open a span the caller MUST close in a try/finally (GL-O401).
+        Prefer ``with rec.span(...)``; use this only when the span's
+        lifetime cannot be a lexical block."""
+        parent = TraceContext.from_wire(parent)
+        if not self.enabled:
+            return Span(self, name, parent, parent, args, None)
+        ctx = self._child_ctx(parent)
+        return Span(self, name, ctx, parent, args, time.monotonic())
+
+    @contextlib.contextmanager
+    def span(self, name: str, parent=None, args: dict | None = None):
+        """The sanctioned span form: closes on every path."""
+        sp = self.begin_span(name, parent=parent, args=args)
+        try:
+            yield sp
+        finally:
+            sp.close()
+
+    def complete(self, name: str, start_mono: float, parent=None,
+                 args: dict | None = None) -> TraceContext | None:
+        """Emit a span retrospectively: started at ``start_mono`` (this
+        process's monotonic clock), ended now. Returns the context
+        children should parent to (parent pass-through when disabled)."""
+        parent = TraceContext.from_wire(parent)
+        if not self.enabled:
+            return parent
+        ctx = self._child_ctx(parent)
+        self._emit({
+            "ph": "X", "name": name, "ts": start_mono,
+            "dur": time.monotonic() - start_mono,
+            "trace": ctx.trace_id, "span": ctx.span_id,
+            "parent": None if parent is None else parent.span_id,
+            "args": args or {},
+        })
+        return ctx
+
     def instant(self, name: str, parent=None,
                 args: dict | None = None) -> TraceContext | None:
         """Point event — flushed immediately (auto-flush mode) so a
@@ -154,6 +267,41 @@ class Recorder:
             "args": args or {},
         }, flush=bool(self.flush_every))
         return ctx
+
+    def metric(self, name: str, value: float) -> None:
+        """Sample a metric series onto the timeline. Buffered like spans
+        (metrics are periodic, not fault markers — losing the tail on
+        SIGKILL is acceptable); the collector turns these into Perfetto
+        counter tracks."""
+        if not self.enabled:
+            return
+        self._emit({"ph": "m", "name": name, "ts": time.monotonic(),
+                    "value": float(value)})
+
+    # -- clock calibration ---------------------------------------------------
+
+    def calibrate(self, kv, rounds: int = 5) -> int:
+        """Pin this process's monotonic clock against the KV server's
+        shared sequencer. Each round brackets one ``kv.add`` round trip
+        with monotonic reads; the sequencer value is a server-serialized
+        total order, so the collector can (a) offset each process by its
+        own (wall - mono) median and (b) enforce that calibration points
+        appear in sequencer order on the merged timeline — no raw
+        cross-host wall-clock arithmetic anywhere (GL-R302). Returns the
+        last sequencer value observed (0 when disabled)."""
+        if not self.enabled:
+            return 0
+        seq = 0
+        for _ in range(rounds):
+            m0 = time.monotonic()
+            seq = kv.add(CLOCK_SEQ_KEY)
+            m1 = time.monotonic()
+            self._emit({
+                "ph": "C", "seq": int(seq), "mono": (m0 + m1) / 2.0,
+                "rtt": m1 - m0, "wall": time.time(),
+            })
+        self.flush()
+        return int(seq)
 
 
 # -- process-global recorder --------------------------------------------------
