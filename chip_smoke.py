@@ -194,9 +194,10 @@ card or when the port is not beside it. Phases, one JSON line each:
    card and as 4 gloo ranks with --force-cpu, at once, each with a time
    limit: exit 0, the reference's lines, the toy's sums.
    entry_refusals: python -m tpu_sandbox_torch.lm_train --parallelism p
-   --devices 2 without --force-cpu for dp, tp, ep, sp and pp, at once:
-   each a non-zero exit naming the 2 ranks and the card count (their
-   gloo runs are CPU tests).
+   --devices 2 without --force-cpu for dp, tp, ep, sp and pp, and
+   mnist_distributed --elastic --agents 2 -g 2, at once: each a non-zero
+   exit naming the 2 ranks and the card count, before any agent starts
+   (their gloo runs are CPU tests).
 11. checkpoints and elastic resume, at the main path's width (after
    path_dp_ext). ckpt_card: the default plan through make_train_step, 2
    steps, the single-device save (the copy of the state to the host, the
@@ -218,7 +219,21 @@ card or when the port is not beside it. Phases, one JSON line each:
    rank 0 at step 3 (two generations, one restart charged) and once with
    --ckpt-sharded and a SIGTERM at step 3 (the worker saves and exits 75,
    not charged): each final checkpoint bitwise path_resumable's; each
-   generation's seconds.
+   generation's seconds. path_agents: python -m
+   tpu_sandbox_torch.mnist_distributed --elastic --agents 1 -g 1 (an
+   AgentLauncher process, one HostAgent process, its rank at one NCCL
+   rank) with kill_agent on rank 0's agent at step 3: the launcher
+   respawns the agent, which wins the lease at term 2 and reports its
+   lost rank; one restart charged, exit 0, the final checkpoint bitwise
+   path_resumable's; each generation's seconds and the seconds from the
+   kill to the new term, as the agents' lines arrive. path_pool:
+   ClusterScheduler(1) in this process with two such jobs (lo at priority
+   0; hi at priority 1, submitted once lo's step-2 checkpoint is on disk): lo
+   saves and exits 75 uncharged, hi runs to done, lo resumes to done,
+   both final checkpoints bitwise path_resumable's; each job's queue, run
+   and preemption seconds from job_events. The ranks of both phases write
+   their launch counts (TPU_SANDBOX_LAUNCH_COUNTS): the main path's kinds
+   once a step.
 12. serving (after the LM paths), through tpu_sandbox_torch.serve, which
    launches no kernel of the port (JAX leaves prefill and decode attention
    to XLA; the port leaves them to PyTorch). serve_card_vs_cpu: the JAX
@@ -250,7 +265,12 @@ card or when the port is not beside it. Phases, one JSON line each:
    requests: a SIGTERM once two verdicts are out (drain, exit 75), a
    second replica finishing the requeued ones (exit 0); one verdict a
    request, each "ok" with the tokens of the replica's engine run in this
-   process.
+   process. path_replica_gang: the same replicas and requests served by 2
+   host agents under an AgentLauncher of this process, each agent's rank
+   a replica on the card; kill_agent on agent 1 once two verdicts are
+   out: the launcher replaces it, its successor reports the lost rank,
+   the job ends ok with one restart charged, and every request has
+   exactly one "ok" verdict with path_replica's in-process tokens.
 13. the {"kernels": [...]} summary, the nvidia-smi line, and last
    {"ok": true, "device": {...}}.
 
@@ -526,9 +546,15 @@ RING_N = 4
 #: same kernels; one bf16 ulp, 2^-8, relative)
 SP_STEPS, SP_SCHEMES, SP_LOSS_RTOL = 3, ("flash_ring", "ulysses"), 2.0 ** -8
 #: entry_refusals: lm_train with two GPU ranks of each plan that spawns
-#: ranks, on this one-card machine, and the seconds they may take together
-ENTRY_REFUSALS = {p: ["--parallelism", p, "--devices", "2", "--steps", "1"]
+#: ranks, and mnist_distributed's two host agents of one GPU rank each, on
+#: this one-card machine (module and argv after python -m), and the
+#: seconds they may take together
+ENTRY_REFUSALS = {p: ["tpu_sandbox_torch.lm_train", "--parallelism", p,
+                      "--devices", "2", "--steps", "1"]
                   for p in ("dp", "tp", "ep", "sp", "pp")}
+ENTRY_REFUSALS["agents"] = ["tpu_sandbox_torch.mnist_distributed",
+                            "--elastic", "--agents", "2", "-g", "2",
+                            "--limit-steps", "1"]
 ENTRY_LIMIT = 120
 #: the pipelines' microbatches on the card, and the launches of one step
 #: under the engine's tick remat: every tick's forward runs twice (the
@@ -616,6 +642,34 @@ SERVE_CARD_TOL = 1e-4
 #: path_replica: requests, and the seconds a replica process may take
 REPLICA_REQUESTS = 8
 REPLICA_LIMIT = 300.0
+#: path_agents, path_pool and path_replica_gang (the cross-host plane):
+#: the seconds each run may take, and the environment of its agents (the
+#: supervisor's backoff of path_elastic; the plane's defaults otherwise)
+PLANE_LIMIT = 300.0
+PLANE_ENV = {"TPU_SANDBOX_BACKOFF": "0.1"}
+#: path_agents: a lease shorter than an agent's start (importing torch
+#: alone takes longer), so the respawned agent finds it vacant and elects
+#: term 2; within a live lease it would resume its predecessor's term (a
+#: member id is the agent id, whatever its incarnation)
+AGENTS_ENV = {"TPU_SANDBOX_LEASE_TTL": "1"}
+#: path_replica_gang: one host agent whose one rank is a serve replica on
+#: the card (JAX's tests/test_serve_integration.py:62, with an agent
+#: timeout that outlasts a respawned agent's start, so the replacement's
+#: report of its lost rank is what tears the generation down), argv:
+#: agent id, agents, KV port, replica config
+GANG_AGENT = """
+import sys
+from tpu_sandbox_torch.runtime.host_agent import AgentConfig, HostAgent
+aid, agents, kv_port, config = (int(sys.argv[1]), int(sys.argv[2]),
+                                int(sys.argv[3]), sys.argv[4])
+cfg = AgentConfig(agent_id=aid, num_agents=agents, world_size=agents,
+                  kv_port=kv_port, lease_ttl=2.0, agent_timeout=30.0,
+                  term_timeout=10.0, backoff=0.1)
+def rank_cmd(gen, rank, coord_port):
+    return [sys.executable, "-m", "tpu_sandbox_torch.serve.replica",
+            "--config", config, "--tag", f"replica-r{rank}-g{gen}"]
+sys.exit(HostAgent(cfg, rank_cmd).run())
+"""
 
 
 def emit(phase: str, **kw) -> None:
@@ -2363,11 +2417,10 @@ def phase_lm_paths(ops, fa, lm_train, lm_ref: dict) -> dict:
 
 
 def _entry_runs(runs: dict, limit: float, root: Path) -> dict:
-    """``python -m tpu_sandbox_torch.lm_train`` with each of ``runs``' argv
-    at once, under one time limit: name -> (exit code, stdout, stderr,
-    seconds)."""
+    """``python -m`` with each of ``runs``' module and argv at once, under
+    one time limit: name -> (exit code, stdout, stderr, seconds)."""
     procs = {name: subprocess.Popen(
-        [sys.executable, "-m", "tpu_sandbox_torch.lm_train", *argv],
+        [sys.executable, "-m", *argv],
         cwd=root, text=True, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
         for name, argv in runs.items()}
     out, t0 = {}, time.monotonic()
@@ -2389,14 +2442,14 @@ def _entry_runs(runs: dict, limit: float, root: Path) -> dict:
 
 
 def _two_gpu_ranks_refused(what: str, res) -> dict:
-    """``--devices 2`` without --force-cpu on this machine: a non-zero
-    exit naming the 2 GPU ranks and the card count."""
+    """Two GPU ranks without --force-cpu on this machine: a non-zero exit
+    naming the 2 GPU ranks and the card count."""
     rc, _, stderr, _ = res
     cards = torch.cuda.device_count()
     named = ("2 GPU ranks" in stderr
              and f"machine with {cards} GPU(s)" in stderr)
     require(rc != 0 and named,
-            f"{what}: --devices 2 on {cards} card(s) gave exit {rc}, "
+            f"{what}: 2 GPU ranks on {cards} card(s) gave exit {rc}, "
             f"stderr {stderr[-2000:]}")
     return {"exit": rc, "stderr": stderr.strip()[-300:]}
 
@@ -2404,14 +2457,18 @@ def _two_gpu_ranks_refused(what: str, res) -> dict:
 def phase_entry_refusals() -> None:
     """``python -m tpu_sandbox_torch.lm_train --parallelism p --devices 2``
     without --force-cpu for each plan that spawns ranks (ENTRY_REFUSALS:
-    dp, tp, ep, sp, pp), all at once under ENTRY_LIMIT: each exits non-zero
-    naming the 2 GPU ranks and the card count (no rank falls back to the
-    CPU or to a smaller world). Their gloo runs are CPU tests
-    (tests/test_torch_lm_train.py)."""
+    dp, tp, ep, sp, pp) and ``mnist_distributed --elastic --agents 2 -g
+    2``, all at once under ENTRY_LIMIT: each exits non-zero naming the 2
+    GPU ranks and the card count, the agents' before any agent starts (no
+    rank falls back to the CPU or to a smaller world). Their gloo runs are
+    CPU tests (tests/test_torch_lm_train.py,
+    tests/test_torch_agents_entry.py)."""
     out = _entry_runs(ENTRY_REFUSALS, ENTRY_LIMIT,
                       Path(__file__).resolve().parent)
     refused = {name: _two_gpu_ranks_refused(f"entry_refusals {name}", res)
                for name, res in out.items()}
+    require("[launcher]" not in out["agents"][1],
+            f"entry_refusals agents: an agent started: {out['agents'][1]}")
     emit("entry_refusals", runs=ENTRY_REFUSALS, refused=refused,
          seconds={k: v[3] for k, v in out.items()})
 
@@ -3471,6 +3528,230 @@ def phase_path_elastic(mnist_distributed, template: dict,
     return out
 
 
+def _stamped_run(argv: list[str], env: dict, limit: float
+                 ) -> tuple[int, list[tuple[float, str]]]:
+    """Run ``argv`` from the checkout's root, echoing its output and
+    stamping each line with the monotonic clock as it arrives: (exit
+    code, [(seconds since start, line)])."""
+    import threading
+
+    t0 = time.monotonic()
+    proc = subprocess.Popen(argv, cwd=Path(__file__).resolve().parent,
+                            env=env, text=True, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT)
+    lines: list[tuple[float, str]] = []
+
+    def pump():
+        for line in proc.stdout:
+            lines.append((time.monotonic() - t0, line.rstrip("\n")))
+            print(line, end="", flush=True)
+
+    reader = threading.Thread(target=pump, daemon=True)
+    reader.start()
+    try:
+        proc.wait(timeout=limit)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        require(False, f"{argv[2:4]} ran past {limit} s")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        reader.join(timeout=10)
+    return proc.returncode, lines
+
+
+def _first(lines, needle: str) -> float | None:
+    """The stamp of the first line holding ``needle``."""
+    return next((t for t, ln in lines if needle in ln), None)
+
+
+def _rank_launches(d: Path) -> dict:
+    """generation -> {steps, launches} of the ranks that finished their
+    generation (mnist_distributed's TPU_SANDBOX_LAUNCH_COUNTS files)."""
+    out = {}
+    for f in sorted(d.glob("launches-g*-r0.json")):
+        rec = json.loads(f.read_text())
+        out[rec["generation"]] = rec
+    return out
+
+
+def _require_main_kinds(rec: dict, what: str) -> None:
+    """A rank's launches: the main path's kinds once a step, no other."""
+    steps, counts = rec["steps"], rec["launches"]
+    require(steps > 0 and set(counts) == set(MAIN_KINDS)
+            and all(counts[k] == steps for k in MAIN_KINDS),
+            f"{what}: {steps} step(s) launched {counts}")
+
+
+def phase_path_agents(template: dict, ref: dict) -> tuple[dict, dict]:
+    """``python -m tpu_sandbox_torch.mnist_distributed --elastic --agents 1
+    -g 1`` at 3000x3000, batch 5, bf16, the default plan, --ckpt-every 2:
+    an AgentLauncher process owning the KV store, one HostAgent process
+    and its one rank at one NCCL rank on the card, with a fault plan of
+    kill_agent on rank 0's agent at step 3 (AGENTS_ENV's lease). The
+    launcher must respawn the agent, the new agent must win the lease at
+    term 2 and report its lost rank, exactly one restart is charged, exit 0, the final checkpoint
+    bitwise path_resumable's, and the surviving generation's rank launches
+    the main path's kinds once a step. Each generation's seconds and the
+    seconds from the kill to the new term, on this process's clock as the
+    lines arrive."""
+    import os
+
+    d = _fresh_ckpt_dir("path_agents")
+    launches = _fresh_ckpt_dir("path_agents_launches")
+    launches.mkdir()
+    env = {**os.environ, **PLANE_ENV, **AGENTS_ENV,
+           "TPU_SANDBOX_LAUNCH_COUNTS": str(launches),
+           "TPU_SANDBOX_FAULT_PLAN": json.dumps([{
+               "rank": 0, "step": ELASTIC_FAULT_STEP,
+               "action": "kill_agent", "target": None}])}
+    rc, lines = _stamped_run(
+        [sys.executable, "-m", "tpu_sandbox_torch.mnist_distributed",
+         *_elastic_argv(d, "--elastic", "--agents", "1")], env, PLANE_LIMIT)
+    text = "\n".join(ln for _, ln in lines)
+    t = {"spawn1": _first(lines, "[agent 0] gen 1: spawned local rank"),
+         "kill": _first(lines, "[agent 0] fault: kill_agent"),
+         "respawn": _first(lines, "[launcher] agent 0 died (exit -9); "
+                                  "respawning [1/16]"),
+         "term2": _first(lines, "[agent 0] elected leader (term 2)"),
+         "teardown1": _first(lines, "[agent 0] gen 1: teardown"),
+         "spawn2": _first(lines, "[agent 0] gen 2: spawned local rank"),
+         "ok2": _first(lines, "[agent 0] gen 2: local outcome ok"),
+         "done": _first(lines, "[launcher] job ok")}
+    resumed = re.search(r"\[gen 2\] resumed from step (\d+); applied (\d+) "
+                        r"step\(s\), final step (\d+)", text)
+    require(rc == 0 and None not in t.values() and resumed
+            and "agent restarted; local ranks lost" in text
+            and "2 generation(s); 1 restart(s) charged, 0 preemption(s)"
+            in text, f"path_agents: exit {rc}, stamps {t}")
+    final = _final_leaves(d, template, sharded=False)
+    differ = _leaves_equal(final, ref)
+    require(not differ, "path_agents: the final state differs from "
+            f"path_resumable's in {differ}")
+    gens = _rank_launches(launches)
+    require(list(gens) == [2], f"path_agents: launch records {gens}")
+    _require_main_kinds(gens[2], "path_agents gen 2")
+    out = dict(argv=["--elastic", "--agents", "1", "-g", "1"],
+               fault={"rank": 0, "step": ELASTIC_FAULT_STEP,
+                      "action": "kill_agent"},
+               resumed_from_step=int(resumed[1]),
+               steps_applied_gen2=int(resumed[2]),
+               generation_s={1: t["kill"] - t["spawn1"],
+                             2: t["ok2"] - t["spawn2"]},
+               kill_to_respawn_s=t["respawn"] - t["kill"],
+               kill_to_new_term_s=t["term2"] - t["kill"],
+               kill_to_relaunch_s=t["spawn2"] - t["kill"],
+               wall_s=t["done"], restarts_charged=1,
+               launches=gens[2]["launches"], bitwise_vs="path_resumable")
+    import shutil
+
+    shutil.rmtree(d, ignore_errors=True)
+    shutil.rmtree(launches, ignore_errors=True)
+    return out, gens[2]["launches"]
+
+
+def phase_path_pool(mnist_distributed, template: dict,
+                    ref: dict) -> tuple[dict, dict]:
+    """ClusterScheduler(1) in this process with two jobs of the same run
+    (path_resumable's argv as ``mnist_distributed --elastic --pool 1``
+    submits it, ``cluster_job_spec``): ``lo`` at priority 0 is admitted,
+    and ``hi`` at priority 1 is submitted once lo's step-2 checkpoint is
+    on disk (its steps 3-6 and two more saves, seconds of work, still to
+    come). ``lo`` must save and exit 75 with no restart charged, ``hi``
+    run to done, then ``lo`` resume to done; both final checkpoints
+    bitwise path_resumable's, each finished generation's rank launching
+    the main path's kinds once a step. Each job's queue, run and
+    preemption seconds from job_events (the scheduler's clock)."""
+    import shutil
+
+    from tpu_sandbox_torch.runtime.scheduler import (
+        ClusterScheduler,
+        job_events,
+        k_verdict,
+    )
+
+    dirs = {j: _fresh_ckpt_dir(f"path_pool_{j}") for j in ("lo", "hi")}
+    launch_dirs = {j: _fresh_ckpt_dir(f"path_pool_{j}_launches")
+                   for j in dirs}
+    specs = {}
+    for prio, job in enumerate(("lo", "hi")):
+        launch_dirs[job].mkdir()
+        args = mnist_distributed.build_parser().parse_args(_elastic_argv(
+            dirs[job], "--elastic", "--pool", "1", "--job-id", job,
+            "--priority", str(prio)))
+        specs[job] = mnist_distributed.cluster_job_spec(args, 1)
+        specs[job].env.update(PLANE_ENV, TPU_SANDBOX_LAUNCH_COUNTS=str(
+            launch_dirs[job]))
+    step2 = dirs["lo"] / f"step-{ELASTIC_EVERY:08d}.npz"
+
+    def tick_until(pred, what):
+        deadline = time.monotonic() + PLANE_LIMIT
+        while time.monotonic() < deadline:
+            sched._tick()
+            got = pred()
+            if got:
+                return got
+            time.sleep(0.005)
+        require(False, f"path_pool: no {what} in {PLANE_LIMIT} s")
+
+    t0 = time.monotonic()
+    with ClusterScheduler(1, extra_env=mnist_distributed._root_env()
+                          ) as sched:
+        sched.submit(specs["lo"])
+        tick_until(step2.exists, "step-2 checkpoint of lo")
+        sched.submit(specs["hi"])
+        states = sched.serve(timeout=PLANE_LIMIT)
+        events = {j: job_events(sched.kv, j) for j in specs}
+        verdicts = {j: json.loads(sched.kv.get(k_verdict(j)))
+                    for j in specs}
+    wall = time.monotonic() - t0
+    require(states == {"lo": "done", "hi": "done"},
+            f"path_pool: final states {states}")
+    lo, hi = events["lo"], events["hi"]
+    require(lo["admitted"] <= lo["preempt_sent"] <= lo["preempted"]
+            <= lo["readmitted"] <= lo["done"]
+            and hi["admitted"] >= lo["preempt_sent"]
+            and hi["done"] <= lo["readmitted"],
+            f"path_pool: job events {events}")
+    require(verdicts["lo"]["ok"] and verdicts["lo"]["restarts"] == 0
+            and verdicts["lo"]["preemptions"] == 1
+            and verdicts["hi"]["ok"] and verdicts["hi"]["restarts"] == 0,
+            f"path_pool: verdicts {verdicts}")
+    gens = {j: _rank_launches(launch_dirs[j]) for j in specs}
+    require(list(gens["lo"]) == [2] and list(gens["hi"]) == [1],
+            f"path_pool: launch records {gens}")
+    _require_main_kinds(gens["lo"][2], "path_pool lo gen 2")
+    _require_main_kinds(gens["hi"][1], "path_pool hi")
+    for job, d in dirs.items():
+        differ = _leaves_equal(_final_leaves(d, template, sharded=False),
+                               ref)
+        require(not differ, f"path_pool {job}: the final state differs "
+                f"from path_resumable's in {differ}")
+    out = dict(
+        pool=1, jobs={j: dict(priority=s.priority, hosts=s.hosts,
+                              world_size=s.world_size)
+                      for j, s in specs.items()},
+        lo_preempted_after_step=ELASTIC_STEPS - gens["lo"][2]["steps"],
+        seconds={
+            "lo": dict(queue=lo["admitted"] - lo["submitted"],
+                       run_before_preemption=lo["preempted"]
+                       - lo["admitted"],
+                       preemption=lo["preempted"] - lo["preempt_sent"],
+                       requeued=lo["readmitted"] - lo["preempted"],
+                       run_after_resume=lo["done"] - lo["readmitted"]),
+            "hi": dict(queue=hi["admitted"] - hi["submitted"],
+                       run=hi["done"] - hi["admitted"])},
+        verdicts={j: {k: v[k] for k in ("ok", "restarts", "preemptions",
+                                        "generations")}
+                  for j, v in verdicts.items()},
+        launches={j: gens[j][max(gens[j])]["launches"] for j in gens},
+        wall_s=wall, bitwise_vs="path_resumable")
+    for d in (*dirs.values(), *launch_dirs.values()):
+        shutil.rmtree(d, ignore_errors=True)
+    return out, gens["hi"][1]["launches"]
+
 
 def serve_trace(vocab: int, *, requests: int, prompt: tuple, new: tuple,
                 prefix: int, interarrival_s: float, seed: int) -> list:
@@ -3924,26 +4205,11 @@ def _decode_profile(step, params, scfg) -> dict:
             "context_lengths": lengths.tolist()}
 
 
-def phase_path_replica() -> dict:
-    """The replica process on the card at the LM's bench width (fp32
-    weights and cache, as the replica builds its engine; SERVE_CACHE,
-    SERVE_BATCH, SERVE_BUCKETS), against a KV server in this process:
-    REPLICA_REQUESTS requests queued, ``python -m
-    tpu_sandbox_torch.serve.replica`` started, a SIGTERM once two verdicts
-    are out (it must drain, requeue the rest and exit 75), then a second
-    replica that finishes the requeued ones and exits 0. Every request
-    gets exactly one verdict, "ok", with the tokens of the replica's own
-    engine (``_build_engine`` from the same config) run in this process."""
-    import os
-    import signal
-
+def _replica_load() -> tuple[dict, list]:
+    """path_replica's and path_replica_gang's replica config (the LM at
+    its bench width, fp32, as the replica builds its engine) and their
+    REPLICA_REQUESTS requests, from one seed."""
     import numpy as np
-
-    from tpu_sandbox_torch.runtime.kvstore import KVClient, KVServer
-    from tpu_sandbox_torch.runtime.supervisor import (ENV_KV_PORT,
-                                                      PREEMPTED_EXIT_CODE)
-    from tpu_sandbox_torch.serve import Request
-    from tpu_sandbox_torch.serve import replica as R
 
     cfg = {"model": SERVE_WIDTH, "cache": SERVE_CACHE,
            "max_batch": SERVE_BATCH, "buckets": list(SERVE_BUCKETS),
@@ -3952,6 +4218,30 @@ def phase_path_replica() -> dict:
     reqs = [(f"q{i}", rng.integers(1, SERVE_WIDTH["vocab_size"],
                                    size=int(rng.integers(32, 513))).tolist(),
              16 * (i + 1)) for i in range(REPLICA_REQUESTS)]
+    return cfg, reqs
+
+
+def phase_path_replica() -> tuple[dict, dict]:
+    """The replica process on the card at the LM's bench width (fp32
+    weights and cache, as the replica builds its engine; SERVE_CACHE,
+    SERVE_BATCH, SERVE_BUCKETS), against a KV server in this process:
+    REPLICA_REQUESTS requests queued, ``python -m
+    tpu_sandbox_torch.serve.replica`` started, a SIGTERM once two verdicts
+    are out (it must drain, requeue the rest and exit 75), then a second
+    replica that finishes the requeued ones and exits 0. Every request
+    gets exactly one verdict, "ok", with the tokens of the replica's own
+    engine (``_build_engine`` from the same config) run in this process.
+    Returns the phase's record and those tokens (rid -> tokens)."""
+    import os
+    import signal
+
+    from tpu_sandbox_torch.runtime.kvstore import KVClient, KVServer
+    from tpu_sandbox_torch.runtime.supervisor import (ENV_KV_PORT,
+                                                      PREEMPTED_EXIT_CODE)
+    from tpu_sandbox_torch.serve import Request
+    from tpu_sandbox_torch.serve import replica as R
+
+    cfg, reqs = _replica_load()
     root = Path(__file__).resolve().parent
     procs = []
 
@@ -4033,8 +4323,98 @@ def phase_path_replica() -> dict:
     require(all(out["tokens_equal"].values()),
             "path_replica: a replica's tokens differ from the in-process "
             f"engine's: {out['tokens_equal']}")
-    return out
+    return out, want
 
+
+def phase_path_replica_gang(want: dict) -> dict:
+    """path_replica's replicas and requests (``_replica_load``) served by
+    a gang of 2 host agents under an AgentLauncher of this process (its KV
+    server), each agent's one rank a ``python -m
+    tpu_sandbox_torch.serve.replica`` on the card (the scenario of JAX's
+    tests/test_serve_integration.py:128): the requests queued, then
+    kill_agent on agent 1 once two verdicts are out. The launcher must replace agent 1, whose successor reports
+    its lost rank; the leader tears generation 1 down (the other replica
+    drains) and relaunches; the job ends ok with one restart charged, and
+    every request has exactly one verdict, "ok", with ``want``'s tokens
+    (path_replica's in-process engine on the same config and requests)."""
+    import threading
+
+    from tpu_sandbox_torch.mnist_distributed import _root_env
+    from tpu_sandbox_torch.runtime.faults import agent_cmd_key
+    from tpu_sandbox_torch.runtime.host_agent import (
+        K_JOB_DONE,
+        AgentLauncher,
+        k_report,
+    )
+    from tpu_sandbox_torch.runtime.kvstore import KVClient, KVServer
+    from tpu_sandbox_torch.serve import replica as R
+
+    cfg, reqs = _replica_load()
+    t0 = time.monotonic()
+    with KVServer() as srv:
+        kv = KVClient(port=srv.port)
+        launcher = AgentLauncher(
+            2, lambda aid, port: [sys.executable, "-c", GANG_AGENT,
+                                  str(aid), "2", str(port), json.dumps(cfg)],
+            kv_server=srv, extra_env=_root_env())
+        rc: list[int] = []
+        thread = threading.Thread(target=lambda: rc.append(launcher.run()),
+                                  name="gang-launcher")
+        try:
+            for rid, prompt, n in reqs:
+                R.submit_request(kv, rid, prompt, n)
+            R.announce_total(kv, len(reqs))
+            thread.start()
+            deadline = time.monotonic() + PLANE_LIMIT
+            while (len(kv.keys("serve/result/")) < 2 and thread.is_alive()
+                   and time.monotonic() < deadline):
+                time.sleep(0.005)
+            up = sorted(R.read_load_reports(kv))
+            at_kill = len(kv.keys("serve/result/"))
+            kill_s = time.monotonic() - t0
+            require(0 < at_kill < len(reqs),
+                    f"path_replica_gang: {at_kill} verdicts at the kill")
+            kv.set(agent_cmd_key(1), json.dumps({"action": "kill_agent"}))
+            thread.join(timeout=PLANE_LIMIT)
+            require(not thread.is_alive() and rc == [0],
+                    f"path_replica_gang: launcher exit {rc}")
+            done = json.loads(kv.get(K_JOB_DONE))
+            lost = json.loads(kv.try_get(k_report(1, 1)) or b"{}")
+            verdicts = {rid: json.loads(kv.get(R.k_result(rid)))
+                        for rid, _, _ in reqs}
+            claims = {rid: int(kv.get(R.k_done(rid))) for rid, _, _ in reqs}
+            tail = int(kv.get(R.K_TAIL))
+        finally:
+            if thread.is_alive():
+                kv.set(K_JOB_DONE, json.dumps(
+                    {"ok": False, "reason": "path_replica_gang teardown"}))
+                thread.join(timeout=60)
+            kv.close()
+    gang_s = time.monotonic() - t0
+    out = dict(requests=len(reqs), verdicts_at_kill=at_kill,
+               replicas_reporting_at_kill=up, kill_at_s=kill_s,
+               gang_s=gang_s,
+               respawns=launcher.respawns, lost_rank_report=lost,
+               job=done, requeued=tail - len(reqs),
+               answered_by=dict(Counter(v.get("replica")
+                                        for v in verdicts.values())),
+               tokens_equal={rid: verdicts[rid].get("tokens") == want[rid]
+                             for rid, _, _ in reqs},
+               verdict_claims=claims)
+    emit("path_replica_gang", **out)
+    require(launcher.respawns == 1 and lost.get("outcome") == "failure"
+            and lost.get("note") == "agent restarted; local ranks lost",
+            f"path_replica_gang: respawns {launcher.respawns}, agent 1's "
+            f"gen-1 report {lost}")
+    require(done["ok"] and done["restarts"] == 1 and done["generations"] == 2,
+            f"path_replica_gang: job verdict {done}")
+    require(all(v["verdict"] == "ok" for v in verdicts.values())
+            and all(c == 1 for c in claims.values()),
+            f"path_replica_gang: verdicts {verdicts}, claims {claims}")
+    require(all(out["tokens_equal"].values()),
+            "path_replica_gang: a replica's tokens differ from "
+            f"path_replica's in-process engine's: {out['tokens_equal']}")
+    return out
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -4125,6 +4505,13 @@ def main() -> int:
         emit("path_resumable", **res)
     with timed("path_elastic"):
         emit("path_elastic", **phase_path_elastic(mnist_distributed, *ref))
+    torch.cuda.empty_cache()
+    with timed("path_agents"):
+        res, counts["path_agents"] = phase_path_agents(*ref)
+        emit("path_agents", **res)
+    with timed("path_pool"):
+        res, counts["path_pool"] = phase_path_pool(mnist_distributed, *ref)
+        emit("path_pool", **res)
         del ref
     with timed("lm_path"):
         run, counts["lm_path"], lm_ref = phase_lm_path(ops, lm_train)
@@ -4139,7 +4526,9 @@ def main() -> int:
     with timed("path_serve"):
         counts["path_serve"] = phase_path_serve(ops)["launches"]
     with timed("path_replica"):
-        phase_path_replica()
+        _, replica_tokens = phase_path_replica()
+    with timed("path_replica_gang"):
+        phase_path_replica_gang(replica_tokens)
     counts["ring_kernels"] = ring_counts
     for name, phase_fn, *a in (
             ("card_vs_cpu", phase_card_vs_cpu),

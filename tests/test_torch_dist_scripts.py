@@ -132,19 +132,9 @@ def test_two_nodes_train_the_same_job(runs):
     assert "Training complete in:" not in runs["mnist_nr1"][1]
 
 
-@pytest.mark.parametrize("flag", sorted(mnist_distributed.UNPORTED))
-def test_unported_flag_is_refused(flag, capsys):
-    argv = [flag] + (["1"] if mnist_distributed.UNPORTED[flag][0] else [])
-    with pytest.raises(SystemExit) as exc:
-        mnist_distributed.build_parser().parse_args(argv)
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert f"{flag} is not ported yet (ROADMAP queue 1 item" in err
-
-
-#: the flags of the data-parallel extensions, the checkpoints and the
-#: single-host elastic runs, lifted from the refusals: (argv, the parsed
-#: value)
+#: the flags of the data-parallel extensions, the checkpoints, the
+#: single-host elastic runs, the host agents and the cluster pool, lifted
+#: from the refusals: (argv, the parsed value)
 LIFTED = {
     "--zero": ([], True), "--grad-compress": (["bf16"], "bf16"),
     "--no-error-feedback": ([], True), "--overlap-grad-sync": ([], True),
@@ -154,6 +144,9 @@ LIFTED = {
     "--ckpt-verify-interval": (["1.5"], 1.5), "--ckpt-compress": ([], True),
     "--elastic": ([], True), "--elastic-worker": ([], True),
     "--max-restarts": (["5"], 5), "--kv-port": (["4321"], "4321"),
+    "--agents": (["2"], 2), "--agent-id": (["1"], 1), "--leader": ([], True),
+    "--job-id": (["j"], "j"), "--priority": (["3"], 3),
+    "--pool": (["2"], 2), "--kv-bind": (["0.0.0.0"], "0.0.0.0"),
 }
 
 
@@ -162,7 +155,6 @@ def test_lifted_flag_is_parsed(flag):
     argv, value = LIFTED[flag]
     args = mnist_distributed.build_parser().parse_args([flag, *argv])
     assert getattr(args, flag[2:].replace("-", "_")) == value
-    assert flag not in mnist_distributed.UNPORTED
 
 
 def test_no_silent_cpu_fallback(monkeypatch):

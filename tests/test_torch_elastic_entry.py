@@ -245,7 +245,8 @@ def test_elastic_losses_follow_the_jax_script(runs):
 def test_checkpoint_and_elastic_flags_are_the_jax_clis():
     """The port's checkpoint group is JAX's (flags, defaults, types, help;
     ``--ckpt-dir``'s help names no orbax, which the port does not write),
-    and its elastic group is the single-host part of JAX's."""
+    and its elastic group is JAX's whole group: the single-host flags, the
+    host agents' and the cluster pool's."""
     import argparse
 
     from tpu_sandbox.utils import cli as jax_cli
@@ -265,5 +266,7 @@ def test_checkpoint_and_elastic_flags_are_the_jax_clis():
         assert ours[dest][:n] == theirs[dest][:n], dest
     elastic = actions(cli.add_elastic_cli)
     jax_elastic = actions(jax_cli.add_elastic_cli)
-    assert list(elastic) == ["help", "elastic", "max_restarts"]
+    assert list(elastic) == list(jax_elastic) == [
+        "help", "elastic", "max_restarts", "agents", "job_id", "priority",
+        "pool", "agent_id", "leader", "kv_bind"]
     assert all(elastic[d] == jax_elastic[d] for d in elastic)

@@ -69,6 +69,12 @@ def test_import_loads_no_jax_and_no_jax_package():
         "import tpu_sandbox_torch.serve.engine\n"
         "import tpu_sandbox_torch.serve.replica\n"
         "import tpu_sandbox_torch.serve.client\n"
+        "import tpu_sandbox_torch.runtime.election\n"
+        "import tpu_sandbox_torch.runtime.host_agent\n"
+        "import tpu_sandbox_torch.runtime.scheduler\n"
+        "import tpu_sandbox_torch.obs.health\n"
+        "import tpu_sandbox_torch.serve.autoscale\n"
+        "import tpu_sandbox_torch.gateway, tpu_sandbox_torch.gateway.fleet\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "print(','.join(sorted(bad)))\n"

@@ -6,7 +6,7 @@ own namespace of it:
   a sampled request interrupted mid-decode (:387), replaying bitwise;
 - the stub-step verdict, load-report, shed-storm, retry, retries-exhausted
   and hedging cases of tests/test_serve_slo.py:181-350;
-- the refusals: a ``swap`` command, ``--fleet``, live canary shares;
+- the refusals: a ``swap`` command and live canary shares;
 - one ``python -m tpu_sandbox_torch.serve.replica --force-cpu`` process
   answering 4 requests through the store with JAX's greedy tokens, from
   JAX's weights through the bridge, and the replica refusing to start
@@ -342,8 +342,8 @@ def test_client_hedges_lost_claim(kv):
 
 def test_unported_routes_refuse(kv):
     """The deploy controller's swap command and the canary-share route
-    (ROADMAP item 11) and fleets (item 6b) raise, naming their item; an
-    empty share body is no split, as JAX reads it."""
+    (ROADMAP item 11) raise, naming their item; an empty share body is no
+    split, as JAX reads it."""
     w = _worker(kv, tag="w0")
     kv.set(serve_cmd_key("w0"), json.dumps({"action": "swap", "ver": 3}))
     with pytest.raises(NotImplementedError, match="item 11"):
@@ -355,8 +355,6 @@ def test_unported_routes_refuse(kv):
     with pytest.raises(NotImplementedError, match="item 11"):
         client.submit("r1", [1, 2, 3], 2)
     assert kv.try_get(R.k_req("r1")) is None
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        R.main(["--config", "{}", "--fleet", "chat", "--force-cpu"])
 
 
 # -- the replica process ------------------------------------------------------

@@ -45,13 +45,25 @@ which the supervisor does not charge to ``--max-restarts``. The
 ``TPU_SANDBOX_*`` environment (fault plan, backoff, watchdog, commit
 timeout) is the JAX package's.
 
-Not ported yet, and refused by argparse with their ROADMAP item: the
-cross-host agent, cluster pool and KV-bind flags (queue 1 item 6b).
+``--elastic --agents N`` runs the cross-host plane on one machine
+(``runtime/host_agent.py``): an ``AgentLauncher`` owns the KV store and
+spawns N host-agent processes (``--agent-id a``, each owning a contiguous
+block of ranks), which elect a leader that drives the generations; the
+launcher replaces an agent that dies. ``--agent-id a --kv-port P`` (or
+``--leader``, which hosts the store, bound to ``--kv-bind``) runs one
+agent by hand, one a host. ``--elastic --pool S`` submits the job
+(``--job-id``, ``--priority``) to a ``ClusterScheduler`` of S host slots
+(``runtime/scheduler.py``), which gang-admits it, may preempt it for a
+higher priority (it saves and resumes, uncharged) and sweeps its KV
+namespace when it ends. An agent's ranks are ``--elastic-worker``
+processes of this module, on the card of their global rank unless
+``--force-cpu`` is given, exactly as the supervisor's ranks are.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
 from pathlib import Path
@@ -86,17 +98,9 @@ LR = 1e-4
 #: killed (a wait on a dead peer fails sooner: bootstrap.TIMEOUT)
 TIMEOUT = 3600.0
 
-#: flag -> (takes a value, ROADMAP item): refused until ported
-_ITEM_6B = "queue 1 item 6b, elastic agents and the cluster pool"
-UNPORTED = {
-    "--agents": (True, _ITEM_6B),
-    "--agent-id": (True, _ITEM_6B),
-    "--leader": (False, _ITEM_6B),
-    "--job-id": (True, _ITEM_6B),
-    "--priority": (True, _ITEM_6B),
-    "--pool": (True, _ITEM_6B),
-    "--kv-bind": (True, _ITEM_6B),
-}
+#: a directory: every elastic rank that finishes its generation writes its
+#: kernel launch counts there (``launches-g<gen>-r<rank>.json``)
+ENV_LAUNCH_COUNTS = "TPU_SANDBOX_LAUNCH_COUNTS"
 
 #: the package's parent directory: the supervisor's workers import the
 #: package from there whatever their working directory
@@ -107,14 +111,6 @@ _ROOT = str(Path(__file__).resolve().parent.parent)
 ZERO_SGD_NOTE = ("note: --zero with plain SGD shards no optimizer state "
                  "(SGD is stateless); use --opt momentum|adamw for the "
                  "memory win")
-
-
-class _Refuse(argparse.Action):
-    """Fails the parse with the flag's ROADMAP item."""
-
-    def __call__(self, parser, namespace, values, option_string=None):
-        parser.error(f"{option_string} is not ported yet (ROADMAP "
-                     f"{UNPORTED[option_string][1]})")
 
 
 def load_training_arrays(args, world_size: int, verbose: bool = True):
@@ -288,6 +284,7 @@ def train_elastic_worker(args, world_size: int) -> None:
                   f"step(s), final step {report.final_step}", flush=True)
         if save_fn is not None:
             save_fn(state, report.final_step, args.epochs, 0)
+        _write_launch_counts(gen, rank, report.steps_applied)
     except Preempted:
         hb.stop(deregister=True)
         bootstrap.cleanup()
@@ -306,6 +303,21 @@ def train_elastic_worker(args, world_size: int) -> None:
             verifier.stop()
     bootstrap.cleanup()
     hb.stop(deregister=True)
+
+
+def _write_launch_counts(gen: int, rank: int, steps: int) -> None:
+    """With ``TPU_SANDBOX_LAUNCH_COUNTS`` set, this rank's kernel launches
+    of the generation (the process's whole life: it starts at zero) and
+    its steps, as JSON in that directory."""
+    out = os.environ.get(ENV_LAUNCH_COUNTS)
+    if not out:
+        return
+    from tpu_sandbox_torch import ops
+
+    path = Path(out) / f"launches-g{gen}-r{rank}.json"
+    path.write_text(json.dumps({"generation": int(gen), "rank": rank,
+                                "steps": steps,
+                                "launches": ops.launch_counts()}))
 
 
 def _elastic_passthrough(args) -> list[str]:
@@ -350,6 +362,12 @@ def _elastic_passthrough(args) -> list[str]:
     return passthrough
 
 
+def _note_without_ckpt(args) -> None:
+    if not args.ckpt_dir:
+        print("note: --elastic without --ckpt-dir restarts from step 0 "
+              "(pass --ckpt-dir/--ckpt-every to resume where the crash hit)")
+
+
 def _validate_fault_plan() -> None:
     from tpu_sandbox_torch.runtime.faults import FaultPlan
 
@@ -372,19 +390,15 @@ def spawn_elastic(args, world_size: int):
     )
 
     _validate_fault_plan()
-    if not args.ckpt_dir:
-        print("note: --elastic without --ckpt-dir restarts from step 0 "
-              "(pass --ckpt-dir/--ckpt-every to resume where the crash hit)")
+    _note_without_ckpt(args)
     passthrough = _elastic_passthrough(args)
 
     def build(gen, kv_port):
         port = bootstrap.find_free_port()  # fresh coordinator port per gen
-        base = [sys.executable, "-m", "tpu_sandbox_torch.mnist_distributed",
-                "--elastic-worker", "--port", port, "--kv-port",
-                str(kv_port)] + passthrough
+        base = [*_module_argv(), "--elastic-worker", "--port", port,
+                "--kv-port", str(kv_port)] + passthrough
         return [base + ["--rank", str(r)] for r in range(world_size)]
 
-    path = os.environ.get("PYTHONPATH")
     sup = Supervisor(
         world_size, build,
         max_restarts=args.max_restarts,
@@ -393,7 +407,7 @@ def spawn_elastic(args, world_size: int):
             os.environ.get("TPU_SANDBOX_WATCHDOG_TIMEOUT", 60.0)),
         grace=float(os.environ.get("TPU_SANDBOX_WATCHDOG_GRACE", 180.0)),
         term_timeout=float(os.environ.get("TPU_SANDBOX_TERM_TIMEOUT", 30.0)),
-        extra_env={"PYTHONPATH": _ROOT + (os.pathsep + path if path else "")},
+        extra_env=_root_env(),
     )
     try:
         result = sup.run()
@@ -403,6 +417,153 @@ def spawn_elastic(args, world_size: int):
         # preempted from outside: saved state, clean stop, propagate 75
         sys.exit(result.generations[-1].exit_codes[0] or 0)
     return result
+
+
+def _root_env() -> dict[str, str]:
+    """``PYTHONPATH`` with the package's parent first: agents and ranks
+    import the package whatever their working directory."""
+    path = os.environ.get("PYTHONPATH")
+    return {"PYTHONPATH": _ROOT + (os.pathsep + path if path else "")}
+
+
+def _module_argv() -> list[str]:
+    return [sys.executable, "-m", "tpu_sandbox_torch.mnist_distributed"]
+
+
+def _agent_config_from_env(args, world_size: int, kv_port: int):
+    """AgentConfig from the flags and the environment knobs the supervisor
+    honours, plus the agent plane's own (agent heartbeat timeout, lease
+    TTL, teardown-ack deadline, relaunch gate)."""
+    from tpu_sandbox_torch.runtime.host_agent import AgentConfig
+
+    def knob(name, default):
+        return float(os.environ.get(name, default))
+
+    return AgentConfig(
+        agent_id=args.agent_id or 0,
+        num_agents=args.agents,
+        world_size=world_size,
+        kv_port=kv_port,
+        job_id=args.job_id or os.environ.get("TPU_SANDBOX_JOB_ID", ""),
+        max_restarts=args.max_restarts,
+        backoff=knob("TPU_SANDBOX_BACKOFF", 1.0),
+        heartbeat_timeout=knob("TPU_SANDBOX_WATCHDOG_TIMEOUT", 60.0),
+        grace=knob("TPU_SANDBOX_WATCHDOG_GRACE", 180.0),
+        term_timeout=knob("TPU_SANDBOX_TERM_TIMEOUT", 30.0),
+        agent_timeout=knob("TPU_SANDBOX_AGENT_TIMEOUT", 10.0),
+        lease_ttl=knob("TPU_SANDBOX_LEASE_TTL", 3.0),
+        ack_timeout=knob("TPU_SANDBOX_ACK_TIMEOUT", 60.0),
+        agent_wait=knob("TPU_SANDBOX_AGENT_WAIT", 120.0),
+    )
+
+
+def run_host_agent(args, world_size: int) -> None:
+    """Run ONE host agent of an ``--agents N`` job (the process the
+    ``AgentLauncher`` spawns, or one started by hand on each host, with
+    ``--leader`` hosting the KV store on the first) and exit with its
+    verdict: 0, 1, or 75 when the whole job was preempted."""
+    from tpu_sandbox_torch.runtime.host_agent import HostAgent
+    from tpu_sandbox_torch.runtime.kvstore import KVServer
+
+    if args.agents < 1:
+        raise SystemExit("--agent-id requires --agents N (the topology)")
+    if not (0 <= args.agent_id < args.agents):
+        raise SystemExit(
+            f"--agent-id {args.agent_id} out of range for "
+            f"--agents {args.agents}")
+    server = None
+    if args.leader:
+        # --kv-bind 0.0.0.0 with TPU_SANDBOX_KV_TOKEN in the environment
+        # makes the store reachable off-host (KVServer and KVClient both
+        # read the token, so the ranks inherit it)
+        server = KVServer(port=int(args.kv_port or 0), bind=args.kv_bind)
+        print(f"[agent {args.agent_id}] hosting KV store on "
+              f"{args.kv_bind}:{server.port}", flush=True)
+        kv_port = server.port
+    elif args.kv_port:
+        kv_port = int(args.kv_port)
+    else:
+        raise SystemExit("--agent-id needs --kv-port (or --leader)")
+    passthrough = _elastic_passthrough(args)
+
+    def rank_cmd(gen, rank, coord_port):
+        return [*_module_argv(), "--elastic-worker", "--port",
+                str(coord_port), "--kv-port", str(kv_port), *passthrough,
+                "--rank", str(rank)]
+
+    cfg = _agent_config_from_env(args, world_size, kv_port)
+    try:
+        rc = HostAgent(cfg, rank_cmd, extra_env=_root_env()).run()
+    finally:
+        if server is not None:
+            server.stop()
+    sys.exit(rc)
+
+
+def _agent_argv(args, aid, kv_port, *, job_id: str | None = None
+                ) -> list[str]:
+    """One host agent's command line; ``job_id`` adds ``--job-id``."""
+    argv = [*_module_argv(), "--elastic", "--agents", str(args.agents or 1),
+            "--agent-id", str(aid), "--kv-port", str(kv_port)]
+    if job_id is not None:
+        argv += ["--job-id", job_id]
+    return argv + ["--max-restarts", str(args.max_restarts),
+                   *_elastic_passthrough(args)]
+
+
+def spawn_elastic_agents(args, world_size: int) -> None:
+    """The cross-host elastic topology on one machine: an AgentLauncher
+    owns the KV store and spawns ``--agents N`` HostAgent processes, which
+    elect a leader that drives the generations; the launcher replaces any
+    agent that dies (a host replaced). Exits with the job's verdict code
+    when it failed."""
+    from tpu_sandbox_torch.runtime.host_agent import AgentLauncher
+
+    _validate_fault_plan()
+    if world_size < args.agents:
+        raise SystemExit(
+            f"world size {world_size} gives --agents {args.agents} "
+            "nothing to run on some hosts (every agent owns >= 1 rank)")
+    _note_without_ckpt(args)
+    rc = AgentLauncher(
+        args.agents, lambda aid, kv_port: _agent_argv(args, aid, kv_port),
+        extra_env=_root_env()).run()
+    if rc:
+        sys.exit(rc)
+
+
+def cluster_job_spec(args, world_size: int):
+    """This run as one tenant of the cluster pool: a ``JobSpec`` of
+    ``--agents`` hosts (1 by default) whose agent template re-invokes this
+    module, at ``--priority``, under ``--job-id`` (``job0`` by default)."""
+    from tpu_sandbox_torch.runtime.scheduler import JobSpec
+
+    job_id = args.job_id or "job0"
+    return JobSpec(
+        job_id=job_id, hosts=args.agents or 1, world_size=world_size,
+        agent_argv=_agent_argv(args, "{agent_id}", "{kv_port}",
+                               job_id="{job_id}"),
+        priority=args.priority)
+
+
+def run_cluster_pool(args, world_size: int) -> None:
+    """Multi-tenant cluster mode: gang-schedule this training job through
+    the durable queue of ``runtime/scheduler.py`` on a pool of ``--pool``
+    host slots. The agent topology of ``--agents N``, admitted (and
+    possibly queued or preempted) by the scheduler instead of launched
+    directly."""
+    from tpu_sandbox_torch.runtime.scheduler import ClusterScheduler
+
+    _validate_fault_plan()
+    _note_without_ckpt(args)
+    spec = cluster_job_spec(args, world_size)
+    with ClusterScheduler(args.pool, extra_env=_root_env()) as sched:
+        sched.submit(spec)
+        states = sched.serve()
+    state = states.get(spec.job_id)
+    print(f"[cluster] job {spec.job_id!r} finished: {state}", flush=True)
+    if state != "done":
+        sys.exit(1)
 
 
 def _cpu_rank_threads(ranks: int) -> None:
@@ -467,10 +628,6 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--port", type=str, default="", help=argparse.SUPPRESS)
     parser.add_argument("--kv-port", type=str, default="",
                         help=argparse.SUPPRESS)
-    for flag, (takes_value, _) in UNPORTED.items():
-        parser.add_argument(flag, action=_Refuse,
-                            nargs="?" if takes_value else 0,
-                            help=argparse.SUPPRESS)
     return parser
 
 
@@ -479,9 +636,15 @@ def main(argv=None):
     world_size = args.gpus * args.nodes                      # reference :123
     if args.elastic_worker:
         return train_elastic_worker(args, world_size)
+    if args.agent_id is not None:
+        return run_host_agent(args, world_size)
     if args.zero and args.opt == "sgd":
         print(ZERO_SGD_NOTE)                # once, from the launcher
     rank_device(args.gpus - 1, args.force_cpu)      # enough cards, or raise
+    if args.elastic and args.pool:
+        return run_cluster_pool(args, world_size)
+    if args.elastic and args.agents:
+        return spawn_elastic_agents(args, world_size)
     if args.elastic:
         return spawn_elastic(args, world_size)
     if world_size == 1:

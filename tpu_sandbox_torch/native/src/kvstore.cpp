@@ -38,6 +38,7 @@
 #include <unistd.h>
 
 #include <algorithm>
+#include <cerrno>
 #include <chrono>
 #include <condition_variable>
 #include <cstdint>
@@ -68,10 +69,13 @@ struct Server {
   bool stopping = false;
 };
 
+// A signal whose handler was installed without SA_RESTART (Python's are)
+// interrupts a blocked read or write with EINTR, nothing transferred: go on.
 bool read_exact(int fd, void* buf, size_t n) {
   auto* p = static_cast<char*>(buf);
   while (n) {
     ssize_t r = ::read(fd, p, n);
+    if (r < 0 && errno == EINTR) continue;
     if (r <= 0) return false;
     p += r;
     n -= (size_t)r;
@@ -83,6 +87,7 @@ bool write_exact(int fd, const void* buf, size_t n) {
   auto* p = static_cast<const char*>(buf);
   while (n) {
     ssize_t r = ::write(fd, p, n);
+    if (r < 0 && errno == EINTR) continue;
     if (r <= 0) return false;
     p += r;
     n -= (size_t)r;
@@ -375,13 +380,16 @@ static bool send_req(int fd, char op, const char* key, int64_t klen,
          write_exact(fd, &vl, 4) && (vlen == 0 || write_exact(fd, val, (size_t)vlen));
 }
 
-// Returns value length (copied into out, up to out_cap), -2 when the
-// server reports key-missing (try-get), or -1 on error.
-int64_t kv_request(int fd, char op, const char* key, int64_t klen,
-                   const char* val, int64_t vlen, char* out, int64_t out_cap) {
-  if (!send_req(fd, op, key, klen, val, vlen)) return -1;
+// The response to the request last sent on fd: its value length (copied
+// into out, up to out_cap), -2 when the server reports key-missing
+// (try-get), -1 on error, or -3 when a signal interrupted the wait for its
+// first byte (a blocking get can wait for long): the caller runs its
+// signal handlers and calls kv_response again, or drops the connection.
+int64_t kv_response(int fd, char* out, int64_t out_cap) {
   uint8_t status;
-  if (!read_exact(fd, &status, 1)) return -1;
+  ssize_t r = ::read(fd, &status, 1);
+  if (r < 0 && errno == EINTR) return -3;
+  if (r <= 0) return -1;
   std::string resp;
   if (!read_blob(fd, resp)) return -1;
   if (status == 2) return -2;
@@ -389,6 +397,13 @@ int64_t kv_request(int fd, char op, const char* key, int64_t klen,
   int64_t n = (int64_t)resp.size();
   if (out && out_cap > 0) std::memcpy(out, resp.data(), (size_t)std::min(n, out_cap));
   return n;
+}
+
+// Sends one request and returns kv_response's result for it.
+int64_t kv_request(int fd, char op, const char* key, int64_t klen,
+                   const char* val, int64_t vlen, char* out, int64_t out_cap) {
+  if (!send_req(fd, op, key, klen, val, vlen)) return -1;
+  return kv_response(fd, out, out_cap);
 }
 
 void kv_close(int fd) { ::close(fd); }

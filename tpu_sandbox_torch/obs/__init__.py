@@ -1,8 +1,9 @@
 """Observability of the port: the recorder (``record.py``), the metrics
-registry (``metrics.py``) and the durable time series (``tsdb.py``),
-copies of ``tpu_sandbox/obs/``'s, exported as its ``__init__`` exports
-them. The collector, the critical-path analysis, the health monitor and
-the workload export are not ported yet (ROADMAP item 6b)."""
+registry (``metrics.py``), the durable time series (``tsdb.py``) and the
+leader-elected health monitor with its alert rules and detectors
+(``health.py``), copies of ``tpu_sandbox/obs/``'s, exported as its
+``__init__`` exports them. The collector, the critical-path analysis and
+the workload export are not ported yet."""
 
 from tpu_sandbox_torch.obs.record import (  # noqa: F401
     ENV_TRACE_DIR,

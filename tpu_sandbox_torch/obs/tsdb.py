@@ -40,7 +40,7 @@ tracks next to the spans.
 Readers (:func:`read_series`, :func:`list_series`) work fleet-wide off
 prefix scans; any process holding a ``KVClient`` can reconstruct any
 other process's recent metric history — that is what the leader-elected
-``HealthMonitor`` (JAX's ``obs/health.py``, not ported yet) and the ``fleetop``
+``HealthMonitor`` (:mod:`tpu_sandbox_torch.obs.health`) and the ``fleetop``
 console are built on.
 """
 

@@ -74,6 +74,9 @@ def _lib() -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_char, ctypes.c_char_p, ctypes.c_int64,
         ctypes.c_char_p, ctypes.c_int64, ctypes.c_char_p, ctypes.c_int64,
     ]
+    lib.kv_response.restype = ctypes.c_int64
+    lib.kv_response.argtypes = [ctypes.c_int, ctypes.c_char_p,
+                                ctypes.c_int64]
     lib.kv_close.restype = None
     lib.kv_close.argtypes = [ctypes.c_int]
     _cached = lib
@@ -177,13 +180,13 @@ class KVClient:
 
     def _hello(self) -> None:
         """Authenticate this connection (first frame, before any store op).
-        Raw kv_request on purpose: runs inside _reconnect, which executes
+        A raw round trip on purpose: runs inside _reconnect, which executes
         under _request's lock — re-entering _request would deadlock."""
         if not self.token:
             return
         tok = self.token.encode()
         out = ctypes.create_string_buffer(8)
-        n = self._lib.kv_request(self._fd, b"H", tok, len(tok), b"", 0, out, 8)
+        n = self._round_trip(b"H", tok, b"", out, 8)
         if n < 0:
             self._lib.kv_close(self._fd)
             self._fd = -1
@@ -220,6 +223,27 @@ class KVClient:
                 )
             time.sleep(delay)
 
+    def _round_trip(self, op: bytes, key: bytes, val: bytes, out,
+                    cap: int) -> int:
+        """One request and its response (kv_request's codes). A signal that
+        lands while the response is awaited returns -3: by the next
+        statement its Python handler has run, and the wait goes on. If the
+        handler raises, the connection, which still owes that response, is
+        dropped (the next request dials again) before the exception goes
+        on."""
+        if self._fd < 0:
+            self._reconnect()
+        try:
+            n = self._lib.kv_request(self._fd, op, key, len(key), val,
+                                     len(val), out, cap)
+            while n == -3:
+                n = self._lib.kv_response(self._fd, out, cap)
+        except BaseException:
+            self._lib.kv_close(self._fd)
+            self._fd = -1
+            raise
+        return n
+
     def _request(
         self, op: str, key: str, val: bytes = b"", cap: int = 1 << 20
     ) -> bytes | None:
@@ -227,10 +251,8 @@ class KVClient:
         attempts = self._READ_RETRIES if op in self._RETRYABLE_OPS else 1
         with self._mu:
             for attempt in range(attempts):
-                n = self._lib.kv_request(
-                    self._fd, op.encode(), key.encode(), len(key.encode()),
-                    val, len(val), out, cap,
-                )
+                n = self._round_trip(op.encode(), key.encode(), val, out,
+                                     cap)
                 if n == -2:
                     return None  # try-get: key missing
                 if n >= 0:

@@ -428,3 +428,8 @@ class Supervisor:
             if self._owns_server:
                 server.stop()
 
+
+
+def main_argv_for_rank(base: Sequence[str], rank: int) -> list[str]:
+    """Tiny helper for builders: ``base + ["--rank", str(rank)]``."""
+    return [*base, "--rank", str(rank)]

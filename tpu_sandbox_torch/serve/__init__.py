@@ -17,9 +17,10 @@ Layers (bottom up):
   claim-once entries, TTL leases, claim-once verdicts, SIGTERM drain,
   orphan scavenging, load reports.
 - ``client``  — deadline submit, retry-on-shed, hedging.
+- ``autoscale`` — leader-elected control loop sizing the replica gang from
+  the load reports through the cluster scheduler (serve/train colocation).
 
-Not ported: ``disagg`` (ROADMAP item 10) and ``autoscale`` (item 9's part
-after 6b).
+Not ported: ``disagg`` (ROADMAP item 10).
 """
 
 from tpu_sandbox_torch.serve.cache import CacheConfig, PagedKVCache

@@ -7,10 +7,11 @@ producer talks to either package's replica. Run one as
         --config '{"model": {...}, "cache": {...}}' [--force-cpu]
 
 on the card (or the CPU with ``--force-cpu``; with no card and no
-``--force-cpu`` it fails). Not ported: the ``swap`` command of the fault
-mailbox (ROADMAP item 11, the deploy touchpoints) and ``--fleet`` (item
-6b; the gateway's fleets need the cluster scheduler). Both raise
-``NotImplementedError``.
+``--force-cpu`` it fails). ``--fleet NAME`` (or ``TPU_SANDBOX_FLEET``)
+serves one tenant fleet: the whole request plane below lives under
+``fleet/<NAME>/`` (``gateway/fleet.py``). Not ported: the ``swap``
+command of the fault mailbox (ROADMAP item 11, the deploy touchpoints),
+which raises ``NotImplementedError``.
 
 The KV store (the same one the elastic runtime coordinates through) holds
 the whole request plane:
@@ -66,9 +67,9 @@ Loss cases and their answers:
   duplicate wastes compute, never correctness: results are identical and
   the write is idempotent.
 
-In the JAX package replicas run as ranks of a HostAgent gang; the port
-has no HostAgent yet (ROADMAP item 6b), so a replica here is a process its
-caller starts and restarts.
+Replicas run as ranks of a ``HostAgent`` gang (``runtime/host_agent.py``),
+so the elastic runtime relaunches them; the tag then defaults to
+``replica-a<agent>-g<generation>``.
 """
 
 from __future__ import annotations
@@ -88,9 +89,8 @@ from tpu_sandbox_torch.runtime.supervisor import (ENV_KV_PORT,
                                                   PREEMPTED_EXIT_CODE)
 
 K_TOTAL = "serve/total"
-#: ROADMAP items of what the replica refuses
+#: the ROADMAP item of what the replica refuses
 _ITEM_11 = "ROADMAP queue 1 item 11, the deploy touchpoints"
-_ITEM_6B = "ROADMAP queue 1 item 6b, the cross-host plane"
 
 K_TAIL = "serve/queue/tail"
 
@@ -708,16 +708,13 @@ def main(argv: Sequence[str] | None = None) -> int:
     p.add_argument("--tag", default=None)
     p.add_argument("--fleet", default=os.environ.get(
         "TPU_SANDBOX_FLEET", ""),
-        help="tenant fleet this replica serves (not ported: "
-             f"{_ITEM_6B})")
+        help="tenant fleet this replica serves: its whole request plane "
+             "lives under fleet/<name>/ so several model fleets share one "
+             "store behind one gateway")
     p.add_argument("--force-cpu", action="store_true",
                    help="serve on the CPU; without it the replica needs "
                         "a CUDA card")
     args = p.parse_args(argv)
-    if args.fleet:
-        raise NotImplementedError(
-            f"--fleet {args.fleet}: fleets are the gateway's namespaces, "
-            f"which the port does not have yet ({_ITEM_6B})")
     cfg = json.loads(args.config)
     device = resolve_device("cpu" if args.force_cpu else "cuda")
 
@@ -726,6 +723,10 @@ def main(argv: Sequence[str] | None = None) -> int:
         f"replica-a{os.environ.get('TPU_SANDBOX_AGENT_ID', '?')}"
         f"-g{os.environ.get('TPU_SANDBOX_GENERATION', '?')}")
     kv = KVClient(port=port)
+    if args.fleet:
+        from tpu_sandbox_torch.gateway.fleet import fleet_kv
+
+        kv = fleet_kv(kv, args.fleet)
     worker = ReplicaWorker(
         kv, _build_engine(cfg, device), tag=tag,
         lease_ttl=float(cfg.get("lease_ttl", 3.0)))

@@ -1,9 +1,10 @@
 """The entry scripts' shared flag groups: the port's own copy of
 ``tpu_sandbox/utils/cli.py``'s ``add_checkpoint_cli`` (:22),
-``add_grad_compress_cli`` and ``add_overlap_cli`` (:52-95) and the
-single-host part of ``add_elastic_cli`` (:97: ``--elastic`` and
-``--max-restarts``), with the same flags, choices, defaults and help, so
-that a script of the port parses what its JAX counterpart parses."""
+``add_grad_compress_cli`` and ``add_overlap_cli`` (:52-95) and
+``add_elastic_cli`` (:97-146: the single-host supervisor's flags, the
+cross-host agents' and the cluster pool's), with the same flags, choices,
+defaults and help, so that a script of the port parses what its JAX
+counterpart parses."""
 
 from __future__ import annotations
 
@@ -84,9 +85,9 @@ def add_overlap_cli(parser, prefetch: bool = True) -> None:
 
 
 def add_elastic_cli(parser) -> None:
-    """Register the single-host elastic flags (same single-site contract
-    as the checkpoint group). The cross-host agent, pool and KV flags of
-    the JAX group are not ported (ROADMAP queue 1 item 6b)."""
+    """Register the elastic/agent flag group (same single-site contract as
+    the checkpoint group: launchers, agents, and their respawned workers
+    all re-parse these exact flags)."""
     parser.add_argument("--elastic", action="store_true",
                         help="run the multiprocess topology under elastic "
                              "supervision: crashed/preempted generations "
@@ -95,3 +96,45 @@ def add_elastic_cli(parser) -> None:
     parser.add_argument("--max-restarts", type=int, default=3,
                         help="with --elastic: charged restarts before "
                              "giving up (preemptions are free)")
+    parser.add_argument("--agents", type=int, default=0, metavar="N",
+                        help="with --elastic: cross-host mode — N per-host "
+                             "agents (runtime/host_agent.py) coordinate "
+                             "generations over the KV store with leader "
+                             "election; 0 keeps the single-host supervisor. "
+                             "World size need not divide by N (the leader "
+                             "publishes a balanced rank-assignment table)")
+    parser.add_argument("--job-id", type=str, default="", metavar="ID",
+                        help="with --elastic: run under this job's KV "
+                             "namespace (job/<ID>/...) so several jobs can "
+                             "share one store without colliding; empty = "
+                             "the bare default-job namespace")
+    parser.add_argument("--priority", type=int, default=0,
+                        help="with --pool: this job's scheduling priority "
+                             "(higher wins; may preempt lower-priority "
+                             "running jobs)")
+    parser.add_argument("--pool", type=int, default=0, metavar="SLOTS",
+                        help="with --elastic: multi-tenant cluster mode — "
+                             "run runtime/scheduler.py over SLOTS host "
+                             "slots and gang-schedule the demo job(s) "
+                             "through its durable queue instead of "
+                             "launching agents directly")
+    parser.add_argument("--agent-id", type=int, default=None, metavar="ID",
+                        help="run exactly ONE host agent (0..N-1) of an "
+                             "--agents N job and exit with its verdict — "
+                             "for launching each host's agent yourself; "
+                             "needs --kv-port pointing at the job's store "
+                             "(or --leader to host it here)")
+    parser.add_argument("--leader", action="store_true",
+                        help="with --agent-id: host the coordination KV "
+                             "store inside this agent's process (start "
+                             "this agent first; peers connect via "
+                             "--kv-port). Binds loopback by default; pass "
+                             "--kv-bind 0.0.0.0 (+ TPU_SANDBOX_KV_TOKEN) "
+                             "for real cross-host deployment")
+    parser.add_argument("--kv-bind", type=str, default="127.0.0.1",
+                        metavar="ADDR",
+                        help="with --leader: address the KV store listens "
+                             "on (default loopback; 0.0.0.0 for cross-host "
+                             "— set TPU_SANDBOX_KV_TOKEN on every host so "
+                             "connections authenticate with the shared "
+                             "secret)")
