@@ -204,9 +204,9 @@ card or when the port is not beside it. Phases, one JSON line each:
    npz write with its SHA-256, the SHA-256 alone over the warm file, each
    timed), restore into a model built anew on the card (timed), the
    restored leaves bitwise the saved ones and 2 more steps from each state
-   bitwise equal (losses and every leaf); the same with --opt adamw
-   through HostCheckpoint and ShardedCheckpoint(compress=True), with the
-   bytes on disk of each. path_ckpt: main_path with --ckpt-dir D
+   bitwise equal (losses and every leaf); the same state through
+   ShardedCheckpoint(compress=True) and, with --opt adamw, through
+   HostCheckpoint, with the bytes on disk of each. path_ckpt: main_path with --ckpt-dir D
    --ckpt-every 2: its launches, its losses bitwise main_path's, its step
    times beside main_path's, the saver's copy and write seconds and the
    last line "saved checkpoint at step 5". path_resumable:
@@ -271,6 +271,25 @@ card or when the port is not beside it. Phases, one JSON line each:
    out: the launcher replaces it, its successor reports the lost rank,
    the job ends ok with one restart charged, and every request has
    exactly one "ok" verdict with path_replica's in-process tokens.
+   path_gateway: the front door at the same width: two replica processes
+   and two ``python -m tpu_sandbox_torch.gateway`` processes (gw-a, gw-b),
+   a GatewayClient holding both; path_replica's 8 requests through gw-a,
+   gw-a SIGKILLed once two verdicts are out (the client fails over), then
+   the same 8 prompts again through gw-b once the replicas advertise the
+   first round's prefixes: one "ok" verdict a rid with path_replica's
+   tokens, gw-b routing by prefix depth, gw-a's heartbeat lease lapsing;
+   the client's submit-to-verdict p50 and p99 (host clock) and gw-b's
+   stats. path_deploy: a rolling deploy to two replica processes behind
+   one gateway: the LM from param_seed 1 published (publish_checkpoint)
+   as version 1 over the boot weights (version 0), this process's
+   DeployController verifying it, swapping a canary, putting the canary
+   shares up while 4 requests go in through the gateway (each on the
+   version it pinned, with that version's tokens), passing the canary
+   rule and promoting both replicas; the 4 requests again on version 1's
+   tokens, one event a decision, a clean registry audit; each replica's
+   swap seconds (command to ack), the rollout's (publish to promote) and
+   the artifact's bytes. The replicas of both phases write their launch
+   counts (none: serving launches no kernel of the port).
 13. the {"kernels": [...]} summary, the nvidia-smi line, and last
    {"ok": true, "device": {...}}.
 
@@ -652,6 +671,18 @@ PLANE_ENV = {"TPU_SANDBOX_BACKOFF": "0.1"}
 #: term 2; within a live lease it would resume its predecessor's term (a
 #: member id is the agent id, whatever its incarnation)
 AGENTS_ENV = {"TPU_SANDBOX_LEASE_TTL": "1"}
+#: path_deploy: the requests of each round (the first of
+#: ``_replica_load()``'s), the replicas' config over path_replica's (a
+#: longer lease, so a replica's load report (its TTL 1.5 leases) outlives
+#: the seconds it spends verifying and loading the bench width's weights,
+#: and the controller never takes it for dead mid-swap), and the
+#: controller's DeployConfig: the defaults (1 s buckets, windows and
+#: swap re-sends; 3 clean evaluations; the logprob rule's -0.5) without
+#: the p99 TTFT ratio, which over the few requests a replica serves here
+#: reads the process's first (warm-up) request, not the weights
+DEPLOY_REQUESTS = 4
+DEPLOY_REPLICA = {"lease_ttl": 6.0}
+DEPLOY_CONFIG = {"ttft_ratio": None}
 #: path_replica_gang: one host agent whose one rank is a serve replica on
 #: the card (JAX's tests/test_serve_integration.py:62, with an agent
 #: timeout that outlasts a respawned agent's start, so the replacement's
@@ -3206,9 +3237,9 @@ def phase_ckpt_card(ops, expected: list[str]) -> tuple[dict, dict]:
     alone over the warm file), ``restore`` into a model built anew on the
     card (timed), the restored leaves bitwise the saved ones, then
     CKPT_STEPS more steps from each state on the same batches: losses and
-    every leaf bitwise equal. Then the same with --opt adamw through
-    HostCheckpoint and ShardedCheckpoint(compress=True), their bytes on
-    disk. The launch counters are zeroed before and read after: the main
+    every leaf bitwise equal. The same sgd state also through
+    ShardedCheckpoint(compress=True), and with --opt adamw through
+    HostCheckpoint, their bytes on disk. The launch counters are zeroed before and read after: the main
     path's kinds once a step."""
     import gc
     import shutil
@@ -3251,8 +3282,8 @@ def phase_ckpt_card(ops, expected: list[str]) -> tuple[dict, dict]:
 
     res, steps = {}, 0
     ops.reset_launch_counts()
-    for opt, formats in (("sgd", ("single",)),
-                         ("adamw", ("host", "sharded_compressed"))):
+    for opt, formats in (("sgd", ("single", "sharded_compressed")),
+                         ("adamw", ("host",))):
         state, step = build(opt)
         run(step, batches[:CKPT_STEPS])
         steps += CKPT_STEPS
@@ -4416,6 +4447,460 @@ def phase_path_replica_gang(want: dict) -> dict:
             f"path_replica's in-process engine's: {out['tokens_equal']}")
     return out
 
+
+def _serve_procs(srv_port: int, cfg: dict, tags, gateway_ids,
+                 counts_dir: Path) -> list:
+    """Replica processes on the card (``python -m
+    tpu_sandbox_torch.serve.replica``, each writing its launch counts into
+    ``counts_dir`` when it ends) and gateway processes (``python -m
+    tpu_sandbox_torch.gateway``), all against the KV server on
+    ``srv_port``, all started at once."""
+    import os
+
+    from tpu_sandbox_torch.runtime.supervisor import ENV_KV_PORT
+    from tpu_sandbox_torch.serve.replica import ENV_LAUNCH_COUNTS
+
+    root = Path(__file__).resolve().parent
+    env = {**os.environ, ENV_KV_PORT: str(srv_port),
+           ENV_LAUNCH_COUNTS: str(counts_dir)}
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "tpu_sandbox_torch.serve.replica",
+         "--config", json.dumps(cfg), "--tag", tag], cwd=root, env=env,
+        text=True, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for tag in tags]
+    procs += [subprocess.Popen(
+        [sys.executable, "-m", "tpu_sandbox_torch.gateway",
+         "--kv-port", str(srv_port), "--gateway-id", gid], cwd=root,
+        env=env, text=True, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for gid in gateway_ids]
+    return procs
+
+
+def _wait_fleet(kv, procs, tags, gateway_ids, what: str) -> dict:
+    """Until every replica of ``tags`` reports its load and every gateway
+    of ``gateway_ids`` holds its heartbeat lease (REPLICA_LIMIT): the
+    gateways' endpoints by id."""
+    from tpu_sandbox_torch.gateway import live_gateway_endpoints
+    from tpu_sandbox_torch.serve import replica as R
+
+    deadline = time.monotonic() + REPLICA_LIMIT
+    while True:
+        up = {gid: (host, port)
+              for gid, host, port in live_gateway_endpoints(kv)}
+        if set(tags) <= set(R.read_load_reports(kv)) \
+                and set(gateway_ids) <= set(up):
+            return up
+        for p in procs:
+            if p.poll() is not None:
+                require(False, f"{what}: a process exited {p.returncode} "
+                        f"at start: {p.communicate()[0][-3000:]}")
+        require(time.monotonic() < deadline,
+                f"{what}: the fleet did not come up in {REPLICA_LIMIT} s")
+        time.sleep(0.05)
+
+
+def _end_fleet(kv, procs, gateways, total: int, what: str,
+               killed=()) -> list[str]:
+    """Announce ``total`` requests (the replicas then end, exit 0), SIGTERM
+    the gateways still running (exit 0), and return each process's
+    output; every wait within REPLICA_LIMIT. A process of ``killed`` was
+    SIGKILLed (-9)."""
+    import signal
+
+    from tpu_sandbox_torch.serve import replica as R
+
+    R.announce_total(kv, total)
+    for p in gateways:
+        if p.poll() is None:
+            p.send_signal(signal.SIGTERM)
+    outs = []
+    for p in procs:
+        try:
+            out, _ = p.communicate(timeout=REPLICA_LIMIT)
+        except subprocess.TimeoutExpired:
+            require(False, f"{what}: a process ran past {REPLICA_LIMIT} s")
+        outs.append(out)
+        require(p.returncode == (-9 if p in killed else 0),
+                f"{what}: a process exited {p.returncode}: {out[-3000:]}")
+    return outs
+
+
+def _fleet_launches(counts_dir: Path, tags, what: str) -> tuple[dict, dict]:
+    """The replicas' launch-count files: the launches summed over them,
+    and each replica's record."""
+    recs = {}
+    for tag in tags:
+        f = counts_dir / f"launches-{tag}.json"
+        require(f.is_file(), f"{what}: replica {tag} wrote no launch counts")
+        recs[tag] = json.loads(f.read_text())
+    total: Counter = Counter()
+    for rec in recs.values():
+        total.update(rec["launches"])
+    return dict(total), recs
+
+
+def _poll_verdicts(client, rids, submitted: dict, limit: float,
+                   what: str, each=None) -> tuple[dict, dict]:
+    """Poll the gateway (``try_result``) until every rid of ``rids`` has
+    its verdict: the verdicts and each rid's submit-to-verdict seconds on
+    the host clock (within one poll round of the landing). ``each`` is
+    called once a poll round."""
+    verdicts, seconds = {}, {}
+    deadline = time.monotonic() + limit
+    while len(verdicts) < len(rids):
+        if each is not None:
+            each()
+        require(time.monotonic() < deadline,
+                f"{what}: no verdicts for "
+                f"{sorted(set(rids) - set(verdicts))} in {limit} s")
+        for rid in rids:
+            if rid not in verdicts:
+                v = client.try_result(rid)
+                if v is not None:
+                    verdicts[rid] = v
+                    seconds[rid] = time.monotonic() - submitted[rid]
+        time.sleep(0.002)
+    return verdicts, seconds
+
+
+def phase_path_gateway(want: dict) -> tuple[dict, dict]:
+    """The front door at the LM's bench width (JAX's
+    tests/test_gateway.py failover scenario with real replicas): a KV
+    server here, two ``python -m tpu_sandbox_torch.serve.replica``
+    processes on the card on ``_replica_load()``'s config, two ``python -m
+    tpu_sandbox_torch.gateway`` processes (``--gateway-id gw-a``, ``gw-b``)
+    and a GatewayClient here holding both endpoints. The 8 requests go in
+    through gw-a; once two verdicts are in the store, gw-a is SIGKILLed and
+    the client fails over to gw-b for the rest. Once every first-round
+    verdict is out and both replicas advertise their resident prefixes,
+    the same 8 prompts go in again under new rids, through gw-b. Every rid
+    has exactly one verdict, "ok", with ``want``'s tokens (path_replica's
+    in-process engine; a second-round rid takes its first-round twin's);
+    the client counts a failover; gw-b routes second-round requests by
+    prefix depth; gw-a's heartbeat lease lapses. Returns the record and
+    the replicas' launches (none: serving launches no port kernel)."""
+    import os
+    import shutil
+
+    from tpu_sandbox_torch.gateway import (GatewayClient,
+                                           live_gateway_endpoints)
+    from tpu_sandbox_torch.runtime.kvstore import KVClient, KVServer
+    from tpu_sandbox_torch.serve import replica as R
+
+    cfg, reqs = _replica_load()
+    tags, gids = ["gw-r0", "gw-r1"], ["gw-a", "gw-b"]
+    counts_dir = _fresh_ckpt_dir("path_gateway_counts")
+    counts_dir.mkdir()
+    t0 = time.monotonic()
+    with KVServer() as srv:
+        kv = KVClient(port=srv.port)
+        procs = _serve_procs(srv.port, cfg, tags, gids, counts_dir)
+        client = None
+        try:
+            eps = _wait_fleet(kv, procs, tags, gids, "path_gateway")
+            up_s = time.monotonic() - t0
+            client = GatewayClient(endpoints=[eps["gw-a"], eps["gw-b"]],
+                                   backoff_base=0.05)
+            require(client.endpoint == eps["gw-a"],
+                    f"path_gateway: the client took {client.endpoint}")
+            submitted = {}
+            first = [(f"g1-{rid}", prompt, n) for rid, prompt, n in reqs]
+            for rid, prompt, n in first:
+                submitted[rid] = time.monotonic()
+                require(client.submit(rid, prompt, n),
+                        f"path_gateway: {rid} shed at the door")
+            deadline = time.monotonic() + REPLICA_LIMIT
+            while len(kv.keys("serve/result/")) < 2:
+                require(time.monotonic() < deadline,
+                        "path_gateway: no two verdicts before the kill")
+                time.sleep(0.005)
+            at_kill = len(kv.keys("serve/result/"))
+            killed = procs[2]
+            killed.kill()
+            killed.wait(timeout=60)
+            t_kill = time.monotonic()
+            lapsed = []
+
+            def lease_gone():
+                if not lapsed and "gw-a" not in [
+                        g for g, _, _ in live_gateway_endpoints(kv)]:
+                    lapsed.append(time.monotonic() - t_kill)
+
+            v1, s1 = _poll_verdicts(client, [r for r, _, _ in first],
+                                    submitted, REPLICA_LIMIT, "path_gateway",
+                                    each=lease_gone)
+            failovers = client.stats.failovers
+            # the replicas' reports carry the first round's prefixes
+            while not all(r.get("prefix_digest") and not r.get("active")
+                          for r in R.read_load_reports(kv).values()):
+                require(time.monotonic() < deadline,
+                        "path_gateway: no idle replica reports with "
+                        "resident prefixes")
+                time.sleep(0.01)
+            second = [(f"g2-{rid}", prompt, n) for rid, prompt, n in reqs]
+            for rid, prompt, n in second:
+                submitted[rid] = time.monotonic()
+                require(client.submit(rid, prompt, n),
+                        f"path_gateway: {rid} shed at the door")
+            v2, s2 = _poll_verdicts(client, [r for r, _, _ in second],
+                                    submitted, REPLICA_LIMIT, "path_gateway",
+                                    each=lease_gone)
+            stats = client.gateway_stats()
+            while not lapsed:
+                require(time.monotonic() - t_kill < PLANE_LIMIT,
+                        "path_gateway: gw-a's heartbeat lease never lapsed")
+                lease_gone()
+                time.sleep(0.02)
+            lapse_s = lapsed[0]
+            claims = {rid: int(kv.get(R.k_done(rid)))
+                      for rid in list(v1) + list(v2)}
+            client.close()
+            client = None
+            outs = _end_fleet(kv, procs, procs[2:], 2 * len(reqs),
+                              "path_gateway", killed=[killed])
+        finally:
+            if client is not None:
+                client.close()
+            kv.close()
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    launches, recs = _fleet_launches(counts_dir, tags, "path_gateway")
+    shutil.rmtree(counts_dir, ignore_errors=True)
+    verdicts = {**v1, **v2}
+    lat = list(s1.values()) + list(s2.values())
+    out = dict(
+        requests=len(verdicts), up_s=up_s, phase_s=time.monotonic() - t0,
+        verdicts_at_kill=at_kill, failovers=failovers,
+        hb_lapse_after_kill_s=lapse_s,
+        submit_to_verdict_s={
+            "p50": _pct(lat, 50), "p99": _pct(lat, 99),
+            "round1_p50": _pct(list(s1.values()), 50),
+            "round1_p99": _pct(list(s1.values()), 99),
+            "round2_p50": _pct(list(s2.values()), 50),
+            "round2_p99": _pct(list(s2.values()), 99)},
+        surviving_gateway=stats["stats"],
+        answered_by=dict(Counter(v.get("replica")
+                                 for v in verdicts.values())),
+        claimed={t: recs[t]["claimed"] for t in tags},
+        launches=launches, gateway_closed=outs[3].strip().splitlines()[-1:],
+        tokens_equal={rid: v.get("tokens") == want[rid.split("-", 1)[1]]
+                      for rid, v in verdicts.items()},
+        verdict_claims=claims)
+    emit("path_gateway", **out)
+    require(all(v["verdict"] == "ok" for v in verdicts.values()),
+            f"path_gateway: verdicts {verdicts}")
+    require(all(c == 1 for c in claims.values()),
+            f"path_gateway: verdicts claimed more than once: {claims}")
+    require(all(out["tokens_equal"].values()),
+            "path_gateway: tokens differ from path_replica's in-process "
+            f"engine's: {out['tokens_equal']}")
+    require(failovers >= 1, "path_gateway: the client never failed over")
+    require(stats["stats"]["routed_prefix"] >= 1,
+            f"path_gateway: gw-b routed nothing by prefix: {stats['stats']}")
+    require(not launches, f"path_gateway: port kernels launched: {launches}")
+    return out, launches
+
+
+def _deploy_reference(cfg: dict, reqs) -> tuple[dict, dict]:
+    """The version-2 LM (``cfg`` at ``param_seed`` 1, as the replica builds
+    it) in an engine on the card: its tokens for ``reqs`` and its weights
+    (on the card)."""
+    from tpu_sandbox_torch.serve import Request
+    from tpu_sandbox_torch.serve import replica as R
+
+    engine = R._build_engine({**cfg, "param_seed": 1}, torch.device("cuda"))
+    for rid, prompt, n in reqs:
+        engine.submit(Request(rid=rid, prompt=prompt, max_new_tokens=n))
+    engine.run_until_idle()
+    ref = {rid: r.tokens for rid, r in engine.results.items()}
+    params = engine.params
+    del engine
+    return ref, params
+
+
+def phase_path_deploy(want: dict) -> tuple[dict, dict]:
+    """A rolling deploy at the LM's bench width: a KV server here, two
+    replica processes on the card serving the boot weights
+    (``_replica_load()``'s config, ``param_seed`` 0: registry version 0,
+    the rollback target), one gateway process, and version 1 (the same
+    LM from ``param_seed`` 1, built here on the card, run through the
+    first DEPLOY_REQUESTS requests for its reference tokens and written
+    by ``publish_checkpoint``). A warm-up round through the gateway
+    first; then this process's DeployController (DEPLOY_CONFIG) verifies
+    the artifact, picks a canary, swaps it and puts the canary shares up;
+    the same prompts go in through the gateway under new rids while the
+    shares are live, each decoding on the version it pinned (version 0:
+    ``want``'s tokens; version 1: the reference's); the canary rule
+    passes and the controller promotes both replicas. Both load reports
+    ack version 1, the prompts under new rids give the reference's tokens
+    exactly, deploy_events holds one event per decision, and
+    audit_registry is clean. Each replica's swap seconds (command to
+    ack), the rollout's (publish to promote) and the artifact's bytes.
+    Returns the record and the replicas' launches (none)."""
+    import shutil
+
+    from tpu_sandbox_torch.deploy.controller import (DeployConfig,
+                                                     DeployController)
+    from tpu_sandbox_torch.deploy.registry import (audit_registry,
+                                                   current_target,
+                                                   deploy_events,
+                                                   read_shares)
+    from tpu_sandbox_torch.gateway import GatewayClient
+    from tpu_sandbox_torch.runtime.kvstore import KVClient, KVServer
+    from tpu_sandbox_torch.serve import replica as R
+    from tpu_sandbox_torch.train.trainer import publish_checkpoint
+
+    cfg, reqs = _replica_load()
+    cfg, reqs = {**cfg, **DEPLOY_REPLICA}, reqs[:DEPLOY_REQUESTS]
+    tags, gids = ["dp-r0", "dp-r1"], ["gw-deploy"]
+    counts_dir = _fresh_ckpt_dir("path_deploy_counts")
+    counts_dir.mkdir()
+    export = _fresh_ckpt_dir("path_deploy_export")
+    t0 = time.monotonic()
+    with KVServer() as srv:
+        kv = KVClient(port=srv.port)
+        procs = _serve_procs(srv.port, cfg, tags, gids, counts_dir)
+        client = ctrl = None
+        try:
+            ref, params = _deploy_reference(cfg, reqs)
+            ref_s = time.monotonic() - t0
+            eps = _wait_fleet(kv, procs, tags, gids, "path_deploy")
+            up_s = time.monotonic() - t0
+            client = GatewayClient(endpoints=[eps["gw-deploy"]])
+            submitted = {}
+
+            def round_(name):
+                rids = []
+                for rid, prompt, n in reqs:
+                    rids.append(f"{name}-{rid}")
+                    submitted[rids[-1]] = time.monotonic()
+                    require(client.submit(rids[-1], prompt, n),
+                            f"path_deploy: {rids[-1]} shed at the door")
+                return rids
+
+            warm, _ = _poll_verdicts(client, round_("d0"), submitted,
+                                     REPLICA_LIMIT, "path_deploy")
+            ctrl = DeployController(kv, member_id="smoke",
+                                    cfg=DeployConfig(**DEPLOY_CONFIG))
+            sent, acked = {}, {}
+            send = ctrl._send_swap
+
+            def timed_send(tag, seq, step_dir):
+                sent.setdefault(tag, time.monotonic())
+                send(tag, seq, step_dir)
+
+            ctrl._send_swap = timed_send
+            t_pub = time.monotonic()
+            ver = publish_checkpoint(kv, params, export_dir=export, step=1)
+            pub_s = time.monotonic() - t_pub
+            step_dir = Path(json.loads(kv.get(
+                f"deploy/models/default/{ver}"))["step_dir"])
+            artifact_bytes = _dir_bytes(step_dir)
+            del params
+            torch.cuda.empty_cache()
+            canary_rids, shares_seen = [], None
+            deadline = time.monotonic() + REPLICA_LIMIT
+            while current_target(kv) != ver or (
+                    canary_rids and not all(
+                        kv.try_get(R.k_result(r)) for r in canary_rids)):
+                require(time.monotonic() < deadline,
+                        f"path_deploy: no promotion in {REPLICA_LIMIT} s: "
+                        f"events {deploy_events(kv)}")
+                ctrl.tick()
+                reports = R.read_load_reports(kv)
+                for tag in tags:
+                    if reports.get(tag, {}).get("ver") == ver:
+                        acked.setdefault(tag, time.monotonic())
+                shares = read_shares(kv)
+                if shares and not canary_rids:
+                    shares_seen = shares
+                    canary_rids = round_("d1")
+                time.sleep(0.01)
+            promote_s = time.monotonic() - t_pub
+            canary, _ = _poll_verdicts(client, canary_rids, submitted,
+                                       REPLICA_LIMIT, "path_deploy")
+            after, _ = _poll_verdicts(client, round_("d2"), submitted,
+                                      REPLICA_LIMIT, "path_deploy")
+            reports = R.read_load_reports(kv)
+            events = deploy_events(kv)
+            audit = audit_registry(kv)
+            claims = {rid: int(kv.get(R.k_done(rid)))
+                      for rid in list(warm) + list(canary) + list(after)}
+            client.close()
+            client = None
+            ctrl.resign()
+            ctrl = None
+            _end_fleet(kv, procs, procs[2:], 3 * len(reqs), "path_deploy")
+        finally:
+            if client is not None:
+                client.close()
+            if ctrl is not None:
+                ctrl.resign()
+            kv.close()
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    launches, recs = _fleet_launches(counts_dir, tags, "path_deploy")
+    shutil.rmtree(counts_dir, ignore_errors=True)
+    shutil.rmtree(export, ignore_errors=True)
+
+    def tokens_ok(verdicts):
+        return {rid: v.get("tokens") == (ref if v.get("ver") == ver
+                                         else want)[rid.split("-", 1)[1]]
+                for rid, v in verdicts.items()}
+
+    canary_vers = Counter(v.get("ver") for v in canary.values())
+    out = dict(
+        requests=len(reqs), version=ver, reference_s=ref_s, up_s=up_s,
+        publish_s=pub_s, artifact_bytes=artifact_bytes,
+        swap_s={t: acked[t] - sent[t] for t in tags if t in sent
+                and t in acked},
+        rollout_s=promote_s, shares=shares_seen,
+        canary_round_versions=dict(canary_vers),
+        events=[e["action"] for e in events],
+        report_versions={t: reports.get(t, {}).get("ver") for t in tags},
+        swaps={t: recs[t]["swaps"] for t in tags},
+        audit=[{k: r[k] for k in ("ver", "status", "sealed", "dangling")}
+               for r in audit["versions"]],
+        warm_tokens_equal=tokens_ok(warm), canary_tokens_equal=tokens_ok(
+            canary), after_tokens_equal=tokens_ok(after),
+        verdict_claims=claims, launches=launches,
+        phase_s=time.monotonic() - t0)
+    emit("path_deploy", **out)
+    require(out["events"] == ["published", "promote_begin", "canary_pass",
+                              "promoted"],
+            f"path_deploy: events {events}")
+    require(all(v == ver for v in out["report_versions"].values()),
+            f"path_deploy: load reports ack {out['report_versions']}")
+    require(all(v["verdict"] == "ok" for d in (warm, canary, after)
+                for v in d.values()) and all(
+                c == 1 for c in claims.values()),
+            f"path_deploy: verdicts {warm} {canary} {after}, {claims}")
+    require(all(v.get("ver") == 0 for v in warm.values())
+            and all(v.get("ver") == ver for v in after.values())
+            and set(canary_vers) <= {0, ver},
+            "path_deploy: versions warm "
+            f"{[v.get('ver') for v in warm.values()]}, canary "
+            f"{dict(canary_vers)}, after "
+            f"{[v.get('ver') for v in after.values()]}")
+    require(all(out["warm_tokens_equal"].values())
+            and all(out["canary_tokens_equal"].values())
+            and all(out["after_tokens_equal"].values()),
+            "path_deploy: a request's tokens differ from its version's "
+            f"reference: {out}")
+    require(audit["target"] == ver and not audit["missing_records"]
+            and all(r["sealed"] and not r["dangling"]
+                    for r in audit["versions"]),
+            f"path_deploy: audit {audit}")
+    require(len(out["swap_s"]) == 2,
+            f"path_deploy: swaps sent {sent}, acked {acked}")
+    require(not launches, f"path_deploy: port kernels launched: {launches}")
+    return out, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4529,6 +5014,10 @@ def main() -> int:
         _, replica_tokens = phase_path_replica()
     with timed("path_replica_gang"):
         phase_path_replica_gang(replica_tokens)
+    with timed("path_gateway"):
+        _, counts["path_gateway"] = phase_path_gateway(replica_tokens)
+    with timed("path_deploy"):
+        _, counts["path_deploy"] = phase_path_deploy(replica_tokens)
     counts["ring_kernels"] = ring_counts
     for name, phase_fn, *a in (
             ("card_vs_cpu", phase_card_vs_cpu),

@@ -75,6 +75,14 @@ def test_import_loads_no_jax_and_no_jax_package():
         "import tpu_sandbox_torch.obs.health\n"
         "import tpu_sandbox_torch.serve.autoscale\n"
         "import tpu_sandbox_torch.gateway, tpu_sandbox_torch.gateway.fleet\n"
+        "import tpu_sandbox_torch.gateway.wire\n"
+        "import tpu_sandbox_torch.gateway.routing\n"
+        "import tpu_sandbox_torch.gateway.server\n"
+        "import tpu_sandbox_torch.gateway.client\n"
+        "import tpu_sandbox_torch.gateway.__main__\n"
+        "import tpu_sandbox_torch.deploy\n"
+        "import tpu_sandbox_torch.deploy.registry\n"
+        "import tpu_sandbox_torch.deploy.controller\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "print(','.join(sorted(bad)))\n"

@@ -6,7 +6,8 @@ own namespace of it:
   a sampled request interrupted mid-decode (:387), replaying bitwise;
 - the stub-step verdict, load-report, shed-storm, retry, retries-exhausted
   and hedging cases of tests/test_serve_slo.py:181-350;
-- the refusals: a ``swap`` command and live canary shares;
+- the deploy touchpoints: a ``swap`` command with no weights to install
+  and live canary shares pinning a submit;
 - one ``python -m tpu_sandbox_torch.serve.replica --force-cpu`` process
   answering 4 requests through the store with JAX's greedy tokens, from
   JAX's weights through the bridge, and the replica refusing to start
@@ -43,8 +44,8 @@ from tpu_sandbox_torch.runtime.supervisor import ENV_KV_PORT
 from tpu_sandbox_torch.serve import (CacheConfig, ContinuousEngine, Request,
                                      ServeConfig)
 from tpu_sandbox_torch.serve import replica as R
-from tpu_sandbox_torch.serve.client import (RetriesExhausted, ServeClient,
-                                            k_shares)
+from tpu_sandbox_torch.deploy.registry import k_shares
+from tpu_sandbox_torch.serve.client import RetriesExhausted, ServeClient
 from tpu_sandbox_torch.serve.decode import build_decode_step
 from tpu_sandbox_torch.utils.bridge import params_from_flax
 from torch_serve_stub import StubStep
@@ -342,19 +343,25 @@ def test_client_hedges_lost_claim(kv):
 
 def test_unported_routes_refuse(kv):
     """The deploy controller's swap command and the canary-share route
-    (ROADMAP item 11) raise, naming their item; an empty share body is no
-    split, as JAX reads it."""
+    (once refused, now ported): a swap to a version with no artifact, no
+    loader and no resident weights leaves the engine as it was and puts
+    the error in the load report; an empty share body is no split, as JAX
+    reads it, and a live one pins the submit to its drawn version."""
     w = _worker(kv, tag="w0")
     kv.set(serve_cmd_key("w0"), json.dumps({"action": "swap", "ver": 3}))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        w.tick()
+    w.tick()
+    assert w.engine.version == 0 and w.stats.swap_errors == 1
+    rep = json.loads(kv.get(R.k_load("w0")))
+    assert rep["ver"] == 0
+    assert rep["swap_error"] == {"ver": 3, "error": "no_params"}
     client = ServeClient(kv)
     kv.set(k_shares(""), json.dumps({"seq": 1, "shares": {}}))
     client.submit("r0", [1, 2, 3], 2)
+    assert kv.try_get(R.k_pin("r0")) is None
     kv.set(k_shares(""), json.dumps({"seq": 7, "shares": {"7": 1.0}}))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        client.submit("r1", [1, 2, 3], 2)
-    assert kv.try_get(R.k_req("r1")) is None
+    client.submit("r1", [1, 2, 3], 2)
+    assert kv.get(R.k_pin("r1")) == b"7"
+    assert kv.try_get(R.k_req("r1")) is not None
 
 
 # -- the replica process ------------------------------------------------------

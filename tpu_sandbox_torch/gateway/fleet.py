@@ -1,7 +1,6 @@
 """Multi-model tenancy: several model fleets behind one gateway. The
 port's copy of ``tpu_sandbox/gateway/fleet.py`` (the fleet namespaces and
-the fleet's replica jobs); the gateway server, routing, client and wire
-are not ported yet.
+the fleet's replica jobs).
 
 A *fleet* is one model configuration served by N replicas. Fleets share
 one KV store and one host pool but never each other's keys: every fleet's

@@ -135,9 +135,12 @@ class PagedKVCache:
 
     # -- allocation ----------------------------------------------------------
 
-    def alloc(self, prompt: Sequence[int], max_new: int) -> SeqAlloc | None:
+    def alloc(self, prompt: Sequence[int], max_new: int, *,
+              share: bool = True) -> SeqAlloc | None:
         """Reserve blocks for prompt + max_new tokens. Returns None when the
-        free list (plus droppable cache blocks) can't cover it."""
+        free list (plus droppable cache blocks) can't cover it. With
+        ``share`` False the prompt takes no cached block (its K/V would
+        come from other weights than the caller's)."""
         cfg = self.config
         need = self.blocks_needed(prompt, max_new)
         if need > cfg.max_blocks_per_seq:
@@ -146,7 +149,7 @@ class PagedKVCache:
                 f"{cfg.max_blocks_per_seq}")
         hashes = _chain_hashes(prompt, cfg.block_size)
         shared: list[int] = []
-        for hh in hashes:
+        for hh in hashes if share else ():
             bid = self._prefix.get(hh)
             if bid is None:
                 break

@@ -19,30 +19,28 @@ Counterpart of ``tpu_sandbox/serve/client.py``.
   bitwise identical across executions (greedy or seeded-sampled decode),
   so a hedge can only waste compute, never change an answer.
 
-The canary split (``deploy/shares/<fleet>``: a submit draws a weight
-version by share and pins it before enqueueing) is not ported: it needs
-the deploy registry and the gateway's routing (ROADMAP item 11). A submit
-that finds live shares raises ``NotImplementedError`` rather than ignore
-the split.
+Direct-to-KV traffic honors the canary split too: when the deploy
+controller has live traffic shares up (``deploy/shares/<fleet>``), each
+submit draws a weight version by share and writes the ``serve/pin``
+before enqueueing, so the first claimer decodes on the drawn version.
+Without this, KV-path requests would all land on whatever version their
+claimer happens to run — diluting the canary's share of traffic and the
+baseline-vs-canary comparison both. A retry redraws (it is a new
+lifecycle; the pin was cleared with the verdict). The draws are JAX's:
+``random.Random(share_seed)``, so both packages' clients pin the same
+version sequence for the same seed.
 """
 
 from __future__ import annotations
 
 import json
+import random
 import time
 from dataclasses import dataclass, field
 
 from tpu_sandbox_torch.runtime.kvstore import _backoff_delays
 from tpu_sandbox_torch.serve.replica import (enqueue, k_done, k_lease, k_pin,
                                              k_result, submit_request)
-
-_ITEM_11 = "ROADMAP queue 1 item 11, the deploy touchpoints"
-
-
-def k_shares(fleet: str) -> str:
-    """The deploy controller's live canary shares (JAX's
-    ``deploy/registry.py::k_shares``)."""
-    return f"deploy/shares/{fleet or 'default'}"
 
 
 @dataclass
@@ -94,7 +92,8 @@ class ServeClient:
 
     def __init__(self, kv, *, deadline_s: float | None = None,
                  max_retries: int = 2, hedge_after: float | None = None,
-                 backoff_base: float = 0.02, backoff_cap: float = 0.5):
+                 backoff_base: float = 0.02, backoff_cap: float = 0.5,
+                 share_seed: int = 0):
         self.kv = kv
         self.deadline_s = deadline_s
         self.max_retries = max_retries
@@ -103,8 +102,10 @@ class ServeClient:
         self.backoff_cap = backoff_cap
         self.stats = ClientStats()
         self._pending: dict[str, _Pending] = {}
-        # the deploy keys live at the store ROOT while a fleet view's
-        # serve keys live under fleet/<name>/
+        # canary-share draws: seeded so a test or replay submits the same
+        # version sequence; the deploy keys live at the store ROOT while
+        # a fleet view's serve keys live under fleet/<name>/
+        self._share_rng = random.Random(share_seed)
         prefix = getattr(kv, "prefix", "") or ""
         if prefix.startswith("fleet/") and prefix.endswith("/"):
             self._deploy_kv = kv.raw
@@ -113,20 +114,23 @@ class ServeClient:
             self._deploy_kv = kv
             self._fleet = ""
 
-    def _refuse_shares(self) -> None:
-        """Live canary shares would pin each submit to a drawn version;
-        the port cannot honour them yet, so it refuses rather than send
-        the traffic past the split. No live shares (the common case)
-        costs one try_get."""
-        raw = self._deploy_kv.try_get(k_shares(self._fleet))
-        try:
-            shares = json.loads(raw).get("shares") if raw else None
-        except (ValueError, AttributeError):
-            shares = None                   # unreadable: JAX reads no split
-        if shares:
-            raise NotImplementedError(
-                f"live canary shares under {k_shares(self._fleet)}: the "
-                f"share route is not ported ({_ITEM_11})")
+    def _pin_share(self, rid: str) -> int | None:
+        """Honor the deploy controller's live canary split: draw a weight
+        version by share and pin the rid to it BEFORE the enqueue, so the
+        first claimer decodes on the drawn version. No live shares (the
+        overwhelmingly common case) costs one try_get. Never a
+        correctness gate — a pin the fleet cannot serve yet just decodes
+        on the pinned version once a replica acks it."""
+        from tpu_sandbox_torch.deploy.registry import read_shares
+        from tpu_sandbox_torch.gateway.routing import pick_by_share
+
+        shares = read_shares(self._deploy_kv, self._fleet)
+        if not shares:
+            return None
+        ver = pick_by_share(shares, self._share_rng.random())
+        if ver is not None:
+            self.kv.set(k_pin(rid), str(int(ver)))
+        return ver
 
     def submit(self, rid: str, prompt, max_new_tokens: int, *,
                deadline_s: float | None = None, temperature: float = 0.0,
@@ -138,7 +142,7 @@ class ServeClient:
                      submitted_at=time.time(),
                      retries_left=self.max_retries)
         p.attempts.append({"submitted_at": p.submitted_at})
-        self._refuse_shares()
+        self._pin_share(rid)
         submit_request(
             self.kv, rid, p.prompt, p.max_new_tokens,
             deadline_unix=None if d is None else p.submitted_at + d,
@@ -204,7 +208,7 @@ class ServeClient:
         self.kv.delete(k_result(rid))
         self.kv.delete(k_done(rid))
         self.kv.delete(k_pin(rid))
-        self._refuse_shares()
+        self._pin_share(rid)  # a retry redraws the canary split
         submit_request(
             self.kv, rid, p.prompt, p.max_new_tokens,
             deadline_unix=None if p.deadline_s is None

@@ -174,6 +174,9 @@ class _EngineBase:
         # rollback target when nothing was ever promoted.
         self.version = 0
         self._params_by_ver: dict[int, Any] = {0: self._place(params)}
+        # optional: ver -> params | None, for pinned versions this process
+        # never held (post-respawn)
+        self.loader: Callable | None = None
         self.step_fns = step or build_decode_step(
             config.model, config.cache, max_batch=config.max_batch,
             buckets=config.buckets, cache_dtype=config.cache_dtype)
@@ -202,10 +205,10 @@ class _EngineBase:
         self._params_by_ver[self.version] = self._place(value)
 
     def _place(self, params):
-        """A weight dict on the engine's device (None stays None: stub
-        engines run weightless)."""
-        if params is None:
-            return None
+        """A weight dict on the engine's device (anything else as it is:
+        stub engines run weightless, on None or a token of their own)."""
+        if not isinstance(params, dict):
+            return params
         return {k: v.to(self.device) for k, v in params.items()}
 
     @property
@@ -239,7 +242,15 @@ class _EngineBase:
     def _params_for(self, ver: int):
         """Weights for ``ver``, or the ``_MISSING`` sentinel (None is a
         valid params value — stub engines run weightless)."""
-        return self._params_by_ver.get(int(ver), _MISSING)
+        ver = int(ver)
+        if ver in self._params_by_ver:
+            return self._params_by_ver[ver]
+        if self.loader is not None:
+            params = self.loader(ver)
+            if params is not None:
+                self._params_by_ver[ver] = self._place(params)
+                return self._params_by_ver[ver]
+        return _MISSING
 
     def _gc_params(self) -> None:
         keep = {self.version, 0}
@@ -398,8 +409,13 @@ class _EngineBase:
             return False
         # reserve the prompt's blocks only; decode grows the allocation one
         # block at a time, so block pressure shows up as preempt-to-requeue
-        # rather than refused admission
-        alloc = self.cache.alloc(request.prompt, 0)
+        # rather than refused admission. The prefix cache holds K/V of the
+        # current weights only (a swap flushes it): a request pinned to
+        # other weights neither takes from it nor adds to it (JAX's engine
+        # does both, so after a swap a prompt can decode on K/V of the
+        # other version)
+        current = (request.ver is None or int(request.ver) == self.version)
+        alloc = self.cache.alloc(request.prompt, 0, share=current)
         if alloc is None:
             return False
         self._prefill(request, alloc, free[0])
@@ -427,7 +443,8 @@ class _EngineBase:
             params, self.k_pages, self.v_pages,
             self._to_device(toks), self._to_device(dest), plen - 1)
         alloc.length = plen
-        self.cache.commit_prefix(alloc)
+        if ver == self.version:
+            self.cache.commit_prefix(alloc)
         slot = _Slot(request=request, alloc=alloc, tokens=list(request.prompt),
                      preemptions=request.preemptions, ver=ver)
         # the admit span covers admission bookkeeping plus the prefill
@@ -485,7 +502,9 @@ class _EngineBase:
     def _retire(self, i: int) -> None:
         slot = self.slots[i]
         self.slots[i] = None
-        self.cache.free(slot.alloc)
+        # a slot pinned to other weights than the current ones leaves no
+        # K/V in the prefix cache (see _try_admit)
+        self.cache.free(slot.alloc, cache_prefix=slot.ver == self.version)
         req = slot.request
         ctx = get_recorder().complete(
             "decode",

@@ -9,9 +9,9 @@ producer talks to either package's replica. Run one as
 on the card (or the CPU with ``--force-cpu``; with no card and no
 ``--force-cpu`` it fails). ``--fleet NAME`` (or ``TPU_SANDBOX_FLEET``)
 serves one tenant fleet: the whole request plane below lives under
-``fleet/<NAME>/`` (``gateway/fleet.py``). Not ported: the ``swap``
-command of the fault mailbox (ROADMAP item 11, the deploy touchpoints),
-which raises ``NotImplementedError``.
+``fleet/<NAME>/`` (``gateway/fleet.py``). The deploy controller's
+``swap`` command installs a published weight version (``_apply_swap``),
+restored onto the engine's device.
 
 The KV store (the same one the elastic runtime coordinates through) holds
 the whole request plane:
@@ -51,8 +51,8 @@ the whole request plane:
                          verdict is always single-version and replays are
                          bitwise. Cleared only by a client retry, which
                          starts a fresh lifecycle.
-    serve/cmd/<tag>      fault mailbox (shed_storm / stall_replica; the
-                         deploy controller's ``swap`` is refused here)
+    serve/cmd/<tag>      fault mailbox (shed_storm / stall_replica /
+                         swap — the deploy controller's rolling update)
     serve/total          number of distinct requests the producer will pose
 
 Loss cases and their answers:
@@ -89,10 +89,10 @@ from tpu_sandbox_torch.runtime.supervisor import (ENV_KV_PORT,
                                                   PREEMPTED_EXIT_CODE)
 
 K_TOTAL = "serve/total"
-#: the ROADMAP item of what the replica refuses
-_ITEM_11 = "ROADMAP queue 1 item 11, the deploy touchpoints"
-
 K_TAIL = "serve/queue/tail"
+#: a directory: the replica process writes its kernel launch counts there
+#: when it ends (``launches-<tag>.json``), as the elastic ranks do
+ENV_LAUNCH_COUNTS = "TPU_SANDBOX_LAUNCH_COUNTS"
 
 
 def k_req(rid: str) -> str:
@@ -259,6 +259,8 @@ class ReplicaStats:
     scavenged: int = 0
     shed: int = 0
     stalls: int = 0
+    swaps: int = 0
+    swap_errors: int = 0
 
 
 class ReplicaWorker:
@@ -271,7 +273,8 @@ class ReplicaWorker:
                  lease_ttl: float = 3.0, claim_depth: int | None = None,
                  scavenge_interval: float | None = None,
                  load_interval: float | None = None,
-                 ts_flusher=None, publish_ts: bool = True):
+                 ts_flusher=None, publish_ts: bool = True,
+                 swap_loader=None):
         from tpu_sandbox_torch.obs.tsdb import TimeSeriesFlusher
 
         self.kv = kv
@@ -294,6 +297,10 @@ class ReplicaWorker:
         self._tq_hole_since = 0.0
         self._published: set[str] = set()
         self._pin_skipped: set[str] = set()
+        # swap command -> params hook (tests/benches inject stub weights);
+        # None falls back to the artifact path in the command
+        self.swap_loader = swap_loader
+        self._swap_error: dict | None = None
         self._next_scavenge = time.monotonic() + self.scavenge_interval
         self._next_load = 0.0  # publish on the first tick
         self.stats = ReplicaStats()
@@ -433,8 +440,7 @@ class ReplicaWorker:
     def _poll_faults(self) -> None:
         """Consume the replica fault mailbox (serve/cmd/<tag>): shed_storm
         sheds the local waiting queue, stall_replica freezes this poll
-        loop long enough for leases to lapse (peers scavenge the claims).
-        A swap (the deploy controller's rolling update) is not ported."""
+        loop long enough for leases to lapse (peers scavenge the claims)."""
         raw = self.kv.try_get(k_cmd(self.tag))
         if raw is None:
             return
@@ -447,10 +453,58 @@ class ReplicaWorker:
             self.stats.stalls += 1
             time.sleep(float(cmd.get("duration", 2 * self.lease_ttl)))
         elif action == "swap":
-            raise NotImplementedError(
-                f"replica {self.tag}: the swap command installs a published "
-                f"weight version, which the port does not serve yet "
-                f"({_ITEM_11})")
+            self._apply_swap(cmd)
+
+    def _apply_swap(self, cmd: dict) -> None:
+        """Install the commanded weight version between decode steps.
+        Verify-before-touch: a manifest that fails its checksums leaves the
+        engine exactly as it was, with the error in the load report (the
+        controller reads it and rolls back). Idempotent — the controller
+        re-sends until the load report acks the version, so a replica
+        killed mid-swap just swaps again after respawn."""
+        ver = int(cmd.get("ver", 0))
+        if ver == self.engine.version:
+            return  # already there: a re-sent command, not an error
+        step_dir = cmd.get("step_dir")
+        if step_dir:
+            from tpu_sandbox_torch.train.checkpoint import verify_step_dir
+
+            problems = verify_step_dir(step_dir)
+            if problems:
+                self._swap_error = {"ver": ver, "error": "verify",
+                                    "problems": [str(p) for p in problems][:4]}
+                self.stats.swap_errors += 1
+                return
+        params, loaded = None, False
+        if self.swap_loader is not None:
+            params = self.swap_loader(cmd)
+            loaded = params is not None
+        elif step_dir:
+            from tpu_sandbox_torch.deploy.registry import load_step_params
+
+            try:
+                params = load_step_params(step_dir, self.engine.params)
+                loaded = True
+            except Exception as exc:  # torn mid-read, shape mismatch, ...
+                self._swap_error = {"ver": ver, "error": "load",
+                                    "problems": [str(exc)[:200]]}
+                self.stats.swap_errors += 1
+                return
+        elif self.engine.has_version(ver):
+            # no artifact and no hook: a rollback to weights this process
+            # still holds (None is valid params for stub engines)
+            params = self.engine._params_by_ver[ver]
+            loaded = True
+        if not loaded:
+            self._swap_error = {"ver": ver, "error": "no_params"}
+            self.stats.swap_errors += 1
+            return
+        flushed = self.engine.swap_params(params, ver)
+        self._swap_error = None
+        self.stats.swaps += 1
+        get_recorder().instant(
+            "swap", args={"replica": self.tag, "ver": ver,
+                          "prefix_flushed": flushed})
 
     def drain(self) -> int:
         """Requeue everything in flight; the SIGTERM path. Finished-but-
@@ -639,6 +693,8 @@ class ReplicaWorker:
                       wall=time.time())
         if self._gw_claims:
             report["gw_claims"] = dict(sorted(self._gw_claims.items()))
+        if self._swap_error is not None:
+            report["swap_error"] = self._swap_error
         self.kv.set_ttl(k_load(self.tag), json.dumps(report),
                         max(3 * self.load_interval, self.lease_ttl))
         if self.ts_flusher is not None:
@@ -698,6 +754,23 @@ def _build_engine(cfg: dict, device):
     return ContinuousEngine(params, scfg, device=device)
 
 
+def _write_launch_counts(tag: str, worker: ReplicaWorker) -> None:
+    """With ``TPU_SANDBOX_LAUNCH_COUNTS`` set (a directory), the process's
+    kernel launches of the port over its whole life, its swaps and its
+    claims, as ``launches-<tag>.json`` there."""
+    out = os.environ.get(ENV_LAUNCH_COUNTS)
+    if not out:
+        return
+    from pathlib import Path
+
+    from tpu_sandbox_torch import ops
+
+    path = Path(out) / f"launches-{tag.replace('/', '-')}.json"
+    path.write_text(json.dumps({"tag": tag, "launches": ops.launch_counts(),
+                                "swaps": worker.stats.swaps,
+                                "claimed": worker.stats.claimed}))
+
+
 def main(argv: Sequence[str] | None = None) -> int:
     from tpu_sandbox_torch.utils.device import resolve_device
 
@@ -739,6 +812,7 @@ def main(argv: Sequence[str] | None = None) -> int:
         worker.run(timeout=float(cfg.get("timeout", 300.0)))
     finally:
         kv.close()
+        _write_launch_counts(tag, worker)
     if worker._draining:
         print(f"[{tag}] drained: requeued {worker.stats.requeued} "
               f"in-flight request(s)", flush=True)

@@ -305,6 +305,32 @@ class Trainer:
             epoch + 1, epochs, i + 1, total_step, loss_val))
 
 
+# -- train -> serve handoff -------------------------------------------------
+
+
+def publish_checkpoint(kv, params, *, export_dir, step: int,
+                       fleet: str = "", extra: dict | None = None,
+                       compress: bool = False) -> int:
+    """Seal ``params`` as a one-rank export and register it in the deploy
+    model registry; returns the allocated version number. This is the
+    trainer's side of the zero-downtime handoff: the export either seals
+    completely (manifest written last) or raises — a torn artifact is
+    never registered, and the DeployController re-verifies checksums
+    before any replica is told to load it. A state dict (an engine's or
+    a module's weights, on any device) is written under the paths of
+    JAX's Flax tree, so a JAX replica loads it as it loads its own.
+    Imports stay lazy so the plain training path never pulls in the
+    deploy plane."""
+    from tpu_sandbox_torch.deploy.registry import (as_export_tree,
+                                                   publish_version)
+    from tpu_sandbox_torch.train.checkpoint import export_params
+
+    step_dir = export_params(export_dir, as_export_tree(params), int(step),
+                             extra=extra, compress=compress)
+    return publish_version(kv, step_dir, fleet=fleet, step=int(step),
+                           extra=extra)
+
+
 # -- elastic / resumable training -----------------------------------------
 
 class Preempted(RuntimeError):
