@@ -161,7 +161,7 @@ card or when the port is not beside it. Phases, one JSON line each:
 9. profile_flag: mnist_onegpu --profile DIR, 2 steps of the default plan
    at 3000x3000; the trace must name one of the port's kernels.
    curve_card_vs_cpu: parity_run.py's protocol (128x128, batch 5, fp32,
-   SGD at 1e-4) for 50 steps from one bridged tree on the plain ConvNet,
+   SGD at 1e-4) for 20 steps from one bridged tree on the plain ConvNet,
    ConvNetS2D (fused) and the default ConvNetS2DT, each card curve
    against its CPU curve within the committed record
    (parity_curves.jsonl:401: max abs 1.173e-3, max rel 0.143 %, mean abs
@@ -289,7 +289,25 @@ card or when the port is not beside it. Phases, one JSON line each:
    tokens, one event a decision, a clean registry audit; each replica's
    swap seconds (command to ack), the rollout's (publish to promote) and
    the artifact's bytes. The replicas of both phases write their launch
-   counts (none: serving launches no kernel of the port).
+   counts (none: serving launches no kernel of the port); path_gateway's
+   replicas write theirs over each phase's own window, ended by the
+   ``launch_counts`` command of the replica's fault mailbox. path_chaos,
+   between the two on path_gateway's fleet (its two replica processes and
+   three more gateway processes, every process recording into one trace
+   directory since the fleet started, this one from the campaign on): a
+   seeded chaos campaign
+   (tpu_sandbox_torch/runtime/chaos.py) of 24 requests
+   replayed from workload.synthesize, the gateway the client holds
+   SIGKILLed at 0.4 of the campaign and three seeded shed storms and
+   0.5 s replica stalls. Zero lost, one "ok" verdict a rid with the
+   tokens of an in-process engine on the same prompts, audit bytes equal
+   to those built from the schedule and those tokens, clean alert claims,
+   a failover and a prefix-routed probe through a surviving gateway; then
+   the port's collector and critical path over the trace (coverage mean
+   at least 0.95; each segment's share and median), the workload export
+   (the synthesized rids, sizes and chains; a byte-stable round trip),
+   the profile published to the tsdb and rendered by fleetop, and the
+   fleetop, tracecat and tracediff CLIs, each exiting 0.
 13. the {"kernels": [...]} summary, the nvidia-smi line, and last
    {"ok": true, "device": {...}}.
 
@@ -310,6 +328,7 @@ import sys
 import time
 from collections import Counter
 from pathlib import Path
+from types import SimpleNamespace
 
 import torch
 import torch.nn.functional as F
@@ -683,6 +702,29 @@ AGENTS_ENV = {"TPU_SANDBOX_LEASE_TTL": "1"}
 DEPLOY_REQUESTS = 4
 DEPLOY_REPLICA = {"lease_ttl": 6.0}
 DEPLOY_CONFIG = {"ttft_ratio": None}
+#: path_gateway and path_chaos share one fleet (``_front_door``): its
+#: replica processes, and path_gateway's gateway processes (ended at the
+#: end of path_gateway)
+FRONT_DOOR_TAGS = ("fd-r0", "fd-r1")
+GATEWAY_IDS = ("gw-a", "gw-b")
+#: path_chaos (the SIGKILL arm of JAX's bench_chaos on replicas at the
+#: bench width): the campaign's seed, its workload (requests over the
+#: seconds, prompt and decode tokens uniform in these ranges), its gateway
+#: processes (the client holds the first, SIGKILLed at CHAOS_KILL_AT of
+#: the seconds), the seeded faults drawn after the kill (shed storms and
+#: stalls of CHAOS_STALL_S on the replicas)
+CHAOS_SEED = 1
+CHAOS_REQUESTS = 24
+CHAOS_SECONDS = 4.0
+CHAOS_PROMPT = (32, 512)
+CHAOS_DECODE = (16, 64)
+CHAOS_GATEWAYS = ("gw0", "gw1", "gw2")
+CHAOS_KILL_AT = 0.4
+CHAOS_FAULTS = 3
+CHAOS_STALL_S = 0.5
+#: the segments of path_chaos's where-time-goes line, in the order printed
+CHAOS_SEGMENTS = ("prefill", "decode", "queue_wait", "engine_queue",
+                  "publish_wait", "route", "submit", "unattributed")
 #: path_replica_gang: one host agent whose one rank is a serve replica on
 #: the card (JAX's tests/test_serve_integration.py:62, with an agent
 #: timeout that outlasts a respawned agent's start, so the replacement's
@@ -4449,29 +4491,42 @@ def phase_path_replica_gang(want: dict) -> dict:
 
 
 def _serve_procs(srv_port: int, cfg: dict, tags, gateway_ids,
-                 counts_dir: Path) -> list:
+                 counts_dir: Path, trace_dir: Path | None = None) -> list:
     """Replica processes on the card (``python -m
     tpu_sandbox_torch.serve.replica``, each writing its launch counts into
     ``counts_dir`` when it ends) and gateway processes (``python -m
-    tpu_sandbox_torch.gateway``), all against the KV server on
-    ``srv_port``, all started at once."""
+    tpu_sandbox_torch.gateway``, its one fleet's blocks the replicas' cache
+    blocks, so its chains are theirs), all against the KV server on
+    ``srv_port``, all started at once. With ``trace_dir`` every process
+    records into it, as ``serve-<tag>`` or ``gateway-<id>``."""
     import os
 
+    from tpu_sandbox_torch.obs.record import ENV_PROC_NAME, ENV_TRACE_DIR
     from tpu_sandbox_torch.runtime.supervisor import ENV_KV_PORT
     from tpu_sandbox_torch.serve.replica import ENV_LAUNCH_COUNTS
 
     root = Path(__file__).resolve().parent
     env = {**os.environ, ENV_KV_PORT: str(srv_port),
            ENV_LAUNCH_COUNTS: str(counts_dir)}
+
+    def env_of(proc):
+        if trace_dir is None:
+            return env
+        return {**env, ENV_TRACE_DIR: str(trace_dir), ENV_PROC_NAME: proc}
+
     procs = [subprocess.Popen(
         [sys.executable, "-m", "tpu_sandbox_torch.serve.replica",
-         "--config", json.dumps(cfg), "--tag", tag], cwd=root, env=env,
-        text=True, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+         "--config", json.dumps(cfg), "--tag", tag], cwd=root,
+        env=env_of(f"serve-{tag}"), text=True, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT)
         for tag in tags]
     procs += [subprocess.Popen(
         [sys.executable, "-m", "tpu_sandbox_torch.gateway",
-         "--kv-port", str(srv_port), "--gateway-id", gid], cwd=root,
-        env=env, text=True, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+         "--kv-port", str(srv_port), "--gateway-id", gid, "--fleets",
+         json.dumps([{"block_size": cfg["cache"]["block_size"]}])],
+        cwd=root, env=env_of(f"gateway-{gid}"), text=True,
+        stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT)
         for gid in gateway_ids]
     return procs
 
@@ -4539,6 +4594,30 @@ def _fleet_launches(counts_dir: Path, tags, what: str) -> tuple[dict, dict]:
     return dict(total), recs
 
 
+def _replica_window(kv, counts_dir: Path, tags, what: str) -> tuple[dict,
+                                                                    dict]:
+    """End a launch-count window on the running replicas of ``tags``: the
+    ``launch_counts`` command of each one's fault mailbox makes it write
+    its launches since the last window and count from 0 again. Returns
+    ``_fleet_launches`` of that window (each within REPLICA_LIMIT) and
+    removes the files, so that the next window's are its own."""
+    from tpu_sandbox_torch.serve import replica as R
+
+    files = [counts_dir / f"launches-{tag}.json" for tag in tags]
+    for tag in tags:
+        kv.set(R.k_cmd(tag), json.dumps({"action": "launch_counts"}))
+    deadline = time.monotonic() + REPLICA_LIMIT
+    while not all(f.is_file() for f in files):
+        require(time.monotonic() < deadline,
+                f"{what}: the replicas wrote no launch counts in "
+                f"{REPLICA_LIMIT} s")
+        time.sleep(0.01)
+    out = _fleet_launches(counts_dir, tags, what)
+    for f in files:
+        f.unlink()
+    return out
+
+
 def _poll_verdicts(client, rids, submitted: dict, limit: float,
                    what: str, each=None) -> tuple[dict, dict]:
     """Poll the gateway (``try_result``) until every rid of ``rids`` has
@@ -4563,111 +4642,145 @@ def _poll_verdicts(client, rids, submitted: dict, limit: float,
     return verdicts, seconds
 
 
-def phase_path_gateway(want: dict) -> tuple[dict, dict]:
-    """The front door at the LM's bench width (JAX's
-    tests/test_gateway.py failover scenario with real replicas): a KV
-    server here, two ``python -m tpu_sandbox_torch.serve.replica``
-    processes on the card on ``_replica_load()``'s config, two ``python -m
-    tpu_sandbox_torch.gateway`` processes (``--gateway-id gw-a``, ``gw-b``)
-    and a GatewayClient here holding both endpoints. The 8 requests go in
-    through gw-a; once two verdicts are in the store, gw-a is SIGKILLed and
-    the client fails over to gw-b for the rest. Once every first-round
-    verdict is out and both replicas advertise their resident prefixes,
-    the same 8 prompts go in again under new rids, through gw-b. Every rid
-    has exactly one verdict, "ok", with ``want``'s tokens (path_replica's
-    in-process engine; a second-round rid takes its first-round twin's);
-    the client counts a failover; gw-b routes second-round requests by
-    prefix depth; gw-a's heartbeat lease lapses. Returns the record and
-    the replicas' launches (none: serving launches no port kernel)."""
-    import os
+def _front_door():
+    """The fleet path_gateway and path_chaos share, started at once: a KV
+    server here, two replica processes on the card on ``_replica_load()``'s
+    config (FRONT_DOOR_TAGS), the gateway processes of both phases
+    (GATEWAY_IDS, then CHAOS_GATEWAYS), every one recording into one trace
+    directory. Close it with ``_close_front_door``."""
+    from tpu_sandbox_torch.runtime.kvstore import KVClient, KVServer
+
+    cfg, _ = _replica_load()
+    counts_dir = _fresh_ckpt_dir("front_door_counts")
+    counts_dir.mkdir()
+    trace_dir = _fresh_ckpt_dir("front_door_trace")
+    trace_dir.mkdir()
+    srv = KVServer()
+    gids = [*GATEWAY_IDS, *CHAOS_GATEWAYS]
+    door = SimpleNamespace(
+        cfg=cfg, srv=srv, kv=KVClient(port=srv.port),
+        tags=list(FRONT_DOOR_TAGS), gids=gids, counts_dir=counts_dir,
+        trace_dir=trace_dir, t0=time.monotonic())
+    door.procs = dict(zip([*door.tags, *gids], _serve_procs(
+        srv.port, cfg, door.tags, gids, counts_dir, trace_dir=trace_dir)))
+    return door
+
+
+def _close_front_door(door) -> None:
+    """Kill what is still running of the shared fleet, stop its KV server
+    and remove its directories."""
     import shutil
+
+    for p in door.procs.values():
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    door.kv.close()
+    door.srv.stop()
+    for d in (door.counts_dir, door.trace_dir):
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def phase_path_gateway(want: dict, door) -> tuple[dict, dict, dict]:
+    """The front door at the LM's bench width (JAX's
+    tests/test_gateway.py failover scenario with real replicas) on the
+    shared fleet (``_front_door``): the two replicas and a GatewayClient
+    here holding gw-a and gw-b. The 8 requests go in through gw-a; once
+    two verdicts are in the store, gw-a is SIGKILLed and the client fails
+    over to gw-b for the rest. Once every first-round verdict is out and
+    both replicas advertise their resident prefixes, the same 8 prompts go
+    in again under new rids, through gw-b. Every rid has exactly one
+    verdict, "ok", with ``want``'s tokens (path_replica's in-process
+    engine; a second-round rid takes its first-round twin's); the client
+    counts a failover; gw-b routes second-round requests by prefix depth;
+    gw-a's heartbeat lease lapses; gw-b closes on SIGTERM. The replicas'
+    launch counts are set to 0 once the fleet is up and read at the end
+    (``_replica_window``); the replicas and the other gateways run on into
+    path_chaos. Returns the record, the launches (none: serving launches
+    no port kernel) and the gateways' endpoints by id."""
+    import signal
 
     from tpu_sandbox_torch.gateway import (GatewayClient,
                                            live_gateway_endpoints)
-    from tpu_sandbox_torch.runtime.kvstore import KVClient, KVServer
     from tpu_sandbox_torch.serve import replica as R
 
-    cfg, reqs = _replica_load()
-    tags, gids = ["gw-r0", "gw-r1"], ["gw-a", "gw-b"]
-    counts_dir = _fresh_ckpt_dir("path_gateway_counts")
-    counts_dir.mkdir()
-    t0 = time.monotonic()
-    with KVServer() as srv:
-        kv = KVClient(port=srv.port)
-        procs = _serve_procs(srv.port, cfg, tags, gids, counts_dir)
-        client = None
+    _, reqs = _replica_load()
+    kv, t0 = door.kv, door.t0
+    eps = _wait_fleet(kv, list(door.procs.values()), door.tags, door.gids,
+                      "path_gateway")
+    up_s = time.monotonic() - t0
+    _replica_window(kv, door.counts_dir, door.tags, "path_gateway")
+    client = GatewayClient(endpoints=[eps["gw-a"], eps["gw-b"]],
+                           backoff_base=0.05)
+    try:
+        require(client.endpoint == eps["gw-a"],
+                f"path_gateway: the client took {client.endpoint}")
+        submitted = {}
+        first = [(f"g1-{rid}", prompt, n) for rid, prompt, n in reqs]
+        for rid, prompt, n in first:
+            submitted[rid] = time.monotonic()
+            require(client.submit(rid, prompt, n),
+                    f"path_gateway: {rid} shed at the door")
+        deadline = time.monotonic() + REPLICA_LIMIT
+        while len(kv.keys("serve/result/")) < 2:
+            require(time.monotonic() < deadline,
+                    "path_gateway: no two verdicts before the kill")
+            time.sleep(0.005)
+        at_kill = len(kv.keys("serve/result/"))
+        killed = door.procs["gw-a"]
+        killed.kill()
+        killed.wait(timeout=60)
+        t_kill = time.monotonic()
+        lapsed = []
+
+        def lease_gone():
+            if not lapsed and "gw-a" not in [
+                    g for g, _, _ in live_gateway_endpoints(kv)]:
+                lapsed.append(time.monotonic() - t_kill)
+
+        v1, s1 = _poll_verdicts(client, [r for r, _, _ in first],
+                                submitted, REPLICA_LIMIT, "path_gateway",
+                                each=lease_gone)
+        failovers = client.stats.failovers
+        # the replicas' reports carry the first round's prefixes
+        while not all(r.get("prefix_digest") and not r.get("active")
+                      for r in R.read_load_reports(kv).values()):
+            require(time.monotonic() < deadline,
+                    "path_gateway: no idle replica reports with resident "
+                    "prefixes")
+            time.sleep(0.01)
+        second = [(f"g2-{rid}", prompt, n) for rid, prompt, n in reqs]
+        for rid, prompt, n in second:
+            submitted[rid] = time.monotonic()
+            require(client.submit(rid, prompt, n),
+                    f"path_gateway: {rid} shed at the door")
+        v2, s2 = _poll_verdicts(client, [r for r, _, _ in second],
+                                submitted, REPLICA_LIMIT, "path_gateway",
+                                each=lease_gone)
+        stats = client.gateway_stats()
+        while not lapsed:
+            require(time.monotonic() - t_kill < PLANE_LIMIT,
+                    "path_gateway: gw-a's heartbeat lease never lapsed")
+            lease_gone()
+            time.sleep(0.02)
+        lapse_s = lapsed[0]
+        claims = {rid: int(kv.get(R.k_done(rid)))
+                  for rid in list(v1) + list(v2)}
+    finally:
+        client.close()
+    launches, recs = _replica_window(kv, door.counts_dir, door.tags,
+                                     "path_gateway")
+    door.procs["gw-b"].send_signal(signal.SIGTERM)
+    closed = {}
+    for gid, code in (("gw-a", -9), ("gw-b", 0)):
         try:
-            eps = _wait_fleet(kv, procs, tags, gids, "path_gateway")
-            up_s = time.monotonic() - t0
-            client = GatewayClient(endpoints=[eps["gw-a"], eps["gw-b"]],
-                                   backoff_base=0.05)
-            require(client.endpoint == eps["gw-a"],
-                    f"path_gateway: the client took {client.endpoint}")
-            submitted = {}
-            first = [(f"g1-{rid}", prompt, n) for rid, prompt, n in reqs]
-            for rid, prompt, n in first:
-                submitted[rid] = time.monotonic()
-                require(client.submit(rid, prompt, n),
-                        f"path_gateway: {rid} shed at the door")
-            deadline = time.monotonic() + REPLICA_LIMIT
-            while len(kv.keys("serve/result/")) < 2:
-                require(time.monotonic() < deadline,
-                        "path_gateway: no two verdicts before the kill")
-                time.sleep(0.005)
-            at_kill = len(kv.keys("serve/result/"))
-            killed = procs[2]
-            killed.kill()
-            killed.wait(timeout=60)
-            t_kill = time.monotonic()
-            lapsed = []
-
-            def lease_gone():
-                if not lapsed and "gw-a" not in [
-                        g for g, _, _ in live_gateway_endpoints(kv)]:
-                    lapsed.append(time.monotonic() - t_kill)
-
-            v1, s1 = _poll_verdicts(client, [r for r, _, _ in first],
-                                    submitted, REPLICA_LIMIT, "path_gateway",
-                                    each=lease_gone)
-            failovers = client.stats.failovers
-            # the replicas' reports carry the first round's prefixes
-            while not all(r.get("prefix_digest") and not r.get("active")
-                          for r in R.read_load_reports(kv).values()):
-                require(time.monotonic() < deadline,
-                        "path_gateway: no idle replica reports with "
-                        "resident prefixes")
-                time.sleep(0.01)
-            second = [(f"g2-{rid}", prompt, n) for rid, prompt, n in reqs]
-            for rid, prompt, n in second:
-                submitted[rid] = time.monotonic()
-                require(client.submit(rid, prompt, n),
-                        f"path_gateway: {rid} shed at the door")
-            v2, s2 = _poll_verdicts(client, [r for r, _, _ in second],
-                                    submitted, REPLICA_LIMIT, "path_gateway",
-                                    each=lease_gone)
-            stats = client.gateway_stats()
-            while not lapsed:
-                require(time.monotonic() - t_kill < PLANE_LIMIT,
-                        "path_gateway: gw-a's heartbeat lease never lapsed")
-                lease_gone()
-                time.sleep(0.02)
-            lapse_s = lapsed[0]
-            claims = {rid: int(kv.get(R.k_done(rid)))
-                      for rid in list(v1) + list(v2)}
-            client.close()
-            client = None
-            outs = _end_fleet(kv, procs, procs[2:], 2 * len(reqs),
-                              "path_gateway", killed=[killed])
-        finally:
-            if client is not None:
-                client.close()
-            kv.close()
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-    launches, recs = _fleet_launches(counts_dir, tags, "path_gateway")
-    shutil.rmtree(counts_dir, ignore_errors=True)
+            closed[gid], _ = door.procs[gid].communicate(
+                timeout=REPLICA_LIMIT)
+        except subprocess.TimeoutExpired:
+            require(False, f"path_gateway: {gid} ran past {REPLICA_LIMIT} s")
+        require(door.procs[gid].returncode == code,
+                f"path_gateway: {gid} exited "
+                f"{door.procs[gid].returncode}: {closed[gid][-3000:]}")
     verdicts = {**v1, **v2}
     lat = list(s1.values()) + list(s2.values())
     out = dict(
@@ -4683,8 +4796,9 @@ def phase_path_gateway(want: dict) -> tuple[dict, dict]:
         surviving_gateway=stats["stats"],
         answered_by=dict(Counter(v.get("replica")
                                  for v in verdicts.values())),
-        claimed={t: recs[t]["claimed"] for t in tags},
-        launches=launches, gateway_closed=outs[3].strip().splitlines()[-1:],
+        claimed={t: recs[t]["claimed"] for t in door.tags},
+        launches=launches,
+        gateway_closed=closed["gw-b"].strip().splitlines()[-1:],
         tokens_equal={rid: v.get("tokens") == want[rid.split("-", 1)[1]]
                       for rid, v in verdicts.items()},
         verdict_claims=claims)
@@ -4700,7 +4814,7 @@ def phase_path_gateway(want: dict) -> tuple[dict, dict]:
     require(stats["stats"]["routed_prefix"] >= 1,
             f"path_gateway: gw-b routed nothing by prefix: {stats['stats']}")
     require(not launches, f"path_gateway: port kernels launched: {launches}")
-    return out, launches
+    return out, launches, eps
 
 
 def _deploy_reference(cfg: dict, reqs) -> tuple[dict, dict]:
@@ -4901,6 +5015,349 @@ def phase_path_deploy(want: dict) -> tuple[dict, dict]:
     return out, launches
 
 
+
+@contextlib.contextmanager
+def _recording(trace_dir: Path, proc: str):
+    """This process's recorder writing into ``trace_dir`` as ``proc`` for
+    the block (flushed at its end), and off again after it."""
+    import os
+
+    from tpu_sandbox_torch.obs import record
+
+    names = (record.ENV_TRACE_DIR, record.ENV_PROC_NAME)
+    saved = {k: os.environ.get(k) for k in names}
+    os.environ.update(zip(names, (str(trace_dir), proc)))
+    record.reset_recorder()
+    try:
+        yield record.get_recorder()
+    finally:
+        record.get_recorder().flush()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        record.reset_recorder()
+
+
+def _watch_verdicts(kv, landed: dict, stop) -> None:
+    """Until ``stop`` is set, poll the store every 5 ms and put the host
+    clock's time at which each rid's first non-SHED verdict was seen into
+    ``landed``; closes ``kv`` (a client of this thread's own) at the end.
+    The trace's request walls are not submit to verdict: critpath keys a
+    rid on the first trace that names it, so a rid that a shed storm sent
+    back to the campaign ends its wall at the SHED verdict, and a rid
+    whose spans died with the killed gateway loses the start of its
+    path."""
+    try:
+        while not stop.is_set():
+            for key in kv.keys("serve/result/"):
+                rid = key[len("serve/result/"):]
+                if rid in landed:
+                    continue
+                raw = kv.try_get(key)
+                if raw is not None and json.loads(raw).get(
+                        "verdict", "ok") != "SHED":
+                    landed[rid] = time.monotonic()
+            stop.wait(0.005)
+    finally:
+        kv.close()
+
+
+def _port_tools(*cmds: list[str]) -> list[tuple[int, str]]:
+    """Each of ``cmds`` run as ``python -m tpu_sandbox_torch.tools.<cmd[0]>
+    <cmd[1:]>``, all at once: each one's exit code and output (ENTRY_LIMIT
+    seconds each)."""
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", f"tpu_sandbox_torch.tools.{cmd[0]}",
+         *cmd[1:]], cwd=Path(__file__).resolve().parent, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT) for cmd in cmds]
+    out = []
+    for p in procs:
+        try:
+            text, _ = p.communicate(timeout=ENTRY_LIMIT)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            text, _ = p.communicate()
+        out.append((p.returncode, text))
+    return out
+
+
+def phase_path_chaos(smi: str, door, eps: dict,
+                     up_s: float) -> tuple[dict, dict]:
+    """A seeded chaos campaign at the LM's bench width (the SIGKILL arm of
+    JAX's bench_chaos, bench.py:2136-2160, on real replicas) on the fleet
+    path_gateway leaves running (``_front_door``: two replica processes on
+    the card, and CHAOS_GATEWAYS among its gateways, at ``eps``, up after
+    ``up_s`` s; every process records into one trace directory, this one
+    once its reference is built); a failover GatewayClient holding the
+    three endpoints is the campaign's door. The
+    workload is ``workload.synthesize`` (CHAOS_SEED, CHAOS_REQUESTS over
+    CHAOS_SECONDS); the schedule SIGKILLs the gateway the client holds at
+    CHAOS_KILL_AT of the seconds, then ``build_schedule`` draws
+    CHAOS_FAULTS shed storms and stalls of the replicas. The checks: zero
+    lost and one "ok" verdict a rid, with the tokens of the replica's own
+    engine (``_build_engine``, run here) on ``campaign.prompt_for(row)``;
+    audit bytes equal to those built from the schedule and those tokens;
+    clean alert claims; a failover; a probe through a surviving gateway
+    routed by prefix. Then the fleet ends (each process flushes its
+    recorder) and the port's collector and critical path read the trace
+    of both phases: coverage mean at least COVERAGE_TARGET, each
+    segment's share and median; the workload export holds every rid of
+    the campaign with its decode tokens, and the prompt tokens and chain
+    of every one whose route span landed (the others were routed by a
+    killed gateway, whose buffered spans died with it); its canonical
+    bytes round-trip; the profile published to the tsdb shows in
+    fleetop's where-time-goes panel beside both replicas; fleetop,
+    tracecat and tracediff exit 0. Returns the record and the replicas'
+    launches since path_gateway read them (none)."""
+    import shutil
+    import threading
+
+    from tpu_sandbox_torch.gateway import GatewayClient
+    from tpu_sandbox_torch.obs import collect, critpath, workload
+    from tpu_sandbox_torch.runtime.chaos import (CampaignResult,
+                                                 ChaosCampaign, ChaosFault,
+                                                 _token_digest,
+                                                 build_schedule,
+                                                 check_alert_claims,
+                                                 prefix_probe)
+    from tpu_sandbox_torch.serve import Request
+    from tpu_sandbox_torch.serve import replica as R
+    from tpu_sandbox_torch.serve.cache import chain_digest
+    from tpu_sandbox_torch.tools import fleetop
+
+    cfg, kv, tags = door.cfg, door.kv, door.tags
+    block = cfg["cache"]["block_size"]
+    gids = list(CHAOS_GATEWAYS)
+    profiles = _fresh_ckpt_dir("path_chaos_profiles")
+    profiles.mkdir()
+    trace = workload.synthesize(CHAOS_SEED, CHAOS_REQUESTS,
+                                duration_s=CHAOS_SECONDS,
+                                prompt_tokens=CHAOS_PROMPT,
+                                decode_tokens=CHAOS_DECODE)
+    rows = workload.replay_order(trace)
+    schedule = [ChaosFault(at_s=round(CHAOS_SECONDS * CHAOS_KILL_AT, 6),
+                           action="kill_gateway", target=gids[0])]
+    schedule += build_schedule(CHAOS_SEED, duration_s=CHAOS_SECONDS, targets={
+        "shed_storm": tags,
+        "stall_replica": [f"{t}:{CHAOS_STALL_S}" for t in tags]},
+        n_faults=CHAOS_FAULTS)
+    probe_rid = f"probe-{CHAOS_SEED}"
+    t0 = time.monotonic()
+    client = None
+    held, submitted, landed, killed = {}, {}, {}, []
+    stop, watcher = threading.Event(), None
+
+    def door_submit(rid, prompt, n):
+        submitted.setdefault(rid, time.monotonic())
+        return client.submit(rid, prompt, n)
+
+    def sigkill(gid):
+        held[gid] = client.endpoint == eps[gid]
+        door.procs[gid].kill()
+        door.procs[gid].wait(timeout=60)
+        killed.append(door.procs[gid])
+
+    campaign = ChaosCampaign(
+        kv, trace, door_submit, seed=CHAOS_SEED, schedule=schedule,
+        hooks={"kill_gateway": sigkill},
+        vocab=cfg["model"]["vocab_size"], block_size=block,
+        verdict_timeout=REPLICA_LIMIT)
+    try:
+        # the reference, here on the card: the replica's engine on the
+        # campaign's prompts
+        engine = R._build_engine(cfg, torch.device("cuda"))
+        for row in rows:
+            engine.submit(Request(
+                rid=row["rid"], prompt=campaign.prompt_for(row),
+                max_new_tokens=int(row["decode_tokens"])))
+        engine.run_until_idle()
+        want = {rid: r.tokens for rid, r in engine.results.items()}
+        del engine
+        torch.cuda.empty_cache()
+        ref_s = time.monotonic() - t0
+        # this process records from here (the reference above would have
+        # given each rid a trace of its own)
+        with _recording(door.trace_dir, "client"):
+            client = GatewayClient(endpoints=[eps[g] for g in gids],
+                                   backoff_base=0.05)
+            watcher = threading.Thread(
+                target=_watch_verdicts, args=(kv.clone(), landed, stop),
+                name="chaos-verdicts", daemon=True)
+            watcher.start()
+            t_run = time.monotonic()
+            res = campaign.run()
+            campaign_s = time.monotonic() - t_run
+            failovers = client.stats.failovers
+            alert_failures = check_alert_claims(kv)
+            # the probe, through the gateway the client failed over to: the
+            # prompt of the latest row whose blocks a replica advertises (a
+            # load report carries its newest 24 prefix entries)
+            deadline = time.monotonic() + REPLICA_LIMIT
+            while True:
+                adv = {h for r in R.read_load_reports(kv).values()
+                       for h in r.get("prefix_digest", ())}
+                probe_row = next(
+                    (row for row in reversed(rows) if adv & set(
+                        chain_digest(campaign.prompt_for(row), block))), None)
+                if probe_row is not None:
+                    break
+                require(time.monotonic() < deadline,
+                        "path_chaos: no replica advertises a prefix of the "
+                        "campaign's prompts")
+                time.sleep(0.02)
+            routed = prefix_probe(client, campaign.prompt_for(probe_row),
+                                  probe_rid)
+            probe = client.result(probe_rid, timeout=REPLICA_LIMIT)
+            survivor = next(g for g in gids if eps[g] == client.endpoint)
+            door_stats = client.gateway_stats()["stats"]
+            stop.set()
+            verdicts = {row["rid"]: json.loads(kv.get(R.k_result(row["rid"])))
+                        for row in rows}
+            claims = {rid: int(kv.get(R.k_done(rid)))
+                      for rid in [*verdicts, probe_rid]}
+            stamped = {rid: json.loads(kv.get(R.k_req(rid))).get("gw")
+                       for rid in verdicts}
+            client.close()
+            client = None
+            # every request of both phases has its verdict: the replicas end
+            fleet = [*(door.procs[t] for t in tags),
+                     *(door.procs[g] for g in gids)]
+            outs = _end_fleet(kv, fleet, fleet[len(tags):],
+                              len(kv.keys("serve/result/")), "path_chaos",
+                              killed=killed)
+        # the trace, now that every process has flushed its recorder
+        t_trace = time.monotonic()
+        stats: dict = {}
+        merged = collect.load_merged(str(door.trace_dir), stats)
+        profile = critpath.analyze(merged)["profile"]
+        exported = workload.from_trace(merged, source="path_chaos")
+        text = workload.dumps(exported)
+        published = critpath.publish_profile(kv, profile)
+        console = fleetop.render(kv)
+        mine, cat = profiles / "script.json", profiles / "tracecat.json"
+        critpath.save_profile(profile, str(mine))
+        tools = dict(zip(("fleetop", "tracecat"), _port_tools(
+            ["fleetop", "--port", str(door.srv.port)],
+            ["tracecat", str(door.trace_dir), "--critpath", str(cat)])))
+        tools["tracediff"], = _port_tools(["tracediff", str(mine), str(cat)])
+        trace_s = time.monotonic() - t_trace
+    finally:
+        stop.set()
+        if watcher is not None:
+            watcher.join(timeout=60)
+        if client is not None:
+            client.close()
+    launches, _ = _fleet_launches(door.counts_dir, tags, "path_chaos")
+    tool_profile = critpath.load_profile(str(cat))
+    shutil.rmtree(profiles, ignore_errors=True)
+
+    expect = CampaignResult(
+        seed=CHAOS_SEED,
+        fired=[f.as_dict() for f in sorted(schedule,
+                                           key=lambda f: (f.at_s, f.action))],
+        verdicts={row["rid"]: {"verdict": "ok", "tokens": _token_digest(
+            {"tokens": want[row["rid"]]})} for row in rows})
+    lat = [landed[r] - submitted[r] for r in verdicts
+           if r in landed and r in submitted]
+    segs = profile["segments"]
+    exported_rows = {r["rid"]: r for r in exported["requests"]}
+    routeless = sorted(r["rid"] for r in rows
+                       if exported_rows.get(r["rid"], {}).get(
+                           "prompt_tokens") == 0)
+    sizes_equal = {
+        row["rid"]: (exported_rows.get(row["rid"], {}).get("decode_tokens")
+                     == row["decode_tokens"]) and (
+            row["rid"] in routeless or (
+                exported_rows[row["rid"]]["prompt_tokens"]
+                == row["prompt_tokens"] and exported_rows[row["rid"]][
+                    "chain"] == str(chain_digest(
+                        campaign.prompt_for(row), block)[-1])))
+        for row in rows}
+    out = dict(
+        card=smi, requests=len(rows), seed=CHAOS_SEED,
+        fired=[f["action"] for f in res.fired], submitted=res.submitted,
+        admitted=res.admitted, door_sheds=res.door_shed,
+        retried=res.retried, lost=res.lost, failovers=failovers,
+        killed_held_gateway=held.get(gids[0]), survivor=survivor,
+        submit_to_verdict_s={"p50": _pct(lat, 50), "p99": _pct(lat, 99),
+                             "max": max(lat) if lat else None,
+                             "n": len(lat)},
+        campaign_s=campaign_s, reference_s=ref_s, trace_s=trace_s,
+        fleet_up_s=up_s, surviving_gateway=door_stats,
+        gateways_closed=[o.strip().splitlines()[-1:] for o in outs
+                         if "[gateway] closed" in o],
+        answered_by=dict(Counter(v.get("replica")
+                                 for v in verdicts.values())),
+        tokens_equal={rid: v.get("tokens") == want[rid]
+                      for rid, v in verdicts.items()},
+        verdict_claims=claims,
+        audit_equal=res.audit_bytes() == expect.audit_bytes(),
+        alert_failures=alert_failures, prefix_probe_routed=routed,
+        probe_row=probe_row["rid"],
+        probe_tokens_equal=probe.get("tokens") == want[probe_row["rid"]][:4],
+        trace_files=stats.get("files"),
+        dropped_records=stats.get("dropped_records", 0),
+        records=len(merged), trace_requests=profile["requests"],
+        coverage_mean=profile["coverage_mean"],
+        coverage_min=profile["coverage_min"],
+        wall_s_median=profile["wall_s_median"],
+        segments={s: ({"share": segs[s]["share"],
+                       "median_ms": segs[s]["median_s"] * 1e3,
+                       "n": segs[s]["n"]} if s in segs else None)
+                  for s in CHAOS_SEGMENTS},
+        other_segments={s: {"share": v["share"],
+                            "median_ms": v["median_s"] * 1e3, "n": v["n"]}
+                        for s, v in segs.items()
+                        if s not in CHAOS_SEGMENTS},
+        blame=profile["blame"],
+        workload_rids=len(exported_rows), workload_routeless=routeless,
+        routeless_stamped={rid: stamped[rid] for rid in routeless},
+        workload_sizes_equal=sizes_equal,
+        workload_round_trip=workload.dumps(workload.loads(text)) == text,
+        published_series=published,
+        fleetop=[ln for ln in console.splitlines() if ln.strip()],
+        tools={k: rc for k, (rc, _) in tools.items()},
+        tracecat_profile_equal=tool_profile == profile,
+        launches=launches, phase_s=time.monotonic() - t0)
+    emit("path_chaos", **out)
+    require(res.ok and not res.lost, f"path_chaos: campaign {res.failures}, "
+            f"lost {res.lost}")
+    require(len(res.verdicts) == len(rows)
+            and all(v["verdict"] == "ok" for v in res.verdicts.values())
+            and all(v["verdict"] == "ok" for v in verdicts.values())
+            and all(c == 1 for c in claims.values()),
+            f"path_chaos: verdicts {res.verdicts}, claims {claims}")
+    require(all(out["tokens_equal"].values()),
+            "path_chaos: tokens differ from the in-process engine's: "
+            f"{out['tokens_equal']}")
+    require(out["audit_equal"], "path_chaos: audit bytes differ from the "
+            f"reference's: {res.audit_bytes()} vs {expect.audit_bytes()}")
+    require(alert_failures == [], f"path_chaos: alerts {alert_failures}")
+    require(failovers >= 1 and held.get(gids[0]),
+            f"path_chaos: failovers {failovers}, killed gateway held {held}")
+    require(routed and out["probe_tokens_equal"],
+            f"path_chaos: probe routed {routed}, verdict {probe}")
+    require(profile["coverage_mean"] >= critpath.COVERAGE_TARGET,
+            f"path_chaos: coverage mean {profile['coverage_mean']}")
+    require({r["rid"] for r in rows} | {probe_rid} <= set(exported_rows)
+            and all(sizes_equal.values())
+            and all(stamped[r] == gids[0] for r in routeless)
+            and out["workload_round_trip"],
+            f"path_chaos: workload export {exported_rows}, routeless "
+            f"{out['routeless_stamped']}")
+    require(published > 0 and "where time goes:" in console
+            and all(t in console for t in tags),
+            f"path_chaos: fleetop rendered {console}")
+    require(all(rc == 0 for rc, _ in tools.values()),
+            f"path_chaos: tools {tools}")
+    require(out["tracecat_profile_equal"],
+            "path_chaos: tracecat's profile differs from the script's")
+    require(not launches, f"path_chaos: port kernels launched: {launches}")
+    return out, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5014,8 +5471,18 @@ def main() -> int:
         _, replica_tokens = phase_path_replica()
     with timed("path_replica_gang"):
         phase_path_replica_gang(replica_tokens)
-    with timed("path_gateway"):
-        _, counts["path_gateway"] = phase_path_gateway(replica_tokens)
+    door = None
+    try:
+        with timed("path_gateway"):
+            door = _front_door()
+            gw, counts["path_gateway"], eps = phase_path_gateway(
+                replica_tokens, door)
+        with timed("path_chaos"):
+            _, counts["path_chaos"] = phase_path_chaos(smi, door, eps,
+                                                       gw["up_s"])
+    finally:
+        if door is not None:
+            _close_front_door(door)
     with timed("path_deploy"):
         _, counts["path_deploy"] = phase_path_deploy(replica_tokens)
     counts["ring_kernels"] = ring_counts

@@ -4,17 +4,21 @@ tests/test_health.py, run against both packages (``m``: ``jax`` is
 ``tpu_sandbox``, ``torch`` the port): the durable time-series ring,
 burn-rate and threshold rules, the three seeded pathologies (each with a
 clean twin that must stay silent), exactly-once alerting through monitor
-failover, and the alert-to-control loops of the autoscaler and the
-scheduler. The gateway's loop and the ``fleetop`` console wait on the
-gateway's port.
+failover, and the alert-to-control loops of the gateway (a burning
+replica off the routing table until its alert lapses), the autoscaler and
+the scheduler, and the ``fleetop`` console (JAX's ``tools/fleetop.py``,
+the port's ``tpu_sandbox_torch/tools/fleetop.py``).
 
 Windows run on stub clocks; the only real-time waits are short TTL
 expiries (recovery IS the TTL), each bounded by a deadline.
 """
 
 import importlib
+import importlib.util
 import json
+import socket
 import time
+from pathlib import Path
 from types import SimpleNamespace
 
 import pytest
@@ -44,7 +48,10 @@ def m(request):
               TimeSeriesFlusher=mod("obs.tsdb").TimeSeriesFlusher,
               tsdb=mod("obs.tsdb"), kvstore=mod("runtime.kvstore"),
               scheduler=mod("runtime.scheduler"),
-              autoscale=mod("serve.autoscale"), replica=mod("serve.replica"))
+              autoscale=mod("serve.autoscale"), replica=mod("serve.replica"),
+              wire=mod("gateway.wire"), server=mod("gateway.server"),
+              fleet=mod("gateway.fleet"), cache=mod("serve.cache"),
+              pkg=request.param)
     return SimpleNamespace(**ns)
 
 
@@ -499,3 +506,84 @@ def test_scheduler_stamps_starved_jobs_once(m, kv_pair):
         time.sleep(0.01)
         sched._tick()
         assert job_events(kv, "wide")["starved"] == stamp
+
+
+def test_gateway_excludes_burning_replica_until_recovery(m, kv_pair):
+    _, kv, _ = kv_pair
+    block = 4
+    prompt = list(range(1, 13))
+    chain = m.cache.chain_digest(prompt, block)
+    # "burned" advertises the deepest prefix residency: absent the health
+    # plane, routing would always pick it
+    _fake_report(m, kv, "burned", digest=chain)
+    _fake_report(m, kv, "healthy", digest=chain[:1])
+    _seed_burn(m, kv, "burned", shed=30, done=10)
+    mon = m.HealthMonitor(
+        kv, "h0", window_s=0.25, active_windows=2.0,
+        rules=[m.BurnRateRule(name="replica_burn", bad="engine.shed",
+                              good="engine.done", budget=0.05,
+                              per_proc=True)],
+        detectors=[])
+    claimed = mon.step()
+    assert [b["subject"] for b in claimed] == ["burned"]
+    assert m.active_subjects(kv, "replica_burn") == {"burned"}
+    wire = m.wire
+
+    def _route(gw, rid):
+        s = socket.create_connection(("127.0.0.1", gw.port), timeout=5)
+        try:
+            wire.send_frame(s, wire.OP_SUBMIT, {
+                "rid": rid, "prompt": prompt, "max_new_tokens": 2})
+            status, resp = wire.recv_response(s)
+            assert status == wire.ST_OK and resp["admitted"], resp
+            return resp["replica"]
+        finally:
+            s.close()
+
+    gw = m.server.Gateway(kv, [m.fleet.FleetSpec(block_size=block)],
+                          refresh_min_s=0.005).start()
+    try:
+        # burn active: the deepest replica is OFF the table
+        assert _route(gw, "r0") == "healthy"
+        # recovery: the monitor stops refreshing (condition owner died /
+        # condition cleared) and the active flag TTLs out (0.5 s)
+        deadline = time.monotonic() + 10.0
+        while m.active_subjects(kv, "replica_burn") \
+                and time.monotonic() < deadline:
+            time.sleep(0.05)
+        assert m.active_subjects(kv, "replica_burn") == set()
+        time.sleep(0.05)  # next refresh re-reads health state
+        assert _route(gw, "r1") == "burned"
+    finally:
+        gw.close()
+
+
+def _fleetop(m):
+    if m.pkg == "torch":
+        return importlib.import_module("tpu_sandbox_torch.tools.fleetop")
+    path = Path(__file__).resolve().parent.parent / "tools" / "fleetop.py"
+    spec = importlib.util.spec_from_file_location("jax_fleetop_health", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_fleetop_renders_fleet_health(m, kv_pair):
+    fleetop = _fleetop(m)
+    _, kv, _ = kv_pair
+    assert "no time series" in fleetop.render(kv)  # empty store renders
+    clock = _Clock(time.time())
+    f, reg = _flusher(m, kv, "sched", clock)
+    reg.gauge("sched.queue.depth").set(4)
+    f.flush()
+    _fake_report(m, kv, "w0", queue_depth=2)
+    _seed_burn(m, kv, "w0", shed=30, done=10)
+    m.raise_alert(kv, "replica_burn", "w0", 1,
+                  {"rule": "replica_burn", "subject": "w0",
+                   "window_idx": 1, "wall": time.time()}, active_ttl=30.0)
+    out = fleetop.render(kv, now=time.time())
+    assert "sched.queue.depth" in out
+    assert "w0" in out and "EXCLUDED" in out
+    assert "active alerts (1)" in out and "replica_burn" in out
+    assert "recent alert records" in out
+    assert "postmortem" in out

@@ -83,6 +83,13 @@ def test_import_loads_no_jax_and_no_jax_package():
         "import tpu_sandbox_torch.deploy\n"
         "import tpu_sandbox_torch.deploy.registry\n"
         "import tpu_sandbox_torch.deploy.controller\n"
+        "import tpu_sandbox_torch.obs.collect\n"
+        "import tpu_sandbox_torch.obs.critpath\n"
+        "import tpu_sandbox_torch.obs.workload\n"
+        "import tpu_sandbox_torch.runtime.chaos\n"
+        "import tpu_sandbox_torch.tools, tpu_sandbox_torch.tools.tracecat\n"
+        "import tpu_sandbox_torch.tools.tracediff\n"
+        "import tpu_sandbox_torch.tools.fleetop\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "print(','.join(sorted(bad)))\n"

@@ -276,6 +276,24 @@ def test_shed_storm_fault_sheds_local_queue(kv):
     assert R.results_done(kv)
 
 
+def test_launch_counts_command_ends_a_window(kv, tmp_path, monkeypatch):
+    from tpu_sandbox_torch import ops
+    from tpu_sandbox_torch.ops import ce
+
+    monkeypatch.setenv(R.ENV_LAUNCH_COUNTS, str(tmp_path))
+    w = _worker(kv, tag="w0")
+    ops.reset_launch_counts()
+    ce.LAUNCHES["ce_fwd"] += 2  # the window's launches, as a wrapper counts
+    kv.set(serve_cmd_key("w0"), json.dumps({"action": "launch_counts"}))
+    w.tick()
+    rec = json.loads((tmp_path / "launches-w0.json").read_text())
+    assert rec == {"tag": "w0", "launches": {"ce_fwd": 2}, "swaps": 0,
+                   "claimed": 0}
+    assert ops.launch_counts() == {}  # the next window counts from 0
+    assert kv.try_get(serve_cmd_key("w0")) is None
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["launches-w0.json"]
+
+
 def test_client_retries_shed_then_succeeds(kv):
     client = ServeClient(kv, deadline_s=30.0, max_retries=2)
     client.submit("r0", [1, 2, 3], 3)

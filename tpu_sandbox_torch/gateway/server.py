@@ -772,6 +772,9 @@ def main(argv=None) -> int:
     finally:
         gw.close()
         kv.close()
+        # the route and enqueue spans still buffered (the recorder writes
+        # every 64 records) would go with the process otherwise
+        get_recorder().flush()
         print(f"[gateway] closed: {gw.stats.__dict__}", flush=True)
     return 0
 

@@ -1,9 +1,12 @@
 """Observability of the port: the recorder (``record.py``), the metrics
-registry (``metrics.py``), the durable time series (``tsdb.py``) and the
+registry (``metrics.py``), the durable time series (``tsdb.py``), the
 leader-elected health monitor with its alert rules and detectors
-(``health.py``), copies of ``tpu_sandbox/obs/``'s, exported as its
-``__init__`` exports them. The collector, the critical-path analysis and
-the workload export are not ported yet."""
+(``health.py``), the offline collector that merges per-process logs onto
+one clock (``collect.py``), the critical-path attribution over the merged
+timeline (``critpath.py``) and the canonical replayable workload export
+(``workload.py``): copies of ``tpu_sandbox/obs/``'s, exported as its
+``__init__`` exports them. The command-line tools over them are in
+``tpu_sandbox_torch/tools/`` (``tracecat``, ``tracediff``, ``fleetop``)."""
 
 from tpu_sandbox_torch.obs.record import (  # noqa: F401
     ENV_TRACE_DIR,

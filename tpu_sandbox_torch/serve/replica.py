@@ -52,7 +52,8 @@ the whole request plane:
                          bitwise. Cleared only by a client retry, which
                          starts a fresh lifecycle.
     serve/cmd/<tag>      fault mailbox (shed_storm / stall_replica /
-                         swap — the deploy controller's rolling update)
+                         swap — the deploy controller's rolling update;
+                         launch_counts — a measurement window's end)
     serve/total          number of distinct requests the producer will pose
 
 Loss cases and their answers:
@@ -91,7 +92,8 @@ from tpu_sandbox_torch.runtime.supervisor import (ENV_KV_PORT,
 K_TOTAL = "serve/total"
 K_TAIL = "serve/queue/tail"
 #: a directory: the replica process writes its kernel launch counts there
-#: when it ends (``launches-<tag>.json``), as the elastic ranks do
+#: when it ends (``launches-<tag>.json``), as the elastic ranks do, and
+#: when its mailbox's ``launch_counts`` command ends a window
 ENV_LAUNCH_COUNTS = "TPU_SANDBOX_LAUNCH_COUNTS"
 
 
@@ -440,7 +442,10 @@ class ReplicaWorker:
     def _poll_faults(self) -> None:
         """Consume the replica fault mailbox (serve/cmd/<tag>): shed_storm
         sheds the local waiting queue, stall_replica freezes this poll
-        loop long enough for leases to lapse (peers scavenge the claims)."""
+        loop long enough for leases to lapse (peers scavenge the claims).
+        launch_counts ends a measurement window: the kernel launches since
+        the last one go out (``_write_launch_counts``) and the next window
+        counts from 0."""
         raw = self.kv.try_get(k_cmd(self.tag))
         if raw is None:
             return
@@ -454,6 +459,11 @@ class ReplicaWorker:
             time.sleep(float(cmd.get("duration", 2 * self.lease_ttl)))
         elif action == "swap":
             self._apply_swap(cmd)
+        elif action == "launch_counts":
+            from tpu_sandbox_torch import ops
+
+            _write_launch_counts(self.tag, self)
+            ops.reset_launch_counts()
 
     def _apply_swap(self, cmd: dict) -> None:
         """Install the commanded weight version between decode steps.
@@ -756,8 +766,10 @@ def _build_engine(cfg: dict, device):
 
 def _write_launch_counts(tag: str, worker: ReplicaWorker) -> None:
     """With ``TPU_SANDBOX_LAUNCH_COUNTS`` set (a directory), the process's
-    kernel launches of the port over its whole life, its swaps and its
-    claims, as ``launches-<tag>.json`` there."""
+    kernel launches of the port since its last ``launch_counts`` command
+    (else over its whole life), its swaps and its claims, as
+    ``launches-<tag>.json`` there, replaced whole so that a reader never
+    sees part of it."""
     out = os.environ.get(ENV_LAUNCH_COUNTS)
     if not out:
         return
@@ -766,9 +778,11 @@ def _write_launch_counts(tag: str, worker: ReplicaWorker) -> None:
     from tpu_sandbox_torch import ops
 
     path = Path(out) / f"launches-{tag.replace('/', '-')}.json"
-    path.write_text(json.dumps({"tag": tag, "launches": ops.launch_counts(),
-                                "swaps": worker.stats.swaps,
-                                "claimed": worker.stats.claimed}))
+    tmp = path.with_suffix(".tmp")
+    tmp.write_text(json.dumps({"tag": tag, "launches": ops.launch_counts(),
+                               "swaps": worker.stats.swaps,
+                               "claimed": worker.stats.claimed}))
+    os.replace(tmp, path)
 
 
 def main(argv: Sequence[str] | None = None) -> int:
@@ -813,6 +827,7 @@ def main(argv: Sequence[str] | None = None) -> int:
     finally:
         kv.close()
         _write_launch_counts(tag, worker)
+        get_recorder().flush()
     if worker._draining:
         print(f"[{tag}] drained: requeued {worker.stats.requeued} "
               f"in-flight request(s)", flush=True)
