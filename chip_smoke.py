@@ -111,13 +111,16 @@ card or when the port is not beside it. Phases, one JSON line each:
    and read after: exactly 12 flash forward, 12 dk/dv, 12 dq and 1 CE
    launch a step and nothing else, and lm_train's own check that the
    loss fell. Step time, tokens/s, peak device memory. lm_profile: two
-   more steps under torch.profiler. path_sp_flash_ring and
+   more steps under torch.profiler. lm_path_cut: the same at 4 layers
+   (LM_PATH_LAYERS, 4 of each flash kernel a step), the reference of
+   the paths below, which run the bench width at that depth (cut from 12
+   in PR 25 for the script's time). path_sp_flash_ring and
    path_sp_ulysses: lm_train.fit_sp, SeqParallel over a one-rank
-   {"data": 1, "sp": 1} mesh (NCCL), at the same width, 3 steps each,
-   counters zeroed before and read after: the LM's launches a step and,
-   for flash-ring, 12 forward hops and 12 calls of make_flash_bwd_lse's
-   closure a step; losses against lm_path's within 2^-8 relative; step
-   time, tokens/s and peak beside lm_path's. The pipelines and remat
+   {"data": 1, "sp": 1} mesh (NCCL), 3 steps each, counters zeroed before
+   and read after: the LM's launches a step and, for flash-ring, a
+   forward hop and a call of make_flash_bwd_lse's closure a layer a step;
+   losses against lm_path_cut's within 2^-8 relative; step time,
+   tokens/s and peak beside lm_path_cut's. The pipelines and remat
    (LM_PATHS), 5 steps each (lm_path's, so that the median of the 4
    after the first is not set by one stalled step), the same way: path_pp (lm_train's own train,
    --parallelism pp --devices 1 --microbatches 2, one NCCL rank in this
@@ -127,16 +130,17 @@ card or when the port is not beside it. Phases, one JSON line each:
    its hops counted) and path_3d (fit_pp with 3d over {"data": 1,
    "model": 1, "pipe": 1}: the Megatron block on flash); every tick is
    recomputed under the engine's remat, so a step launches the flash
-   forward 2 x 12 x M times, dk/dv and dq 12 x M and the CE 2 x M (M 2
-   microbatches). path_remat_dots and path_remat_full: lm_path's train
-   with --remat and each --remat-policy, the flash forward 24 times a
-   step (recomputed: no product), the rest as lm_path; whether the losses
-   are lm_path's bit for bit. path_tp (lm_train.fit_pjit with tp over a
-   one-rank {"data": 1, "model": 1} mesh: PjitEngine with
-   megatron_rules(), lm_path's function and launches) and path_ep
-   (fit_pjit with ep over {"data": 1, "expert": 1}: the MoE LM with
-   EP_EXPERTS = 4 experts, the function of ep --devices 4, lm_path's
-   launches; finite losses that fall). Beside each step's time, the
+   forward 2 x L x M times, dk/dv and dq L x M and the CE 2 x M (L 4
+   layers, M 2 microbatches). path_remat_dots and path_remat_full:
+   lm_path_cut's train with --remat and each --remat-policy, the flash
+   forward twice a layer a step (recomputed: no product), the rest as
+   lm_path_cut; whether the losses are lm_path_cut's bit for bit. path_tp
+   (lm_train.fit_pjit with tp over a one-rank {"data": 1, "model": 1}
+   mesh: PjitEngine with megatron_rules(), lm_path_cut's function and
+   launches) and path_ep (fit_pjit with ep over {"data": 1, "expert":
+   1}: the MoE LM with EP_EXPERTS = 4 experts, the function of ep
+   --devices 4, lm_path_cut's launches; finite losses that fall). Beside
+   each step's time, the
    cudaMalloc calls and allocator retries of that step and the Python
    collections of the oldest generation (sampled after each optimizer
    update).
@@ -188,7 +192,7 @@ card or when the port is not beside it. Phases, one JSON line each:
    compressed and bucketed sync is path_dp_int8_overlap in LM_PATHS
    (fit_pjit, dp over a one-rank {"data": 1} mesh, --grad-compress int8
    --overlap-grad-sync: the engine's int8 exchange and buckets on the
-   card), its losses within 1e-4 relative of lm_path's.
+   card), its losses within 1e-4 relative of lm_path_cut's.
    dist_scripts (after the curve phase): python -m
    tpu_sandbox_torch.test_init and .allreduce_toy at world size 1 on the
    card and as 4 gloo ranks with --force-cpu, at once, each with a time
@@ -308,7 +312,39 @@ card or when the port is not beside it. Phases, one JSON line each:
    (the synthesized rids, sizes and chains; a byte-stable round trip),
    the profile published to the tsdb and rendered by fleetop, and the
    fleetop, tracecat and tracediff CLIs, each exiting 0.
-13. the {"kernels": [...]} summary, the nvidia-smi line, and last
+13. the MPMD pipeline (tpu_sandbox_torch/mpmd/, after the LM paths) and
+   disaggregated serving (after path_serve), the LM at its bench width
+   (SERVE_WIDTH, bf16 compute over fp32 parameters, Adam at 1e-3).
+   path_mpmd: MPMDPipeline with its two stages (6 layers each) as
+   threads on this one card over DeviceTransport, M 4, lm_path's first
+   batch, 3 steps of 1F1B and then 3 of ZB-H1 from the same init, the
+   counters zeroed before and read after: the CE kernel once a
+   microbatch a step under 1F1B and twice under ZB-H1 (W recomputes the
+   head loss), no flash kernel; step 0's loss within 2^-8 of lm_path's;
+   ZB-H1's losses within 2^-8 of 1F1B's and its parameters within a
+   quarter of 1F1B's update; each stage's step ms, measured bubble
+   (beside the analytic 0.2), op ms, the wire's and the journal's
+   counters, peak memory, autotune_plan's choice from ZB-H1's measured
+   costs. Then a fault arm at 4 layers of the same widths with
+   HostCheckpoints: stage 1 killed at (step 2, op 3) and respawned,
+   bitwise its unfaulted twin (parameters and losses), no duplicate
+   claim, stage 1 at generation 1, the CE launches of the replay
+   counted. path_mpmd_procs: two python -m tpu_sandbox_torch.mpmd.worker
+   processes on the card, one cogroup of two jobs under this process's
+   ClusterScheduler, over the KV wire, at those 4 layers, 4 steps, stage
+   1 SIGKILLed mid-shipment at step 2 by the fault plan (kill_agent) and
+   respawned by the scheduler; the final parameters read over the
+   "final" edge bitwise the fault arm's twin, the same losses, no
+   duplicate claim, stage 1 at generation 2; the wall, the seconds from
+   the kill to the respawned stage's first op and the KV bytes (from the
+   workers' trace), one 16 MiB bf16 slot's KV put and get. path_disagg: a
+   PrefillReplica and a DecodeReplica in this process over
+   DeviceTransport, 8 requests of path_serve's trace (at most 32 new
+   tokens), greedy, no port kernel launched: each request's tokens those
+   of a ContinuousEngine serving the same requests one by one; a second
+   decode in one generation refused, a generation-1 replica's replay
+   equal; handoff bytes, put and get ms, prefill ms, decode tokens/s.
+14. the {"kernels": [...]} summary, the nvidia-smi line, and last
    {"ok": true, "device": {...}}.
 
 fp32 matmuls and convolutions run without TF32 throughout (the plain
@@ -542,14 +578,30 @@ FLASH_SRC = "tpu_sandbox_torch/csrc/flash_attention.cu"
 CE_SRC = "tpu_sandbox_torch/csrc/ce.cu"
 #: the LM's bench width (bench.py:4031-4040) through lm_train's flags
 LM_B, LM_S, LM_H, LM_D, LM_V = 16, 2048, 8, 128, 32768
-LM_FLAGS = ["--parallelism", "dp", "--devices", "1", "--flash",
+
+
+def lm_flags(layers: int) -> list[str]:
+    """lm_train's flags for the bench width at ``layers`` layers."""
+    return ["--parallelism", "dp", "--devices", "1", "--flash",
             "--vocab", str(LM_V), "--d-model", str(LM_H * LM_D),
-            "--n-heads", str(LM_H), "--n-layers", "12", "--d-ff", "4096",
-            "--seq-len", str(LM_S), "--batch", str(LM_B), "--dtype", "bf16",
-            "--steps", str(STEPS), "--log-every", "1"]
-#: launches of one LM step: the flash kernels once per layer, the CE once
-LM_KINDS = {"flash_fwd": 12, "flash_bwd_dkv": 12, "flash_bwd_dq": 12,
-            "ce_fwd": 1}
+            "--n-heads", str(LM_H), "--n-layers", str(layers),
+            "--d-ff", "4096", "--seq-len", str(LM_S), "--batch", str(LM_B),
+            "--dtype", "bf16", "--steps", str(STEPS), "--log-every", "1"]
+
+
+def lm_kinds(layers: int) -> dict[str, int]:
+    """Launches of one LM step: the flash kernels once a layer, the CE
+    once."""
+    return {"flash_fwd": layers, "flash_bwd_dkv": layers,
+            "flash_bwd_dq": layers, "ce_fwd": 1}
+
+
+LM_FLAGS, LM_KINDS = lm_flags(12), lm_kinds(12)
+#: path_sp and LM_PATHS run the bench width at this depth (cut from 12 for
+#: the script's time: PR 25's final run took 1120 s of the 1200 s limit on
+#: a slow host), each held to lm_path_cut, lm_path at the same depth
+LM_PATH_LAYERS = 4
+CUT_FLAGS, CUT_KINDS = lm_flags(LM_PATH_LAYERS), lm_kinds(LM_PATH_LAYERS)
 #: the flash kernels' ragged cases (B, H, Sq, Sk, D, causal, q_offset,
 #: kv_offset, kv_len); D 40 runs zero-padded to the 64 head width. A query
 #: that sees no key gets out 0 from the kernel and a p = 1 spread from the
@@ -580,8 +632,8 @@ CE_RAGGED = ((1, 4097), (3, 4097), (5, 4100), (1, 32768))
 #: ring_kernels: the LM's sequence in RING_N shards of LM_S / RING_N
 RING_N = 4
 #: path_sp: SeqParallel at one NCCL rank at the LM's bench width, steps a
-#: scheme, and its losses' bar against lm_path's (the same function, the
-#: same kernels; one bf16 ulp, 2^-8, relative)
+#: scheme, and its losses' bar against lm_path_cut's (the same function,
+#: the same kernels; one bf16 ulp, 2^-8, relative)
 SP_STEPS, SP_SCHEMES, SP_LOSS_RTOL = 3, ("flash_ring", "ulysses"), 2.0 ** -8
 #: entry_refusals: lm_train with two GPU ranks of each plan that spawns
 #: ranks, and mnist_distributed's two host agents of one GPU rank each, on
@@ -599,22 +651,24 @@ ENTRY_LIMIT = 120
 #: recompute stops at the tick's last saved tensor, the CE's logits,
 #: which the CE saves after its kernel ran)
 PP_M = 2
-TICK_REMAT_KINDS = {"flash_fwd": 2 * 12 * PP_M, "flash_bwd_dkv": 12 * PP_M,
-                    "flash_bwd_dq": 12 * PP_M, "ce_fwd": 2 * PP_M}
+TICK_REMAT_KINDS = {"flash_fwd": 2 * LM_PATH_LAYERS * PP_M,
+                    "flash_bwd_dkv": LM_PATH_LAYERS * PP_M,
+                    "flash_bwd_dq": LM_PATH_LAYERS * PP_M,
+                    "ce_fwd": 2 * PP_M}
 #: --remat on the LM: the flash forward recomputed in every block (no
 #: matrix product, so dots recomputes it too), the head outside the blocks
-REMAT_KINDS = {**LM_KINDS, "flash_fwd": 2 * LM_KINDS["flash_fwd"]}
+REMAT_KINDS = {**CUT_KINDS, "flash_fwd": 2 * CUT_KINDS["flash_fwd"]}
 #: the experts of path_ep: the function of ep --devices 4
 EP_EXPERTS = 4
-#: path_dp_int8_overlap's losses' bar against lm_path's: its int8 mean
+#: path_dp_int8_overlap's losses' bar against lm_path_cut's: its int8 mean
 #: moves the gradient by up to half a step of each block's scale, which
 #: moved the 5 losses by up to 1.4e-5 relative on the H100 (PERF.md); a
 #: broken exchange (scales, codes, the residual) moves them far more
 DP_INT8_LOSS_RTOL = 1e-4
-#: (phase, lm_train flags over LM_FLAGS, the one-rank mesh of fit_pp or
+#: (phase, lm_train flags over CUT_FLAGS, the one-rank mesh of fit_pp or
 #: fit_pjit or None for lm_train.train, launches a step, ring hops a
-#: step, the losses' bar against lm_path's: SP_LOSS_RTOL where it computes
-#: lm_path's function, None where it does not); LM_PATH_STEPS steps each
+#: step, the losses' bar against lm_path_cut's: SP_LOSS_RTOL where it
+#: computes its function, None where it does not); LM_PATH_STEPS steps each
 LM_PATHS = (
     ("path_pp", ["--parallelism", "pp", "--microbatches", str(PP_M)], None,
      TICK_REMAT_KINDS, {}, SP_LOSS_RTOL),
@@ -623,8 +677,9 @@ LM_PATHS = (
      TICK_REMAT_KINDS, {}, SP_LOSS_RTOL),
     ("path_pp_sp_flash_ring", ["--parallelism", "pp_sp", "--microbatches",
                                str(PP_M)], {"data": 1, "pipe": 1, "sp": 1},
-     TICK_REMAT_KINDS, {"flash_fwd_lse": 2 * 12 * PP_M,
-                        "flash_bwd_lse": 12 * PP_M}, SP_LOSS_RTOL),
+     TICK_REMAT_KINDS, {"flash_fwd_lse": 2 * LM_PATH_LAYERS * PP_M,
+                        "flash_bwd_lse": LM_PATH_LAYERS * PP_M},
+     SP_LOSS_RTOL),
     ("path_3d", ["--parallelism", "3d", "--microbatches", str(PP_M)],
      {"data": 1, "model": 1, "pipe": 1}, TICK_REMAT_KINDS, {},
      SP_LOSS_RTOL),
@@ -633,14 +688,14 @@ LM_PATHS = (
     ("path_remat_full", ["--remat", "--remat-policy", "full"], None,
      REMAT_KINDS, {}, SP_LOSS_RTOL),
     ("path_tp", ["--parallelism", "tp"], {"data": 1, "model": 1},
-     LM_KINDS, {}, SP_LOSS_RTOL),
+     CUT_KINDS, {}, SP_LOSS_RTOL),
     ("path_ep", ["--parallelism", "ep", "--devices", str(EP_EXPERTS)],
-     {"data": 1, "expert": 1}, LM_KINDS, {}, None),
+     {"data": 1, "expert": 1}, CUT_KINDS, {}, None),
     ("path_dp_int8_overlap", ["--grad-compress", "int8",
                               "--overlap-grad-sync"], {"data": 1},
-     LM_KINDS, {}, DP_INT8_LOSS_RTOL),
+     CUT_KINDS, {}, DP_INT8_LOSS_RTOL),
 )
-#: LM_PATHS' steps: lm_path's, all its losses held; the step time is the
+#: LM_PATHS' steps: lm_path_cut's, all its losses held; the step time is the
 #: median of the 4 after the first
 LM_PATH_STEPS = STEPS
 #: moe_card_vs_cpu: the MoE LM at a small width (vocab 4100, so that the
@@ -725,6 +780,31 @@ CHAOS_STALL_S = 0.5
 #: the segments of path_chaos's where-time-goes line, in the order printed
 CHAOS_SEGMENTS = ("prefill", "decode", "queue_wait", "engine_queue",
                   "publish_wait", "route", "submit", "unattributed")
+#: path_mpmd: the MPMD pipeline (tpu_sandbox_torch/mpmd/) at the LM's bench
+#: width (SERVE_WIDTH, lm_path's: 12 layers, bf16 compute over fp32
+#: params) on lm_path's first batch [LM_B, LM_S], 2 stages of 6 layers on
+#: this one card, MPMD_M microbatches, DeviceTransport, Adam at lm_train's
+#: default rate, MPMD_STEPS steps an arm (1F1B, then ZB-H1 from the same
+#: init); the CE kernel's launches a step (1F1B: one a microbatch in
+#: loss_grad; ZB-H1: B's and W's head loss each, two)
+MPMD_M, MPMD_STEPS, MPMD_LR = 4, 3, 1e-3
+MPMD_CE = {"1f1b": MPMD_M, "zb_h1": 2 * MPMD_M}
+#: ZB-H1 against 1F1B from one init: every loss within SP_LOSS_RTOL (one
+#: bf16 ulp), and the parameters' distance, |p_zb - p_1f1b| over
+#: |p_1f1b - p_init| (whole model, L2), within this share
+MPMD_ZB_UPDATE_TOL = 0.25
+#: the fault arm and path_mpmd_procs: 4 layers of the same widths (a
+#: stage's state to checkpoint is ~0.7 GB there, ~1.3 GB at 12), the
+#: worker's derivation (the LM's init from seed 0, tokens from
+#: numpy's rng(0), targets tokens + 7), MPMD_FAULT_STEPS steps; stage 1
+#: killed at (step, op) MPMD_KILL in process, at step MPMD_KILL[0] through
+#: the fault plan in the process run
+MPMD_FAULT_LAYERS, MPMD_FAULT_STEPS, MPMD_KILL = 4, 4, (2, 3)
+#: path_mpmd_procs: the seconds the two stage processes may take
+MPMD_PROCS_LIMIT = 300.0
+#: path_disagg: the first requests of path_serve's trace (its mix of
+#: prompt lengths), each decoding at most DISAGG_NEW tokens, greedy
+DISAGG_REQUESTS, DISAGG_NEW = 8, 32
 #: path_replica_gang: one host agent whose one rank is a serve replica on
 #: the card (JAX's tests/test_serve_integration.py:62, with an agent
 #: timeout that outlasts a respawned agent's start, so the replacement's
@@ -1981,13 +2061,16 @@ def phase_lm_ragged(ce, fa) -> None:
     emit("lm_ragged", checks=out)
 
 
-def phase_lm_path(ops, lm_train):
-    """lm_train's train function at the LM's bench width, 5 steps, with
-    the launch counters zeroed just before and read just after: per step
-    the flash kernels once per layer and the CE once, and nothing else."""
+def phase_lm_path(ops, lm_train, flags=LM_FLAGS, kinds=LM_KINDS,
+                  phase: str = "lm_path"):
+    """lm_train's train function at the LM's bench width (``flags``: 12
+    layers, or LM_PATH_LAYERS for lm_path_cut), 5 steps, with the launch
+    counters zeroed just before and read just after: per step the flash
+    kernels once per layer and the CE once (``kinds``), and nothing
+    else."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    args = lm_train.build_parser().parse_args(LM_FLAGS)
+    args = lm_train.build_parser().parse_args(flags)
     ops.reset_launch_counts()
     t0 = time.monotonic()
     run = lm_train.train(args)          # raises if the loss did not fall
@@ -1995,15 +2078,15 @@ def phase_lm_path(ops, lm_train):
     counts = ops.launch_counts()
     wall = time.monotonic() - t0
     require(len(run.losses) == STEPS and run.optimizer.count == STEPS,
-            f"lm_path logged {len(run.losses)} losses in "
+            f"{phase} logged {len(run.losses)} losses in "
             f"{run.optimizer.count} steps, not {STEPS}")
     require(all(math.isfinite(v) for v in run.losses),
-            f"lm_path non-finite loss: {run.losses}")
-    want = {k: per_step * STEPS for k, per_step in LM_KINDS.items()}
-    require(counts == want, f"lm_path launched {counts}, expected {want}")
+            f"{phase} non-finite loss: {run.losses}")
+    want = {k: per_step * STEPS for k, per_step in kinds.items()}
+    require(counts == want, f"{phase} launched {counts}, expected {want}")
     step_ms = statistics.median(run.step_seconds[1:]) * 1e3
     peak = torch.cuda.max_memory_allocated()
-    emit("lm_path", flags=LM_FLAGS, losses=run.losses,
+    emit(phase, flags=flags, losses=run.losses,
          step_ms_each=[t * 1e3 for t in run.step_seconds],
          step_ms_median_after_first=step_ms,
          tokens_per_s=LM_B * LM_S / (step_ms / 1e3),
@@ -2307,13 +2390,14 @@ def _sdpa_hop(q, k, v, g, causal: bool):
 
 def phase_path_sp(ops, fa, lm_train, lm_ref: dict) -> dict:
     """SeqParallel over a one-rank {"data": 1, "sp": 1} mesh (NCCL, in
-    this process) at the LM's bench width, SP_STEPS Adam steps through
-    lm_train.fit_sp, once per SP_SCHEMES, the counters zeroed just before
-    and read just after: LM_KINDS a step and nothing else, and with
-    flash_ring 12 forward hops and 12 calls of make_flash_bwd_lse's closure
-    a step (fa.HOPS), all diagonal at one rank. Losses against lm_path's first
-    SP_STEPS from the same seed and batches within SP_LOSS_RTOL (the same
-    function; bf16), step ms, tokens/s and peak memory beside lm_path's."""
+    this process) at the LM's bench width and LM_PATH_LAYERS layers,
+    SP_STEPS Adam steps through lm_train.fit_sp, once per SP_SCHEMES, the
+    counters zeroed just before and read just after: CUT_KINDS a step and
+    nothing else, and with flash_ring a forward hop and a call of
+    make_flash_bwd_lse's closure a layer a step (fa.HOPS), all diagonal at
+    one rank. Losses against lm_path_cut's first SP_STEPS (``lm_ref``) from
+    the same seed and batches within SP_LOSS_RTOL (the same function;
+    bf16), step ms, tokens/s and peak memory beside lm_path_cut's."""
     from tpu_sandbox_torch.runtime import bootstrap
     from tpu_sandbox_torch.runtime.mesh import make_mesh
 
@@ -2323,7 +2407,7 @@ def phase_path_sp(ops, fa, lm_train, lm_ref: dict) -> dict:
         mesh = make_mesh({"data": 1, "sp": 1})
         for attn in SP_SCHEMES:
             args = lm_train.build_parser().parse_args(
-                [*LM_FLAGS, "--parallelism", "sp", "--attn", attn,
+                [*CUT_FLAGS, "--parallelism", "sp", "--attn", attn,
                  "--steps", str(SP_STEPS)])
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
@@ -2335,10 +2419,11 @@ def phase_path_sp(ops, fa, lm_train, lm_ref: dict) -> dict:
             launches, hops = ops.launch_counts(), dict(fa.HOPS)
             wall = time.monotonic() - t0
             phase = f"path_sp_{attn}"
-            want = {k: per_step * SP_STEPS for k, per_step in LM_KINDS.items()}
+            want = {k: per_step * SP_STEPS
+                    for k, per_step in CUT_KINDS.items()}
             require(launches == want,
                     f"{phase} launched {launches}, expected {want}")
-            want_hops = ({f: LM_KINDS["flash_fwd"] * SP_STEPS
+            want_hops = ({f: CUT_KINDS["flash_fwd"] * SP_STEPS
                           for f in ("flash_fwd_lse", "flash_bwd_lse")}
                          if attn == "flash_ring" else {})
             require(hops == want_hops,
@@ -2349,19 +2434,20 @@ def phase_path_sp(ops, fa, lm_train, lm_ref: dict) -> dict:
             ref = lm_ref["losses"][:SP_STEPS]
             dev = max(abs(a - w) / abs(w) for a, w in zip(run.losses, ref))
             require(dev <= SP_LOSS_RTOL,
-                    f"{phase} losses {run.losses} against lm_path's {ref}")
+                    f"{phase} losses {run.losses} against lm_path_cut's "
+                    f"{ref}")
             step_ms = statistics.median(run.step_seconds[1:]) * 1e3
             emit(phase, attn=attn, mesh={"data": 1, "sp": 1},
                  backend=bootstrap.backend_name(), flags=args.__dict__,
-                 losses=run.losses, lm_path_losses=ref,
-                 max_rel_dev_from_lm_path=dev, loss_rtol=SP_LOSS_RTOL,
-                 bitwise_lm_path=run.losses == ref,
+                 losses=run.losses, lm_path_cut_losses=ref,
+                 max_rel_dev_from_lm_path_cut=dev, loss_rtol=SP_LOSS_RTOL,
+                 bitwise_lm_path_cut=run.losses == ref,
                  step_ms_each=[t * 1e3 for t in run.step_seconds],
                  step_ms_median_after_first=step_ms,
                  tokens_per_s=LM_B * LM_S / (step_ms / 1e3),
                  peak_memory_bytes=torch.cuda.max_memory_allocated(),
-                 lm_path_step_ms_median_after_first=lm_ref["step_ms"],
-                 lm_path_peak_memory_bytes=lm_ref["peak_memory_bytes"],
+                 lm_path_cut_step_ms_median_after_first=lm_ref["step_ms"],
+                 lm_path_cut_peak_memory_bytes=lm_ref["peak_memory_bytes"],
                  wall_s_with_init=wall, launches=launches, hops=hops)
             kind = hop_kind(LM_S, LM_S, 0, 0)   # the whole sequence
             counts[phase] = {**launches, **{f"{f} {kind} S{LM_S}": c
@@ -2404,14 +2490,15 @@ def per_step_allocator(optimizer_cls):
 
 
 def phase_lm_paths(ops, fa, lm_train, lm_ref: dict) -> dict:
-    """Each of LM_PATHS at the LM's bench width, LM_PATH_STEPS Adam steps,
-    the counters zeroed just before and read just after: exactly its
-    launches and ring hops a step; losses against lm_path's within
-    SP_LOSS_RTOL where the path computes its function (with microbatches,
-    the mean of their means; tp at one rank), within DP_INT8_LOSS_RTOL
-    under the int8 exchange, finite and falling where it computes another
-    (ep: the MoE LM); step ms (median, min and max after the
-    first), tokens/s and peak memory beside lm_path's, and each step's
+    """Each of LM_PATHS at the LM's bench width and LM_PATH_LAYERS layers,
+    LM_PATH_STEPS Adam steps, the counters zeroed just before and read
+    just after: exactly its launches and ring hops a step; losses against
+    lm_path_cut's (``lm_ref``) within SP_LOSS_RTOL where the path computes
+    its function (with microbatches, the mean of their means; tp at one
+    rank), within DP_INT8_LOSS_RTOL under the int8 exchange, finite and
+    falling where it computes another (ep: the MoE LM); step ms (median,
+    min and max after the first), tokens/s and peak memory beside
+    lm_path_cut's, and each step's
     cudaMalloc calls, allocator retries and oldest-generation
     collections. A mesh path runs fit_pp, or fit_pjit for dp, tp and
     ep."""
@@ -2423,7 +2510,7 @@ def phase_lm_paths(ops, fa, lm_train, lm_ref: dict) -> dict:
     for phase, flags, mesh, kinds, hops_a_step, rtol in LM_PATHS:
         with timed(phase):
             args = lm_train.build_parser().parse_args(
-                [*LM_FLAGS, *flags, "--steps", str(n)])
+                [*CUT_FLAGS, *flags, "--steps", str(n)])
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             ops.reset_launch_counts()
@@ -2460,14 +2547,15 @@ def phase_lm_paths(ops, fa, lm_train, lm_ref: dict) -> dict:
             dev = max(abs(a - w) / abs(w) for a, w in zip(run.losses, ref))
             # fit itself exits when the loss did not fall
             require(rtol is None or dev <= rtol,
-                    f"{phase} losses {run.losses} against lm_path's {ref}")
+                    f"{phase} losses {run.losses} against lm_path_cut's "
+                    f"{ref}")
             timed_ms = [t * 1e3 for t in run.step_seconds[1:]]
             step_ms = statistics.median(timed_ms)
-            emit(phase, flags=flags, mesh=mesh, losses=run.losses,
-                 lm_path_losses=ref,
-                 lm_path_function=rtol == SP_LOSS_RTOL,
-                 max_rel_dev_from_lm_path=dev, loss_rtol=rtol,
-                 bitwise_lm_path=run.losses == ref,
+            emit(phase, flags=flags, mesh=mesh, layers=LM_PATH_LAYERS,
+                 losses=run.losses, lm_path_cut_losses=ref,
+                 lm_path_cut_function=rtol == SP_LOSS_RTOL,
+                 max_rel_dev_from_lm_path_cut=dev, loss_rtol=rtol,
+                 bitwise_lm_path_cut=run.losses == ref,
                  step_ms_each=[t * 1e3 for t in run.step_seconds],
                  step_ms_median_after_first=step_ms,
                  step_ms_min_after_first=min(timed_ms),
@@ -2477,8 +2565,8 @@ def phase_lm_paths(ops, fa, lm_train, lm_ref: dict) -> dict:
                  gen2_collections_each=[c[2] for c in per_step],
                  tokens_per_s=LM_B * LM_S / (step_ms / 1e3),
                  peak_memory_bytes=torch.cuda.max_memory_allocated(),
-                 lm_path_step_ms_median_after_first=lm_ref["step_ms"],
-                 lm_path_peak_memory_bytes=lm_ref["peak_memory_bytes"],
+                 lm_path_cut_step_ms_median_after_first=lm_ref["step_ms"],
+                 lm_path_cut_peak_memory_bytes=lm_ref["peak_memory_bytes"],
                  parameters=sum(p.numel() for p in run.model.parameters()),
                  wall_s_with_init=wall, launches=launches, hops=hops)
             kind = hop_kind(LM_S, LM_S, 0, 0)   # the whole sequence
@@ -5358,6 +5446,438 @@ def phase_path_chaos(smi: str, door, eps: dict,
     return out, launches
 
 
+def _mpmd_cfg(layers: int):
+    from tpu_sandbox_torch.models.transformer import TransformerConfig
+
+    return TransformerConfig(**{**SERVE_WIDTH, "n_layers": layers},
+                             dtype=torch.bfloat16)
+
+
+def _mpmd_arm(cfg, flat, tokens, targets, *, kind: str, steps: int,
+              ckpt_root=None, fail_at=None):
+    """An in-process MPMDPipeline (2 stages on the card, DeviceTransport,
+    Adam) from the state dict ``flat``: (pipeline, losses, wall s, peak
+    device memory)."""
+    from tpu_sandbox_torch.mpmd import MPMDPipeline
+    from tpu_sandbox_torch.mpmd.transport import DeviceTransport
+    from tpu_sandbox_torch.train.optim import Adam, constant_schedule
+
+    pipe = MPMDPipeline(cfg, lambda ps: Adam(ps, constant_schedule(MPMD_LR)),
+                        n_stages=2, microbatches=MPMD_M,
+                        transport=DeviceTransport(), devices="cuda",
+                        kind=kind, ckpt_root=ckpt_root, get_timeout=300.0)
+    pipe.init_from_flat(flat)
+    if fail_at is not None:
+        pipe.workers[1].fail_at = fail_at
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    losses = pipe.train(steps, tokens, targets, recover=fail_at is not None)
+    torch.cuda.synchronize()
+    return pipe, losses, time.monotonic() - t0, \
+        torch.cuda.max_memory_allocated()
+
+
+def _mpmd_report(pipe, losses, wall, peak) -> dict:
+    """Per stage: step ms (each, median after the first), the measured
+    bubble (each step, median after the first) beside the analytic, each
+    op's median ms; the wire's and its journal's counters."""
+    stages = []
+    for w in pipe.workers:
+        steps = sorted(w.step_seconds)
+        stages.append({
+            "step_ms_each": [w.step_seconds[k] * 1e3 for k in steps],
+            "step_ms_median_after_first": statistics.median(
+                w.step_seconds[k] for k in steps[1:]) * 1e3,
+            "bubble_each": [w.bubble_by_step[k] for k in steps
+                            if k in w.bubble_by_step],
+            "bubble_median_after_first": statistics.median(
+                w.bubble_by_step[k] for k in steps[1:]
+                if k in w.bubble_by_step),
+            "op_ms_median": {op: statistics.median(ts) * 1e3
+                             for op, ts in sorted(w.op_seconds.items())},
+        })
+    tr = pipe.transport
+    return {"losses": losses, "wall_s": wall, "stages": stages,
+            "bubble_analytic": pipe.bubble_fraction(),
+            "transport": tr.stats.snapshot(),
+            "journal": tr.journal.stats.snapshot(),
+            "put_ms_mean": tr.stats.put_seconds / tr.stats.puts * 1e3,
+            "get_ms_mean": tr.stats.get_seconds / tr.stats.gets * 1e3,
+            "slot_bytes": tr.stats.bytes_out // tr.stats.puts,
+            "peak_memory_bytes": peak}
+
+
+def _mpmd_fault_batch(vocab: int):
+    """mpmd/worker.py's batch from seed 0: tokens [LM_B, LM_S] from
+    numpy's rng, targets tokens + 7."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, vocab, size=(LM_B, LM_S)).astype(np.int32)
+    return tokens, ((tokens + 7) % vocab).astype(np.int32)
+
+
+def _merged_equal(a: dict, b: dict) -> list[str]:
+    return [k for k in sorted(a) if not torch.equal(a[k], b[k])]
+
+
+def phase_path_mpmd(ops, lm_ref: dict) -> tuple[dict, dict]:
+    """The MPMD pipeline at the LM's bench width on the card, through
+    MPMDPipeline (two stage threads on one card, DeviceTransport):
+    (a) 1F1B from TransformerLM(seed 0) on lm_path's first batch, its
+    step-0 loss within SP_LOSS_RTOL of lm_path's (the same function and
+    init without the pipeline); (b) ZB-H1 from the same init, its losses
+    within SP_LOSS_RTOL of (a)'s and its parameters within
+    MPMD_ZB_UPDATE_TOL of (a)'s update, and autotune_plan's choice from
+    its measured op costs; the counters zeroed before (a) and read after
+    (b): the CE kernel MPMD_CE[kind] times a microbatch-step, the flash
+    kernels never. (c) at MPMD_FAULT_LAYERS layers with checkpoints, stage
+    1 killed at MPMD_KILL and respawned: its final parameters bitwise its
+    unfaulted twin's, the same losses, zero duplicate claims, stage 1 at
+    generation 1. Returns (the (a)+(b) launches, the twin's result for
+    path_mpmd_procs)."""
+    import numpy as np
+
+    from tpu_sandbox_torch.lm_train import make_batches
+    from tpu_sandbox_torch.models.transformer import TransformerLM
+    from tpu_sandbox_torch.mpmd.program import tree_leaves
+    from tpu_sandbox_torch.mpmd.schedule import autotune_plan
+
+    cfg = _mpmd_cfg(SERVE_WIDTH["n_layers"])
+    t0 = time.monotonic()
+    flat = TransformerLM(cfg, seed=0).state_dict()
+    init_s = time.monotonic() - t0
+    tokens, targets = next(make_batches(LM_V, LM_B, LM_S, 1, 0))
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    arms, res = {}, {}
+    for kind in ("1f1b", "zb_h1"):
+        pipe, losses, wall, peak = _mpmd_arm(cfg, flat, tokens, targets,
+                                             kind=kind, steps=MPMD_STEPS)
+        res[kind] = _mpmd_report(pipe, losses, wall, peak)
+        arms[kind] = pipe.merged_params()
+        if kind == "zb_h1":
+            plan = autotune_plan(pipe.measured_op_costs(), n_stages=2,
+                                 measured_microbatches=MPMD_M)
+            res[kind]["autotune"] = {k: plan[k] for k in
+                                     ("kind", "microbatches", "predicted")}
+        del pipe
+        torch.cuda.empty_cache()
+    counts = ops.launch_counts()
+    want = {"ce_fwd": MPMD_STEPS * (MPMD_CE["1f1b"] + MPMD_CE["zb_h1"])}
+    a, b = arms["1f1b"], arms["zb_h1"]
+    upd = math.sqrt(sum(float((a[k] - flat[k]).double().square().sum())
+                        for k in a))
+    dist = math.sqrt(sum(float((b[k] - a[k]).double().square().sum())
+                         for k in a))
+    la, lb = res["1f1b"]["losses"], res["zb_h1"]["losses"]
+    zb_dev = max(abs(x - y) / abs(x) for x, y in zip(la, lb))
+    step0_dev = abs(la[0] - lm_ref["losses"][0]) / abs(lm_ref["losses"][0])
+    del arms, a, b
+    # (c) the fault arm and its twin
+    cfg4 = _mpmd_cfg(MPMD_FAULT_LAYERS)
+    flat4 = TransformerLM(cfg4, seed=0).state_dict()
+    t4, y4 = _mpmd_fault_batch(cfg4.vocab_size)
+    twin, twin_losses, twin_wall, _ = _mpmd_arm(
+        cfg4, flat4, t4, y4, kind="1f1b", steps=MPMD_FAULT_STEPS)
+    twin_params = twin.merged_params()
+    twin_leaves = {s: [x.clone() for x in
+                       tree_leaves(w.host_state()["params"])]
+                   for s, w in enumerate(twin.workers)}
+    del twin
+    ops.reset_launch_counts()
+    d = _fresh_ckpt_dir("mpmd")
+    pipe, losses, wall, peak = _mpmd_arm(
+        cfg4, flat4, t4, y4, kind="1f1b", steps=MPMD_FAULT_STEPS,
+        ckpt_root=str(d), fail_at=MPMD_KILL)
+    fault_counts = ops.launch_counts()
+    fault = _mpmd_report(pipe, losses, wall, peak)
+    differ = _merged_equal(twin_params, pipe.merged_params())
+    claims = pipe.transport.audit()["claims"]
+    dup = {k: v for k, v in claims.items() if v != 1}
+    gens = [w.generation for w in pipe.workers]
+    ckpt_bytes = _dir_bytes(d)
+    del pipe
+    twin_repeatable = None
+    if differ or losses != twin_losses:
+        # which one moved: a second unfaulted run from the same init
+        again, again_losses, _, _ = _mpmd_arm(
+            cfg4, flat4, t4, y4, kind="1f1b", steps=MPMD_FAULT_STEPS)
+        twin_repeatable = (again_losses == twin_losses and not
+                           _merged_equal(twin_params, again.merged_params()))
+        del again
+    torch.cuda.empty_cache()
+    # the last stage's 1F1B ops alternate F and B, so the kill before op
+    # MPMD_KILL[1] of step MPMD_KILL[0] leaves MPMD_KILL[1] // 2 loss_grads
+    # done in the dead step, which then replays whole
+    fault_want = {"ce_fwd": MPMD_FAULT_STEPS * MPMD_M + MPMD_KILL[1] // 2}
+    out = dict(model=SERVE_WIDTH, dtype="bf16", params="fp32",
+               batch=[LM_B, LM_S], stages=2, microbatches=MPMD_M,
+               steps=MPMD_STEPS, lr=MPMD_LR, init_s=init_s, **res,
+               step0_loss=la[0], lm_path_step0_loss=lm_ref["losses"][0],
+               step0_rel_dev=step0_dev, step0_rtol=SP_LOSS_RTOL,
+               zb_loss_max_rel_dev=zb_dev,
+               zb_losses_bitwise=la == lb,
+               zb_param_distance_over_update=dist / upd,
+               zb_param_bitwise=dist == 0.0,
+               zb_update_tol=MPMD_ZB_UPDATE_TOL,
+               launches=counts, fault=dict(
+                   layers=MPMD_FAULT_LAYERS, steps=MPMD_FAULT_STEPS,
+                   kill=list(MPMD_KILL), twin_losses=twin_losses,
+                   twin_wall_s=twin_wall, **fault,
+                   bitwise_twin=not differ and losses == twin_losses,
+                   differing_leaves=differ[:8], duplicate_claims=dup,
+                   generations=gens, checkpoint_bytes=ckpt_bytes,
+                   twin_repeatable=twin_repeatable, launches=fault_counts))
+    emit("path_mpmd", **out)
+    require(all(math.isfinite(x) for x in la + lb),
+            f"path_mpmd non-finite losses {la} {lb}")
+    require(step0_dev <= SP_LOSS_RTOL, f"path_mpmd: step 0 loss {la[0]} "
+            f"against lm_path's {lm_ref['losses'][0]}")
+    require(zb_dev <= SP_LOSS_RTOL and dist <= MPMD_ZB_UPDATE_TOL * upd,
+            f"path_mpmd: ZB-H1 losses {lb} against 1F1B's {la}, parameter "
+            f"distance {dist / upd:.3g} of the update")
+    require(counts == want, f"path_mpmd launched {counts}, expected {want}")
+    require(fault_counts == fault_want, f"path_mpmd fault arm launched "
+            f"{fault_counts}, expected {fault_want}")
+    require(not differ and losses == twin_losses and not dup
+            and gens == [0, 1], f"path_mpmd fault arm: {len(differ)} "
+            f"leaves differ from the twin (e.g. {differ[:4]}), losses "
+            f"{losses} against {twin_losses}, duplicate claims {dup}, "
+            f"generations {gens}, twin repeatable {twin_repeatable}")
+    return counts, {"losses": twin_losses, "leaves": twin_leaves,
+                    "batch": (t4, y4)}
+
+
+def _mpmd_json_arg(obj) -> str:
+    # agent_argv elements are str.format templates: double the braces
+    return json.dumps(obj).replace("{", "{{").replace("}", "}}")
+
+
+def _mpmd_argv(stage: int, ckpt: Path) -> list[str]:
+    argv = [sys.executable, "-m", "tpu_sandbox_torch.mpmd.worker",
+            "{agent_id}", "{kv_port}", "{job_id}", "--stage", str(stage),
+            "--ckpt-root", str(ckpt), "--get-timeout", "300"]
+    if stage == 0:
+        model = {**SERVE_WIDTH, "n_layers": MPMD_FAULT_LAYERS,
+                 "dtype": "bfloat16"}
+        argv += ["--steps", str(MPMD_FAULT_STEPS), "--n-stages", "2",
+                 "--microbatches", str(MPMD_M), "--seed", "0",
+                 "--model", _mpmd_json_arg(model),
+                 "--optimizer", _mpmd_json_arg({"name": "adam",
+                                                "lr": MPMD_LR}),
+                 "--batch", _mpmd_json_arg([LM_B, LM_S])]
+    return argv
+
+
+def phase_path_mpmd_procs(twin: dict) -> dict:
+    """Two ``python -m tpu_sandbox_torch.mpmd.worker`` processes on the
+    card (the default device), one scheduler job each in one cogroup under
+    this process's ClusterScheduler, over the KV transport, at the bench
+    widths and MPMD_FAULT_LAYERS layers; stage 1 killed mid-shipment at
+    step MPMD_KILL[0] through the fault plan's env (kill_agent) and
+    respawned by the scheduler. Every process traced into one directory.
+    The final parameters read over the ``final`` edge must be bitwise the
+    in-process twin's (path_mpmd's fault arm twin), the same losses, zero
+    duplicate claims, stage 1 at generation 2. Reports the wall, the
+    seconds from the kill to the respawned stage's first op, the bytes the
+    stages put on the KV wire, their KV get seconds, the bubble from the
+    trace, and one activation slot's put and get through the KV wire from
+    this process."""
+    import numpy as np
+
+    from tpu_sandbox_torch.mpmd.transport import KVTransport
+    from tpu_sandbox_torch.obs import collect, critpath
+    from tpu_sandbox_torch.obs.record import ENV_TRACE_DIR
+    from tpu_sandbox_torch.runtime.faults import FaultPlan
+    from tpu_sandbox_torch.runtime.scheduler import ClusterScheduler, JobSpec
+
+    ckpt = _fresh_ckpt_dir("mpmd_procs")
+    trace_dir = _fresh_ckpt_dir("mpmd_procs_trace")
+    trace_dir.mkdir()
+    root = Path(__file__).resolve().parent
+    plan = FaultPlan().add(rank=1, step=MPMD_KILL[0], action="kill_agent")
+    fault_env = {"TPU_SANDBOX_FAULT_PLAN": plan.to_json()}
+    t0 = time.monotonic()
+    with ClusterScheduler(2, poll=0.05, verbose=False, extra_env={
+            "PYTHONPATH": str(root), ENV_TRACE_DIR: str(trace_dir)}) as sched:
+        for s in (0, 1):
+            sched.submit(JobSpec(
+                job_id=f"stage{s}", hosts=1, world_size=1, cogroup="pipe0",
+                agent_argv=_mpmd_argv(s, ckpt), admission_timeout=120.0,
+                env=fault_env if s == 1 else {}))
+        states = sched.serve(timeout=MPMD_PROCS_LIMIT)
+        wall = time.monotonic() - t0
+        require(states == {"stage0": "done", "stage1": "done"},
+                f"path_mpmd_procs: the stage jobs ended {states}")
+        tr = KVTransport(sched.kv, prefix="mpmd/pipe0/")
+        finals = {s: tr.get("final", 0, s, timeout=60.0) for s in (0, 1)}
+        losses = json.loads(sched.kv.get("mpmd/pipe0/losses"))
+        gens = {s: int(sched.kv.get(f"mpmd/pipe0/gen/{s}")) for s in (0, 1)}
+        dup = {k: v for k, v in tr.audit()["claims"].items() if v != 1}
+        # one activation slot through the KV wire from this process
+        probe = torch.randn(LM_B // MPMD_M, LM_S, SERVE_WIDTH["d_model"],
+                            device="cuda").to(torch.bfloat16)
+        wire = KVTransport(sched.kv, prefix="mpmd/probe/")
+        torch.cuda.synchronize()
+        wire.put("act0", 0, 0, [probe])
+        (back,) = wire.get("act0", 0, 0, timeout=60.0)
+        probe_ok = torch.equal(back.view(torch.int16),
+                               probe.cpu().view(torch.int16))
+        wire.release_step("act0", 0)
+    merged = collect.load_merged(str(trace_dir))
+    named = {}
+    for r in merged:
+        named.setdefault(r.get("name"), []).append(r)
+    kill = named.get("fault:kill_agent", [])
+    first_op = [r["uts"] for r in named.get("stage:op", []) if kill
+                and r["args"].get("stage") == 1 and r["uts"] > kill[0]["uts"]
+                and r["pkey"] != kill[0]["pkey"]]
+    respawn_s = (min(first_op) - kill[0]["uts"]) if first_op else None
+    puts = [r for r in named.get("slot:put", [])
+            if r["args"].get("first") and r["args"]["edge"] != "final"]
+    gets = [r for r in named.get("slot:get", [])
+            if r["args"]["edge"] != "final"]
+    bubbles = critpath.bubble_fractions(merged)
+    differ = [(s, i) for s in (0, 1)
+              for i, (a, b) in enumerate(zip(twin["leaves"][s], finals[s]))
+              if a.numpy().tobytes() != np.asarray(b).tobytes()]
+    sizes = {s: (len(twin["leaves"][s]), len(finals[s])) for s in (0, 1)}
+    out = dict(model={**SERVE_WIDTH, "n_layers": MPMD_FAULT_LAYERS},
+               dtype="bf16", steps=MPMD_FAULT_STEPS, microbatches=MPMD_M,
+               kill_step=MPMD_KILL[0], wall_s=wall, respawn_s=respawn_s,
+               kv_bytes_put=sum(r["args"]["bytes"] for r in puts),
+               kv_slots_put=len(puts), kv_gets=len(gets),
+               kv_get_seconds=sum(r["dur"] for r in gets),
+               bubble_from_trace=bubbles["per_stage"],
+               probe_slot_bytes=wire.stats.bytes_out,
+               probe_put_s=wire.stats.put_seconds,
+               probe_get_s=wire.stats.get_seconds,
+               probe_bitwise=probe_ok, losses=losses,
+               twin_losses=twin["losses"], generations=gens,
+               duplicate_claims=dup, bitwise_twin=not differ
+               and all(a == b for a, b in sizes.values()),
+               differing_leaves=differ[:8])
+    emit("path_mpmd_procs", **out)
+    require(not differ and all(a == b for a, b in sizes.values()),
+            f"path_mpmd_procs: leaves {differ[:8]} (counts {sizes}) differ "
+            "from the in-process twin's")
+    require(losses == twin["losses"], f"path_mpmd_procs: losses {losses} "
+            f"against the twin's {twin['losses']}")
+    require(gens == {0: 1, 1: 2} and not dup and respawn_s is not None,
+            f"path_mpmd_procs: generations {gens}, duplicate claims {dup}, "
+            f"respawn {respawn_s}")
+    require(probe_ok, "path_mpmd_procs: a bf16 slot changed on the KV wire")
+    return out
+
+
+def phase_path_disagg(ops) -> dict:
+    """Disaggregated serving at SERVE_WIDTH in bf16 (bf16 cache, path_serve's
+    cache, batch and buckets): a PrefillReplica and a DecodeReplica in this
+    process over DeviceTransport, DISAGG_REQUESTS requests of path_serve's
+    trace, greedy, one at a time; the counters zeroed before and read after
+    (no kernel of the port launches). Each request's tokens must equal a
+    ContinuousEngine on the card serving the same requests in the same
+    order, each alone; a second decode of a request in the same generation
+    must be refused, and a generation-1 decode replica replaying it must
+    give the same tokens. Handoff bytes, put and get ms, prefill ms by
+    bucket, decode tokens/s and peak memory."""
+    from tpu_sandbox_torch.models.transformer import (TransformerConfig,
+                                                      TransformerLM)
+    from tpu_sandbox_torch.mpmd.transport import DeviceTransport
+    from tpu_sandbox_torch.serve import (CacheConfig, ContinuousEngine,
+                                         Request, ServeConfig)
+    from tpu_sandbox_torch.serve.decode import build_decode_step
+    from tpu_sandbox_torch.serve.disagg import (DecodeReplica, DisaggRequest,
+                                                PrefillReplica)
+
+    cfg = TransformerConfig(**SERVE_WIDTH, dtype=torch.bfloat16)
+    params = {k: v.to(torch.bfloat16) for k, v in
+              TransformerLM(cfg, seed=0, device="cuda").state_dict().items()}
+    torch.cuda.empty_cache()
+    ccfg = CacheConfig(**SERVE_CACHE)
+    scfg = ServeConfig(model=cfg, cache=ccfg, max_batch=SERVE_BATCH,
+                       buckets=SERVE_BUCKETS, cache_dtype=torch.bfloat16)
+    step = build_decode_step(cfg, ccfg, max_batch=SERVE_BATCH,
+                             buckets=SERVE_BUCKETS,
+                             cache_dtype=torch.bfloat16)
+    reqs = [DisaggRequest(rid=rid, prompt=list(prompt),
+                          max_new_tokens=min(n, DISAGG_NEW))
+            for _, rid, prompt, n in serve_trace(
+                cfg.vocab_size, **SERVE_TRACE)[:DISAGG_REQUESTS]]
+    ops.reset_launch_counts()
+    eng = ContinuousEngine(params, scfg, step=step)
+    for r in reqs:
+        eng.submit(Request(rid=r.rid, prompt=list(r.prompt),
+                           max_new_tokens=r.max_new_tokens))
+        eng.run_until_idle()
+    want = {r.rid: eng.results[r.rid].tokens for r in reqs}
+    del eng
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    times: dict[str, list] = {}
+
+    def record(kind, seconds, logits):
+        times.setdefault(kind, []).append(seconds * 1e3)
+
+    wstep = _watched_step(step, record)
+    tr = DeviceTransport()
+    prefill = PrefillReplica(params, cfg, ccfg, tr, step=wstep)
+    decode = DecodeReplica(params, cfg, ccfg, tr, step=wstep)
+    got, decode_s, prefill_s = {}, 0.0, 0.0
+    for r in reqs:
+        t0 = time.perf_counter()
+        prefill.prefill_and_ship(r)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        got[r.rid] = decode.decode_from_handoff(r)
+        torch.cuda.synchronize()
+        prefill_s += t1 - t0
+        decode_s += time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated()
+    try:
+        decode.decode_from_handoff(reqs[0])
+        refused = False
+    except RuntimeError as e:
+        refused = "already decoded" in str(e)
+    replay = DecodeReplica(params, cfg, ccfg, tr, step=step, generation=1)
+    replayed = replay.decode_from_handoff(reqs[0])
+    counts = ops.launch_counts()
+    differ = sorted(rid for rid in want if got[rid] != want[rid])
+    generated = sum(len(v) for v in got.values())
+    st = tr.stats
+    out = dict(model=SERVE_WIDTH, dtype="bf16", cache=SERVE_CACHE,
+               max_batch=SERVE_BATCH, buckets=list(SERVE_BUCKETS),
+               requests=len(reqs),
+               prompt_tokens=[len(r.prompt) for r in reqs],
+               generated_tokens=generated,
+               handoff_bytes=st.bytes_out,
+               handoff_bytes_each_mean=st.bytes_out / len(reqs),
+               put_ms_mean=st.put_seconds / len(reqs) * 1e3,
+               get_ms_mean=st.get_seconds / st.gets * 1e3,
+               journal=tr.journal.stats.snapshot(),
+               prefill_and_ship_ms_mean=prefill_s / len(reqs) * 1e3,
+               prefill_ms_median={k[len("prefill_"):]: statistics.median(v)
+                                  for k, v in sorted(times.items())
+                                  if k.startswith("prefill_")},
+               decode_step_ms_median=statistics.median(times["decode"]),
+               decode_tokens_per_s=(generated - len(reqs)) / decode_s,
+               peak_memory_bytes=peak, tokens_equal_engine=not differ,
+               differing_requests=differ, second_decode_refused=refused,
+               generation1_replay_equal=replayed == want[reqs[0].rid],
+               launches=counts)
+    emit("path_disagg", **out)
+    require(not differ, f"path_disagg: tokens differ from the engine's for "
+            f"{differ}")
+    require(refused, "path_disagg: a second decode in one generation was "
+            "not refused")
+    require(replayed == want[reqs[0].rid], "path_disagg: the generation-1 "
+            "replay gave other tokens")
+    require(counts == {}, f"path_disagg launched port kernels: {counts}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5460,13 +5980,25 @@ def main() -> int:
         phase_lm_profile(lm_train, run)
         del run
         torch.cuda.empty_cache()
+    with timed("lm_path_cut"):
+        run, counts["lm_path_cut"], cut_ref = phase_lm_path(
+            ops, lm_train, CUT_FLAGS, CUT_KINDS, "lm_path_cut")
+        del run
+        torch.cuda.empty_cache()
     with timed("path_sp"):
-        counts.update(phase_path_sp(ops, fa, lm_train, lm_ref))
-    counts.update(phase_lm_paths(ops, fa, lm_train, lm_ref))
+        counts.update(phase_path_sp(ops, fa, lm_train, cut_ref))
+    counts.update(phase_lm_paths(ops, fa, lm_train, cut_ref))
+    with timed("path_mpmd"):
+        counts["path_mpmd"], mpmd_twin = phase_path_mpmd(ops, lm_ref)
+    with timed("path_mpmd_procs"):
+        phase_path_mpmd_procs(mpmd_twin)
+        del mpmd_twin
     with timed("serve_card_vs_cpu"):
         phase_serve_card_vs_cpu()
     with timed("path_serve"):
         counts["path_serve"] = phase_path_serve(ops)["launches"]
+    with timed("path_disagg"):
+        counts["path_disagg"] = phase_path_disagg(ops)["launches"]
     with timed("path_replica"):
         _, replica_tokens = phase_path_replica()
     with timed("path_replica_gang"):
@@ -5499,13 +6031,14 @@ def main() -> int:
             phase_fn(*a)
     emit("seconds", phases=SECONDS, total=sum(SECONDS.values()))
     steps_of = {phase: steps for phase, _, _, steps, _ in PATHS}
-    steps_of["lm_path"] = STEPS
+    steps_of["lm_path"] = steps_of["lm_path_cut"] = STEPS
     steps_of["path_dp"] = DP_STEPS
     steps_of.update(path_ckpt=STEPS, path_resumable=ELASTIC_STEPS)
     steps_of.update({f"path_dp_ext_{m}": DP_STEPS for m, _ in DP_EXT_MODES})
     steps_of.update({f"path_sp_{a}": SP_STEPS for a in SP_SCHEMES},
                     ring_kernels=1)
     steps_of.update({phase: LM_PATH_STEPS for phase, *_ in LM_PATHS})
+    steps_of["path_mpmd"] = 2 * MPMD_STEPS
     for name, e in entries.items():
         e["launches_by_path"] = {p: c.get(name, 0) for p, c in counts.items()}
         # the count from the run of the first path this launch belongs to

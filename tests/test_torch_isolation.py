@@ -90,6 +90,12 @@ def test_import_loads_no_jax_and_no_jax_package():
         "import tpu_sandbox_torch.tools, tpu_sandbox_torch.tools.tracecat\n"
         "import tpu_sandbox_torch.tools.tracediff\n"
         "import tpu_sandbox_torch.tools.fleetop\n"
+        "import tpu_sandbox_torch.mpmd, tpu_sandbox_torch.mpmd.transport\n"
+        "import tpu_sandbox_torch.mpmd.schedule\n"
+        "import tpu_sandbox_torch.mpmd.program\n"
+        "import tpu_sandbox_torch.mpmd.driver\n"
+        "import tpu_sandbox_torch.mpmd.worker\n"
+        "import tpu_sandbox_torch.serve.disagg\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "print(','.join(sorted(bad)))\n"

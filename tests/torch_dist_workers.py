@@ -4,7 +4,7 @@ Spawned ranks import this module anew, so it imports no ``jax`` and
 nothing of the JAX package: only the port, torch and numpy. The tests that
 spawn these ranks (``tests/test_torch_{bootstrap,collectives,
 data_parallel,ring_attention,flash_ring,seq_parallel,pipeline,
-pipeline_parallel,pjit_engine,moe}.py``) compute the JAX package's results in their own process and compare. Each rank joins through the ``INIT_METHOD`` that
+pipeline_parallel,pjit_engine,moe,mpmd}.py``) compute the JAX package's results in their own process and compare. Each rank joins through the ``INIT_METHOD`` that
 ``tpu_sandbox_torch.parallel.launch.spawn`` sets (a ``FileStore`` under
 the test's temporary directory) and saves what it computed to
 ``out_dir/rank{r}.pt``.
@@ -385,6 +385,33 @@ def pipeline_worker(rank: int, world_size: int, out_dir: str,
     finally:
         bootstrap.cleanup()
 
+
+
+def mpmd_spmd_worker(rank: int, world_size: int, out_dir: str,
+                     in_path: str) -> None:
+    """``PipelineParallel`` over {"data": 1, "pipe": world_size} from the
+    state dict of ``in_path``, Adam at its ``lr``, its ``microbatches``,
+    ``steps`` steps on one fixed batch: the SPMD twin of the MPMD
+    pipeline (tests/test_torch_mpmd.py). Saves the losses and the merged
+    parameters."""
+    torch.set_num_threads(1)
+    bootstrap.init(device="cpu")
+    try:
+        inputs = torch.load(in_path, weights_only=False)
+        lr = inputs["lr"]
+        pp = PipelineParallel(
+            TransformerConfig(**inputs["cfg"]),
+            lambda params: Adam(params, constant_schedule(lr)),
+            make_mesh({"data": 1, "pipe": world_size}),
+            microbatches=inputs["microbatches"])
+        state = pp.shard_state(pp.init_state(params=inputs["params"]))
+        batch = pp.shard_batch(*inputs["batch"])
+        losses = [float(pp.train_step(state, *batch))
+                  for _ in range(inputs["steps"])]
+        _save(out_dir, rank, {"losses": losses,
+                              "merged": pp.merged_params(state)})
+    finally:
+        bootstrap.cleanup()
 
 #: the PjitEngine cases' LM (tests/test_moe.py's CFG, dense unless
 #: n_experts is set) and global batch; the ConvNet's images (28x28, as

@@ -19,8 +19,8 @@ Layers (bottom up):
 - ``client``  — deadline submit, retry-on-shed, hedging.
 - ``autoscale`` — leader-elected control loop sizing the replica gang from
   the load reports through the cluster scheduler (serve/train colocation).
-
-Not ported: ``disagg`` (ROADMAP item 10).
+- ``disagg`` — disaggregated prefill/decode: a prefill replica ships a
+  request's KV rows over the MPMD stage transport to a decode replica.
 """
 
 from tpu_sandbox_torch.serve.cache import CacheConfig, PagedKVCache
