@@ -462,6 +462,28 @@ PATHS = (
     ("path_accum", "auto", {}, 2, MAIN_KINDS),
 )
 ALL_KINDS = sorted({k for *_, kinds in PATHS for k in kinds})
+#: the compiler-driven engine (parallel/pjit_engine.py) on the card's
+#: image models with BN, at one NCCL rank: (phase, the PATHS phase whose
+#: Trainer run from the same init and batches it is held against, mesh,
+#: rules, input_spec). It takes that phase's plan, options, steps and
+#: batches (SGD at 1e-4, seed 0) and must launch that phase's kinds as
+#: often; its statistics run through the engine's StatsGroup seams
+PJIT_PATHS = (
+    ("path_pjit_plain_bn", "path_plain",
+     {"data": 1, "spatial": 1, "model": 1},
+     [("fc/kernel", ("model", None))], ("data", "spatial")),
+    ("path_pjit_s2dt_bn", "main_path", {"data": 1}, [], ("data",)),
+    ("path_pjit_s2d_bn", "path_s2d", {"data": 1}, [], ("data",)),
+)
+#: a PJIT_PATHS phase against its Trainer run: each loss within this
+#: relative distance and each state tensor within this share of the
+#: largest magnitude among its module's tensors (bf16 compute: one bf16
+#: rounding, TOL["bf16"]). A module's scale, not the tensor's own: a conv
+#: bias under BN has a gradient of 0 but for rounding, so its value is
+#: rounding noise that two arithmetics draw differently, held at its
+#: kernel's scale. The s2d plans run the same arithmetic at one rank and
+#: are reported bitwise or not beside it
+PJIT_TOL = 1e-2
 #: mnist_onegpu flags of a path beyond --plan and the common ones
 ACCUM_STEPS = 5
 PATH_FLAGS = {"path_accum": ["--accum-steps", str(ACCUM_STEPS),
@@ -2636,11 +2658,13 @@ def phase_entry_refusals() -> None:
 
 def phase_main_path(ops, mnist_onegpu, expected: list[str], *, phase: str,
                     plan: str, steps: int, model_options: dict | None = None,
-                    flags: list[str] | None = None):
+                    flags: list[str] | None = None,
+                    keep: dict | None = None):
     """mnist_onegpu's train function at 3000x3000 with ``--plan plan``
     (and ``flags``) and the launch counters zeroed just before and read
     just after: every expected launch once per step (``--accum-steps k``:
-    k times), and no other."""
+    k times), and no other. ``keep`` receives the losses and a host copy of
+    the final state dict."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     args = mnist_onegpu.build_parser().parse_args([
@@ -2668,6 +2692,9 @@ def phase_main_path(ops, mnist_onegpu, expected: list[str], *, phase: str,
             f"unexpected launches on {phase}: {counts}")
     step_ms = statistics.median(trainer.step_seconds[1:]) * 1e3
     model = state.model
+    if keep is not None:         # on the host: later phases' peaks hold none
+        keep.update(losses=list(trainer.losses), state={
+            k: v.detach().cpu() for k, v in model.state_dict().items()})
     res = dict(image=IMAGE, batch=BATCH, dtype="bf16", steps=steps,
                plan=plan, model=type(model).__name__,
                plan_options=model_options or {}, flags=flags or [],
@@ -2683,6 +2710,106 @@ def phase_main_path(ops, mnist_onegpu, expected: list[str], *, phase: str,
                peak_memory_bytes=torch.cuda.max_memory_allocated(),
                wall_s_with_init=wall, launches=counts)
     return res, counts, trainer
+
+
+def _onegpu_batches(mnist_onegpu, steps: int) -> list:
+    """The batches mnist_onegpu's train function draws for ``steps``
+    steps of BATCH (its data, its loader, its seed)."""
+    from tpu_sandbox_torch.data import BatchLoader, normalize, synthetic_mnist
+
+    try:
+        images, labels = mnist_onegpu.load_mnist("train", None)
+    except FileNotFoundError:
+        images, labels = synthetic_mnist(n=steps * BATCH, seed=0)
+    images, labels = images[:steps * BATCH], labels[:steps * BATCH]
+    return list(BatchLoader(normalize(images), labels.astype("int32"),
+                            BATCH, shuffle=True, seed=0, drop_last=False))
+
+
+def phase_path_pjit(ops, mnist_onegpu, smi: str, phase: str, ref: dict,
+                    mesh: dict, rules: list, spec: tuple) -> tuple[dict,
+                                                                dict]:
+    """PjitEngine at one NCCL rank on ``ref``'s plan (a PATHS phase's
+    plan, options, steps and kinds) with BN: the same model from seed 0,
+    the same batches, SGD at 1e-4 (``TrainState``'s, as the Trainer's),
+    at 3000x3000 bf16 from the 28x28
+    batch, the launch counters zeroed before the steps and read after.
+    Every kind of ``ref``'s phase as often, no other; the losses and the
+    whole state (parameters and BN statistics, ``full_params``) within
+    PJIT_TOL of ``ref``'s Trainer run; step ms (the median after the
+    first) and peak memory beside the card's line."""
+    from tpu_sandbox_torch.models import pick_convnet
+    from tpu_sandbox_torch.parallel.pjit_engine import P, PjitEngine
+    from tpu_sandbox_torch.runtime import bootstrap
+    from tpu_sandbox_torch.runtime.mesh import make_mesh
+
+    shape = (IMAGE, IMAGE)
+    steps = len(ref["losses"])
+    batches = _onegpu_batches(mnist_onegpu, steps)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = pick_convnet(shape, plan=ref["plan"], num_classes=10,
+                         dtype=torch.bfloat16, seed=0, device="cuda",
+                         **ref["options"])
+    require(model.use_bn, f"{phase}: {type(model).__name__} without BN")
+    bootstrap.init(device="cuda")
+    try:
+        eng = PjitEngine(model, lambda params: None,
+                         make_mesh(mesh), rules=[(r, P(*a)) for r, a in rules],
+                         input_spec=P(*spec), image_size=shape)
+        state = eng.shard_state()
+        ops.reset_launch_counts()
+        losses, step_s = [], []
+        for x, y in batches:
+            t0 = time.perf_counter()
+            losses.append(float(eng.train_step(state, *eng.shard_batch(x,
+                                                                      y))))
+            step_s.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        got = eng.full_params(state)
+    finally:
+        bootstrap.cleanup()
+    for key in ref["kinds"]:
+        require(counts.get(key, 0) == steps,
+                f"{phase} launched {key} {counts.get(key, 0)} times in "
+                f"{steps} steps")
+    require(set(counts) == set(ref["kinds"]),
+            f"unexpected launches on {phase}: {counts}")
+    loss_dev = max(abs(a - b) / abs(b) for a, b in zip(losses,
+                                                       ref["losses"]))
+    require(sorted(got) == sorted(ref["state"]),
+            f"{phase}: state entries {sorted(got)}")
+    scale: dict[str, float] = {}
+    for k, want in ref["state"].items():
+        owner = k.rpartition(".")[0]
+        scale[owner] = max(scale.get(owner, 0.0),
+                           float(want.float().abs().max()))
+    state_dev, bitwise = {}, loss_dev == 0.0
+    for k, want in ref["state"].items():
+        have = got[k]
+        bitwise &= torch.equal(have, want)
+        state_dev[k] = float((have.float() - want.float()).abs().max()) / max(
+            scale[k.rpartition(".")[0]], 1e-30)
+    worst = max(state_dev, key=state_dev.get)
+    require(loss_dev <= PJIT_TOL and state_dev[worst] <= PJIT_TOL,
+            f"{phase}: losses {losses} vs the Trainer's {ref['losses']} "
+            f"({loss_dev:.3e}), {worst} {state_dev[worst]:.3e}")
+    step_ms = statistics.median(step_s[1:]) * 1e3
+    res = dict(image=IMAGE, batch=BATCH, dtype="bf16", steps=steps,
+               plan=ref["plan"], model=type(model).__name__,
+               held_against=ref["phase"], mesh=mesh,
+               rules=[[r, list(a)] for r, a in rules], input_spec=list(spec),
+               losses=losses, trainer_losses=ref["losses"],
+               loss_rel_dev=loss_dev, state_worst=[worst, state_dev[worst]],
+               state_dev=state_dev,
+               bitwise=bitwise, step_ms_each=[t * 1e3 for t in step_s],
+               step_ms_median_after_first=step_ms,
+               trainer_step_ms_median_after_first=ref["step_ms"],
+               peak_memory_bytes=peak, trainer_peak_memory_bytes=ref["peak"],
+               launches=counts, nvidia_smi=smi)
+    return res, counts
 
 
 def phase_dist_bootstrap() -> None:
@@ -5924,12 +6051,18 @@ def main() -> int:
         ring_entries, ring_counts = phase_ring_kernels(ops, fa)
     entries.update(ring_entries)
     counts, main_ms, main_res = {}, None, None
+    pjit_refs = {ref: {} for _, ref, *_ in PJIT_PATHS}
     for phase, plan, options, steps, kinds in PATHS:
         with timed(phase):
             res, counts[phase], trainer = phase_main_path(
                 ops, mnist_onegpu, kinds, phase=phase, plan=plan,
                 steps=steps, model_options=options,
-                flags=PATH_FLAGS.get(phase))
+                flags=PATH_FLAGS.get(phase), keep=pjit_refs.get(phase))
+            if phase in pjit_refs:
+                pjit_refs[phase].update(
+                    phase=phase, plan=plan, options=options, kinds=kinds,
+                    step_ms=res["step_ms_median_after_first"],
+                    peak=res["peak_memory_bytes"])
             if main_ms is None:
                 require(res["fused_tail"] and res["sparse_conv1"]
                         and res["fused_conv1_bwd"],
@@ -5945,6 +6078,13 @@ def main() -> int:
             if phase == "path_s2d":
                 phase_profile(trainer, phase="profile_s2d", plan=phase)
             del trainer
+    for phase, ref, mesh, rules, spec in PJIT_PATHS:
+        with timed(phase):
+            res, counts[phase] = phase_path_pjit(
+                ops, mnist_onegpu, smi, phase, pjit_refs.pop(ref), mesh,
+                rules, spec)
+            emit(phase, **res)
+    del pjit_refs
     with timed("dist_bootstrap"):
         phase_dist_bootstrap()
     with timed("path_dp"):
@@ -6031,6 +6171,7 @@ def main() -> int:
             phase_fn(*a)
     emit("seconds", phases=SECONDS, total=sum(SECONDS.values()))
     steps_of = {phase: steps for phase, _, _, steps, _ in PATHS}
+    steps_of.update({phase: steps_of[ref] for phase, ref, *_ in PJIT_PATHS})
     steps_of["lm_path"] = steps_of["lm_path_cut"] = STEPS
     steps_of["path_dp"] = DP_STEPS
     steps_of.update(path_ckpt=STEPS, path_resumable=ELASTIC_STEPS)

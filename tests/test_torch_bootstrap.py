@@ -149,3 +149,31 @@ def test_spawn_kills_ranks_past_the_deadline(tmp_path):
     with pytest.raises(SpawnError, match="still running after"):
         spawn(failing_worker, 1, 60.0, init_method=f"file://{tmp_path}/s",
               timeout=3)
+
+
+@pytest.mark.parametrize("launcher", ["test_init", "spawn"])
+def test_rendezvous_succeeds_with_the_probed_port_taken(monkeypatch,
+                                                         capfd, launcher):
+    """The probed-port race: another process holds (listens on) the port
+    a probe would hand out. The launchers never hand a probed port to
+    their ranks (they serve the rendezvous store on the port the OS gives
+    at its bind), so two gloo ranks still meet: through test_init's
+    served store, and through spawn's own."""
+    from tpu_sandbox_torch import test_init
+    from tpu_sandbox_torch.parallel.launch import spawn
+
+    with socket.socket() as taken:
+        taken.bind(("127.0.0.1", 0))
+        taken.listen()
+        port = str(taken.getsockname()[1])
+        monkeypatch.setattr(bootstrap, "find_free_port", lambda: port)
+        monkeypatch.delenv("MASTER_PORT", raising=False)
+        monkeypatch.delenv("MASTER_ADDR", raising=False)
+        if launcher == "test_init":
+            test_init.test_setup(2, force_cpu=True)
+        else:
+            spawn(test_init.worker, 2, "served", True, timeout=120)
+        out = capfd.readouterr().out
+    for rank in range(2):
+        assert f"rank {rank}: all_reduce check 3.0 == 3.0" in out
+    assert f"port='{port}'" not in out

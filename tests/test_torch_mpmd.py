@@ -27,6 +27,7 @@ unfaulted runs, as JAX holds them against its own.
 """
 
 import os
+import time
 
 import jax
 import numpy as np
@@ -246,6 +247,27 @@ def test_three_stage_zb_kill_in_the_middle_recovers_bitwise(init, tmp_path):
 
 
 # -- the trace ------------------------------------------------------------------
+
+
+def test_complete_holds_the_callers_end_and_duration(tmp_path):
+    """``Recorder.complete`` writes the span's duration from the caller's
+    own end time or duration when given (the stage worker passes the
+    readings its gauge is computed from), else from now."""
+    import json
+
+    from tpu_sandbox_torch.obs.record import Recorder
+
+    rec = Recorder(str(tmp_path / "spans.jsonl"), proc="t")
+    rec.complete("by_end", 10.0, end=10.25)
+    rec.complete("by_dur", 5.0, dur=0.5, end=99.0)
+    rec.complete("now", time.monotonic())
+    rec.close()
+    spans = {r["name"]: r for r in map(json.loads, open(
+        tmp_path / "spans.jsonl")) if r.get("ph") == "X"}
+    assert spans["by_end"]["ts"] == 10.0
+    assert spans["by_end"]["dur"] == 0.25
+    assert spans["by_dur"]["dur"] == 0.5
+    assert 0.0 <= spans["now"]["dur"] < 5.0
 
 
 def test_recorded_bubble_agrees_with_the_online_gauge(init, tmp_path):

@@ -18,7 +18,7 @@ import time
 import numpy as np
 import torch
 
-from tpu_sandbox_torch.models import ConvNet
+from tpu_sandbox_torch.models import ConvNet, pick_convnet
 from tpu_sandbox_torch.models.transformer import Mlp, TransformerConfig, TransformerLM
 from tpu_sandbox_torch.ops.flash_attention import flash_attention_fn
 from tpu_sandbox_torch.parallel import (
@@ -421,7 +421,13 @@ PJIT_CFG = dict(vocab_size=64, d_model=32, n_heads=2, n_layers=2, d_ff=64,
 PJIT_BATCH, PJIT_SEQ, PJIT_STEPS, PJIT_IMAGE = 8, 16, 3, 28
 #: the rules of a case by name
 PJIT_RULES = {"none": lambda: [], "megatron": megatron_rules,
-              "expert": lambda: [(r"w_(up|down)", P("expert", None, None))]}
+              "expert": lambda: [(r"w_(up|down)", P("expert", None, None))],
+              "fc": lambda: [("fc/kernel", P(None, "model"))],
+              "fc_row": lambda: [("fc/kernel", P("model", None))],
+              "qkv_only": lambda: [("attn/qkv/kernel",
+                                    P(None, None, "model", None))],
+              "conv_model": lambda: [("conv1/kernel",
+                                      P(None, None, None, "model"))]}
 #: the constructor's checks on 4 ranks: (mesh, engine options, model);
 #: JAX's ValueErrors word for word, and what the port does not run yet
 PJIT_VALIDATIONS = {
@@ -445,15 +451,26 @@ PJIT_VALIDATIONS = {
 }
 #: what the port refuses with NotImplementedError: (mesh, options, model)
 PJIT_UNPORTED = {
-    "spatial": ({"data": 2, "spatial": 2},
-                dict(input_spec=("data", "spatial")), "image"),
-    "image_rules": ({"data": 2, "model": 2},
-                    dict(rules="fc", task="image"), "image"),
-    "batch_norm": ({"data": 4}, dict(task="image"), "image_bn"),
-    "partial_megatron": ({"data": 2, "model": 2},
-                         dict(rules="qkv_only"), "lm"),
+    "spatial_width": ({"data": 2, "spatial": 2},
+                      dict(input_spec=("data", None, "spatial")), "image"),
+    "spatial_lm": ({"data": 2, "spatial": 2},
+                   dict(input_spec=("data", "spatial")), "lm"),
+    "spatial_fsdp": ({"data": 2, "spatial": 2},
+                     dict(input_spec=("data", "spatial"), fsdp_axis="data"),
+                     "image"),
+    "spatial_gathered": ({"data": 1, "spatial": 2, "model": 2},
+                         dict(input_spec=("data", "spatial"),
+                              rules="conv_model"), "image"),
+    "narrow_band": ({"data": 1, "spatial": 4},
+                    dict(input_spec=("data", "spatial"), image_size=(12, 12)),
+                    "image"),
     "lower_step": ({"data": 4}, {}, "lm"),
 }
+#: the image models of the PjitEngine cases: (plan, use_bn); the s2d
+#: plans run their fused kernels' CPU versions (ConvNetS2D's fused convs
+#: and tails, ConvNetS2DT's fused tails and conv1+tail unit)
+PJIT_IMAGE_MODELS = {"image": ("plain", False), "image_bn": ("plain", True),
+                     "s2d_bn": ("s2d", True), "s2dt_bn": ("s2dt", True)}
 
 
 def pjit_tx(opt: str):
@@ -473,27 +490,27 @@ def pjit_tx(opt: str):
     return adamw
 
 
-def _pjit_model(kind: str, cfg: dict, flash: bool, seed: int):
+def _pjit_model(kind: str, cfg: dict, flash: bool, seed: int,
+                image_size: int = PJIT_IMAGE):
     if kind == "lm":
         config = TransformerConfig(**cfg)
         return TransformerLM(config, flash_attention_fn() if flash else None,
                              mlp_cls=MoeMlp if config.n_experts else Mlp,
                              seed=seed)
-    return ConvNet((PJIT_IMAGE, PJIT_IMAGE), device="cpu", seed=seed,
-                   use_bn=kind == "image_bn")
+    plan, use_bn = PJIT_IMAGE_MODELS[kind]
+    return pick_convnet(image_size, plan=plan, device="cpu", seed=seed,
+                        use_bn=use_bn, fused_tail=True, fused_conv=True)
 
 
 def _pjit_engine(mesh: dict, options: dict, kind: str, seed: int):
     options = dict(options)
-    rules = options.pop("rules", "none")
-    rules = {"fc": lambda: [("fc/kernel", P(None, "model"))],
-             "qkv_only": lambda: [("attn/qkv/kernel",
-                                   P(None, None, "model", None))],
-             }.get(rules, PJIT_RULES.get(rules))()
+    rules = PJIT_RULES[options.pop("rules", "none")]()
     if "input_spec" in options:
         options["input_spec"] = P(*options["input_spec"])
     options.setdefault("task", "image" if kind != "lm" else "lm")
-    return PjitEngine(_pjit_model(kind, PJIT_CFG, False, seed),
+    return PjitEngine(_pjit_model(kind, PJIT_CFG, False, seed,
+                                  (options.get("image_size")
+                                   or (PJIT_IMAGE,))[0]),
                       pjit_tx("sgd"), make_mesh(mesh), rules=rules,
                       **options)
 
@@ -504,9 +521,11 @@ def _pjit_refusal(name: str) -> str:
 
     def make():
         eng = _pjit_engine(mesh, options, kind, 0)
-        eng.shard_state()
+        state = eng.shard_state()
         if name == "lower_step":
             eng.lower_step()
+        images = np.zeros((4, PJIT_IMAGE, PJIT_IMAGE, 1), np.float32)
+        eng.train_step(state, *eng.shard_batch(images, np.zeros(4, np.int64)))
 
     try:
         make()
@@ -529,14 +548,18 @@ def pjit_worker(rank: int, world_size: int, out_dir: str,
         inputs = torch.load(in_path, weights_only=False)
         out = {}
         for name, case in inputs["cases"].items():
-            kind = case["task"] if case["task"] == "lm" else "image"
+            kind = case["task"] if case["task"] == "lm" else case.get(
+                "model", "image")
+            options = dict(case.get("options", {}))
+            if "input_spec" in options:
+                options["input_spec"] = P(*options["input_spec"])
             eng = PjitEngine(
                 _pjit_model(kind, case["cfg"], case.get("flash", False),
-                            rank + 1),
+                            rank + 1, (options.get("image_size")
+                                       or (PJIT_IMAGE,))[0]),
                 pjit_tx(case["opt"]), make_mesh(case["mesh"]),
                 task=case["task"], rules=PJIT_RULES[case["rules"]](),
-                clip_norm=case.get("clip_norm", 0.0),
-                **case.get("options", {}))
+                clip_norm=case.get("clip_norm", 0.0), **options)
             state = eng.shard_state(case["params"])
             res = {"local": {leaf.name: (tuple(leaf.param.shape), leaf.spec)
                              for leaf in eng.leaves},
@@ -937,6 +960,92 @@ def guard_worker(rank: int, world_size: int, out_dir: str,
         except AbortOnAnomaly as e:
             out["aborted"] = str(e)
         out["end"] = state.host_view()
+        _save(out_dir, rank, out)
+    finally:
+        bootstrap.cleanup()
+
+
+# -- BN statistics seams under a group -------------------------------------
+
+#: the BN statistics seams held under a 2-rank group against one rank on
+#: the whole batch: the fused tails with and without the conv's sums, the
+#: fused conv1+tail unit, and the plain chains
+BN_SEAMS = ("bn_tail_t", "bn_tail_t_ysums", "bn_tail", "bn_tail_ysums",
+            "conv1_tail_t", "grouped_bn", "grouped_bn_t")
+#: the StatsGroup's count: the ranks' equal rows times the ranks (a host
+#: number), or summed with the statistics (unequal image bands)
+BN_SEAM_COUNTS = ("equal", "summed")
+
+
+def bn_seam(name: str, arrays: dict, group=None) -> dict:
+    """One seam's forward and backward on ``arrays`` (numpy, f32) with the
+    statistics over ``group`` (a ``StatsGroup``; None: these rows):
+    the output, mu and var where the function returns them, and the
+    gradients of sum(out * cot)."""
+    from tpu_sandbox_torch.models.convnet_s2d import GroupedBN
+    from tpu_sandbox_torch.models.convnet_s2d_t import GroupedBNT
+    from tpu_sandbox_torch.ops import bn_tail, bn_tail_t, conv1_tail_t
+
+    co, blk = int(arrays["co"]), int(arrays["blk"])
+    t = {k: torch.from_numpy(np.ascontiguousarray(v)).requires_grad_(
+        k not in ("x", "cot")) for k, v in arrays.items()
+        if k not in ("co", "blk")}
+    if name.startswith("bn_tail"):
+        mod = bn_tail_t if name.startswith("bn_tail_t") else bn_tail
+        fn = (mod.fused_bn_relu_pool_t if mod is bn_tail_t
+              else mod.fused_bn_relu_pool)
+        y = t["y"]
+        ysums = None
+        if name.endswith("ysums"):
+            red = (0, 1, 3) if mod is bn_tail_t else (0, 1, 2)
+            yf = y.detach()
+            s, ss = yf.sum(dim=red), yf.square().sum(dim=red)
+            ysums = ((s[:, None], ss[:, None]) if mod is bn_tail_t
+                     else (s[None], ss[None]))
+        out, mu, var = fn(y, t["gamma"], t["beta"], co, blk, 1e-5, ysums,
+                          group)
+        leaves = ("y", "gamma", "beta")
+    elif name == "conv1_tail_t":
+        out, mu, var = conv1_tail_t.conv1_tail_t(
+            t["x"], t["k5"], t["cb"], t["gamma"], t["beta"], co, blk, 1e-5,
+            group)
+        leaves = ("k5", "cb", "gamma", "beta")
+    else:
+        bn = (GroupedBN if name == "grouped_bn" else GroupedBNT)(
+            co, torch.float32)
+        bn.stats_group = group
+        with torch.no_grad():
+            bn.scale.copy_(t["gamma"])
+            bn.bias.copy_(t["beta"])
+        out = bn(t["y"])
+        mu, var = bn.mean.detach() / 0.1, (bn.var.detach() - 0.9) / 0.1
+        t["gamma"], t["beta"] = bn.scale, bn.bias
+        leaves = ("y", "gamma", "beta")
+    (out * t["cot"]).sum().backward()
+    return {"out": out.detach(), "mu": mu.detach(), "var": var.detach(),
+            **{f"d{k}": t[k].grad.detach() for k in leaves}}
+
+
+def bn_seam_worker(rank: int, world_size: int, out_dir: str,
+                   in_path: str) -> None:
+    """Each seam of ``in_path`` on this rank's block of the batch rows
+    (dim 0 of every batched array), the statistics over every rank."""
+    from tpu_sandbox_torch.parallel.collectives import StatsGroup
+
+    torch.set_num_threads(1)
+    bootstrap.init(device="cpu")
+    try:
+        inputs = torch.load(in_path, weights_only=False)
+        out = {}
+        for counts in BN_SEAM_COUNTS:
+            group = StatsGroup([world_group()],
+                               equal_rows=counts == "equal")
+            for name, arrays in inputs.items():
+                n = arrays["cot"].shape[0] // world_size
+                mine = {k: (v[rank * n:(rank + 1) * n]
+                            if k in ("y", "x", "cot") else v)
+                        for k, v in arrays.items()}
+                out[name, counts] = bn_seam(name, mine, group)
         _save(out_dir, rank, out)
     finally:
         bootstrap.cleanup()

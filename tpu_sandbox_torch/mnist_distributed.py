@@ -393,10 +393,15 @@ def spawn_elastic(args, world_size: int):
     _note_without_ckpt(args)
     passthrough = _elastic_passthrough(args)
 
+    # each generation's rendezvous store, served here on the port the OS
+    # gives at its bind; its ranks join it as clients (AGENT_STORE_ENV)
+    stores = {}
+
     def build(gen, kv_port):
-        port = bootstrap.find_free_port()  # fresh coordinator port per gen
-        base = [*_module_argv(), "--elastic-worker", "--port", port,
-                "--kv-port", str(kv_port)] + passthrough
+        stores.clear()
+        stores[gen] = bootstrap.serve_store()
+        base = [*_module_argv(), "--elastic-worker", "--port",
+                str(stores[gen].port), "--kv-port", str(kv_port)] + passthrough
         return [base + ["--rank", str(r)] for r in range(world_size)]
 
     sup = Supervisor(
@@ -407,7 +412,7 @@ def spawn_elastic(args, world_size: int):
             os.environ.get("TPU_SANDBOX_WATCHDOG_TIMEOUT", 60.0)),
         grace=float(os.environ.get("TPU_SANDBOX_WATCHDOG_GRACE", 180.0)),
         term_timeout=float(os.environ.get("TPU_SANDBOX_TERM_TIMEOUT", 30.0)),
-        extra_env=_root_env(),
+        extra_env={**_root_env(), bootstrap.AGENT_STORE_ENV: "True"},
     )
     try:
         result = sup.run()

@@ -171,6 +171,30 @@ class GroupedBN(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
+        #: the ranks holding the rest of the batch (``parallel/
+        #: collectives.py::StatsGroup``, set by ``PjitEngine``): the
+        #: statistics are then the whole batch's; None: this rank's rows
+        self.stats_group = None
+
+    def _batch_stats(self, yf: torch.Tensor, red: tuple[int, ...]):
+        """(mu, biased var) over the ``red`` dims of f32 ``yf``: the means
+        of this rank's rows, or under ``stats_group`` the sums of y and
+        y*y and the element count summed over its ranks, then divided
+        (the same single pass)."""
+        if self.stats_group is None:
+            mu = yf.mean(dim=red)
+            mu2 = yf.square().mean(dim=red)
+        else:
+            group = self.stats_group
+            s1 = yf.sum(dim=red)
+            count = yf.numel() // s1.numel()
+            parts = [s1, yf.square().sum(dim=red)]
+            if not group.equal_rows:
+                parts.append(torch.full_like(s1, count))
+            sums = group.sum(torch.stack(parts))
+            count = count * group.size if group.equal_rows else sums[2]
+            mu, mu2 = sums[0] / count, sums[1] / count
+        return mu, torch.clamp_min(mu2 - mu.square(), 0.0)
 
     @torch.no_grad()
     def _update_running(self, mu: torch.Tensor, var: torch.Tensor) -> None:
@@ -183,9 +207,7 @@ class GroupedBN(nn.Module):
         *lead, c = y.shape
         yf = y.reshape(*lead, c // co, co).float()
         if self.training:
-            red = tuple(range(yf.dim() - 1))
-            mu = yf.mean(dim=red)
-            var = torch.clamp_min(yf.square().mean(dim=red) - mu.square(), 0.0)
+            mu, var = self._batch_stats(yf, tuple(range(yf.dim() - 1)))
             self._update_running(mu, var)
         else:
             mu, var = self.mean, self.var
@@ -199,7 +221,7 @@ class GroupedBN(nn.Module):
         the conv gave them; updates the running stats."""
         out, mu, var = fused_bn_relu_pool(y, self.scale, self.bias,
                                           self.features, blk, self.EPSILON,
-                                          ysums)
+                                          ysums, self.stats_group)
         self._update_running(mu, var)
         return out
 

@@ -133,10 +133,8 @@ class GroupedBNT(GroupedBN):
         *lead, c, w = y.shape
         yf = y.reshape(*lead, c // co, co, w).float()
         if self.training:
-            red = tuple(i for i in range(yf.dim()) if i != yf.dim() - 2)
-            mu = yf.mean(dim=red)
-            mu2 = yf.square().mean(dim=red)
-            var = torch.clamp_min(mu2 - mu.square(), 0.0)
+            mu, var = self._batch_stats(
+                yf, tuple(i for i in range(yf.dim()) if i != yf.dim() - 2))
             self._update_running(mu, var)
         else:
             mu, var = self.mean, self.var
@@ -150,7 +148,8 @@ class GroupedBNT(GroupedBN):
         (``fused_bn_relu_pool_t``), with the statistics from ``ysums``
         when the conv gave them; updates the running stats."""
         out, mu, var = fused_bn_relu_pool_t(
-            y, self.scale, self.bias, self.features, blk, self.EPSILON, ysums)
+            y, self.scale, self.bias, self.features, blk, self.EPSILON, ysums,
+            self.stats_group)
         self._update_running(mu, var)
         return out
 
@@ -161,7 +160,8 @@ class GroupedBNT(GroupedBN):
         that never stores conv1's output cotangent; updates the running
         stats."""
         out, mu, var = conv1_tail_t(x, k5, cbias, self.scale, self.bias,
-                                    self.features, blk, self.EPSILON)
+                                    self.features, blk, self.EPSILON,
+                                    self.stats_group)
         self._update_running(mu, var)
         return out
 

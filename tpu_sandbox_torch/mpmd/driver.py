@@ -170,7 +170,9 @@ class StageWorker:
         s = prog.stage
         zb = self.kind == "zb_h1"
         compute_s = 0.0
-        t0 = time.perf_counter()
+        # one clock for the gauge and the spans: the "stage:step" span and
+        # each "stage:op" span carry the readings the gauge is computed
+        # from, so the trace's bubble is the gauge's by construction
         t_step = time.monotonic()
 
         def timed(op_name, mb, fn, *fn_args):
@@ -183,7 +185,7 @@ class StageWorker:
             dt = time.monotonic() - t_op
             compute_s += dt
             self.op_seconds.setdefault(op_name, []).append(dt)
-            rec.complete("stage:op", t_op,
+            rec.complete("stage:op", t_op, dur=dt,
                          args={"stage": s, "step": step,
                                "op": op_name, "mb": mb})
             return out
@@ -254,13 +256,13 @@ class StageWorker:
                 per_mb[m] = gp
         grads = accumulate_descending(per_mb)
         timed("A", -1, prog.apply_grads, self.opt_state, grads)
-        wall = time.perf_counter() - t0
+        wall = time.monotonic() - t_step
         self.step_seconds[step] = wall
         bubble = max(0.0, 1.0 - compute_s / wall) if wall > 0 else 0.0
         self.bubble_by_step[step] = bubble
         get_registry().gauge("mpmd.bubble_fraction",
                              labels={"stage": str(s)}).set(round(bubble, 6))
-        rec.complete("stage:step", t_step,
+        rec.complete("stage:step", t_step, dur=wall,
                      args={"stage": s, "step": step,
                            "bubble": round(bubble, 6)})
         if prog.is_last:

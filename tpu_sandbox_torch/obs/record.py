@@ -235,17 +235,23 @@ class Recorder:
             sp.close()
 
     def complete(self, name: str, start_mono: float, parent=None,
-                 args: dict | None = None) -> TraceContext | None:
+                 args: dict | None = None, *, end: float | None = None,
+                 dur: float | None = None) -> TraceContext | None:
         """Emit a span retrospectively: started at ``start_mono`` (this
-        process's monotonic clock), ended now. Returns the context
-        children should parent to (parent pass-through when disabled)."""
+        process's monotonic clock), ended at ``end`` on that clock, or
+        ``dur`` seconds later, or now. A caller that timed the work itself
+        passes its own reading, so the span carries exactly that duration.
+        Returns the context children should parent to (parent pass-through
+        when disabled)."""
         parent = TraceContext.from_wire(parent)
         if not self.enabled:
             return parent
+        if dur is None:
+            dur = (time.monotonic() if end is None else end) - start_mono
         ctx = self._child_ctx(parent)
         self._emit({
             "ph": "X", "name": name, "ts": start_mono,
-            "dur": time.monotonic() - start_mono,
+            "dur": dur,
             "trace": ctx.trace_id, "span": ctx.span_id,
             "parent": None if parent is None else parent.span_id,
             "args": args or {},

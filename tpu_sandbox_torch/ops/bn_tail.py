@@ -34,6 +34,7 @@ from tpu_sandbox_torch.ops.bn_tail_t import (
     _fold,
     _tie_weight,
     bwd_scales,
+    global_scales,
     col_expand,
 )
 from tpu_sandbox_torch.ops.conv_t import wgrad_slabs
@@ -306,14 +307,22 @@ def unfused_reference(y, gamma, beta, co: int, blk: int, eps: float = 1e-5):
 
 
 def tail_forward(y, gamma, beta, co: int, blk: int, eps: float, s=None,
-                 ss=None):
+                 ss=None, group=None):
     """The fused forward, as JAX's ``_forward``: the statistics from the
     per-channel sums (s, ss) [1, C] when given, else a pass over y; the
-    f32 vectors; the forward kernel. Returns (out, mu, var, inv, a, b)."""
+    f32 vectors; the forward kernel. Returns (out, mu, var, inv, a, b).
+    Under ``group`` (a ``StatsGroup``) the sums (taken from y when not
+    given) and the element count are summed over its ranks first: the
+    whole batch's statistics."""
+    count = y.numel() // co
+    if group is not None:
+        if s is None:
+            yf = y.float().reshape(-1, y.shape[-1])
+            s, ss = yf.sum(dim=0)[None], yf.square().sum(dim=0)[None]
+        (s, ss), count = group.totals((s, ss), count)
     if s is None:
         mu, var = stats(y, co)
     else:
-        count = y.numel() // co
         mu = _fold(s[0].float(), co) / count
         var = torch.clamp_min(_fold(ss[0].float(), co) / count - mu.square(),
                               0.0)
@@ -327,11 +336,11 @@ def tail_forward(y, gamma, beta, co: int, blk: int, eps: float, s=None,
 
 class _FusedBnReluPool(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, y, gamma, beta, s, ss, co, blk, eps):
+    def forward(ctx, y, gamma, beta, s, ss, co, blk, eps, group):
         out, mu, var, inv, a, b = tail_forward(y, gamma, beta, co, blk, eps,
-                                               s, ss)
+                                               s, ss, group)
         ctx.save_for_backward(y, gamma, mu, inv, a, b)
-        ctx.co, ctx.blk = co, blk
+        ctx.co, ctx.blk, ctx.group = co, blk, group
         ctx.mark_non_differentiable(mu, var)
         return out, mu, var
 
@@ -344,8 +353,11 @@ class _FusedBnReluPool(torch.autograd.Function):
         g = g.contiguous()
         s1_co, s2_co = bwd_reduce(y, g, co, blk, a, b, mu, inv)
         groups = blk * blk
-        gi, c1, c2 = bwd_scales(s1_co, s2_co, gamma, inv, groups,
-                                y.numel() // y.shape[3] * groups)
+        # the columns take the whole batch's sums; dgamma and dbeta stay
+        # this rank's share, which the engine's gradient sync adds up
+        gi, c1, c2 = global_scales(s1_co, s2_co, gamma, inv, groups,
+                                   y.numel() // y.shape[3] * groups,
+                                   ctx.group)
         dy = bwd_apply(y, g, co, blk, a, b, mu, inv, gi, c1, c2)
         # the sums' cotangents are zero by contract: dy already carries the
         # statistics' dependence on y
@@ -354,18 +366,20 @@ class _FusedBnReluPool(torch.autograd.Function):
         dss = (torch.zeros((1, y.shape[3]), device=y.device)
                if ctx.needs_input_grad[4] else None)
         return (dy, s2_co.to(gamma.dtype), s1_co.to(gamma.dtype), ds, dss,
-                None, None, None)
+                None, None, None, None)
 
 
 def fused_bn_relu_pool(y: torch.Tensor, gamma: torch.Tensor,
                        beta: torch.Tensor, co: int, blk: int,
-                       eps: float = 1e-5, ysums=None):
+                       eps: float = 1e-5, ysums=None, group=None):
     """[N,H,W,blk*blk*co] conv output -> ([N,H,W,(blk//2)**2*co] pooled,
     mu [co], var [co]) with train-mode batch statistics: the grouped BN +
     relu + block_max_pool chain in one pass forward and two backward.
     ``ysums=(sum [1,C], sumsq [1,C])`` f32 per-channel sums of y (from
-    ``conv3x3_stats``) replace the statistics pass over y. mu and var are
-    not differentiable."""
+    ``conv3x3_stats``) replace the statistics pass over y. ``group`` (a
+    ``StatsGroup``) makes the statistics the whole batch's: the forward's
+    sums and the backward's reduce sums are summed over its ranks before
+    the kernels that use them. mu and var are not differentiable."""
     s, ss = (None, None) if ysums is None else ysums
     return _FusedBnReluPool.apply(y.contiguous(), gamma, beta, s, ss, co,
-                                  blk, eps)
+                                  blk, eps, group)

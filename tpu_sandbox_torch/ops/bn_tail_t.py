@@ -258,7 +258,16 @@ def bwd_reduce(y: torch.Tensor, g: torch.Tensor, co: int, blk: int,
     return _fold(sums[:c], co), _fold(sums[c:], co)
 
 
-def bwd_scales(s1_co, s2_co, gamma, inv, groups: int, m_count: int):
+def global_scales(s1_co, s2_co, gamma, inv, groups: int, m_count: int,
+                  group=None):
+    """``bwd_scales`` on the whole batch's sums and count, summed over the
+    ranks of ``group`` (a ``StatsGroup``; None: this rank's)."""
+    if group is not None:
+        (s1_co, s2_co), m_count = group.totals((s1_co, s2_co), m_count)
+    return bwd_scales(s1_co, s2_co, gamma, inv, groups, m_count)
+
+
+def bwd_scales(s1_co, s2_co, gamma, inv, groups: int, m_count):
     """The BN backward's per-channel columns (gi, c1, c2) of
     dy = gi*(dz - c1 - t_hat*c2): one function shared by every apply
     pass, as in JAX."""
@@ -327,12 +336,21 @@ def unfused_reference_t(y, gamma, beta, co: int, blk: int,
 
 
 def tail_forward(y, gamma, beta, co: int, blk: int, eps: float, s=None,
-                 ss=None):
+                 ss=None, group=None):
     """The fused forward, as JAX's ``_forward``: the statistics from the
     per-channel sums (s, ss) when given, else a pass over y; the f32
     columns; the forward kernel. Returns (out, mu, var, inv, a_col,
-    b_col)."""
-    if s is None:
+    b_col). Under ``group`` (a ``StatsGroup``) the sums (taken from y
+    when not given) and the element count are summed over its ranks
+    first: the whole batch's statistics."""
+    if group is not None:
+        if s is None:
+            yf = y.float()
+            s, ss = yf.sum(dim=(0, 1, 3))[:, None], \
+                yf.square().sum(dim=(0, 1, 3))[:, None]
+        (s, ss), count = group.totals((s, ss), y.numel() // co)
+        mu, var = _stats_from_sums(s, ss, co, count)
+    elif s is None:
         mu, var = stats_t(y, co)
     else:
         mu, var = _stats_from_sums(s, ss, co, y.numel() // co)
@@ -346,11 +364,11 @@ def tail_forward(y, gamma, beta, co: int, blk: int, eps: float, s=None,
 
 class _FusedBnReluPoolT(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, y, gamma, beta, s, ss, co, blk, eps):
+    def forward(ctx, y, gamma, beta, s, ss, co, blk, eps, group):
         out, mu, var, inv, a_col, b_col = tail_forward(y, gamma, beta, co, blk,
-                                                       eps, s, ss)
+                                                       eps, s, ss, group)
         ctx.save_for_backward(y, gamma, mu, inv, a_col, b_col)
-        ctx.co, ctx.blk = co, blk
+        ctx.co, ctx.blk, ctx.group = co, blk, group
         ctx.mark_non_differentiable(mu, var)
         return out, mu, var
 
@@ -364,8 +382,10 @@ class _FusedBnReluPoolT(torch.autograd.Function):
         s1_co, s2_co = bwd_reduce(y, g, co, blk, a_col, b_col, mu, inv)
         n, h, _, w = y.shape
         groups = blk * blk
-        gi_col, c1_col, c2_col = bwd_scales(s1_co, s2_co, gamma, inv, groups,
-                                            n * h * w * groups)
+        # the columns take the whole batch's sums; dgamma and dbeta stay
+        # this rank's share, which the engine's gradient sync adds up
+        gi_col, c1_col, c2_col = global_scales(
+            s1_co, s2_co, gamma, inv, groups, n * h * w * groups, ctx.group)
         dy = bwd_apply(y, g, co, blk, a_col, b_col, mu, inv, gi_col, c1_col,
                        c2_col)
         # the sums' cotangents are zero by contract: dy already carries the
@@ -375,18 +395,21 @@ class _FusedBnReluPoolT(torch.autograd.Function):
         dss = (torch.zeros((y.shape[2], 1), device=y.device)
                if ctx.needs_input_grad[4] else None)
         return (dy, s2_co.to(gamma.dtype), s1_co.to(gamma.dtype), ds, dss,
-                None, None, None)
+                None, None, None, None)
 
 
 def fused_bn_relu_pool_t(y: torch.Tensor, gamma: torch.Tensor,
                          beta: torch.Tensor, co: int, blk: int,
-                         eps: float = 1e-5, ysums=None):
+                         eps: float = 1e-5, ysums=None, group=None):
     """[N,H,blk*blk*co,W] conv output -> ([N,H,(blk//2)**2*co,W] pooled,
     mu [co], var [co]) with train-mode batch statistics: the transposed
     grouped BN + relu + block_max_pool_t chain in one pass forward and
     two backward. ``ysums=(sum [C,1], sumsq [C,1])`` f32 per-channel sums
     of y (from ``conv3x3_t_stats``) replace the statistics pass over y.
-    mu and var are not differentiable."""
+    ``group`` (a ``StatsGroup``) makes the statistics the whole batch's:
+    the forward's sums and the backward's reduce sums are summed over its
+    ranks before the kernels that use them. mu and var are not
+    differentiable."""
     s, ss = (None, None) if ysums is None else ysums
     return _FusedBnReluPoolT.apply(y.contiguous(), gamma, beta, s, ss, co,
-                                   blk, eps)
+                                   blk, eps, group)

@@ -102,13 +102,13 @@ def fused_wgrad(x: torch.Tensor, y1: torch.Tensor, g: torch.Tensor, co: int,
 
 class _Conv1TailT(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, k5, cbias, gamma, beta, co, blk, eps):
+    def forward(ctx, x, k5, cbias, gamma, beta, co, blk, eps, group):
         y1, s, ss = conv5_t.conv1_s2d_t_stats_forward(
             x, *conv5_t.prep(k5, cbias, x.dtype))
         out, mu, var, inv, a_col, b_col = bn_tail_t.tail_forward(
-            y1, gamma, beta, co, blk, eps, s, ss)
+            y1, gamma, beta, co, blk, eps, s, ss, group)
         ctx.save_for_backward(x, y1, gamma, mu, inv, a_col, b_col)
-        ctx.co, ctx.blk = co, blk
+        ctx.co, ctx.blk, ctx.group = co, blk, group
         ctx.f1, ctx.dtypes = k5.shape[-1], (k5.dtype, cbias.dtype)
         ctx.mark_non_differentiable(mu, var)
         return out, mu, var
@@ -124,25 +124,27 @@ class _Conv1TailT(torch.autograd.Function):
                                             inv)
         n, h, _, w = y1.shape
         groups = blk * blk
-        gi_col, c1_col, c2_col = bn_tail_t.bwd_scales(
-            s1_co, s2_co, gamma, inv, groups, n * h * w * groups)
+        gi_col, c1_col, c2_col = bn_tail_t.global_scales(
+            s1_co, s2_co, gamma, inv, groups, n * h * w * groups, ctx.group)
         dw1, db = fused_wgrad(x, y1, g, co, blk, a_col, b_col, mu, inv,
                               gi_col, c1_col, c2_col)
         dk5, dcbias = conv5_t.fold_param_grads(dw1, db, ctx.f1, *ctx.dtypes)
         return (None, dk5, dcbias, s2_co.to(gamma.dtype),
-                s1_co.to(gamma.dtype), None, None, None)
+                s1_co.to(gamma.dtype), None, None, None, None)
 
 
 def conv1_tail_t(x: torch.Tensor, k5: torch.Tensor, cbias: torch.Tensor,
                  gamma: torch.Tensor, beta: torch.Tensor, co: int, blk: int,
-                 eps: float = 1e-5):
+                 eps: float = 1e-5, group=None):
     """x [N,H4,16,W4] (the s2d image, data only), k5 [5,5,1,co] canonical,
     cbias [co], gamma/beta [co] -> (pooled [N,H4,4*co,W4], mu [co], var
     [co]): ``conv1_s2d_t_stats`` then the fused tail forward, with the
-    fused backward. mu and var are not differentiable."""
+    fused backward. ``group`` (a ``StatsGroup``) makes the statistics the
+    whole batch's, as in ``fused_bn_relu_pool_t``. mu and var are not
+    differentiable."""
     conv5_t.require_data_input(x, "conv1_tail_t")
     return _Conv1TailT.apply(x.contiguous(), k5, cbias, gamma, beta, co, blk,
-                             eps)
+                             eps, group)
 
 
 def conv1_tail_t_reference(x, k5, cbias, gamma, beta, co: int, blk: int,

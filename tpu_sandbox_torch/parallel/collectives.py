@@ -29,9 +29,11 @@ sequence parallelism needs, where JAX differentiates ``lax.ppermute`` and
 adjoint collective (the shift by ``-offset``, the inverse all-to-all).
 ``tp_region_input`` and ``tp_region_output`` are Megatron's conjugate
 pair around a tensor-parallel region, ``tp_gather`` the gather of a
-sharded activation that every rank uses whole, ``fsdp_gather`` FSDP's
-gather of a parameter at use: what XLA derives from the sharding specs of
-the pipeline and the compiler-driven engine, written out.
+sharded activation that every rank uses whole, ``gather_param`` the
+gather of a sharded parameter at use (FSDP's, a partial rule set's), and
+``StatsGroup`` the sums of BatchNorm's statistics over the ranks of one
+batch: what XLA derives from the sharding specs of the pipeline and the
+compiler-driven engine, written out.
 Autograd runs a graph's backward nodes in one order on every rank, so
 every rank issues those collectives in the same order.
 """
@@ -375,26 +377,95 @@ def tp_gather(x: torch.Tensor, group: CollectiveGroup,
     return _GatherDim.apply(x, group, dim % x.dim())
 
 
-class _GatherParam(torch.autograd.Function):
+class _GatherDimReduced(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return group.all_gather(x.contiguous())
+    def forward(ctx, x, group, dim, reduce):
+        ctx.group, ctx.dim, ctx.reduce, ctx.k = group, dim, reduce, x.shape[dim]
+        parts = group.all_gather(x.movedim(dim, 0).contiguous()[None])
+        return torch.cat(parts.unbind(0), 0).movedim(0, dim)
 
     @staticmethod
     def backward(ctx, g):
-        grp = ctx.group
-        rows = g.shape[0] // grp.size
-        part = grp.reduce_scatter(g.contiguous().reshape(1, -1))
-        return part.reshape(rows, *g.shape[1:]) / grp.size, None
+        grp, k = ctx.group, ctx.k
+        if ctx.reduce == "slice":
+            return (g.narrow(ctx.dim, grp.rank * k, k).contiguous(), None,
+                    None, None)
+        rows = g.movedim(ctx.dim, 0).contiguous()
+        part = grp.reduce_scatter(rows.reshape(1, -1)).reshape(
+            k, *rows.shape[1:]).movedim(0, ctx.dim)
+        if ctx.reduce == "mean":
+            part = part / grp.size
+        return part, None, None, None
 
 
-def fsdp_gather(x: torch.Tensor, group: CollectiveGroup) -> torch.Tensor:
-    """A parameter sharded on dim 0 over ``group``, whole (FSDP's gather
-    at use): the all-gather forward; the backward reduce-scatters the
-    cotangent and divides it by the group size, the mean over the group
-    of this rank's block of every rank's gradient."""
-    return _GatherParam.apply(x, group)
+def gather_param(x: torch.Tensor, group: CollectiveGroup, dim: int,
+                 reduce: str) -> torch.Tensor:
+    """A parameter sharded on ``dim`` over ``group``, whole at its use.
+    The backward gives this rank its block of the cotangent: the mean
+    (``reduce="mean"``) or the sum (``"sum"``) over the group, whose ranks
+    computed different gradients (different rows of the batch, different
+    bands of the image), or this rank's own block (``"slice"``), where
+    every rank computed the same full gradient."""
+    if reduce not in ("mean", "sum", "slice"):
+        raise ValueError(f"reduce {reduce!r} not in ('mean', 'sum', 'slice')")
+    return _GatherDimReduced.apply(x, group, dim, reduce)
+
+
+class _SumBoth(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return group.all_reduce(x.contiguous(), "sum")
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.all_reduce(g.contiguous(), "sum"), None
+
+
+class StatsGroup:
+    """The ranks whose rows make up one batch for BatchNorm: the groups of
+    the mesh axes the batch is spread over (its rows, and the image's row
+    bands under spatial partitioning). The compiler-driven engine sets one
+    on each BN module, whose statistics are then those of the whole batch
+    (JAX's BN under ``jit``: the batch axis is a global axis); ``None``
+    there is the rank's own batch. ``equal_rows``: every rank holds as
+    many elements, so the whole batch's count is this rank's times the
+    ranks, a host number as on one rank; else the counts are summed with
+    the statistics (the image bands of a spatial axis can differ)."""
+
+    def __init__(self, groups: Sequence[CollectiveGroup],
+                 equal_rows: bool = True):
+        self.groups = tuple(groups)
+        self.equal_rows = equal_rows
+        self.size = 1
+        for g in self.groups:
+            self.size *= g.size
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over the groups, differentiable: the sum forward and
+        the sum backward (each rank's partial sums feed every rank's
+        statistics)."""
+        for g in self.groups:
+            x = _SumBoth.apply(x, g)
+        return x
+
+    @torch.no_grad()
+    def totals(self, parts: Sequence[torch.Tensor], count: int):
+        """Per-channel f32 sums and this rank's element count, summed over
+        the groups in one all-reduce: (the summed parts, the whole batch's
+        count: an int with ``equal_rows``, else an f32 0-d tensor)."""
+        flat = [p.reshape(-1).float() for p in parts]
+        if not self.equal_rows:
+            flat.append(torch.full((1,), float(count),
+                                   device=flat[0].device))
+        buf = torch.cat(flat)
+        for g in self.groups:
+            buf = g.all_reduce(buf, "sum")
+        out, at = [], 0
+        for p in parts:
+            out.append(buf[at:at + p.numel()].view(p.shape))
+            at += p.numel()
+        return out, count * self.size if self.equal_rows else buf[at]
 
 
 def _tiled(x, group, split_axis, concat_axis):

@@ -9,8 +9,11 @@ import). Rank arithmetic is the reference's ``rank = nr * gpus + local``
 (mnist_distributed.py:49): a node ``node_rank`` starts ``nprocs`` ranks.
 Each rank gets ``RANK``, ``LOCAL_RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``,
 ``MASTER_PORT`` and ``INIT_METHOD`` in its environment, which
-``runtime/bootstrap.init`` reads: a ``tcp://`` rendezvous on a free
-loopback port, or any ``init_method`` given (``file:///path`` for a
+``runtime/bootstrap.init`` reads: a ``tcp://`` rendezvous on the store
+that ``spawn`` serves on a loopback port the OS gives at its bind (the
+ranks join it as clients, ``bootstrap.serve_store``), the caller's
+served ``store``, the exported ``MASTER_ADDR``/``MASTER_PORT`` of a
+multi-node job, or any ``init_method`` given (``file:///path`` for a
 ``FileStore``). Every child is joined with a deadline; on the first
 failure or at the deadline the others are killed, and ``spawn`` raises
 with each rank's exit code and the tail of its standard error.
@@ -28,7 +31,11 @@ import traceback
 from typing import Callable
 from urllib.parse import urlparse
 
-from tpu_sandbox_torch.runtime.bootstrap import coordinator_address
+from tpu_sandbox_torch.runtime.bootstrap import (
+    AGENT_STORE_ENV,
+    coordinator_address,
+    serve_store,
+)
 
 #: bytes of each failed rank's standard error quoted in the error
 TAIL_BYTES = 2000
@@ -78,20 +85,29 @@ def _tail(path: str) -> str:
 
 def spawn(fn: Callable, world_size: int, *args, nprocs: int | None = None,
           node_rank: int = 0, init_method: str | None = None,
-          timeout: float = 300.0) -> None:
+          store=None, timeout: float = 300.0) -> None:
     """Run ``fn(rank, world_size, *args)`` for this node's ranks
     ``node_rank * nprocs + local``, ``local`` in ``range(nprocs)``
     (``nprocs`` defaults to ``world_size``: one node). Returns when every
     rank exited 0; raises ``SpawnError`` otherwise or after ``timeout``
     seconds. A multi-node job passes the same ``init_method`` (or
-    ``MASTER_ADDR``/``MASTER_PORT``) on every node."""
+    ``MASTER_ADDR``/``MASTER_PORT``) on every node; ``store`` is a
+    rendezvous store the caller serves (``bootstrap.serve_store``), which
+    a single-node spawn given neither serves itself."""
     nprocs = world_size if nprocs is None else nprocs
     if nprocs < 1 or (node_rank + 1) * nprocs > world_size:
         raise ValueError(f"node {node_rank} with {nprocs} ranks does not "
                          f"fit world size {world_size}")
-    if init_method is None:
+    if (store is None and init_method is None
+            and "MASTER_PORT" not in os.environ):
+        store = serve_store()
+    if store is not None:
+        init_method = f"tcp://127.0.0.1:{store.port}"
+    elif init_method is None:
         init_method = f"tcp://{coordinator_address()}"
     env = {"WORLD_SIZE": str(world_size), "INIT_METHOD": init_method}
+    if store is not None:
+        env[AGENT_STORE_ENV] = "True"
     url = urlparse(init_method)
     if url.scheme == "tcp":
         env.update(MASTER_ADDR=url.hostname, MASTER_PORT=str(url.port))

@@ -27,9 +27,8 @@ what XLA derives from them:
   optimizer moments sharded on dim 0 where the axis size divides it: each
   rank updates its own block and the blocks are all-gathered;
 - ``fsdp_axis``: those leaves themselves are sharded and gathered at use
-  (``fsdp_gather``, a parametrization, so a recompute gathers again);
-  their gradients come back reduce-scattered and averaged. FSDP implies
-  ZeRO-1 over the same axis;
+  (below); over the batch axis their gradients come back
+  reduce-scattered and averaged. FSDP implies ZeRO-1 over the same axis;
 - ``grad_compress`` and ``overlap_grad_sync`` (pure data parallelism
   only, as in JAX, :240-262): the batch axis's gradient mean goes through
   ``CompressedAllReduce`` leaf by leaf, or through ``parallel/
@@ -38,18 +37,49 @@ what XLA derives from them:
   :240-249; ``DataParallel`` carries one). The buckets follow JAX's
   flatten order of the parameters (``buckets.flatten_order``).
 
-Every rank builds the whole model from the same seed; ``shard_state``
-cuts this rank's shards from its state dict (or from a bridged one) and
-wires the layouts into the model's modules. With ``clip_norm`` the global
-norm sums the squares of every sharded leaf over its axes and counts every
-replicated leaf once, as ``optax.clip_by_global_norm`` does on JAX's
-global arrays. ``task="lm"`` adds ``aux_weight`` times the mean over
-layers of the MoE's load-balance losses to the mean cross-entropy.
+- any other leaf that a rule (or ``fsdp_axis``) shards is held sharded
+  and gathered at use (``gather_param``, a parametrization, so a
+  recompute gathers again): JAX's partial Megatron sets, the s2d plans'
+  fc, a conv kernel. Its gradient comes back reduced to the shard: the
+  mean over the batch axis, the sum over the image bands, this rank's
+  block over an axis whose ranks computed the same gradient;
+- image models (``task="image"``): the plain ConvNet's fc under
+  ``("fc/kernel", P(None, m))`` computes its logit columns and gathers
+  them (``tp_gather``) before the whole bias, under ``P(m, None)`` its
+  rows' partial product summed over ``m`` before the bias, each behind
+  ``tp_region_input``;
+- BatchNorm: each BN module gets the engine's ``StatsGroup``, so its
+  statistics are those of the global batch (JAX's BN under ``jit``): the
+  plain chain sums E[y] and E[y^2] and the element count in a
+  differentiable all-reduce, the fused tail kernels take the summed
+  per-channel sums before their apply passes (``ops/bn_tail{,_t}.py``,
+  ``ops/conv1_tail_t.py``). The running statistics, updated from the
+  global ones, stay equal on every rank;
+- ``input_spec=P(batch_axis, spatial)``: each rank holds its band of the
+  image's rows. The plain ConvNet runs on the band (``parallel/
+  spatial.py``: the band's resize, the convs' halo exchange, the pool's
+  global windows) and its fc is a row-parallel product over the axis;
+  the replicated leaves' gradients (all but the fc's bias, added after
+  that sum) are summed over the axis. The space-to-depth plans, which
+  JAX's engine runs under such a spec too, gather the band into the
+  whole image on every rank of the axis, whose gradients are then equal.
 
-Not ported (``NotImplementedError`` naming the ROADMAP item): rules on
-image models, spatial input specs and BatchNorm under the engine (queue 1
-item 8), ``lower_step`` (item 12). ``donate`` is accepted: the port
-updates in place.
+Every rank builds the whole model from the same seed; ``shard_state``
+cuts this rank's shards from its state dict (or from a bridged one, BN
+statistics included) and wires the layouts into the model's modules.
+With ``clip_norm`` the global norm sums the squares of every sharded
+leaf over its axes and counts every replicated leaf once, as
+``optax.clip_by_global_norm`` does on JAX's global arrays. ``task="lm"``
+adds ``aux_weight`` times the mean over layers of the MoE's load-balance
+losses to the mean cross-entropy.
+
+Not ported (``NotImplementedError`` naming the ROADMAP item):
+``lower_step`` (item 12); the combinations of queue 1 item 8b: an
+``input_spec`` other than ``P(batch_axis)`` and ``P(batch_axis,
+spatial)`` (a sharded width, a spatial spec on the LM or on a model
+without a plan for it), a spatial spec beside a leaf gathered at use
+(a rule other than the fc's two, ``fsdp_axis``) or ``zero_axis``, and
+bands narrower than a conv's 2-row halo. ``donate`` is accepted: the port updates in place.
 """
 
 from __future__ import annotations
@@ -65,7 +95,9 @@ import torch.nn.functional as F
 from torch.distributed.device_mesh import DeviceMesh
 from torch.nn.utils import parametrize
 
+from tpu_sandbox_torch.models.convnet import ConvNet
 from tpu_sandbox_torch.ops.losses import cross_entropy_loss
+from tpu_sandbox_torch.parallel import spatial
 from tpu_sandbox_torch.parallel.buckets import (
     DEFAULT_BUCKET_MB,
     BucketedSync,
@@ -74,8 +106,9 @@ from tpu_sandbox_torch.parallel.buckets import (
 from tpu_sandbox_torch.parallel.collectives import (
     CollectiveGroup,
     CompressedAllReduce,
+    StatsGroup,
     as_compress_policy,
-    fsdp_gather,
+    gather_param,
     tp_gather,
     tp_region_input,
     tp_region_output,
@@ -84,7 +117,7 @@ from tpu_sandbox_torch.train.optim import clip_by_global_norm_
 from tpu_sandbox_torch.train.state import TrainState
 from tpu_sandbox_torch.train.trainer import prepare_inputs
 
-_ITEM8 = "(ROADMAP.md, queue 1 item 8)"
+_ITEM8B = "(ROADMAP.md, queue 1 item 8b)"
 _LOWER = ("ahead-of-time lowering has no counterpart yet (ROADMAP.md, "
           "queue 1 item 12)")
 
@@ -217,48 +250,97 @@ def _sharded_dims(spec: P) -> list[tuple[int, str]]:
     return [(i, a) for i, a in enumerate(spec) if a is not None]
 
 
+def _layout_key(name: str, spec: P):
+    """(module, group kind, leaf key, axis) of a leaf that ``LAYOUTS``
+    writes out under ``spec``, else None."""
+    dims = _sharded_dims(spec)
+    path = _path(name)
+    key = next((k for k in LAYOUTS if path.endswith(k)), None)
+    if key is None or len(dims) != 1 or dims[0][0] != LAYOUTS[key][1]:
+        return None
+    module = (path[:-len(key)] + key.split("/")[0]).replace("/", ".")
+    return module, LAYOUTS[key][0], key, dims[0][1]
+
+
 def layouts(specs: Mapping[str, P]) -> dict[str, tuple[str, str]]:
     """{module name: (group kind, axis)} of the LM's rule-sharded modules
-    (``LAYOUTS``), each group whole: an attention's qkv kernel and bias
-    and out kernel, an MLP's up kernel and bias and down kernel, the head's
-    kernel and bias, an MoE's w_up and w_down, on one axis. Raises
-    NotImplementedError for any other sharded leaf."""
+    whose layout the engine writes out (``LAYOUTS``), each group whole:
+    an attention's qkv kernel and bias and out kernel, an MLP's up kernel
+    and bias and down kernel, the head's kernel and bias, an MoE's w_up
+    and w_down, on one axis. Any other sharded leaf (a partial group, as
+    ``qkv`` sharded alone) is left to be gathered at use."""
     found: dict[tuple[str, str], dict[str, str]] = {}
     for name, spec in specs.items():
-        dims = _sharded_dims(spec)
-        if not dims:
-            continue
-        path = _path(name)
-        key = next((k for k in LAYOUTS if path.endswith(k)), None)
-        if key is None or len(dims) != 1 or dims[0][0] != LAYOUTS[key][1]:
-            raise NotImplementedError(
-                f"spec {spec} on {path}: the engine writes out the "
-                f"Megatron layouts of megatron_rules() and the experts' "
-                f"(w_up, w_down on dim 0) only {_ITEM8}")
-        kind = LAYOUTS[key][0]
-        module = (path[:-len(key)] + key.split("/")[0]).replace("/", ".")
-        found.setdefault((module, kind), {})[key] = dims[0][1]
+        got = _layout_key(name, spec)
+        if got is not None:
+            module, kind, key, axis = got
+            found.setdefault((module, kind), {})[key] = axis
     out = {}
     for (module, kind), axes in found.items():
         want = {k for k, (g, _) in LAYOUTS.items() if g == kind}
-        if set(axes) != want or len(set(axes.values())) != 1:
-            raise NotImplementedError(
-                f"{module}: {sorted(want)} must be sharded together on one "
-                f"axis, got {axes} {_ITEM8}")
-        out[module] = (kind, next(iter(axes.values())))
+        if set(axes) == want and len(set(axes.values())) == 1:
+            out[module] = (kind, next(iter(axes.values())))
     return out
 
 
-class _Gathered(nn.Module):
-    """The parametrization of an FSDP leaf: the local dim-0 shard,
-    gathered whole at each use."""
+def head_layout(specs: Mapping[str, P]) -> tuple[str, str] | None:
+    """The plain ConvNet's written-out fc: ("column", axis) for
+    ``P(None, axis)`` on ``fc.kernel``, ("row", axis) for ``P(axis,
+    None)``, with the bias replicated; else None."""
+    dims = _sharded_dims(specs.get("fc.kernel", P()))
+    if len(dims) != 1 or _sharded_dims(specs.get("fc.bias", P())):
+        return None
+    dim, axis = dims[0]
+    return ("column" if dim == 1 else "row"), axis
 
-    def __init__(self, group: CollectiveGroup):
+
+class _Gathered(nn.Module):
+    """The parametrization of a leaf held sharded and gathered whole at
+    each use: one ``gather_param`` a sharded dim, each with the reduction
+    its axis's gradients take (``PjitEngine._reduction``)."""
+
+    def __init__(self, dims: Sequence[tuple[int, CollectiveGroup, str]]):
         super().__init__()
-        self.group = group
+        self.dims = list(dims)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return fsdp_gather(x, self.group)
+        for dim, group, reduce in self.dims:
+            x = gather_param(x, group, dim, reduce)
+        return x
+
+
+class _Head:
+    """The plain ConvNet's fc as the engine lays it out: this rank's rows
+    [lo, hi) of the fc's input (its image band; all of them without a
+    spatial axis) times its block of the kernel, summed over the band
+    axis, then summed over the model axis of a row rule or gathered over
+    that of a column rule (each behind ``tp_region_input``), then the
+    whole bias, in the compute dtype as ``Dense``."""
+
+    def __init__(self, dense: nn.Module, kind: str | None,
+                 model: CollectiveGroup | None,
+                 band: CollectiveGroup | None):
+        self.dense, self.kind, self.model, self.band = dense, kind, model, band
+
+    def __call__(self, x: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+        d = self.dense
+        k = d.kernel
+        if self.model is not None:
+            x = tp_region_input(x, self.model)
+        if self.kind == "row":                 # this rank's block of rows
+            c = self.model.rank * k.shape[0]
+            a = min(max(lo, c), hi)
+            b = max(a, min(hi, c + k.shape[0]))
+            y = x[:, a - lo:b - lo].to(d.dtype) @ k[a - c:b - c].to(d.dtype)
+        else:
+            y = x.to(d.dtype) @ k[lo:hi].to(d.dtype)
+        if self.band is not None:
+            y = tp_region_output(y, self.band)
+        if self.kind == "row":
+            y = tp_region_output(y, self.model)
+        elif self.kind == "column":
+            y = tp_gather(y, self.model, -1)
+        return y + d.bias.to(d.dtype)
 
 
 def _input_region(group: CollectiveGroup):
@@ -293,9 +375,9 @@ def _vocab_sharded(embed, group: CollectiveGroup) -> None:
 
 class Leaf(NamedTuple):
     name: str
-    param: nn.Parameter        # this rank's tensor (an FSDP leaf's shard)
+    param: nn.Parameter        # this rank's tensor (a sharded leaf's shard)
     spec: P
-    fsdp: bool
+    gathered: tuple            # the axes it is gathered over at use
     zero_rows: slice | None    # ZeRO-1: the block of dim 0 this rank updates
     update: nn.Parameter       # what the optimizer steps: param or its block
 
@@ -303,9 +385,11 @@ class Leaf(NamedTuple):
 class PjitEngine:
     """The rule-sharded train step over ``mesh``. ``model`` is the whole
     model, built alike on every rank (``TransformerLM`` with
-    ``task="lm"``, a BN-free image model with ``task="image"``); ``tx``
-    builds the optimizer (``train/optim.py``: ``Adam``, ``AdamW``, ``SGD``)
-    over the parameters it updates.
+    ``task="lm"``, one of the three ConvNet plans, with or without BN,
+    with ``task="image"``); ``tx`` builds the optimizer
+    (``train/optim.py``: ``Adam``, ``AdamW``, ``SGD``) over the parameters
+    it updates, or returns None for ``TrainState``'s plain SGD at its
+    ``lr`` (optax.sgd, no state).
 
     Usage, in every rank's process::
 
@@ -382,17 +466,27 @@ class PjitEngine:
                     "shard inside the grad shard_map and cannot be returned "
                     "replicated. Use DataParallel (per-replica BN) instead."
                 )
-        if tuple(self.input_spec) != (batch_axis,):
+        spec = tuple(self.input_spec)
+        while spec and spec[-1] is None:
+            spec = spec[:-1]
+        if (spec[:1] != (batch_axis,) or len(spec) > 2
+                or (len(spec) == 2 and (spec[1] not in names
+                                        or spec[1] == batch_axis))):
             raise NotImplementedError(
-                f"input_spec {self.input_spec}: spatial partitioning is not "
-                f"ported yet {_ITEM8}")
-        if task == "image" and self.rules:
+                f"input_spec {self.input_spec}: the engine shards the batch "
+                f"rows and, over a spatial axis, the image rows only "
+                f"{_ITEM8B}")
+        self.spatial_axis = spec[1] if len(spec) == 2 else None
+        #: the plain ConvNet runs on its band of rows; the s2d plans gather
+        #: the band into the whole image
+        self.bands = self.spatial_axis is not None and isinstance(
+            model, ConvNet)
+        if self.spatial_axis is not None and (
+                task != "image" or zero_axis is not None):
             raise NotImplementedError(
-                f"rules on an image model are not ported yet {_ITEM8}")
-        if any(True for _ in model.buffers()):
-            raise NotImplementedError(
-                "BatchNorm under PjitEngine (JAX's global-batch statistics) "
-                f"is not ported yet {_ITEM8}; use DataParallel")
+                f"input_spec {self.input_spec} with task={task!r}, "
+                f"zero_axis={zero_axis!r}, fsdp_axis={fsdp_axis!r} "
+                f"{_ITEM8B}")
         self.clip_norm = clip_norm
         self.groups = {a: CollectiveGroup(mesh, a) for a in names}
         self.batch = self.groups[batch_axis]
@@ -400,6 +494,16 @@ class PjitEngine:
         self.leaves: list[Leaf] = []
         self._moe: list[nn.Module] = []
         self.sync: BucketedSync | None = None
+        self.head: _Head | None = None
+
+    def _reduction(self, axis: str) -> str:
+        """How a gradient crosses ``axis``: the mean over the batch rows,
+        the sum over the image's bands, nothing over an axis whose ranks
+        computed the same gradient (the model's, the s2d plans' spatial
+        axis)."""
+        if axis == self.batch_axis:
+            return "mean"
+        return "sum" if self.bands and axis == self.spatial_axis else "slice"
 
     # -- state --------------------------------------------------------------
 
@@ -426,25 +530,65 @@ class PjitEngine:
             t = t.chunk(g.size, dim)[g.rank]
         return t
 
+    def _written(self, specs: Mapping[str, P]) -> set[str]:
+        """Wire the layouts the engine writes out (the LM's ``LAYOUTS``
+        groups, the plain ConvNet's fc) into the model; returns the names
+        of the sharded leaves they take."""
+        model, written = self.model, set()
+        if self.task == "lm":
+            lays = layouts(specs)
+            for module, (kind, axis) in lays.items():
+                self._wire(model.get_submodule(module), kind,
+                           self.groups[axis])
+            for name, spec in specs.items():
+                got = _layout_key(name, spec)
+                if got is not None and got[0] in lays:
+                    written.add(name)
+            return written
+        if not isinstance(model, ConvNet):
+            return written
+        head = head_layout(specs)
+        if head is not None and head[1] in (self.batch_axis,
+                                            self.spatial_axis):
+            head = None                     # gathered at use instead
+        if head is None and not self.bands:
+            return written
+        kind, axis = head if head is not None else (None, None)
+        self.head = _Head(model.fc, kind, self.groups.get(axis),
+                          self.groups[self.spatial_axis] if self.bands
+                          else None)
+        if head is not None:
+            written.add("fc.kernel")
+            if not self.bands:
+                model.fc.forward = lambda x: self.head(x, 0, x.shape[1])
+        return written
+
     @torch.no_grad()
     def shard_state(self, params: Mapping[str, torch.Tensor] | None = None
                     ) -> TrainState:
         """This rank's share of the model, on its device, in the engine's
         model: each leaf cut to its spec from ``params`` (a whole state
-        dict, e.g. bridged from JAX) or from the model's own, the layouts
-        wired in; and the optimizer over what this rank updates (a ZeRO-1
-        leaf's block)."""
+        dict, e.g. bridged from JAX, BN statistics included) or from the
+        model's own, the layouts wired in; and the optimizer over what
+        this rank updates (a ZeRO-1 leaf's block)."""
         model = self.model
         full = model.state_dict() if params is None else params
         specs = self.state_specs(full)
-        for module, (kind, axis) in layouts(
-                param_specs(full, self.rules)).items():
-            self._wire(model.get_submodule(module), kind, self.groups[axis])
-        if self.batch.size > 1:
-            for m in model.modules():
-                if hasattr(m, "batch_group"):
-                    m.batch_group = self.batch
+        written = self._written(specs.params)
+        # the bands of an odd-sized map differ in rows: their counts are
+        # summed; the batch axis's ranks hold equal rows
+        stats = StatsGroup([self.groups[a] for a in (
+            [self.batch_axis] + ([self.spatial_axis] if self.bands else []))],
+            equal_rows=not self.bands)
+        for m in model.modules():
+            if hasattr(m, "stats_group"):
+                m.stats_group = stats
+            if self.batch.size > 1 and hasattr(m, "batch_group"):
+                m.batch_group = self.batch
         self._moe = [m for m in model.modules() if hasattr(m, "aux_loss")]
+        for name, b in model.named_buffers():
+            if name in full:
+                b.data = full[name].to(self.device, copy=params is not None)
         self.leaves = []
         for name, p in list(model.named_parameters()):
             spec = specs.params[name]
@@ -454,23 +598,28 @@ class PjitEngine:
             p.data = local.to(
                 self.device, memory_format=torch.contiguous_format,
                 copy=params is not None or local.shape != full[name].shape)
-            fsdp = self.fsdp_axis is not None and spec == P(self.fsdp_axis) \
-                and _match_rule(_path(name), self.rules) is None
+            dims = _sharded_dims(spec) if name not in written else []
+            if dims and self.bands:
+                raise NotImplementedError(
+                    f"spec {spec} on {_path(name)} gathered at use beside "
+                    f"input_spec {self.input_spec} {_ITEM8B}")
             zero_rows = None
-            if fsdp:
+            if dims:
                 owner, _, leaf = name.rpartition(".")
                 module = model.get_submodule(owner)
                 parametrize.register_parametrization(
-                    module, leaf, _Gathered(self.groups[self.fsdp_axis]),
-                    unsafe=True)
+                    module, leaf, _Gathered(
+                        [(d, self.groups[a], self._reduction(a))
+                         for d, a in dims]), unsafe=True)
                 p = module.parametrizations[leaf].original
             elif specs.moments[name] != spec:            # ZeRO-1 block
                 g = self.groups[self.zero_axis]
                 k = p.shape[0] // g.size
                 zero_rows = slice(g.rank * k, (g.rank + 1) * k)
             self.leaves.append(Leaf(
-                name, p, spec, fsdp, zero_rows, p if zero_rows is None
-                else nn.Parameter(p[zero_rows].clone())))
+                name, p, spec, tuple(a for _, a in dims), zero_rows,
+                p if zero_rows is None else nn.Parameter(
+                    p[zero_rows].clone())))
         if self.overlap:       # the buckets hold JAX's flatten order
             flat = [leaf.param for _, leaf in flatten_order(
                 (leaf.name, leaf) for leaf in self.leaves)]
@@ -498,24 +647,32 @@ class PjitEngine:
 
     def shard_batch(self, inputs, labels):
         """This rank's rows of the batch axis of a global batch (numpy or
-        tensors), on its device; token ids and labels as int64."""
+        tensors), on its device, and under a spatial ``input_spec`` its
+        band of the images' rows; token ids and labels as int64."""
         n = inputs.shape[0]
         size, rank = self.batch.size, self.batch.rank
         if n % size:
             raise ValueError(f"global batch {n} not divisible by the "
                              f"{self.batch_axis}={size} shards")
         rows = slice(rank * (n // size), (rank + 1) * (n // size))
+        band = slice(None)
+        if self.spatial_axis is not None:
+            band = slice(*spatial.even_band(inputs.shape[1],
+                                            self.groups[self.spatial_axis]))
 
         def local(x, long):
-            t = torch.as_tensor(np.ascontiguousarray(x[rows]))
+            t = (x.contiguous() if isinstance(x, torch.Tensor)
+                 else torch.as_tensor(np.ascontiguousarray(x)))
             return t.to(self.device, torch.int64 if long else None)
 
-        return local(inputs, self.task == "lm"), local(labels, True)
+        return (local(inputs[rows][:, band], self.task == "lm"),
+                local(labels[rows], True))
 
     @torch.no_grad()
     def full_params(self, state: TrainState) -> dict[str, torch.Tensor]:
-        """The whole model's state dict (CPU tensors), every shard
-        gathered over its axes. Every rank must call it."""
+        """The whole model's state dict (CPU tensors): every shard gathered
+        over its axes, and the BN statistics (equal on every rank). Every
+        rank must call it."""
         out = {}
         for leaf in self.leaves:
             t = leaf.param.detach()
@@ -524,9 +681,30 @@ class PjitEngine:
                     t.movedim(dim, 0).contiguous()[None])
                 t = torch.cat(parts.unbind(0), 0).movedim(0, dim)
             out[leaf.name] = t.cpu()
+        for name, b in state.model.named_buffers():
+            out[name] = b.detach().cpu()
         return out
 
     # -- the step -----------------------------------------------------------
+
+    def _logits(self, model: nn.Module, inputs: torch.Tensor
+                ) -> torch.Tensor:
+        """The image model's logits on this rank's rows (its band of each
+        under a spatial spec), resized to ``image_size`` first."""
+        size = self.image_size
+        if self.spatial_axis is None:
+            return model(inputs if size is None else prepare_inputs(
+                model, inputs, size))
+        group = self.groups[self.spatial_axis]
+        if not self.bands:                   # the s2d plans: whole images
+            x = spatial.gather_rows(inputs, group)
+            return model(x if size is None else prepare_inputs(model, x,
+                                                               size))
+        rows = inputs.shape[1] * group.size if size is None else size[0]
+        x = inputs if size is None else spatial.resize_band(
+            inputs, size, *spatial.even_band(size[0], group), group)
+        feats, lo, hi = spatial.spatial_features(model, x, rows, group)
+        return self.head(feats, lo, hi).float()
 
     def loss(self, model: nn.Module, inputs: torch.Tensor,
              labels: torch.Tensor) -> torch.Tensor:
@@ -534,9 +712,7 @@ class PjitEngine:
         ``task="lm"`` plus ``aux_weight`` times the mean over layers of the
         auxiliary losses (:307-320)."""
         if self.task == "image":
-            x = inputs if self.image_size is None else prepare_inputs(
-                model, inputs, self.image_size)
-            return cross_entropy_loss(model(x), labels)
+            return cross_entropy_loss(self._logits(model, inputs), labels)
         logits = model(inputs)
         loss = cross_entropy_loss(logits.reshape(-1, logits.shape[-1]),
                                   labels.reshape(-1))
@@ -576,11 +752,16 @@ class PjitEngine:
         if self.sync is not None:
             self.sync.finish()
         else:
-            # an FSDP leaf's gradient is already the mean over its axis
+            # a leaf gathered over the batch axis has its mean already
             self.grad_compress.mean_grads_(
                 [leaf.param for leaf in self.leaves
-                 if not (leaf.fsdp and self.fsdp_axis == self.batch_axis)],
-                self.batch)
+                 if self.batch_axis not in leaf.gathered], self.batch)
+        if self.bands:
+            # the bands' shares of every leaf but the fc's bias, which is
+            # added after the head's sum over the bands
+            self.groups[self.spatial_axis].sum_grads_(
+                [leaf.param for leaf in self.leaves
+                 if leaf.name != "fc.bias"])
         if self.clip_norm:
             clip_by_global_norm_([leaf.param.grad for leaf in self.leaves],
                                  self.clip_norm, norm=self._global_norm())
@@ -588,7 +769,7 @@ class PjitEngine:
         for leaf in zero:
             leaf.update.grad = leaf.param.grad[leaf.zero_rows].clone()
             leaf.param.grad = None
-        state.apply_update()
+        state.apply_update([leaf.update for leaf in self.leaves])
         with torch.no_grad():
             for leaf in zero:
                 leaf.param.copy_(

@@ -4,7 +4,9 @@ own idiom (one OS process per rank, ``init_process_group``; reference
 ``test_init.py:45-100``).
 
 - ``find_free_port`` returns a string, as the reference's helper does (it
-  feeds an environment variable).
+  feeds an environment variable). A launcher does not hand a probed port
+  to its ranks: it serves the rendezvous store itself on a port the OS
+  gives at the bind (``serve_store``) and the ranks join it as clients.
 - The coordinator honours ``MASTER_ADDR``/``MASTER_PORT`` and defaults to
   loopback. ``init`` also takes an init-method URL (``tcp://host:port``
   or ``file:///path``, a ``FileStore`` that needs no port) as its
@@ -40,12 +42,32 @@ TIMEOUT = timedelta(seconds=120)
 _state: dict = {"initialized": False, "serial": False, "device": None}
 
 
+#: set in a rank's environment, torch's rendezvous joins the ``tcp://``
+#: store as a client on every rank, rank 0 included (torchelastic's agent
+#: store): the launcher that serves it (``serve_store``) owns the port
+AGENT_STORE_ENV = "TORCHELASTIC_USE_AGENT_STORE"
+
+
 def find_free_port() -> str:
-    """Bind to port 0 and return the port the OS gave, as a string."""
+    """Bind to port 0 and return the port the OS gave, as a string. The
+    port is released on return, so another process may take it before
+    whoever was told binds it: launchers serve their rendezvous store
+    with ``serve_store`` instead."""
     with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
         s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
         s.bind(("", 0))
         return str(s.getsockname()[1])
+
+
+def serve_store(host: str = "127.0.0.1",
+                timeout: timedelta = TIMEOUT) -> dist.TCPStore:
+    """A rendezvous store served by the calling launcher on the port the
+    OS gives at its bind (port 0): no port is probed and released before
+    the bind. The ranks join ``tcp://host:<store.port>`` as clients with
+    ``AGENT_STORE_ENV`` set in their environment; the store lives as long
+    as the launcher holds it."""
+    return dist.TCPStore(host, 0, is_master=True, timeout=timeout,
+                         wait_for_workers=False)
 
 
 def coordinator_address(host: str | None = None,

@@ -40,8 +40,9 @@ def setup_rank(rank: int, world_size: int, port: str, backend: str) -> None:
 
 
 def worker(rank: int, world_size: int, port: str, force_cpu: bool) -> None:
-    """One rank: join, check a sum all-reduce, leave."""
-    bootstrap.init(f"127.0.0.1:{port}", world_size, rank,
+    """One rank: join (the store ``spawn`` set in ``INIT_METHOD``, served
+    by the parent on ``port``), check a sum all-reduce, leave."""
+    bootstrap.init(None, world_size, rank,
                    device=rank_device(rank, force_cpu))
     try:
         setup_rank(rank, world_size, port, bootstrap.backend_name())
@@ -59,12 +60,15 @@ def worker(rank: int, world_size: int, port: str, force_cpu: bool) -> None:
 def test_setup(world_size: int, force_cpu: bool = False) -> None:
     print("test_setup")
     rank_device(world_size - 1, force_cpu)      # enough cards, or raise
-    port = bootstrap.find_free_port()
+    # the rendezvous store, served here on the port the OS gives at its
+    # bind (a world of one rank joins no store but prints the port)
+    store = bootstrap.serve_store()
+    port = str(store.port)
     if world_size == 1:
         worker(0, 1, port, force_cpu)
     else:
-        spawn(worker, world_size, port, force_cpu,
-              init_method=f"tcp://127.0.0.1:{port}", timeout=TIMEOUT)
+        spawn(worker, world_size, port, force_cpu, store=store,
+              timeout=TIMEOUT)
     print("successful test_setup!")
 
 
